@@ -1,0 +1,38 @@
+"""Fusion operators (the slice's part of ``m2mixer_tpu/modules/fusion.py``).
+
+Every fusion implements the construction-time shape-inference protocol
+``get_output_shape(*shapes, dim=...)`` that sizes the fusion mixer.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["ConcatFusion"]
+
+
+def _dim_requires_int(args):
+    if not isinstance(args[0], int):
+        raise ValueError("The dim argument is only used if the first argument is an int.")
+
+
+class ConcatFusion:
+    """Concatenate along ``dim`` (two ``(B, 4, D)`` encodings -> ``(B, 8, D)``
+    at dim 1)."""
+
+    def __init__(self, dim=1, **kwargs):
+        self.dim = dim
+
+    def __call__(self, *args):
+        return torch.cat(args, dim=self.dim)
+
+    def get_output_shape(self, *args, dim=None):
+        if dim is not None:
+            _dim_requires_int(args)
+            if dim == self.dim:
+                return sum(args)
+            return args[0]
+        shape = list(args[0])
+        for arg in args[1:]:
+            shape[self.dim] += arg[self.dim]
+        return tuple(shape)

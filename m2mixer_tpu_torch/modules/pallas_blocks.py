@@ -1,0 +1,193 @@
+"""Kernel-backed mixer blocks under the JAX package's block-type strings.
+
+Counterpart of ``m2mixer_tpu/modules/pallas_blocks.py``: the same
+``block_type`` names resolve to modules whose MixerBlocks run on the
+hand-written CUDA kernels of ``ops/mixer_kernel.py`` (the plain PyTorch
+version on CPU tensors):
+
+- ``PallasMLPMixer`` / ``PallasFusionMixer``: one K1f launch per block
+  (``fused_mixer_block``), then a LayerNorm module;
+- ``PallasStackedMLPMixer`` / ``PallasStackedFusionMixer``: the whole block
+  stack and its final LN as one K2f launch (``fused_mixer_stack``), or
+  ceil(K/G) launches with ``stack_group_size=G``.
+
+Parameters keep the JAX kernels' layout and names (``w1 (N, T)``,
+``b{i}_w3 (D, C)``, ...), so the JAX trees map onto them without a transpose.
+A bf16 module stores its large channel-FF matrices in bf16 (the JAX package's
+``_castable`` rule), so the kernels read them as they are.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from ..ops.mixer_kernel import (MixerBlockParams, cast_params, fused_mixer_block,
+                                fused_mixer_stack_grouped)
+from .common import LayerNorm, PatchEmbed, _bound, uniform_
+from .mixer import image_tokens
+
+__all__ = [
+    "PallasMixerBlock",
+    "PallasMLPMixer",
+    "PallasFusionMixer",
+    "PallasStackedMLPMixer",
+    "PallasStackedFusionMixer",
+]
+
+
+def _block_params(D: int, N: int, T: int, C: int, generator, dtype=None) -> dict:
+    """One block's 12 parameters in ``MixerBlockParams`` order, JAX layout,
+    torch-default init (kernel (in, out) ~ U(+-1/sqrt(in)), bias likewise).
+    With a narrow ``dtype`` the large channel-FF matrices are stored in it
+    (``cast_params``), the kernels' operand dtype."""
+
+    def w(i, o):
+        return uniform_(torch.empty(i, o), _bound(i), generator)
+
+    def b(fan_in, n):
+        return uniform_(torch.empty(n), _bound(fan_in), generator)
+
+    params = {
+        "ln1_scale": torch.ones(D), "ln1_bias": torch.zeros(D),
+        "w1": w(N, T), "b1": b(N, T), "w2": w(T, N), "b2": b(T, N),
+        "ln2_scale": torch.ones(D), "ln2_bias": torch.zeros(D),
+        "w3": w(D, C), "b3": b(D, C), "w4": w(C, D), "b4": b(C, D),
+    }
+    return dict(zip(params, cast_params(tuple(params.values()), dtype or torch.float32)))
+
+
+class PallasMixerBlock(nn.Module):
+    """One MixerBlock as one K1f launch."""
+
+    def __init__(self, hidden_dim: int, num_patch: int, token_dim: int, channel_dim: int,
+                 dropout: float = 0.0, *, dtype=None, approximate_gelu: bool = False,
+                 generator=None):
+        super().__init__()
+        self.dropout = float(dropout)
+        self.dtype = dtype
+        self.approximate_gelu = approximate_gelu
+        for name, t in _block_params(hidden_dim, num_patch, token_dim, channel_dim,
+                                     generator, dtype).items():
+            self.register_parameter(name, nn.Parameter(t))
+
+    def forward(self, x):
+        params = MixerBlockParams(*(getattr(self, f) for f in MixerBlockParams._fields))
+        rate = self.dropout if self.training else 0.0
+        return fused_mixer_block(x.float(), params, None, rate, self.dtype or torch.float32,
+                                 self.approximate_gelu)
+
+
+class _PerBlockMixer(nn.Module):
+    def __init__(self, hidden_dim, num_patch, num_mixers, token_dim, channel_dim, dropout,
+                 dtype, approximate_gelu, generator):
+        super().__init__()
+        self.num_patch = int(num_patch)
+        self.blocks = nn.ModuleList(
+            PallasMixerBlock(hidden_dim, num_patch, token_dim, channel_dim, dropout,
+                             dtype=dtype, approximate_gelu=approximate_gelu,
+                             generator=generator)
+            for _ in range(int(num_mixers)))
+        self.norm_out = LayerNorm(hidden_dim, dtype=dtype)
+
+    def forward(self, x):
+        for block in self.blocks:
+            x = block(x)
+        return self.norm_out(x)
+
+
+class PallasMLPMixer(_PerBlockMixer):
+    """``MLPMixer`` with one fused kernel per block (same config keys)."""
+
+    def __init__(self, in_channels: int, hidden_dim: int, patch_size: int,
+                 image_size: Sequence[int], num_mixers: int, token_dim: int,
+                 channel_dim: int, dropout: float = 0.0, *, dtype=None,
+                 approximate_gelu: bool = False, generator=None):
+        n = image_tokens(image_size, patch_size)
+        patch_embed = PatchEmbed(in_channels, hidden_dim, patch_size, dtype=dtype,
+                                 generator=generator)
+        super().__init__(hidden_dim, n, num_mixers, token_dim, channel_dim, dropout, dtype,
+                         approximate_gelu, generator)
+        self.patch_embed = patch_embed
+
+    def forward(self, x):
+        return super().forward(self.patch_embed(x))
+
+
+class PallasFusionMixer(_PerBlockMixer):
+    """``FusionMixer`` with one fused kernel per block (same config keys)."""
+
+    def __init__(self, hidden_dim: int, num_patches: int, num_mixers: int, token_dim: int,
+                 channel_dim: int, dropout: float = 0.0, *, dtype=None,
+                 approximate_gelu: bool = False, generator=None):
+        super().__init__(hidden_dim, num_patches, num_mixers, token_dim, channel_dim, dropout,
+                         dtype, approximate_gelu, generator)
+
+
+class _StackedMixerCore(nn.Module):
+    """K MixerBlocks + final LN as one K2f launch (``group_size=0``) or as
+    launches of G blocks each (``group_size=G``, final LN in the last)."""
+
+    def __init__(self, hidden_dim: int, num_patch: int, token_dim: int, channel_dim: int,
+                 num_mixers: int, dropout: float = 0.0, group_size: int = 0, *, dtype=None,
+                 approximate_gelu: bool = False, generator=None):
+        super().__init__()
+        self.num_mixers = int(num_mixers)
+        self.dropout = float(dropout)
+        self.group_size = int(group_size)
+        self.dtype = dtype
+        self.approximate_gelu = approximate_gelu
+        for i in range(self.num_mixers):
+            for name, t in _block_params(hidden_dim, num_patch, token_dim, channel_dim,
+                                         generator, dtype).items():
+                self.register_parameter(f"b{i}_{name}", nn.Parameter(t))
+        self.ln_out_scale = nn.Parameter(torch.ones(hidden_dim))
+        self.ln_out_bias = nn.Parameter(torch.zeros(hidden_dim))
+
+    def forward(self, x):
+        blocks = [MixerBlockParams(*(getattr(self, f"b{i}_{f}") for f in MixerBlockParams._fields))
+                  for i in range(self.num_mixers)]
+        rate = self.dropout if self.training else 0.0
+        return fused_mixer_stack_grouped(
+            x.float(), blocks, self.ln_out_scale, self.ln_out_bias, None, rate,
+            self.dtype or torch.float32, group_size=self.group_size,
+            approximate_gelu=self.approximate_gelu)
+
+
+class PallasStackedMLPMixer(nn.Module):
+    """``MLPMixer`` whose block stack runs as one kernel (same config keys,
+    plus ``stack_group_size``)."""
+
+    def __init__(self, in_channels: int, hidden_dim: int, patch_size: int,
+                 image_size: Sequence[int], num_mixers: int, token_dim: int,
+                 channel_dim: int, dropout: float = 0.0, stack_group_size: int = 0, *,
+                 dtype=None, approximate_gelu: bool = False, generator=None):
+        super().__init__()
+        self.num_patch = image_tokens(image_size, patch_size)
+        self.patch_embed = PatchEmbed(in_channels, hidden_dim, patch_size, dtype=dtype,
+                                      generator=generator)
+        self.stack = _StackedMixerCore(hidden_dim, self.num_patch, token_dim, channel_dim,
+                                       num_mixers, dropout, stack_group_size, dtype=dtype,
+                                       approximate_gelu=approximate_gelu, generator=generator)
+
+    def forward(self, x):
+        return self.stack(self.patch_embed(x))
+
+
+class PallasStackedFusionMixer(nn.Module):
+    """``FusionMixer`` as one kernel (same config keys, plus
+    ``stack_group_size``)."""
+
+    def __init__(self, hidden_dim: int, num_patches: int, num_mixers: int, token_dim: int,
+                 channel_dim: int, dropout: float = 0.0, stack_group_size: int = 0, *,
+                 dtype=None, approximate_gelu: bool = False, generator=None):
+        super().__init__()
+        self.num_patch = int(num_patches)
+        self.stack = _StackedMixerCore(hidden_dim, self.num_patch, token_dim, channel_dim,
+                                       num_mixers, dropout, stack_group_size, dtype=dtype,
+                                       approximate_gelu=approximate_gelu, generator=generator)
+
+    def forward(self, x):
+        return self.stack(x)

@@ -1,0 +1,131 @@
+"""Build and load the port's CUDA kernels (``ops/csrc/*.cu``).
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, ``build/torch_kernels/
+libm2mixer_torch_kernels.so`` at the repository root, and loaded with
+``ctypes``. The build runs at first use, never at import: modules that hold
+kernel wrappers import cleanly on machines without a GPU toolchain, where
+their wrappers only ever see CPU tensors. The library is rebuilt when the
+sources' hash changes. Each source compiles in its own ``nvcc`` process, all
+started together, and the objects are linked once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+__all__ = ["load_library", "build_library", "CSRC_DIR", "BUILD_DIR"]
+
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+LIB_NAME = "libm2mixer_torch_kernels.so"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMMON_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", *ARCH_FLAGS]
+
+_LIB = None
+_LOCK = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels "
+                       "are built from source at first use")
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256(" ".join(COMMON_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    for hdr in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
+    return h.hexdigest()
+
+
+def _run_all(cmds) -> str:
+    """Run the commands side by side; return their joined output, or raise
+    with the output of those that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    logs, failures = [], []
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        logs.append(f"$ {' '.join(cmd)}\n{out}{err}")
+        if proc.returncode != 0:
+            failures.append(logs[-1])
+    if failures:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    return "\n".join(logs)
+
+
+def build_library(verbose: bool = False) -> Path:
+    """Compile every ``csrc/*.cu`` (in parallel) and link the shared library
+    unless an up-to-date build exists. Returns its path; raises with nvcc's
+    output on failure. ``verbose`` prints ptxas's register and shared-memory
+    report of a fresh build."""
+    sources = _sources()
+    digest = _digest(sources)
+    lib_path = BUILD_DIR / LIB_NAME
+    stamp = BUILD_DIR / (LIB_NAME + ".sha256")
+    if lib_path.exists() and stamp.exists() and stamp.read_text().strip() == digest:
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    extra = ["-Xptxas", "-v"] if verbose else []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (s.stem + ".o") for s in sources]
+        log = _run_all([[nvcc, *COMMON_FLAGS, *extra, "-c", str(s), "-o", str(o)]
+                        for s, o in zip(sources, objs)])
+        if verbose:
+            print(log)
+        staged = Path(tmp) / LIB_NAME
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", *map(str, objs), "-o", str(staged)]])
+        os.replace(staged, lib_path)
+    stamp.write_text(digest)
+    return lib_path
+
+
+def _declare(lib):
+    c_int, c_void_p, c_size_t = ctypes.c_int, ctypes.c_void_p, ctypes.c_size_t
+    lib.m2m_mixer_smem_bytes.argtypes = [c_int] * 5
+    lib.m2m_mixer_smem_bytes.restype = c_size_t
+    lib.m2m_error_string.argtypes = [c_int]
+    lib.m2m_error_string.restype = ctypes.c_char_p
+    lib.m2m_mixer_block_fwd.argtypes = [c_void_p, c_void_p] + [c_int] * 10 + [c_void_p, c_void_p]
+    lib.m2m_mixer_block_fwd.restype = c_int
+    lib.m2m_mixer_stack_fwd.argtypes = [c_void_p, c_void_p] + [c_int] * 12 + [c_void_p, c_void_p]
+    lib.m2m_mixer_stack_fwd.restype = c_int
+    return lib
+
+
+def load_library():
+    """The loaded kernel library (built on first call)."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            _LIB = _declare(ctypes.CDLL(str(build_library())))
+        return _LIB
+
+
+def check(lib, code: int, what: str) -> None:
+    """Raise with the CUDA error string when a C entry point returned != 0."""
+    if code != 0:
+        msg = lib.m2m_error_string(int(code)).decode()
+        raise RuntimeError(f"{what} failed: {msg} (code {code})")

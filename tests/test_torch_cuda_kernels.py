@@ -1,0 +1,122 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``gpu``: they skip without a CUDA device (this file imports no JAX,
+so it runs on a machine with only PyTorch):
+
+    python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
+
+Tolerances as in chip_smoke.py: float32 1e-4 absolute (same float32
+products summed in another order; TF32 off); bf16 outputs on the bf16 grid,
+at most 10% of them differing from the plain version (same rounding points:
+only a sum on the other side of a rounding boundary differs, by one ulp,
+and later blocks carry it), none by more than 2e-2 of the output's max
+magnitude.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from m2mixer_tpu_torch.config import loads
+from m2mixer_tpu_torch.ops import mixer_kernel as mk
+
+pytestmark = pytest.mark.gpu
+
+SHAPES = {"small": dict(N=4, D=32, T=16, C=64), "encoder": dict(N=4, D=128, T=32, C=3072),
+          "fusion": dict(N=8, D=128, T=32, C=3078)}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def blocks_on(device, K, N, D, T, C, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    u = lambda fan, *shape: (torch.rand(*shape, generator=g) * 2 - 1) / fan ** 0.5
+    out = []
+    for _ in range(K):
+        p = (1 + 0.1 * torch.randn(D, generator=g), 0.1 * torch.randn(D, generator=g),
+             u(N, N, T), u(N, T), u(T, T, N), u(T, N),
+             1 + 0.1 * torch.randn(D, generator=g), 0.1 * torch.randn(D, generator=g),
+             u(D, D, C), u(D, C), u(C, C, D), u(C, D))
+        out.append(mk.MixerBlockParams(*(t.to(device) for t in p)))
+    return out, torch.ones(D, device=device), torch.zeros(D, device=device)
+
+
+def assert_close(got, want, bf16):
+    assert torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= (2e-2 * want.abs().max().item() if bf16 else 1e-4), err
+    if bf16:
+        assert torch.equal(got, got.to(torch.bfloat16).float())
+        share = (got != want).float().mean().item()
+        assert share <= 0.10, share
+
+
+@pytest.mark.parametrize("approx", [False, True], ids=["erf", "tanh"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("B", [3, 64])
+def test_block_kernel_matches_plain(cuda, B, shape, dtype, approx):
+    geom = SHAPES[shape]
+    blocks, _, _ = blocks_on(cuda, 1, **geom)
+    x = torch.randn(B, geom["N"], geom["D"], device=cuda)
+    before = mk.fused_mixer_block.launches
+    got = mk.fused_mixer_block(x, blocks[0], compute_dtype=dtype, approximate_gelu=approx)
+    assert mk.fused_mixer_block.launches == before + 1
+    want = mk.mixer_block_reference(x, blocks[0], compute_dtype=dtype, approximate_gelu=approx)
+    assert_close(got, want, dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("group_size", [0, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_stack_kernel_matches_plain(cuda, shape, dtype, group_size):
+    geom = SHAPES[shape]
+    blocks, s, b = blocks_on(cuda, 3, **geom)
+    x = torch.randn(37, geom["N"], geom["D"], device=cuda)
+    before = mk.fused_mixer_stack.launches
+    got = mk.fused_mixer_stack_grouped(x, blocks, s, b, compute_dtype=dtype,
+                                       group_size=group_size)
+    assert mk.fused_mixer_stack.launches == before + (1 if group_size == 0 else 2)
+    want = mk.mixer_stack_reference(x, mk.stack_flat_params(blocks, s, b), compute_dtype=dtype)
+    assert_close(got, want, dtype == torch.bfloat16)
+
+
+def test_unsupported_shapes_raise_on_cuda(cuda):
+    blocks, _, _ = blocks_on(cuda, 1, N=40, D=32, T=8, C=64)
+    with pytest.raises(ValueError, match="at most 32 tokens"):
+        mk.fused_mixer_block(torch.randn(2, 40, 32, device=cuda), blocks[0])
+
+
+def test_served_kernel_model_matches_plain_on_cuda(cuda):
+    from m2mixer_tpu_torch.serving import _build_task, serve_fn, to_torch_kernel_serving
+
+    cfg = loads("""
+model:
+  type: AVMnistMixerMultiLoss
+  modalities:
+    classification: {num_classes: 10}
+    image: {block_type: MLPMixer, in_channels: 1, hidden_dim: 32, patch_size: 14,
+            image_size: [28, 28], token_dim: 16, channel_dim: 64, num_mixers: 2}
+    audio: {block_type: MLPMixer, in_channels: 1, hidden_dim: 32, patch_size: 56,
+            image_size: [112, 112], token_dim: 16, channel_dim: 64, num_mixers: 2}
+    multimodal: {block_type: FusionMixer, fusion_function: ConcatFusion, hidden_dim: 32,
+                 token_dim: 16, channel_dim: 64, num_mixers: 2}
+""")
+    plain = _build_task(cfg, device=cuda)
+    rng = np.random.RandomState(0)
+    feats = {"image": torch.from_numpy(rng.rand(9, 1, 28, 28).astype(np.float32)).to(cuda),
+             "audio": torch.from_numpy(rng.rand(9, 1, 112, 112).astype(np.float32)).to(cuda)}
+    want = serve_fn(plain)(feats)["logits"]
+    for per_block in (False, True):
+        kernel, _ = to_torch_kernel_serving(cfg, plain.network.state_dict(), device=cuda,
+                                            per_block=per_block)
+        counts = (mk.fused_mixer_block.launches, mk.fused_mixer_stack.launches)
+        got = serve_fn(kernel)(feats)["logits"]
+        assert (mk.fused_mixer_block.launches, mk.fused_mixer_stack.launches) != counts
+        assert (got - want).abs().max().item() <= 1e-4
