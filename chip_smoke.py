@@ -10,7 +10,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and tanh GELU;
 3. K2f ``fused_mixer_stack``: a 4-block encoder with its final LN, whole and
    with ``group_size=2``, and the 2-block fusion mixer, the same way;
-4. serving: export the B config (``cfg/avmnist/avmnist_m2-mixer_B.yml``, full
+4. K1b / K2b, the backward kernels, against autograd of the plain versions
+   with the same dropout masks: K1b at the encoder (N=4, C=3072) and fusion
+   (N=8, C=3078) shapes, K2b as a 4-block encoder with its LN (``group_size``
+   0 and 2); batch 32 and 512, erf and tanh, dropout 0 and 0.5; dx and every
+   parameter gradient. Also: the forward at dropout 0.5 equals its plain
+   version, the kept share is 0.5 +- 0.01, and two backward runs give
+   bit-identical gradients;
+5. serving: export the B config (``cfg/avmnist/avmnist_m2-mixer_B.yml``, full
    width and depth, seeded weights) through ``serving export --pallas`` (one
    stack kernel per mixer), and through ``to_torch_kernel_serving(...,
    per_block=True)`` + ``export_serving`` (one block kernel per MixerBlock, the
@@ -20,9 +27,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    answer against the plain-module model on the card with the same weights.
    The kernels' launch counters are zeroed just before and read just after;
    each kernel must have launched;
-5. times (CUDA events, median of 5 runs): the kernels and their plain
-   versions, and the served forward at batch 32 and 512;
-6. one JSON line naming every ported kernel, the card's name and power limit,
+6. training the B config (full width and depth) through both kernel block
+   types: step 1 at ``model.dropout=0.0`` (loss, the three branch losses and
+   every parameter gradient against the plain-module model with the same
+   weights), then ``python -m m2mixer_tpu_torch.run`` (``run.main``) for 2
+   epochs of 1024/256/256 learnable synthetic samples at batch 32 and the
+   config's dropout 0.5, once with ``PallasStacked*`` (K2f/K2b) and once
+   with ``PallasMLPMixer``/``PallasFusionMixer`` (K1f/K1b). Losses finite,
+   the last epoch's train loss below the first's, val and test accuracy at
+   least 0.2 (chance is 0.1). The launch counters are zeroed just before each
+   run and read just after; K1b and K2b must have launched;
+7. times (CUDA events, median of 5 runs): the kernels and their plain
+   versions, the served forward at batch 32 and 512, the train step at batch
+   32 and 512 for plain modules and both kernel block types;
+8. one JSON line naming every ported kernel, the card's name and power limit,
    and the result line ``{"ok": true, "device": {...}}``.
 
 Tolerances: float32 outputs within 1e-4 absolute (the kernel and cuBLAS sum
@@ -35,7 +53,12 @@ a rounding boundary (one bf16 ulp), and later blocks carry that. So at most
 magnitude. A max-error limit alone would not notice a kernel that skipped
 the inner rounding points, so every bf16 case also runs a control: the plain
 version in float32 with only its output rounded to bf16 must fail the same
-check. Served logits within 2e-4 absolute.
+check. Served logits within 2e-4 absolute. Gradients (K1b/K2b and the
+training step): every tensor within 1e-4 x max(1, max|plain|) of the plain
+version's (float32 sums of the same products in another order, over up to
+C = 3078 hidden units or B*N = 4096 rows); a gradient that is exactly zero
+in the math (the token FF's output bias under a following LayerNorm) is
+float noise on both sides and must stay below 1e-3 on both.
 
 The run writes its numbers to ``chiprun_out/chip_smoke.json``.
 """
@@ -61,6 +84,18 @@ BF16_REL = 2e-2
 BF16_MISMATCH = 0.10  # share of bf16 outputs allowed to differ from the plain version
 SERVED_ATOL = 2e-4
 REQUESTS = (1, 7, 32, 100, 600)
+GRAD_REL = 1e-4
+ZERO_GRAD = 1e-3  # below this everywhere, a gradient is float noise of an exact zero
+MIN_ACC = 0.2  # chance is 0.1
+TRAIN_SIZES = "[1024, 256, 256]"
+KERNEL_BLOCKS = {
+    "stacked": ["model.modalities.image.block_type=PallasStackedMLPMixer",
+                "model.modalities.audio.block_type=PallasStackedMLPMixer",
+                "model.modalities.multimodal.block_type=PallasStackedFusionMixer"],
+    "per_block": ["model.modalities.image.block_type=PallasMLPMixer",
+                  "model.modalities.audio.block_type=PallasMLPMixer",
+                  "model.modalities.multimodal.block_type=PallasFusionMixer"],
+}
 ENC = dict(N=4, D=128, T=32, C=3072)
 FUSION = dict(N=8, D=128, T=32, C=3078)
 
@@ -143,6 +178,45 @@ def cuda_ms(torch, fn, iters: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def grad_err(torch, got, want, what: str) -> float:
+    """Gradient check: every tensor within GRAD_REL x max(1, max|plain|);
+    returns the worst absolute error. A gradient that is exactly zero in the
+    math (the token FF's output bias b2 under a following LayerNorm: a sum
+    of B*D terms that cancel) is float noise on both sides, of ~1e-4 at
+    batch 512; it passes when both sides stay below ZERO_GRAD everywhere."""
+    worst, zeros = 0.0, 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{what}: tensor {i} is not finite")
+        scale = b.abs().max().item()
+        tol = GRAD_REL * max(1.0, scale)
+        err = (a - b).abs().max().item()
+        if err <= tol:
+            worst = max(worst, err)
+        elif scale <= ZERO_GRAD and a.abs().max().item() <= ZERO_GRAD:
+            zeros += 1
+        else:
+            raise AssertionError(f"{what}: tensor {i}: max |err| {err} > {tol}")
+    note = f" ({zeros} zero up to noise on both sides)" if zeros else ""
+    print(f"  {what}: worst |err| {worst:.3e} over {len(got)} tensors{note}")
+    return worst
+
+
+def plain_grouped(mk, x, blocks, s, b, seed, rate, group_size, approx):
+    """The plain version of fused_mixer_stack_grouped (group seeds folded)."""
+    k = len(blocks)
+    if group_size <= 0 or group_size >= k:
+        return mk.mixer_stack_reference(x, mk.stack_flat_params(blocks, s, b),
+                                        approximate_gelu=approx, dropout_rate=rate, seed=seed)
+    for gi, start in enumerate(range(0, k, group_size)):
+        group = blocks[start:start + group_size]
+        last = start + len(group) >= k
+        flat = mk.stack_flat_params(group, s, b) if last else mk.stack_flat_params(group)
+        x = mk.mixer_stack_reference(x, flat, final_ln=last, approximate_gelu=approx,
+                                     dropout_rate=rate, seed=seed + 7919 * gi)
+    return x
+
+
 def block_work(B, N, D, T, C, wbytes):
     """(flops, parameter bytes) of one MixerBlock forward: w3/w4 are read at
     ``wbytes`` (the compute dtype's width, as the kernel reads them), every
@@ -152,6 +226,15 @@ def block_work(B, N, D, T, C, wbytes):
     return flops, param_bytes
 
 
+def bwd_work(B, N, D, T, C):
+    """(flops, bytes) of one MixerBlock backward in float32: the dx and
+    parameter-gradient products (a recompute is the kernel's choice, not
+    required work); x, g and dx, the parameters read, the gradients written."""
+    flops = 8 * B * N * D * C + 8 * B * D * N * T
+    _, param_bytes = block_work(B, N, D, T, C, 4)
+    return flops, 3 * B * N * D * 4 + 2 * param_bytes
+
+
 def bound(flops: float, nbytes: float, dtype: str):
     """Least time (ms) the card could take, and what bounds it."""
     t_ops, t_bytes = flops / PEAK[dtype], nbytes / HBM_BYTES_PER_S
@@ -159,7 +242,7 @@ def bound(flops: float, nbytes: float, dtype: str):
 
 
 def phase_kernels(torch, mk, report):
-    print("[2/6] K1f fused_mixer_block vs plain version")
+    print("[2/8] K1f fused_mixer_block vs plain version")
     for geom_name, geom in (("encoder", ENC), ("fusion", FUSION)):
         blocks, _, _ = rand_blocks(mk, torch, 1, seed=11, **geom)
         x = torch.randn(512, geom["N"], geom["D"], generator=torch.Generator().manual_seed(1)).cuda()
@@ -176,7 +259,7 @@ def phase_kernels(torch, mk, report):
                     report["errors"][key] = bf16_err(torch, got, want, round_bf16(torch, control),
                                                      key, report)
 
-    print("[3/6] K2f fused_mixer_stack vs plain version")
+    print("[3/8] K2f fused_mixer_stack vs plain version")
     cases = [("encoder", ENC, 4, 0), ("encoder", ENC, 4, 2), ("fusion", FUSION, 2, 0)]
     for geom_name, geom, K, group in cases:
         blocks, ln_s, ln_b = rand_blocks(mk, torch, K, seed=12, **geom)
@@ -197,8 +280,161 @@ def phase_kernels(torch, mk, report):
                                                      key, report)
 
 
+def phase_backward(torch, mk, report):
+    print("[4/8] K1b / K2b backward kernels vs autograd of the plain versions")
+    for B in (32, 512):
+        for geom_name, geom in (("encoder", ENC), ("fusion", FUSION)):
+            blocks, _, _ = rand_blocks(mk, torch, 1, seed=21, **geom)
+            gen = torch.Generator().manual_seed(B)
+            x = torch.randn(B, geom["N"], geom["D"], generator=gen).cuda()
+            g = torch.randn(B, geom["N"], geom["D"], generator=gen).cuda()
+            for rate in (0.0, 0.5):
+                for approx in (False, True):
+                    key = f"K1b/{geom_name}/B{B}/rate{rate}/{'tanh' if approx else 'erf'}"
+                    run = lambda: mk.fused_mixer_block_bwd(x, g, blocks[0], seed=7,
+                                                           dropout_rate=rate,
+                                                           approximate_gelu=approx)
+                    dx, grads = run()
+                    wdx, wgrads = mk.mixer_block_bwd_reference(x, g, blocks[0], rate,
+                                                               approximate_gelu=approx, seed=7)
+                    report["errors"][key] = grad_err(torch, (dx, *grads), (wdx, *wgrads), key)
+                    dx2, grads2 = run()
+                    if not all(torch.equal(a, b) for a, b in zip((dx, *grads), (dx2, *grads2))):
+                        raise AssertionError(f"{key}: two backward runs differ")
+            key = f"K1f/{geom_name}/B{B}/rate0.5"
+            report["errors"][key] = max_err(
+                torch, mk.fused_mixer_block(x, blocks[0], seed=7, dropout_rate=0.5),
+                mk.mixer_block_reference(x, blocks[0], 0.5, seed=7), key)
+            share = (mk.dropout_mask(7, 0, 2, B * geom["N"], geom["C"], 0.5, "cuda") > 0)
+            share = share.float().mean().item()
+            print(f"  kept share of mask 2, {geom_name} B={B}: {share:.4f}")
+            if not abs(share - 0.5) <= 0.01:
+                raise AssertionError(f"kept share {share} is not 0.5 +- 0.01")
+            report.setdefault("kept_share", {})[f"{geom_name}/B{B}"] = share
+    for B in (32, 512):
+        blocks, s, b = rand_blocks(mk, torch, 4, seed=22, **ENC)
+        gen = torch.Generator().manual_seed(B + 1)
+        x = torch.randn(B, ENC["N"], ENC["D"], generator=gen).cuda()
+        g = torch.randn(B, ENC["N"], ENC["D"], generator=gen).cuda()
+        for group in (0, 2):
+            for rate in (0.0, 0.5):
+                for approx in (False, True):
+                    key = f"K2b/encoderx4/g{group}/B{B}/rate{rate}/{'tanh' if approx else 'erf'}"
+                    leaves = [t.detach().requires_grad_() for blk in blocks for t in blk]
+                    ls, lb = s.detach().requires_grad_(), b.detach().requires_grad_()
+                    lblocks = [mk.MixerBlockParams(*leaves[i:i + 12]) for i in range(0, 48, 12)]
+                    xx = x.detach().requires_grad_()
+
+                    def run():
+                        out = mk.fused_mixer_stack_grouped(xx, lblocks, ls, lb, seed=9,
+                                                           dropout_rate=rate, group_size=group,
+                                                           approximate_gelu=approx)
+                        return out, torch.autograd.grad(out, [xx, *leaves, ls, lb], g)
+
+                    out, got = run()
+                    want_out = plain_grouped(mk, xx, lblocks, ls, lb, 9, rate, group, approx)
+                    want = torch.autograd.grad(want_out, [xx, *leaves, ls, lb], g)
+                    max_err(torch, out.detach(), want_out.detach(), key + " forward")
+                    report["errors"][key] = grad_err(torch, got, want, key)
+                    if not all(torch.equal(a, c) for a, c in zip(got, run()[1])):
+                        raise AssertionError(f"{key}: two backward runs differ")
+
+
+def train_args(tmp, name, flavor):
+    return ["-c", B_CFG, "-n", name, f"train.tensorboard_path={tmp}", "train.epochs=2",
+            "dataset.params.synthetic=true", "dataset.params.synthetic_learnable=true",
+            f"dataset.params.synthetic_sizes={TRAIN_SIZES}", *KERNEL_BLOCKS.get(flavor, [])]
+
+
+def kernel_task(serving, apply_overrides, load_cfg, flavor, extra=()):
+    cfg = load_cfg(B_CFG)
+    apply_overrides(cfg, [*KERNEL_BLOCKS.get(flavor, []), *extra], warn=False)
+    return serving._build_task(cfg, device="cuda"), cfg
+
+
+def zero_counters(mk):
+    for fn in (mk.fused_mixer_block, mk.fused_mixer_stack, mk.fused_mixer_block_bwd,
+               mk.fused_mixer_stack_bwd):
+        fn.launches = 0
+
+
+def counters(mk):
+    return {"K1f": mk.fused_mixer_block.launches, "K2f": mk.fused_mixer_stack.launches,
+            "K1b": mk.fused_mixer_block_bwd.launches, "K2b": mk.fused_mixer_stack_bwd.launches}
+
+
+def phase_training(torch, mk, serving, run, apply_overrides, load_cfg, synthetic, np, report):
+    print("[6/8] training the B config through the kernel block types")
+    plain, cfg = kernel_task(serving, apply_overrides, load_cfg, "plain", ["model.dropout=0.0"])
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic(32, seed=3, learnable=True).items()}
+
+    def step_one(task):
+        task.network.train()
+        task.network.zero_grad(set_to_none=True)
+        loss, aux = task.step(batch, task.make_ctx(0, "train"), train=True)
+        loss.backward()
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in task.network.named_parameters()}
+        return [loss.detach()] + [aux["losses"][k].detach() for k in task.loss_names], grads
+
+    p_losses, p_grads = step_one(plain)
+    for flavor in ("stacked", "per_block"):
+        per_block = flavor == "per_block"
+        kernel, _ = serving.to_torch_kernel_serving(cfg, plain.network.state_dict(), device="cuda",
+                                                    per_block=per_block)
+        before = counters(mk)
+        k_losses, k_grads = step_one(kernel)
+        if counters(mk) == before:
+            raise AssertionError(f"step 1 ({flavor}) launched no kernel")
+        want = serving.to_torch_kernel_serving(cfg, p_grads, device="cuda",
+                                               per_block=per_block)[1]
+        if set(want) != set(k_grads):
+            raise AssertionError(f"{flavor}: gradient names differ")
+        names = sorted(k_grads)
+        key = f"train step 1/{flavor}: loss, branch losses"
+        report["errors"][key] = grad_err(torch, k_losses, p_losses, key)
+        key = f"train step 1/{flavor}: {len(names)} parameter gradients"
+        report["errors"][key] = grad_err(torch, [k_grads[n] for n in names],
+                                         [want[n].cuda() for n in names], key)
+    del plain, kernel
+
+    runs = report["training_runs"] = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        for flavor in ("stacked", "per_block"):
+            # the main path: counters zeroed just before, read just after
+            zero_counters(mk)
+            t0 = time.time()
+            trainer = run.main(train_args(tmp, f"smoke_{flavor}", flavor))
+            launches = counters(mk)
+            seconds = time.time() - t0
+            with open(os.path.join(trainer.logger.log_dir, "metrics.jsonl")) as f:
+                lines = [json.loads(line) for line in f]
+            train = [ln for ln in lines if "train_loss" in ln]
+            val = [ln for ln in lines if "val_loss" in ln]
+            test = [ln for ln in lines if "test_loss" in ln][-1]
+            result = {"launches": launches, "seconds": seconds,
+                      "train_loss": [ln["train_loss"] for ln in train],
+                      "val_loss": [ln["val_loss"] for ln in val],
+                      "val_acc": [ln["val_acc"] for ln in val], "test_acc": test["test_acc"],
+                      "test_loss": test["test_loss"]}
+            runs[flavor] = result
+            print(f"  {flavor}: {json.dumps(result)}")
+            if not all(np.isfinite(v) for ln in lines for v in ln.values()):
+                raise AssertionError(f"{flavor}: non-finite metrics")
+            if not result["train_loss"][-1] < result["train_loss"][0]:
+                raise AssertionError(f"{flavor}: train loss did not fall: {result['train_loss']}")
+            if not (result["val_acc"][-1] >= MIN_ACC and result["test_acc"] >= MIN_ACC):
+                raise AssertionError(f"{flavor}: accuracy below {MIN_ACC}: {result}")
+            want = ("K2f", "K2b") if flavor == "stacked" else ("K1f", "K1b")
+            for name in want:
+                if launches[name] <= 0:
+                    raise AssertionError(f"{name} was never launched on the training path")
+    report["training_launches"] = {"K1b": runs["per_block"]["launches"]["K1b"],
+                                   "K2b": runs["stacked"]["launches"]["K2b"]}
+
+
 def phase_serving(torch, mk, serving, get_model, load_cfg, np, report):
-    print("[4/6] serving the B config through the kernel blocks")
+    print("[5/8] serving the B config through the kernel blocks")
     cfg = load_cfg(B_CFG)
     seed = int(cfg.train.seed)
     plain = get_model(cfg.model.type)(cfg.model, device="cuda", seed=seed)
@@ -248,7 +484,7 @@ def phase_serving(torch, mk, serving, get_model, load_cfg, np, report):
 
 
 def phase_times(torch, mk, serving, np, plain, models, report):
-    print("[5/6] times (CUDA events, median of 5 runs of 20 calls)")
+    print("[7/8] times (CUDA events, median of 5 runs of 20 calls)")
     times = report["times_ms"]
     for geom_name, geom in (("encoder", ENC), ("fusion", FUSION)):
         for B in (32, 512):
@@ -300,6 +536,53 @@ def phase_times(torch, mk, serving, np, plain, models, report):
     print(f"  launches per served forward: {report['launches_per_forward']}")
 
 
+def phase_train_times(torch, mk, serving, Trainer, apply_overrides, load_cfg, synthetic, report):
+    """Backward kernels alone (training config: dropout 0.5) and the train step."""
+    times = report["times_ms"]
+    for B in (32, 512):
+        tag = f"encoder/B{B}"
+        blocks, ln_s, ln_b = rand_blocks(mk, torch, 4, seed=23, **ENC)
+        flat = mk.stack_flat_params(blocks, ln_s, ln_b)
+        gen = torch.Generator().manual_seed(5)
+        x = torch.randn(B, ENC["N"], ENC["D"], generator=gen).cuda()
+        g = torch.randn(B, ENC["N"], ENC["D"], generator=gen).cuda()
+        times[f"K1b/{tag}"] = cuda_ms(torch, lambda: mk.fused_mixer_block_bwd(
+            x, g, blocks[0], seed=1, dropout_rate=0.5))
+        times[f"K1b_plain/{tag}"] = cuda_ms(torch, lambda: mk.mixer_block_bwd_reference(
+            x, g, blocks[0], 0.5, seed=1))
+        with torch.no_grad():
+            _, saved = mk._stack_forward(x, flat, 1, 0.5, torch.float32, True, False, save=True)
+        times[f"K2b/{tag}"] = cuda_ms(torch, lambda: mk.fused_mixer_stack_bwd(
+            x, g, flat, seed=1, dropout_rate=0.5, saved=saved))
+        times[f"K2b_plain/{tag}"] = cuda_ms(torch, lambda: mk.mixer_stack_bwd_reference(
+            x, g, flat, 0.5, seed=1))
+        flops, nbytes = bwd_work(B, **ENC)
+        report["bounds_ms"][f"K1b/{tag}"] = bound(flops, nbytes, "f32")
+        ln_bytes = 4 * 4 * ENC["D"]  # final LN scale and bias, read and their grads written
+        report["bounds_ms"][f"K2b/{tag}"] = bound(
+            4 * flops, 4 * (nbytes - 3 * B * ENC["N"] * ENC["D"] * 4)
+            + 3 * B * ENC["N"] * ENC["D"] * 4 + ln_bytes, "f32")
+        print(f"  {tag}: K1b {times[f'K1b/{tag}']:.4f} ms (plain {times[f'K1b_plain/{tag}']:.4f}, "
+              f"bound {report['bounds_ms'][f'K1b/{tag}'][0]:.4f}); K2b x4 "
+              f"{times[f'K2b/{tag}']:.4f} ms (plain {times[f'K2b_plain/{tag}']:.4f}, bound "
+              f"{report['bounds_ms'][f'K2b/{tag}'][0]:.4f})")
+    data = synthetic(512, seed=4, learnable=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_steps_") as tmp:
+        for flavor in ("plain", "stacked", "per_block"):
+            task, cfg = kernel_task(serving, apply_overrides, load_cfg, flavor)
+            trainer = Trainer(cfg.train, name=f"steps_{flavor}", work_dir=tmp)
+            trainer.setup(task)
+            ctx = task.make_ctx(0, "train")
+            for B in (32, 512):
+                batch = {k: torch.from_numpy(v[:B]).cuda() for k, v in data.items()}
+                times[f"train_step/{flavor}/B{B}"] = cuda_ms(
+                    torch, lambda: trainer.train_step(task, batch, ctx), iters=10)
+            trainer.logger.close()
+            del task, trainer
+    print("  train step (forward + backward + Adam, dropout 0.5): " + ", ".join(
+        f"{k.split('/', 1)[1]} {v:.4f} ms" for k, v in times.items() if k.startswith("train_step/")))
+
+
 def main() -> int:
     import torch
 
@@ -312,15 +595,18 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import numpy as np
 
-    from m2mixer_tpu_torch import serving
+    from m2mixer_tpu_torch import run, serving
+    from m2mixer_tpu_torch.config import apply_cli_overrides
     from m2mixer_tpu_torch.config import load as load_cfg
+    from m2mixer_tpu_torch.datasets import synthetic_avmnist_arrays
     from m2mixer_tpu_torch.models import get_model
     from m2mixer_tpu_torch.ops import _build
     from m2mixer_tpu_torch.ops import mixer_kernel as mk
+    from m2mixer_tpu_torch.training.trainer import Trainer
 
     t_start = time.time()
     report = {"errors": {}, "bf16_checks": {}, "times_ms": {}, "bounds_ms": {}}
-    print("[1/6] building the CUDA kernels")
+    print("[1/8] building the CUDA kernels")
     t0 = time.time()
     _build.build_library(verbose=True)
     _build.load_library()
@@ -328,8 +614,13 @@ def main() -> int:
     print(f"  build seconds: {report['build_seconds']:.1f}")
 
     phase_kernels(torch, mk, report)
+    phase_backward(torch, mk, report)
     plain, models = phase_serving(torch, mk, serving, get_model, load_cfg, np, report)
+    phase_training(torch, mk, serving, run, apply_cli_overrides, load_cfg,
+                   synthetic_avmnist_arrays, np, report)
     phase_times(torch, mk, serving, np, plain, models, report)
+    phase_train_times(torch, mk, serving, Trainer, apply_cli_overrides, load_cfg,
+                      synthetic_avmnist_arrays, report)
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -339,6 +630,8 @@ def main() -> int:
     t = report["times_ms"]
     b1, by1 = report["bounds_ms"]["K1f/encoder/B512/f32"]
     b2, by2 = report["bounds_ms"]["K2f/encoder/B512/f32"]
+    b3, by3 = report["bounds_ms"]["K1b/encoder/B512"]
+    b4, by4 = report["bounds_ms"]["K2b/encoder/B512"]
     kernels = [
         {"name": "mixer_block_fwd (K1f, one MixerBlock, B=512 N=4 D=128 T=32 C=3072 f32)",
          "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/mixer_fwd.cu",
@@ -354,11 +647,27 @@ def main() -> int:
          "max_abs_err": report["errors"]["K2f/encoderx4/g0/f32/erf"],
          "ms": t["K2f/encoder/B512/f32"], "plain_ms": t["K2f_plain/encoder/B512/f32"],
          "bound_ms": b2, "bound_by": by2, "library_ms": None},
+        {"name": "mixer_bwd (K1b, one MixerBlock backward, B=512 N=4 D=128 T=32 C=3072 f32, "
+                 "dropout 0.5)",
+         "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/mixer_bwd.cu",
+         "replaces": "m2mixer_tpu/ops/mixer_kernel.py:267",
+         "launches": report["training_launches"]["K1b"],
+         "max_abs_err": report["errors"]["K1b/encoder/B512/rate0.5/erf"],
+         "ms": t["K1b/encoder/B512"], "plain_ms": t["K1b_plain/encoder/B512"],
+         "bound_ms": b3, "bound_by": by3, "library_ms": None},
+        {"name": "mixer_bwd (K2b, 4 MixerBlocks + LN backward, B=512 N=4 D=128 T=32 C=3072 "
+                 "f32, dropout 0.5)",
+         "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/mixer_bwd.cu",
+         "replaces": "m2mixer_tpu/ops/mixer_kernel.py:506",
+         "launches": report["training_launches"]["K2b"],
+         "max_abs_err": report["errors"]["K2b/encoderx4/g0/B512/rate0.5/erf"],
+         "ms": t["K2b/encoder/B512"], "plain_ms": t["K2b_plain/encoder/B512"],
+         "bound_ms": b4, "bound_by": by4, "library_ms": None},
     ]
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({**report, "kernels": kernels}, f, indent=2)
-    print(f"[6/6] done in {report['seconds']:.1f} s")
+    print(f"[8/8] done in {report['seconds']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,9 +7,10 @@ does not yet raise ``NotImplementedError("not yet ported: <name>")``.
 from __future__ import annotations
 
 from .avmnist import AVMnistMixerMultiLoss
-from .base import Task, resolve_device, resolve_dtype
+from .base import MultiLossTask, TrainTask, resolve_device, resolve_dtype
 
-__all__ = ["AVMnistMixerMultiLoss", "Task", "get_model", "resolve_device", "resolve_dtype"]
+__all__ = ["AVMnistMixerMultiLoss", "MultiLossTask", "TrainTask", "get_model",
+           "resolve_device", "resolve_dtype"]
 
 MODELS = {"AVMnistMixerMultiLoss": AVMnistMixerMultiLoss}
 

@@ -1,22 +1,35 @@
 """AV-MNIST tasks (the slice's part of ``m2mixer_tpu/models/avmnist.py``).
 
 ``AVMnistMixerMultiLoss`` is the flagship: image and audio encoders, concat
-fusion, a fusion mixer, and three heads (fusion, image, audio). This slice
-serves its eval-mode forward; the three CE losses and their weighting come
-with the training slice.
+fusion, a fusion mixer, and three heads (fusion, image, audio) trained with
+three cross-entropy losses weighted by ``MultiLossTask``.
 """
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 
-from .base import Task
+from ..training import metrics as tm
+from .base import MultiLossTask
 from .nets import build_multimodal_net
 
 __all__ = ["AVMnistMixerMultiLoss"]
 
 
-class AVMnistMixerMultiLoss(Task):
+def _multiclass_scores(num_classes: int) -> Dict[str, tm._BaseMetric]:
+    """The MultiLoss models' four macro metrics (JAX ``_multiclass_scores``
+    with ``extended=False``)."""
+    return dict(
+        acc=tm.Accuracy(task="multiclass", num_classes=num_classes),
+        f1m=tm.F1Score(task="multiclass", num_classes=num_classes, average="macro"),
+        prec_m=tm.Precision(task="multiclass", num_classes=num_classes, average="macro"),
+        rec_m=tm.Recall(task="multiclass", num_classes=num_classes, average="macro"),
+    )
+
+
+class AVMnistMixerMultiLoss(MultiLossTask):
     modalities = ("image", "audio")
 
     def build_network(self, generator):
@@ -34,6 +47,15 @@ class AVMnistMixerMultiLoss(Task):
     def num_classes(self) -> int:
         return self.model_cfg.modalities.classification.num_classes
 
+    def branch_losses(self, outputs, batch, ctx):
+        labels = batch["label"]
+        img_logits, aud_logits = outputs["branch_logits"]
+        return {
+            "image": self.ce(img_logits, labels),
+            "audio": self.ce(aud_logits, labels),
+            "fusion": self.ce(outputs["logits"], labels),
+        }
+
     def predictions(self, outputs, batch):
         """Argmax class per head, plus the raw logits of each head."""
         img_logits, aud_logits = outputs["branch_logits"]
@@ -49,3 +71,10 @@ class AVMnistMixerMultiLoss(Task):
         if "label" in batch:
             out["labels"] = batch["label"]
         return out
+
+    def setup_scores(self):
+        return [_multiclass_scores(self.num_classes) for _ in range(3)]
+
+    def test_artifact_keys(self):
+        return ("preds", "preds_image", "preds_audio", "labels",
+                "image_logits", "audio_logits", "logits")

@@ -36,7 +36,7 @@ def build_multimodal_net(model_cfg, modality_keys: Sequence[str], head_pool: boo
     dtype = resolve_dtype(model_cfg.get("precision"))
     common = dict(dropout=model_cfg.get("dropout", 0.0), dtype=dtype,
                   approximate_gelu=bool(model_cfg.get("approximate_gelu", False)),
-                  generator=generator)
+                  bits_dropout=bool(model_cfg.get("bits_dropout", False)), generator=generator)
 
     def feat_dim(block_cfg):
         return block_cfg.get("hidden_dim", block_cfg.get("d_model"))

@@ -8,7 +8,9 @@ constructor arguments, never process-wide switches.
 
 Initialization takes an explicit CPU ``torch.Generator``: parameters are
 drawn on the CPU, so one seed gives the same weights whatever device the
-network is moved to afterwards.
+network is moved to afterwards. Dropout in training mode draws from the
+network's ``DropoutRNG`` (the counterpart of flax's ``dropout`` rng stream),
+which the task installs with ``set_dropout_rng``.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Linear", "LayerNorm", "Dropout", "PatchEmbed", "gelu", "uniform_"]
+__all__ = ["Linear", "LayerNorm", "Dropout", "DropoutRNG", "PatchEmbed", "gelu",
+           "set_dropout_rng", "uniform_"]
 
 
 def uniform_(t: torch.Tensor, bound: float, generator: Optional[torch.Generator]):
@@ -79,19 +82,68 @@ class LayerNorm(nn.Module):
         return y.to(out_dtype)
 
 
-class Dropout(nn.Module):
-    """Dropout; the identity in eval mode. Training comes with the training
-    slice, so a training-mode call with a non-zero rate raises."""
+class DropoutRNG:
+    """A network's dropout randomness (flax's ``make_rng("dropout")``): masks
+    of the plain ``Dropout`` layers come from a generator on the network's
+    device, the per-call seeds of the kernel-backed blocks from a CPU
+    generator (drawing them needs no device sync)."""
 
-    def __init__(self, rate: float):
+    def __init__(self, seed: int, device="cpu"):
+        device = torch.device(device)
+        self.host = torch.Generator().manual_seed(int(seed) + 1)
+        self.device = (torch.Generator(device=device).manual_seed(int(seed) + 2)
+                       if device.type != "cpu" else self.host)
+
+    def next_seed(self) -> int:
+        """A fresh kernel seed in [0, 2**31 - 1), as the JAX blocks draw it."""
+        return int(torch.randint(0, 2**31 - 1, (1,), generator=self.host))
+
+
+def set_dropout_rng(module: nn.Module, rng: Optional[DropoutRNG]) -> None:
+    """Point every dropout-drawing submodule of ``module`` at ``rng``."""
+    for m in module.modules():
+        if hasattr(m, "dropout_rng"):
+            m.dropout_rng = rng
+
+
+def next_kernel_seed(rng: Optional[DropoutRNG]) -> int:
+    """The seed of one kernel call: from ``rng``, or torch's global generator."""
+    if rng is not None:
+        return rng.next_seed()
+    return int(torch.randint(0, 2**31 - 1, (1,)))
+
+
+class Dropout(nn.Module):
+    """Dropout, the identity in eval mode (flax ``nn.Dropout`` semantics:
+    keep with probability 1 - rate, scale kept values by 1 / (1 - rate)).
+    ``bits`` is the JAX package's ``model.bits_dropout`` flavor: one uint8 per
+    element, drop probability quantized to ``thresh / 256`` with
+    ``thresh = clamp(round(rate * 256), 1, 255)``, kept values scaled by
+    ``1 / (1 - thresh / 256)``. Masks come from ``dropout_rng`` (see
+    ``set_dropout_rng``), or torch's global generator when none is set."""
+
+    def __init__(self, rate: float, bits: bool = False):
         super().__init__()
         self.rate = float(rate)
+        self.bits = bool(bits)
+        self.dropout_rng: Optional[DropoutRNG] = None
 
     def forward(self, x):
-        if self.training and self.rate > 0.0:
-            raise NotImplementedError("dropout in training mode comes with the "
-                                      "training slice of the port")
-        return x
+        if not self.training or self.rate == 0.0:
+            return x
+        gen = None if self.dropout_rng is None else self.dropout_rng.device
+        if self.bits:
+            if self.rate >= 255.5 / 256:
+                return torch.zeros_like(x)
+            thresh = min(max(int(round(self.rate * 256)), 1), 255)
+            bits = torch.randint(0, 256, x.shape, generator=gen, device=x.device,
+                                 dtype=torch.uint8)
+            return x * (bits >= thresh).to(x.dtype) / (1.0 - thresh / 256.0)
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class PatchEmbed(nn.Module):

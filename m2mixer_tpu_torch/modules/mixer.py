@@ -24,12 +24,12 @@ class FeedForward(nn.Module):
 
     def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0,
                  out_dim: Optional[int] = None, *, dtype=None,
-                 approximate_gelu: bool = False, generator=None):
+                 approximate_gelu: bool = False, bits_dropout: bool = False, generator=None):
         super().__init__()
         self.approximate_gelu = approximate_gelu
         self.fc1 = Linear(dim, hidden_dim, dtype=dtype, generator=generator)
         self.fc2 = Linear(hidden_dim, out_dim or dim, dtype=dtype, generator=generator)
-        self.drop = Dropout(dropout)
+        self.drop = Dropout(dropout, bits_dropout)
 
     def forward(self, x):
         x = self.drop(gelu(self.fc1(x), self.approximate_gelu))
@@ -41,9 +41,10 @@ class MixerBlock(nn.Module):
 
     def __init__(self, hidden_dim: int, num_patch: int, token_dim: int, channel_dim: int,
                  dropout: float = 0.0, *, dtype=None, approximate_gelu: bool = False,
-                 generator=None):
+                 bits_dropout: bool = False, generator=None):
         super().__init__()
-        kw = dict(dtype=dtype, approximate_gelu=approximate_gelu, generator=generator)
+        kw = dict(dtype=dtype, approximate_gelu=approximate_gelu, bits_dropout=bits_dropout,
+                  generator=generator)
         self.norm_token = LayerNorm(hidden_dim, dtype=dtype)
         self.token_mix = FeedForward(num_patch, token_dim, dropout, **kw)
         self.norm_channel = LayerNorm(hidden_dim, dtype=dtype)
@@ -65,12 +66,12 @@ class FusionMixer(nn.Module):
 
     def __init__(self, hidden_dim: int, num_patches: int, num_mixers: int, token_dim: int,
                  channel_dim: int, dropout: float = 0.0, *, dtype=None,
-                 approximate_gelu: bool = False, generator=None):
+                 approximate_gelu: bool = False, bits_dropout: bool = False, generator=None):
         super().__init__()
         self.num_patch = int(num_patches)
         self.blocks = _blocks(num_mixers, hidden_dim, num_patches, token_dim, channel_dim,
                               dropout, dtype=dtype, approximate_gelu=approximate_gelu,
-                              generator=generator)
+                              bits_dropout=bits_dropout, generator=generator)
         self.norm_out = LayerNorm(hidden_dim, dtype=dtype)
 
     def forward(self, x):
@@ -92,14 +93,14 @@ class MLPMixer(nn.Module):
     def __init__(self, in_channels: int, hidden_dim: int, patch_size: int,
                  image_size: Sequence[int], num_mixers: int, token_dim: int,
                  channel_dim: int, dropout: float = 0.0, *, dtype=None,
-                 approximate_gelu: bool = False, generator=None):
+                 approximate_gelu: bool = False, bits_dropout: bool = False, generator=None):
         super().__init__()
         self.num_patch = image_tokens(image_size, patch_size)
         self.patch_embed = PatchEmbed(in_channels, hidden_dim, patch_size, dtype=dtype,
                                       generator=generator)
         self.blocks = _blocks(num_mixers, hidden_dim, self.num_patch, token_dim, channel_dim,
                               dropout, dtype=dtype, approximate_gelu=approximate_gelu,
-                              generator=generator)
+                              bits_dropout=bits_dropout, generator=generator)
         self.norm_out = LayerNorm(hidden_dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor):

@@ -14,7 +14,9 @@ version on CPU tensors):
 Parameters keep the JAX kernels' layout and names (``w1 (N, T)``,
 ``b{i}_w3 (D, C)``, ...), so the JAX trees map onto them without a transpose.
 A bf16 module stores its large channel-FF matrices in bf16 (the JAX package's
-``_castable`` rule), so the kernels read them as they are.
+``_castable`` rule), so the kernels read them as they are. In training mode
+every kernel call draws a fresh dropout seed from the module's
+``dropout_rng``, as the JAX blocks draw one from the ``dropout`` rng.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from torch import nn
 
 from ..ops.mixer_kernel import (MixerBlockParams, cast_params, fused_mixer_block,
                                 fused_mixer_stack_grouped)
-from .common import LayerNorm, PatchEmbed, _bound, uniform_
+from .common import LayerNorm, PatchEmbed, _bound, next_kernel_seed, uniform_
 from .mixer import image_tokens
 
 __all__ = [
@@ -69,6 +71,7 @@ class PallasMixerBlock(nn.Module):
         self.dropout = float(dropout)
         self.dtype = dtype
         self.approximate_gelu = approximate_gelu
+        self.dropout_rng = None
         for name, t in _block_params(hidden_dim, num_patch, token_dim, channel_dim,
                                      generator, dtype).items():
             self.register_parameter(name, nn.Parameter(t))
@@ -76,7 +79,8 @@ class PallasMixerBlock(nn.Module):
     def forward(self, x):
         params = MixerBlockParams(*(getattr(self, f) for f in MixerBlockParams._fields))
         rate = self.dropout if self.training else 0.0
-        return fused_mixer_block(x.float(), params, None, rate, self.dtype or torch.float32,
+        seed = next_kernel_seed(self.dropout_rng) if rate > 0.0 else None
+        return fused_mixer_block(x.float(), params, seed, rate, self.dtype or torch.float32,
                                  self.approximate_gelu)
 
 
@@ -139,6 +143,7 @@ class _StackedMixerCore(nn.Module):
         self.group_size = int(group_size)
         self.dtype = dtype
         self.approximate_gelu = approximate_gelu
+        self.dropout_rng = None
         for i in range(self.num_mixers):
             for name, t in _block_params(hidden_dim, num_patch, token_dim, channel_dim,
                                          generator, dtype).items():
@@ -150,8 +155,9 @@ class _StackedMixerCore(nn.Module):
         blocks = [MixerBlockParams(*(getattr(self, f"b{i}_{f}") for f in MixerBlockParams._fields))
                   for i in range(self.num_mixers)]
         rate = self.dropout if self.training else 0.0
+        seed = next_kernel_seed(self.dropout_rng) if rate > 0.0 else None
         return fused_mixer_stack_grouped(
-            x.float(), blocks, self.ln_out_scale, self.ln_out_bias, None, rate,
+            x.float(), blocks, self.ln_out_scale, self.ln_out_bias, seed, rate,
             self.dtype or torch.float32, group_size=self.group_size,
             approximate_gelu=self.approximate_gelu)
 

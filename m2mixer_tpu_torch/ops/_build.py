@@ -104,14 +104,23 @@ def build_library(verbose: bool = False) -> Path:
 
 def _declare(lib):
     c_int, c_void_p, c_size_t = ctypes.c_int, ctypes.c_void_p, ctypes.c_size_t
+    # dropout: 4 stream keys per block (or None), keep threshold, keep scale
+    dropout = [ctypes.POINTER(ctypes.c_uint), ctypes.c_uint, ctypes.c_float]
     lib.m2m_mixer_smem_bytes.argtypes = [c_int] * 5
     lib.m2m_mixer_smem_bytes.restype = c_size_t
     lib.m2m_error_string.argtypes = [c_int]
     lib.m2m_error_string.restype = ctypes.c_char_p
-    lib.m2m_mixer_block_fwd.argtypes = [c_void_p, c_void_p] + [c_int] * 10 + [c_void_p, c_void_p]
+    lib.m2m_mixer_block_fwd.argtypes = ([c_void_p, c_void_p] + [c_int] * 9 + dropout
+                                        + [c_int, c_void_p, c_void_p])
     lib.m2m_mixer_block_fwd.restype = c_int
-    lib.m2m_mixer_stack_fwd.argtypes = [c_void_p, c_void_p] + [c_int] * 12 + [c_void_p, c_void_p]
+    lib.m2m_mixer_stack_fwd.argtypes = ([c_void_p, c_void_p] + [c_int] * 11 + dropout
+                                        + [c_void_p, c_int, c_void_p, c_void_p])
     lib.m2m_mixer_stack_fwd.restype = c_int
+    lib.m2m_mixer_bwd_workspace_bytes.argtypes = [c_int] * 8
+    lib.m2m_mixer_bwd_workspace_bytes.restype = c_size_t
+    lib.m2m_mixer_bwd.argtypes = ([c_void_p] * 3 + [c_int] * 8 + dropout
+                                  + [c_int] + [c_void_p] * 4)
+    lib.m2m_mixer_bwd.restype = c_int
     return lib
 
 

@@ -49,6 +49,12 @@
 //
 // Limits checked by the wrapper and again here: N <= kMaxTokens, D % 4 == 0,
 // C even for bf16 weights, K <= kMaxBlocks, shared memory <= the opt-in limit.
+//
+// Training. Dropout multiplies by the four masks of mixer_common.cuh where
+// _block_math does, and with `saved` the stack writes every block's input (and
+// the output before its final LN) to device memory: the backward kernels
+// (mixer_bwd.cu) read those instead of running the stack again. Dropout is a
+// template flag: the rate-0 kernels (serving) contain no mask code at all.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -58,18 +64,16 @@
 
 #include <type_traits>
 
+#include "mixer_common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kChunk = 64;                           // hidden units per channel-FF step
 constexpr int kRowGroups = kThreads / kChunk;        // 4 rows in flight per column
 constexpr int kRowsMax = 64;                         // rows (tb * N) one CTA may own
 constexpr int kRowsPerThread = kRowsMax / kRowGroups;
-constexpr int kMaxTokens = 32;
-constexpr int kMaxBlocks = 32;
-constexpr int kParamsPerBlock = 12;
 constexpr int kMaxCluster = 4;  // CTAs that may split one row tile's hidden units C
 
 struct BlockPtrs {
@@ -91,108 +95,9 @@ struct StackArgs {
   BlockPtrs blocks[kMaxBlocks];
   const float* lnf_s;
   const float* lnf_b;
+  float* saved;  // training: the input of every block and the pre-LN output, or nullptr
+  Dropout dp;
 };
-
-template <bool kBF16>
-__device__ __forceinline__ float rd(float v) {
-  if constexpr (kBF16) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  } else {
-    return v;
-  }
-}
-
-__device__ __forceinline__ float tof(float v) { return v; }
-__device__ __forceinline__ float tof(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-__device__ __forceinline__ float gelu(float v, int tanh_flavor) {
-  if (tanh_flavor) {
-    const float k = 0.7978845608028654f;  // sqrt(2/pi)
-    return 0.5f * v * (1.0f + tanhf(k * (v + 0.044715f * v * v * v)));
-  }
-  return 0.5f * v * (1.0f + erff(v * 0.7071067811865476f));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// dst[r, :] = rd(LN(src[r, :]) * rd(s) + rd(b)), one warp per row, float32 statistics
-template <bool kBF16>
-__device__ void layer_norm_rows(const float* src, float* dst, int rows, int D,
-                                const float* __restrict__ s, const float* __restrict__ b) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < rows; r += kThreads / 32) {
-    const float* xr = src + r * D;
-    float sum = 0.f;
-    for (int d = lane; d < D; d += 32) sum += xr[d];
-    const float mean = warp_sum(sum) / D;
-    float sq = 0.f;
-    for (int d = lane; d < D; d += 32) {
-      const float t = xr[d] - mean;
-      sq += t * t;
-    }
-    const float inv = rsqrtf(warp_sum(sq) / D + 1e-5f);
-    for (int d = lane; d < D; d += 32)
-      dst[r * D + d] = rd<kBF16>((xr[d] - mean) * inv * rd<kBF16>(s[d]) + rd<kBF16>(b[d]));
-  }
-}
-
-// the token FF's weights into shared memory (w1 and w2 rounded to the compute
-// dtype): read from there, they stay out of the L2 traffic of the weight stream
-template <bool kBF16>
-__device__ void load_token_weights(float* tw, const BlockPtrs& p, int N, int T) {
-  float* w1 = tw;
-  float* b1 = w1 + N * T;
-  float* w2 = b1 + T;
-  float* b2 = w2 + T * N;
-  for (int i = threadIdx.x; i < N * T; i += kThreads) {
-    w1[i] = rd<kBF16>(__ldg(p.w1 + i));
-    w2[i] = rd<kBF16>(__ldg(p.w2 + i));
-  }
-  for (int i = threadIdx.x; i < T; i += kThreads) b1[i] = __ldg(p.b1 + i);
-  for (int i = threadIdx.x; i < N; i += kThreads) b2[i] = __ldg(p.b2 + i);
-}
-
-// token FF per (sample, d) column: xs += rd(gelu(y w1 + b1) w2 + b2), all of a
-// sample's N tokens in registers, weights in shared memory (load_token_weights)
-template <bool kBF16>
-__device__ void token_mix(const float* ys, float* xs, int nb, int N, int T, int D,
-                          const float* tw, int tanh_flavor) {
-  const float* w1 = tw;
-  const float* b1 = w1 + N * T;
-  const float* w2 = b1 + T;
-  const float* b2 = w2 + T * N;
-  for (int item = threadIdx.x; item < nb * D; item += kThreads) {
-    const int s = item / D, d = item - s * D;
-    const int base = s * N * D + d;
-    float in[kMaxTokens], acc[kMaxTokens];
-#pragma unroll
-    for (int n = 0; n < kMaxTokens; ++n) {
-      in[n] = n < N ? ys[base + n * D] : 0.f;
-      acc[n] = 0.f;
-    }
-    for (int j = 0; j < T; ++j) {
-      float h = 0.f;
-#pragma unroll
-      for (int n = 0; n < kMaxTokens; ++n)
-        if (n < N) h += in[n] * w1[n * T + j];
-      h = rd<kBF16>(gelu(h + b1[j], tanh_flavor));
-#pragma unroll
-      for (int n = 0; n < kMaxTokens; ++n)
-        if (n < N) acc[n] += h * w2[j * N + n];
-    }
-#pragma unroll
-    for (int n = 0; n < kMaxTokens; ++n) {
-      if (n < N) {
-        float* xp = xs + base + n * D;
-        *xp = rd<kBF16>(*xp + rd<kBF16>(acc[n] + b2[n]));
-      }
-    }
-  }
-}
 
 // cp.async of W3[:, c0:c0+kChunk] (D x kChunk, zero past C) into dst, in BYTES-wide
 // copies; a copy never straddles C (C is a multiple of its width)
@@ -240,10 +145,12 @@ __device__ void fetch_w4(WT* dst, const WT* w4, int D, int C, int c0) {
     copy_w4<4>(dst, w4, D, C, c0);
 }
 
-// hs (R x kChunk) = rd(gelu(zs W3chunk + b3)), zero for hidden units past C
-template <bool kBF16, int RPT, typename WT>
+// hs (R x kChunk) = rd(gelu(zs W3chunk + b3) * m2), zero for hidden units past C; the
+// tile's rows are rows row0g.. of the batch (they key mask 2 of block `blk`)
+template <bool kBF16, bool kDrop, int RPT, typename WT>
 __device__ void channel_up(const float* zs, const WT* w3s, float* hs, int R, int D, int C, int c0,
-                           const float* __restrict__ b3, int tanh_flavor) {
+                           const float* __restrict__ b3, int tanh_flavor, const Dropout& dp,
+                           int blk, uint32_t row0g) {
   const int col = threadIdx.x & (kChunk - 1), row0 = threadIdx.x / kChunk;
   float a[RPT];
 #pragma unroll
@@ -271,7 +178,11 @@ __device__ void channel_up(const float* zs, const WT* w3s, float* hs, int R, int
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int r = row0 + i * kRowGroups;
-    if (r < R) hs[r * kChunk + col] = ok ? rd<kBF16>(gelu(a[i] + bias, tanh_flavor)) : 0.f;
+    if (r < R)
+      hs[r * kChunk + col] =
+          ok ? rd<kBF16>(gelu(a[i] + bias, tanh_flavor) *
+                         keep<kDrop>(dp, blk, 2, (row0g + r) * (uint32_t)C + c))
+             : 0.f;
   }
 }
 
@@ -331,9 +242,9 @@ struct Tile {
 // S-th of the tile and writing the finished residual into every CTA's xs.
 // RPT: rows per thread in the channel FF (rows of the tile / 4, a compile-time
 // bound so that no predicated-off row costs an instruction).
-template <bool kBF16, int RPT>
+template <bool kBF16, bool kDrop, int RPT>
 __device__ void block_forward(const Tile& t, const BlockPtrs& p, int R, int nb, int N, int T, int D,
-                              int C, int tanh_flavor) {
+                              int C, int tanh_flavor, const Dropout& dp, int blk, int s0) {
   using WT = typename std::conditional<kBF16, __nv_bfloat16, float>::type;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank(), S = (int)cluster.num_blocks();
@@ -349,10 +260,10 @@ __device__ void block_forward(const Tile& t, const BlockPtrs& p, int R, int nb, 
   if (rank < nchunks) fetch_w4(w4s, w4, D, C, rank * kChunk);
   __pipeline_commit();
 
-  load_token_weights<kBF16>(t.tw, p, N, T);
+  load_token_weights<kBF16>(t.tw, TokenPtrs{p.w1, p.b1, p.w2, p.b2}, N, T);
   layer_norm_rows<kBF16>(t.xs, t.zs, R, D, p.ln1_s, p.ln1_b);
   __syncthreads();
-  token_mix<kBF16>(t.zs, t.xs, nb, N, T, D, t.tw, tanh_flavor);
+  token_mix<kBF16, kDrop>(t.zs, t.xs, nb, N, T, D, t.tw, tanh_flavor, dp, blk, s0);
   __syncthreads();
   layer_norm_rows<kBF16>(t.xs, t.zs, R, D, p.ln2_s, p.ln2_b);
   for (int e = threadIdx.x; e < R * D; e += kThreads) t.accs[e] = 0.f;
@@ -362,7 +273,8 @@ __device__ void block_forward(const Tile& t, const BlockPtrs& p, int R, int nb, 
     const int next = ci + S;
     __pipeline_wait_prior(1);  // this thread's part of W3 chunk ci has landed
     __syncthreads();
-    channel_up<kBF16, RPT, WT>(t.zs, w3s, t.hs, R, D, C, c0, p.b3, tanh_flavor);
+    channel_up<kBF16, kDrop, RPT, WT>(t.zs, w3s, t.hs, R, D, C, c0, p.b3, tanh_flavor, dp, blk,
+                               (uint32_t)s0 * N);
     __syncthreads();
     if (next < nchunks) fetch_w3(w3s, w3, D, C, next * kChunk);
     __pipeline_commit();
@@ -381,13 +293,32 @@ __device__ void block_forward(const Tile& t, const BlockPtrs& p, int R, int nb, 
   for (int e = lo + threadIdx.x; e < hi; e += kThreads) {
     float sum = 0.f;
     for (int r = 0; r < S; ++r) sum += cluster.map_shared_rank(t.accs, r)[e];
-    const float v = rd<kBF16>(t.xs[e] + rd<kBF16>(sum + __ldg(p.b4 + e % D)));
+    const float m3 = keep<kDrop>(dp, blk, 3, (uint32_t)s0 * N * D + e);
+    const float v = rd<kBF16>(t.xs[e] + rd<kBF16>((sum + __ldg(p.b4 + e % D)) * m3));
     for (int r = 0; r < S; ++r) cluster.map_shared_rank(t.xs, r)[e] = v;
   }
   cluster.sync();  // every CTA holds the block's output
 }
 
-template <bool kBF16, int RPT>
+// this CTA's share [lo, hi) of the tile's R*D elements: each CTA of a cluster
+// writes one share to device memory
+__device__ __forceinline__ void tile_share(int R, int D, int& lo, int& hi) {
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int S = (int)cg::this_cluster().num_blocks();
+  const int per = (R * D + S - 1) / S;
+  lo = rank * per;
+  hi = min(R * D, lo + per);
+}
+
+__device__ __forceinline__ void save_share(const float* xs, float* dst, int R, int D) {
+  int lo, hi;
+  tile_share(R, D, lo, hi);
+  for (int e = lo + threadIdx.x; e < hi; e += kThreads) dst[e] = xs[e];
+}
+
+// kSave: the stack may save its block inputs (args.saved); the one-block kernel
+// never does, and is compiled without that code
+template <bool kBF16, bool kDrop, bool kSave, int RPT>
 __device__ void tile_forward(const float* __restrict__ x, float* __restrict__ out, int B, int N,
                              int T, int D, int C, int tb, int n_blocks, int final_ln,
                              int tanh_flavor, const StackArgs& args) {
@@ -411,14 +342,21 @@ __device__ void tile_forward(const float* __restrict__ x, float* __restrict__ ou
 
   for (int e = threadIdx.x; e < R * D; e += kThreads) t.xs[e] = rd<kBF16>(xg[e]);
   __syncthreads();
+  const size_t slot = (size_t)B * N * D;  // one saved block input
 #pragma unroll 1
-  for (int k = 0; k < n_blocks; ++k)
-    block_forward<kBF16, RPT>(t, args.blocks[k], R, nb, N, T, D, C, tanh_flavor);
+  for (int k = 0; k < n_blocks; ++k) {
+    if constexpr (kSave) {  // training: keep the block's input for the backward kernels
+      if (args.saved) save_share(t.xs, args.saved + k * slot + (size_t)s0 * N * D, R, D);
+    }
+    block_forward<kBF16, kDrop, RPT>(t, args.blocks[k], R, nb, N, T, D, C, tanh_flavor, args.dp,
+                                     k, s0);
+  }
+  if constexpr (kSave) {  // and the stack's output before its final LN
+    if (args.saved) save_share(t.xs, args.saved + n_blocks * slot + (size_t)s0 * N * D, R, D);
+  }
   // each CTA of the cluster writes its share of the tile
-  const int rank = (int)cg::this_cluster().block_rank();
-  const int per = (R * D + (int)cg::this_cluster().num_blocks() - 1) /
-                  (int)cg::this_cluster().num_blocks();
-  const int lo = rank * per, hi = min(R * D, lo + per);
+  int lo, hi;
+  tile_share(R, D, lo, hi);
   if (final_ln) {
     layer_norm_rows<kBF16>(t.xs, t.zs, R, D, args.lnf_s, args.lnf_b);
     __syncthreads();
@@ -428,21 +366,22 @@ __device__ void tile_forward(const float* __restrict__ x, float* __restrict__ ou
   }
 }
 
-// K1f: one MixerBlock
-template <bool kBF16, int RPT>
+// K1f: one MixerBlock (kDrop: with dropout masks; without, none are computed)
+template <bool kBF16, bool kDrop, int RPT>
 __global__ void __launch_bounds__(kThreads, 1)
     mixer_block_fwd(const float* __restrict__ x, float* __restrict__ out, int B, int N, int T, int D,
                     int C, int tb, int tanh_flavor, const __grid_constant__ StackArgs args) {
-  tile_forward<kBF16, RPT>(x, out, B, N, T, D, C, tb, 1, 0, tanh_flavor, args);
+  tile_forward<kBF16, kDrop, false, RPT>(x, out, B, N, T, D, C, tb, 1, 0, tanh_flavor, args);
 }
 
 // K2f: K MixerBlocks (+ final LN) with the activation tile resident in shared memory
-template <bool kBF16, int RPT>
+template <bool kBF16, bool kDrop, int RPT>
 __global__ void __launch_bounds__(kThreads, 1)
     mixer_stack_fwd(const float* __restrict__ x, float* __restrict__ out, int B, int N, int T, int D,
                     int C, int tb, int n_blocks, int final_ln, int tanh_flavor,
                     const __grid_constant__ StackArgs args) {
-  tile_forward<kBF16, RPT>(x, out, B, N, T, D, C, tb, n_blocks, final_ln, tanh_flavor, args);
+  tile_forward<kBF16, kDrop, true, RPT>(x, out, B, N, T, D, C, tb, n_blocks, final_ln,
+                                         tanh_flavor, args);
 }
 
 struct Launch {
@@ -469,8 +408,11 @@ int check_args(int B, int N, int T, int D, int C, int tb, int cluster, int n_blo
   return 0;
 }
 
-StackArgs pack(const void* const* ptrs, int n_blocks, int final_ln) {
+StackArgs pack(const void* const* ptrs, int n_blocks, int final_ln, float* saved,
+               const Dropout& dp) {
   StackArgs a = {};
+  a.saved = saved;
+  a.dp = dp;
   for (int k = 0; k < n_blocks; ++k) {
     const void* const* q = ptrs + k * kParamsPerBlock;
     BlockPtrs& b = a.blocks[k];
@@ -494,18 +436,7 @@ StackArgs pack(const void* const* ptrs, int n_blocks, int final_ln) {
   return a;
 }
 
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  int dev = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (smem > (size_t)limit) return cudaErrorInvalidConfiguration;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-template <bool kBF16, int RPT>
+template <bool kBF16, bool kDrop, int RPT>
 cudaError_t launch(const Launch& l, const StackArgs& args, bool stack) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((l.B + l.tb - 1) / l.tb * l.cluster);
@@ -521,14 +452,14 @@ cudaError_t launch(const Launch& l, const StackArgs& args, bool stack) {
   cfg.numAttrs = 1;
   cudaError_t err;
   if (stack) {
-    err = prepare(mixer_stack_fwd<kBF16, RPT>, l.smem);
+    err = prepare(mixer_stack_fwd<kBF16, kDrop, RPT>, l.smem);
     if (err != cudaSuccess) return err;
-    err = cudaLaunchKernelEx(&cfg, mixer_stack_fwd<kBF16, RPT>, l.x, l.out, l.B, l.N, l.T, l.D,
+    err = cudaLaunchKernelEx(&cfg, mixer_stack_fwd<kBF16, kDrop, RPT>, l.x, l.out, l.B, l.N, l.T, l.D,
                              l.C, l.tb, l.n_blocks, l.final_ln, l.tanh_flavor, args);
   } else {
-    err = prepare(mixer_block_fwd<kBF16, RPT>, l.smem);
+    err = prepare(mixer_block_fwd<kBF16, kDrop, RPT>, l.smem);
     if (err != cudaSuccess) return err;
-    err = cudaLaunchKernelEx(&cfg, mixer_block_fwd<kBF16, RPT>, l.x, l.out, l.B, l.N, l.T, l.D,
+    err = cudaLaunchKernelEx(&cfg, mixer_block_fwd<kBF16, kDrop, RPT>, l.x, l.out, l.B, l.N, l.T, l.D,
                              l.C, l.tb, l.tanh_flavor, args);
   }
   if (err != cudaSuccess) return err;
@@ -536,22 +467,28 @@ cudaError_t launch(const Launch& l, const StackArgs& args, bool stack) {
 }
 
 // rows per thread = ceil(tile rows / 4), rounded up to a power of two
-template <bool kBF16>
+template <bool kBF16, bool kDrop>
 cudaError_t dispatch(const Launch& l, const StackArgs& args, bool stack) {
   const int rpt = (l.tb * l.N + kRowGroups - 1) / kRowGroups;
-  if (rpt <= 1) return launch<kBF16, 1>(l, args, stack);
-  if (rpt <= 2) return launch<kBF16, 2>(l, args, stack);
-  if (rpt <= 4) return launch<kBF16, 4>(l, args, stack);
-  if (rpt <= 8) return launch<kBF16, 8>(l, args, stack);
-  return launch<kBF16, kRowsPerThread>(l, args, stack);
+  if (rpt <= 1) return launch<kBF16, kDrop, 1>(l, args, stack);
+  if (rpt <= 2) return launch<kBF16, kDrop, 2>(l, args, stack);
+  if (rpt <= 4) return launch<kBF16, kDrop, 4>(l, args, stack);
+  if (rpt <= 8) return launch<kBF16, kDrop, 8>(l, args, stack);
+  return launch<kBF16, kDrop, kRowsPerThread>(l, args, stack);
 }
 
-int run(const Launch& l, int bf16, int device, const void* const* ptrs, bool stack) {
+int run(const Launch& l, int bf16, int device, const void* const* ptrs, bool stack, float* saved,
+        const Dropout& dp) {
   if (check_args(l.B, l.N, l.T, l.D, l.C, l.tb, l.cluster, l.n_blocks, bf16)) return -1;
+  if ((size_t)l.B * l.N * (l.C > l.D ? l.C : l.D) >= (1ull << 32) ||
+      (size_t)l.B * l.D * (l.T > l.N ? l.T : l.N) >= (1ull << 32))
+    return -1;  // the dropout masks count their elements in 32 bits
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const StackArgs args = pack(ptrs, l.n_blocks, l.final_ln);
-  return bf16 ? dispatch<true>(l, args, stack) : dispatch<false>(l, args, stack);
+  const StackArgs args = pack(ptrs, l.n_blocks, l.final_ln, saved, dp);
+  if (dp.on)
+    return bf16 ? dispatch<true, true>(l, args, stack) : dispatch<false, true>(l, args, stack);
+  return bf16 ? dispatch<true, false>(l, args, stack) : dispatch<false, false>(l, args, stack);
 }
 
 }  // namespace
@@ -571,21 +508,27 @@ const char* m2m_error_string(int code) {
 // tb samples per row tile, each tile on a cluster of `cluster` CTAs (1, 2 or 4);
 // ptrs: 12 parameter pointers of one block, in MixerBlockParams order; device: the
 // CUDA device the tensors and the stream live on (this library has its own runtime).
+// keys: 4 dropout stream keys per block (host array), or nullptr for no dropout;
+// thresh and scale: keep iff bits >= thresh, kept values times scale.
 int m2m_mixer_block_fwd(const float* x, float* out, int B, int N, int T, int D, int C, int tb,
-                        int cluster, int bf16, int tanh_flavor, int device,
-                        const void* const* ptrs, void* stream) {
+                        int cluster, int bf16, int tanh_flavor, const unsigned* keys,
+                        unsigned thresh, float scale, int device, const void* const* ptrs,
+                        void* stream) {
   const Launch l{x, out, B, N, T, D, C, tb, cluster, 1, 0, tanh_flavor,
                  smem_bytes(tb, N, D, T, bf16), static_cast<cudaStream_t>(stream)};
-  return run(l, bf16, device, ptrs, false);
+  return run(l, bf16, device, ptrs, false, nullptr, make_dropout(keys, 1, thresh, scale));
 }
 
 // ptrs: 12 pointers per block for n_blocks blocks, then (ln_scale, ln_bias) if final_ln.
+// saved: nullptr, or room for n_blocks + 1 (B, N, D) float32 slots that receive every
+// block's input and the output before the final LN (what mixer_stack_bwd reads).
 int m2m_mixer_stack_fwd(const float* x, float* out, int B, int N, int T, int D, int C, int tb,
                         int cluster, int n_blocks, int final_ln, int bf16, int tanh_flavor,
+                        const unsigned* keys, unsigned thresh, float scale, float* saved,
                         int device, const void* const* ptrs, void* stream) {
   const Launch l{x, out, B, N, T, D, C, tb, cluster, n_blocks, final_ln, tanh_flavor,
                  smem_bytes(tb, N, D, T, bf16), static_cast<cudaStream_t>(stream)};
-  return run(l, bf16, device, ptrs, true);
+  return run(l, bf16, device, ptrs, true, saved, make_dropout(keys, n_blocks, thresh, scale));
 }
 
 }  // extern "C"

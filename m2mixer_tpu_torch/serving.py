@@ -39,7 +39,7 @@ import torch
 
 from .config import DictConfig, apply_cli_overrides, load, todict
 from .models import get_model, resolve_device
-from .utils.weights import from_jax_params, to_jax_params, unflatten_tree
+from .utils.weights import from_jax_params, load_npz, to_jax_params
 
 __all__ = ["export_serving", "load_serving", "ServedModel", "pick_bucket",
            "validate_features", "serve_fn", "to_torch_kernel_serving"]
@@ -244,17 +244,6 @@ def load_serving(out_dir: str, device=None) -> ServedModel:
     return ServedModel(out_dir, device=device)
 
 
-def _load_weights(path: str, task) -> dict:
-    """``-p`` weights: an npz of the port's state_dict, or of a JAX
-    parameter tree with '/'-joined leaf paths."""
-    with np.load(path, allow_pickle=False) as z:
-        arrays = {k: z[k] for k in z.files}
-    if any("/" in k for k in arrays):
-        tree = unflatten_tree({tuple(k.split("/")): v for k, v in arrays.items()})
-        return from_jax_params(tree, task.network)
-    return {k: torch.from_numpy(v) for k, v in arrays.items()}
-
-
 def _bench(model: ServedModel, batch: int, iters: int) -> dict:
     if model.device.type != "cuda":
         raise RuntimeError("bench measures CUDA-event latency on the GPU; this "
@@ -323,7 +312,7 @@ def main(argv: Optional[Sequence[str]] = None):
             apply_cli_overrides(cfg, unknown)
         task = _build_task(cfg, device=args.device)
         if args.weights:
-            task.network.load_state_dict(_load_weights(args.weights, task), strict=True)
+            task.network.load_state_dict(load_npz(args.weights, task.network), strict=True)
         if args.pallas:
             task, _ = to_torch_kernel_serving(cfg, task.network.state_dict(),
                                               device=args.device)

@@ -28,7 +28,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-__all__ = ["from_jax_params", "to_jax_params", "flatten_tree", "unflatten_tree"]
+__all__ = ["from_jax_params", "to_jax_params", "flatten_tree", "unflatten_tree", "load_npz"]
 
 _SEQ = re.compile(r"(encoders|heads|block)_(\d+)")
 _PORT_SEQ = {"encoders": "encoders", "heads": "heads", "block": "blocks"}
@@ -134,3 +134,15 @@ def to_jax_params(state_dict) -> dict:
             raise ValueError(f"two port leaves map to the JAX leaf {'/'.join(key)}")
         flat[key] = np.ascontiguousarray(a)
     return {"params": unflatten_tree(flat)}
+
+
+def load_npz(path: str, network: torch.nn.Module) -> "OrderedDict[str, torch.Tensor]":
+    """A weights npz -> a ``state_dict`` for ``network``: the port's
+    ``state_dict`` (what training and ``export_serving`` write), or a JAX
+    parameter tree with '/'-joined leaf paths."""
+    with np.load(path, allow_pickle=False) as z:
+        arrays = {k: z[k] for k in z.files}
+    if any("/" in k for k in arrays):
+        tree = unflatten_tree({tuple(k.split("/")): v for k, v in arrays.items()})
+        return from_jax_params(tree, network)
+    return OrderedDict((k, torch.from_numpy(v)) for k, v in arrays.items())

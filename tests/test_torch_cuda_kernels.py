@@ -120,3 +120,119 @@ model:
         got = serve_fn(kernel)(feats)["logits"]
         assert (mk.fused_mixer_block.launches, mk.fused_mixer_stack.launches) != counts
         assert (got - want).abs().max().item() <= 1e-4
+
+
+# ------------------------------------------------------------------ training
+def rel_close(got, want):
+    """1e-4 x max(1, max|plain|) per tensor: float32 sums of the same products
+    in another order (K up to C = 3078 or B*N rows)."""
+    assert torch.isfinite(got).all()
+    tol = 1e-4 * max(1.0, want.abs().max().item())
+    err = (got - want).abs().max().item()
+    assert err <= tol, (err, tol)
+
+
+def plain_grouped(x, blocks, s, b, seed, rate, group_size):
+    """The plain version of fused_mixer_stack_grouped, group seeds folded."""
+    k = len(blocks)
+    if group_size <= 0 or group_size >= k:
+        return mk.mixer_stack_reference(x, mk.stack_flat_params(blocks, s, b),
+                                        dropout_rate=rate, seed=seed)
+    for gi, start in enumerate(range(0, k, group_size)):
+        group = blocks[start:start + group_size]
+        last = start + len(group) >= k
+        flat = mk.stack_flat_params(group, s, b) if last else mk.stack_flat_params(group)
+        x = mk.mixer_stack_reference(x, flat, final_ln=last, dropout_rate=rate,
+                                     seed=seed + 7919 * gi)
+    return x
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("approx", [False, True], ids=["erf", "tanh"])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("B", [3, 64])
+def test_block_backward_matches_plain(cuda, B, shape, approx, rate):
+    geom = SHAPES[shape]
+    blocks, _, _ = blocks_on(cuda, 1, **geom)
+    x = torch.randn(B, geom["N"], geom["D"], device=cuda)
+    g = torch.randn_like(x)
+    before = mk.fused_mixer_block_bwd.launches
+    dx, grads = mk.fused_mixer_block_bwd(x, g, blocks[0], seed=5, dropout_rate=rate,
+                                         approximate_gelu=approx)
+    assert mk.fused_mixer_block_bwd.launches == before + 1
+    want_dx, want = mk.mixer_block_bwd_reference(x, g, blocks[0], rate, approximate_gelu=approx,
+                                                 seed=5)
+    rel_close(dx, want_dx)
+    for a, b in zip(grads, want):
+        rel_close(a, b)
+    dx2, grads2 = mk.fused_mixer_block_bwd(x, g, blocks[0], seed=5, dropout_rate=rate,
+                                           approximate_gelu=approx)
+    assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("group_size", [0, 2])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_stack_backward_matches_plain(cuda, shape, group_size, rate):
+    geom = SHAPES[shape]
+    blocks, s, b = blocks_on(cuda, 3, **geom)
+    leaves = [t.requires_grad_() for blk in blocks for t in blk] + [s.requires_grad_(),
+                                                                    b.requires_grad_()]
+    x = torch.randn(37, geom["N"], geom["D"], device=cuda, requires_grad=True)
+    g = torch.randn(37, geom["N"], geom["D"], device=cuda)
+    before = (mk.fused_mixer_stack.launches, mk.fused_mixer_stack_bwd.launches)
+    out = mk.fused_mixer_stack_grouped(x, blocks, s, b, seed=9, dropout_rate=rate,
+                                       group_size=group_size)
+    got = torch.autograd.grad(out, [x, *leaves], g)
+    n = 1 if group_size == 0 else 2
+    assert (mk.fused_mixer_stack.launches, mk.fused_mixer_stack_bwd.launches) == \
+        (before[0] + n, before[1] + n)
+    want_out = plain_grouped(x, blocks, s, b, 9, rate, group_size)
+    rel_close(out.detach(), want_out.detach())
+    want = torch.autograd.grad(want_out, [x, *leaves], g)
+    for a, w in zip(got, want):
+        rel_close(a, w)
+
+
+@pytest.mark.parametrize("shape", ["encoder", "fusion"])
+def test_dropout_forward_matches_plain_and_keeps_half(cuda, shape):
+    geom = SHAPES[shape]
+    blocks, s, b = blocks_on(cuda, 2, **geom)
+    x = torch.randn(64, geom["N"], geom["D"], device=cuda)
+    rel_close(mk.fused_mixer_block(x, blocks[0], seed=3, dropout_rate=0.5),
+              mk.mixer_block_reference(x, blocks[0], 0.5, seed=3))
+    flat = mk.stack_flat_params(blocks, s, b)
+    rel_close(mk.fused_mixer_stack(x, flat, seed=4, dropout_rate=0.5),
+              mk.mixer_stack_reference(x, flat, dropout_rate=0.5, seed=4))
+    m = mk.dropout_mask(3, 0, 2, 64 * geom["N"], geom["C"], 0.5, cuda)
+    assert abs((m > 0).float().mean().item() - 0.5) <= 0.01
+
+
+def test_bf16_backward_raises_on_cuda(cuda):
+    blocks, _, _ = blocks_on(cuda, 1, **SHAPES["small"])
+    x = torch.randn(2, 4, 32, device=cuda)
+    with pytest.raises(NotImplementedError, match="float32 only"):
+        mk.fused_mixer_block_bwd(x, x, blocks[0], compute_dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("kind", ["PallasMixerBlock", "PallasMLPMixer", "PallasStackedMLPMixer",
+                                  "PallasStackedFusionMixer"])
+def test_kernel_modules_train_on_cuda(cuda, kind):
+    """Every parameter of a kernel-backed module gets a non-zero gradient on
+    the card, and the backward kernel ran."""
+    from m2mixer_tpu_torch.modules import pallas_blocks as pb
+
+    gen = torch.Generator().manual_seed(0)
+    if kind == "PallasMixerBlock":
+        m, x = pb.PallasMixerBlock(32, 4, 16, 64, generator=gen), torch.randn(5, 4, 32)
+    elif kind == "PallasStackedFusionMixer":
+        m, x = pb.PallasStackedFusionMixer(32, 8, 2, 16, 64, generator=gen), torch.randn(5, 8, 32)
+    else:
+        m = getattr(pb, kind)(1, 32, 14, (28, 28), 2, 16, 64, generator=gen)
+        x = torch.randn(5, 1, 28, 28)
+    m = m.to(cuda).train()
+    before = mk.fused_mixer_block_bwd.launches + mk.fused_mixer_stack_bwd.launches
+    m(x.to(cuda)).square().sum().backward()
+    assert mk.fused_mixer_block_bwd.launches + mk.fused_mixer_stack_bwd.launches > before
+    for name, prm in m.named_parameters():
+        assert prm.grad is not None and prm.grad.abs().sum().item() > 0, name

@@ -166,13 +166,20 @@ def test_group_seeds_fold_like_jax(monkeypatch):
 
 
 def test_dropout_raises_until_training_slice():
+    """The training slice runs dropout; what it does not take still raises:
+    a rate outside [0, 1), and a backward in bf16."""
     x, blocks, ln = make_case(6, 2, 1, **SMALL)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tk.fused_mixer_block(torch.from_numpy(x), torch_blocks(blocks)[0], dropout_rate=0.1)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match=r"\[0, 1\)"):
+        tk.fused_mixer_block(torch.from_numpy(x), torch_blocks(blocks)[0], dropout_rate=1.0)
+    with pytest.raises(ValueError, match=r"\[0, 1\)"):
         tk.fused_mixer_stack(torch.from_numpy(x),
                              tk.stack_flat_params(torch_blocks(blocks), *map(torch.from_numpy, ln)),
-                             dropout_rate=0.5)
+                             dropout_rate=-0.5)
+    with pytest.raises(NotImplementedError, match="float32 only"):
+        tk.fused_mixer_stack_bwd(torch.from_numpy(x), torch.from_numpy(x),
+                                 tk.stack_flat_params(torch_blocks(blocks),
+                                                      *map(torch.from_numpy, ln)),
+                                 compute_dtype=torch.bfloat16)
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():

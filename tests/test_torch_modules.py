@@ -151,11 +151,13 @@ def test_registries_accept_extras_and_reject_unported():
 
 
 def test_dropout_is_identity_in_eval_and_unported_in_training():
+    """Identity in eval mode; in training (ported with the training slice)
+    each element is either dropped or scaled by 1 / (1 - rate)."""
     d = tcommon.Dropout(0.5).eval()
     x = torch.randn(3, 4)
     assert torch.equal(d(x), x)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        d.train()(x)
+    y = d.train()(x)
+    assert torch.all((y == 0) | torch.isclose(y, 2 * x))
 
 
 def test_multimodal_net_sizes_fusion_and_mutes():
