@@ -17,7 +17,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    parameter gradient. Also: the forward at dropout 0.5 equals its plain
    version, the kept share is 0.5 +- 0.01, and two backward runs give
    bit-identical gradients;
-5. serving: export the B config (``cfg/avmnist/avmnist_m2-mixer_B.yml``, full
+5. K3f / K3b, the gMLP block kernels, against the plain version and its
+   autograd at the gMLP config's shapes (D=128, F=768; encoder N=49, fusion
+   N=99), batch 32 and 512, erf and tanh, dropout 0 and 0.5: the output, dx
+   and the 10 parameter gradients. At dropout 0.5 the kernels and the plain
+   version apply the same masks (so the forward's and the backward's
+   agree), each of the three keeps 0.5 +- 0.01; two backward runs give
+   bit-identical gradients;
+6. serving: export the B config (``cfg/avmnist/avmnist_m2-mixer_B.yml``, full
    width and depth, seeded weights) through ``serving export --pallas`` (one
    stack kernel per mixer), and through ``to_torch_kernel_serving(...,
    per_block=True)`` + ``export_serving`` (one block kernel per MixerBlock, the
@@ -27,7 +34,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    answer against the plain-module model on the card with the same weights.
    The kernels' launch counters are zeroed just before and read just after;
    each kernel must have launched;
-6. training the B config (full width and depth) through both kernel block
+7. serving the gMLP config (``cfg/avmnist/avmnist_gmlp.yml``, full width and
+   depth: 30 + 30 + 15 blocks, seeded weights): ``serving export`` of the
+   plain artifact, then ``serving export --pallas -p`` its weights (K3f per
+   block); requests of 1, 7, 32, 100 and 600 samples against the plain
+   artifact on the card; the K3f counter zeroed just before, read just after;
+8. training the B config (full width and depth) through both kernel block
    types: step 1 at ``model.dropout=0.0`` (loss, the three branch losses and
    every parameter gradient against the plain-module model with the same
    weights), then ``python -m m2mixer_tpu_torch.run`` (``run.main``) for 2
@@ -37,11 +49,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the last epoch's train loss below the first's, val and test accuracy at
    least 0.2 (chance is 0.1). The launch counters are zeroed just before each
    run and read just after; K1b and K2b must have launched;
-7. times (CUDA events, median of 5 runs): the kernels and their plain
-   versions, the served forward at batch 32 and 512, the train step at batch
-   32 and 512 for plain modules and both kernel block types;
-8. one JSON line naming every ported kernel, the card's name and power limit,
-   and the result line ``{"ok": true, "device": {...}}``.
+9. training the gMLP config: step 1 with stochastic depth pinned off
+   (``prob_0_L=[1.0, 1.0]`` on the three stacks) through
+   ``PallasVisiongMLP``/``PallasFusiongMLP`` against the plain modules with
+   the same weights (the loss, the branch losses, every gradient); then
+   ``run.main`` for 2 epochs of 1024/256/256 learnable synthetic samples at
+   batch 32 with the unchanged config (dropout 0, stochastic depth on), once
+   with the plain modules and once with the kernel blocks: losses finite,
+   train loss falling, val and test accuracy at least 0.5; K3f and K3b launched in
+   the kernel run (counters zeroed just before, read just after) and no
+   gMLP kernel in the plain one;
+10. times (CUDA events, median of 5 runs): the mixer kernels and their plain
+    versions, the served B forward at batch 32 and 512, the B train step at
+    batch 32 and 512 for plain modules and both kernel block types; and the
+    device time of each launch of one K1b call (``torch.profiler``);
+11. gMLP times: K3f and K3b alone at the encoder and fusion shapes at batch
+    32 and 512 (with their plain versions and bounds, and the profiler's
+    breakdown of one call of each at the encoder shape and batch 512), the
+    served forward and the train step at batch 32 and 512, plain modules and
+    kernel blocks;
+12. one JSON line naming every ported kernel, the card's name and power limit,
+    and the result line ``{"ok": true, "device": {...}}``.
 
 Tolerances: float32 outputs within 1e-4 absolute (the kernel and cuBLAS sum
 the same float32 products in different orders; no TF32 on either side).
@@ -58,7 +86,11 @@ training step): every tensor within 1e-4 x max(1, max|plain|) of the plain
 version's (float32 sums of the same products in another order, over up to
 C = 3078 hidden units or B*N = 4096 rows); a gradient that is exactly zero
 in the math (the token FF's output bias under a following LayerNorm) is
-float noise on both sides and must stay below 1e-3 on both.
+float noise on both sides and must stay below 1e-3 on both. The gMLP path's
+checks are relative to the plain version's magnitude, every tensor (output,
+logits, gradient) within 1e-4 x max(1, max|plain|) (served logits 2e-4 x),
+none exempt: the token projection starts at bias 1, so magnitudes grow with
+width and depth, and no gMLP gradient is exactly zero in the math.
 
 The run writes its numbers to ``chiprun_out/chip_smoke.json``.
 """
@@ -98,6 +130,19 @@ KERNEL_BLOCKS = {
 }
 ENC = dict(N=4, D=128, T=32, C=3072)
 FUSION = dict(N=8, D=128, T=32, C=3078)
+GMLP_CFG = os.path.join(REPO, "cfg", "avmnist", "avmnist_gmlp.yml")
+GMLP_ENC = dict(N=49, D=128, F=768)  # avmnist_gmlp.yml: 49 patches a modality
+GMLP_FUSION = dict(N=99, D=128, F=768)  # 98 fused tokens + the cls token
+GMLP_KERNEL_BLOCKS = ["model.modalities.image.block_type=PallasVisiongMLP",
+                      "model.modalities.audio.block_type=PallasVisiongMLP",
+                      "model.modalities.multimodal.block_type=PallasFusiongMLP"]
+# stochastic depth pinned off on all three stacks (the JAX gMLP lockstep's pin)
+GMLP_NO_DEPTH_DROP = [f"model.modalities.{k}.prob_0_L=[1.0, 1.0]"
+                      for k in ("image", "audio", "multimodal")]
+SERVED_REL = 2e-4
+# val accuracy after 2 epochs, chance + 0.4: the plain-module run of the same
+# length reached 1.0 and the kernel-block run 0.906 (H100, PERF.md)
+GMLP_MIN_ACC = 0.5
 
 
 def rand_blocks(mk, torch, K, N, D, T, C, seed):
@@ -178,6 +223,30 @@ def cuda_ms(torch, fn, iters: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def kernel_breakdown(torch, fn, what: str, calls: int = 10) -> dict:
+    """Device time per call of each CUDA kernel that ``fn`` launches
+    (``torch.profiler``, ``calls`` calls after a warm-up): {name: [us per
+    call, launches per call]}, printed largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:  # kernels; "(anonymous namespace)::f<...>(args)" -> "f<...>"
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+            us, n = rows.get(name, (0.0, 0.0))
+            rows[name] = [us + e.device_time_total / calls, n + e.count / calls]
+    print(f"  {what}, device us per call by kernel:")
+    for name, (us, n) in sorted(rows.items(), key=lambda kv: -kv[1][0]):
+        print(f"    {us:9.1f} us  x{n:g}  {name}")
+    return rows
+
+
 def grad_err(torch, got, want, what: str) -> float:
     """Gradient check: every tensor within GRAD_REL x max(1, max|plain|);
     returns the worst absolute error. A gradient that is exactly zero in the
@@ -242,7 +311,7 @@ def bound(flops: float, nbytes: float, dtype: str):
 
 
 def phase_kernels(torch, mk, report):
-    print("[2/8] K1f fused_mixer_block vs plain version")
+    print("[2/12] K1f fused_mixer_block vs plain version")
     for geom_name, geom in (("encoder", ENC), ("fusion", FUSION)):
         blocks, _, _ = rand_blocks(mk, torch, 1, seed=11, **geom)
         x = torch.randn(512, geom["N"], geom["D"], generator=torch.Generator().manual_seed(1)).cuda()
@@ -259,7 +328,7 @@ def phase_kernels(torch, mk, report):
                     report["errors"][key] = bf16_err(torch, got, want, round_bf16(torch, control),
                                                      key, report)
 
-    print("[3/8] K2f fused_mixer_stack vs plain version")
+    print("[3/12] K2f fused_mixer_stack vs plain version")
     cases = [("encoder", ENC, 4, 0), ("encoder", ENC, 4, 2), ("fusion", FUSION, 2, 0)]
     for geom_name, geom, K, group in cases:
         blocks, ln_s, ln_b = rand_blocks(mk, torch, K, seed=12, **geom)
@@ -281,7 +350,7 @@ def phase_kernels(torch, mk, report):
 
 
 def phase_backward(torch, mk, report):
-    print("[4/8] K1b / K2b backward kernels vs autograd of the plain versions")
+    print("[4/12] K1b / K2b backward kernels vs autograd of the plain versions")
     for B in (32, 512):
         for geom_name, geom in (("encoder", ENC), ("fusion", FUSION)):
             blocks, _, _ = rand_blocks(mk, torch, 1, seed=21, **geom)
@@ -352,6 +421,48 @@ def kernel_task(serving, apply_overrides, load_cfg, flavor, extra=()):
     return serving._build_task(cfg, device="cuda"), cfg
 
 
+def train_step_one(torch, task, batch):
+    """([loss, branch losses...], {name: gradient}) of one training forward
+    and backward of ``task`` on ``batch`` (no optimizer step)."""
+    task.network.train()
+    task.network.zero_grad(set_to_none=True)
+    loss, aux = task.step(batch, task.make_ctx(0, "train"), train=True)
+    loss.backward()
+    grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+             for n, p in task.network.named_parameters()}
+    return [loss.detach()] + [aux["losses"][k].detach() for k in task.loss_names], grads
+
+
+def train_run(run, np, argv, zero, read, what: str, min_acc: float) -> dict:
+    """``run.main(argv)``, a main-path run: the launch counters zeroed
+    (``zero()``) just before and read (``read()``) just after. Returns the
+    run's numbers; raises unless its metrics are finite, the last epoch's
+    train loss is below the first's, and val and test accuracy reach
+    ``min_acc``."""
+    zero()
+    t0 = time.time()
+    trainer = run.main(argv)
+    launches = read()
+    seconds = time.time() - t0
+    with open(os.path.join(trainer.logger.log_dir, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    val = [ln for ln in lines if "val_loss" in ln]
+    test = [ln for ln in lines if "test_loss" in ln][-1]
+    result = {"launches": launches, "seconds": seconds,
+              "train_loss": [ln["train_loss"] for ln in lines if "train_loss" in ln],
+              "val_loss": [ln["val_loss"] for ln in val],
+              "val_acc": [ln["val_acc"] for ln in val], "test_acc": test["test_acc"],
+              "test_loss": test["test_loss"]}
+    print(f"  {what}: {json.dumps(result)}")
+    if not all(np.isfinite(v) for ln in lines for v in ln.values()):
+        raise AssertionError(f"{what}: non-finite metrics")
+    if not result["train_loss"][-1] < result["train_loss"][0]:
+        raise AssertionError(f"{what}: train loss did not fall: {result['train_loss']}")
+    if not (result["val_acc"][-1] >= min_acc and result["test_acc"] >= min_acc):
+        raise AssertionError(f"{what}: accuracy below {min_acc}: {result}")
+    return result
+
+
 def zero_counters(mk):
     for fn in (mk.fused_mixer_block, mk.fused_mixer_stack, mk.fused_mixer_block_bwd,
                mk.fused_mixer_stack_bwd):
@@ -364,19 +475,10 @@ def counters(mk):
 
 
 def phase_training(torch, mk, serving, run, apply_overrides, load_cfg, synthetic, np, report):
-    print("[6/8] training the B config through the kernel block types")
+    print("[8/12] training the B config through the kernel block types")
     plain, cfg = kernel_task(serving, apply_overrides, load_cfg, "plain", ["model.dropout=0.0"])
     batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic(32, seed=3, learnable=True).items()}
-
-    def step_one(task):
-        task.network.train()
-        task.network.zero_grad(set_to_none=True)
-        loss, aux = task.step(batch, task.make_ctx(0, "train"), train=True)
-        loss.backward()
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for n, p in task.network.named_parameters()}
-        return [loss.detach()] + [aux["losses"][k].detach() for k in task.loss_names], grads
-
+    step_one = lambda task: train_step_one(torch, task, batch)
     p_losses, p_grads = step_one(plain)
     for flavor in ("stacked", "per_block"):
         per_block = flavor == "per_block"
@@ -401,40 +503,18 @@ def phase_training(torch, mk, serving, run, apply_overrides, load_cfg, synthetic
     runs = report["training_runs"] = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         for flavor in ("stacked", "per_block"):
-            # the main path: counters zeroed just before, read just after
-            zero_counters(mk)
-            t0 = time.time()
-            trainer = run.main(train_args(tmp, f"smoke_{flavor}", flavor))
-            launches = counters(mk)
-            seconds = time.time() - t0
-            with open(os.path.join(trainer.logger.log_dir, "metrics.jsonl")) as f:
-                lines = [json.loads(line) for line in f]
-            train = [ln for ln in lines if "train_loss" in ln]
-            val = [ln for ln in lines if "val_loss" in ln]
-            test = [ln for ln in lines if "test_loss" in ln][-1]
-            result = {"launches": launches, "seconds": seconds,
-                      "train_loss": [ln["train_loss"] for ln in train],
-                      "val_loss": [ln["val_loss"] for ln in val],
-                      "val_acc": [ln["val_acc"] for ln in val], "test_acc": test["test_acc"],
-                      "test_loss": test["test_loss"]}
-            runs[flavor] = result
-            print(f"  {flavor}: {json.dumps(result)}")
-            if not all(np.isfinite(v) for ln in lines for v in ln.values()):
-                raise AssertionError(f"{flavor}: non-finite metrics")
-            if not result["train_loss"][-1] < result["train_loss"][0]:
-                raise AssertionError(f"{flavor}: train loss did not fall: {result['train_loss']}")
-            if not (result["val_acc"][-1] >= MIN_ACC and result["test_acc"] >= MIN_ACC):
-                raise AssertionError(f"{flavor}: accuracy below {MIN_ACC}: {result}")
-            want = ("K2f", "K2b") if flavor == "stacked" else ("K1f", "K1b")
-            for name in want:
-                if launches[name] <= 0:
+            runs[flavor] = train_run(run, np, train_args(tmp, f"smoke_{flavor}", flavor),
+                                     lambda: zero_counters(mk), lambda: counters(mk), flavor,
+                                     MIN_ACC)
+            for name in ("K2f", "K2b") if flavor == "stacked" else ("K1f", "K1b"):
+                if runs[flavor]["launches"][name] <= 0:
                     raise AssertionError(f"{name} was never launched on the training path")
     report["training_launches"] = {"K1b": runs["per_block"]["launches"]["K1b"],
                                    "K2b": runs["stacked"]["launches"]["K2b"]}
 
 
 def phase_serving(torch, mk, serving, get_model, load_cfg, np, report):
-    print("[5/8] serving the B config through the kernel blocks")
+    print("[6/12] serving the B config through the kernel blocks")
     cfg = load_cfg(B_CFG)
     seed = int(cfg.train.seed)
     plain = get_model(cfg.model.type)(cfg.model, device="cuda", seed=seed)
@@ -484,7 +564,7 @@ def phase_serving(torch, mk, serving, get_model, load_cfg, np, report):
 
 
 def phase_times(torch, mk, serving, np, plain, models, report):
-    print("[7/8] times (CUDA events, median of 5 runs of 20 calls)")
+    print("[10/12] times (CUDA events, median of 5 runs of 20 calls)")
     times = report["times_ms"]
     for geom_name, geom in (("encoder", ENC), ("fusion", FUSION)):
         for B in (32, 512):
@@ -556,6 +636,10 @@ def phase_train_times(torch, mk, serving, Trainer, apply_overrides, load_cfg, sy
             x, g, flat, seed=1, dropout_rate=0.5, saved=saved))
         times[f"K2b_plain/{tag}"] = cuda_ms(torch, lambda: mk.mixer_stack_bwd_reference(
             x, g, flat, 0.5, seed=1))
+        if B == 512:
+            report.setdefault("breakdown_us", {})[f"K1b/{tag}"] = kernel_breakdown(
+                torch, lambda: mk.fused_mixer_block_bwd(x, g, blocks[0], seed=1, dropout_rate=0.5),
+                f"K1b {tag}")
         flops, nbytes = bwd_work(B, **ENC)
         report["bounds_ms"][f"K1b/{tag}"] = bound(flops, nbytes, "f32")
         ln_bytes = 4 * 4 * ENC["D"]  # final LN scale and bias, read and their grads written
@@ -583,6 +667,237 @@ def phase_train_times(torch, mk, serving, Trainer, apply_overrides, load_cfg, sy
         f"{k.split('/', 1)[1]} {v:.4f} ms" for k, v in times.items() if k.startswith("train_step/")))
 
 
+# ---------------------------------------------------------------------- gMLP
+def gmlp_params(gk, torch, N, D, F, seed):
+    """One gMLP block's parameters (JAX layout) at the modules' init scales
+    (Dense U(+-1/sqrt(fan_in)), token projection N(0, 0.02) and bias 1), LN
+    parameters jittered away from the identity, on the card."""
+    g = torch.Generator().manual_seed(seed)
+    H = F // 2
+    u = lambda fan, *shape: (torch.rand(*shape, generator=g) * 2 - 1) / fan ** 0.5
+    jit = lambda n, base: base + 0.1 * torch.randn(n, generator=g)
+    p = (jit(D, 1.0), jit(D, 0.0), u(D, D, F), u(D, F), jit(H, 1.0), jit(H, 0.0),
+         0.02 * torch.randn(N, N, generator=g), torch.ones(N), u(H, H, D), u(H, D))
+    return gk.GmlpBlockParams(*(t.cuda() for t in p))
+
+
+def rel_err(torch, got, want, what: str, rel: float = GRAD_REL) -> float:
+    """The gMLP path's check: every tensor within ``rel`` x max(1, max|plain|)
+    (the token projection starts at bias 1, so magnitudes grow with width and
+    depth); no tensor is exempt. Returns the worst absolute error."""
+    worst, worst_rel = 0.0, 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not bool(torch.isfinite(a).all()) or a.shape != b.shape:
+            raise AssertionError(f"{what}: tensor {i} is not finite or misshaped")
+        scale = max(1.0, b.abs().max().item())
+        err = (a - b).abs().max().item()
+        if not err <= rel * scale:
+            raise AssertionError(f"{what}: tensor {i}: max |err| {err} > {rel} x {scale}")
+        worst, worst_rel = max(worst, err), max(worst_rel, err / scale)
+    print(f"  {what}: worst |err| {worst:.3e}, {worst_rel:.2e} of max(1, max|plain|) (tol "
+          f"{rel:.0e}) over {len(got)} tensors")
+    return worst
+
+
+def gmlp_work(B, N, D, F):
+    """(forward flops, parameter bytes) of one gMLP block in float32."""
+    flops = B * N * F * (3 * D + N)  # 2BNDF (D->F) + BFN^2 (token projection) + BNFD (F/2->D)
+    params = 2 * D + D * F + F + F + N * N + N + (F // 2) * D + D
+    return flops, 4 * params
+
+
+def phase_gmlp_kernels(torch, gk, report):
+    print("[5/12] K3f / K3b fused gMLP block vs the plain version and its autograd")
+    for geom_name, geom in (("encoder", GMLP_ENC), ("fusion", GMLP_FUSION)):
+        p = gmlp_params(gk, torch, seed=31, **geom)
+        for B in (32, 512):
+            gen = torch.Generator().manual_seed(B + geom["N"])
+            x = torch.randn(B, geom["N"], geom["D"], generator=gen).cuda()
+            g = torch.randn(B, geom["N"], geom["D"], generator=gen).cuda()
+            for rate in (0.0, 0.5):
+                for approx in (False, True):
+                    tag = f"{geom_name}/B{B}/rate{rate}/{'tanh' if approx else 'erf'}"
+                    out = gk.fused_gmlp_block(x, p, seed=7, dropout_rate=rate,
+                                              approximate_gelu=approx)
+                    want = gk.gmlp_block_reference(x, p, rate, approx, seed=7)
+                    report["errors"][f"K3f/{tag}"] = rel_err(torch, [out], [want], f"K3f/{tag}")
+                    run = lambda: gk.fused_gmlp_block_bwd(x, g, p, seed=7, dropout_rate=rate,
+                                                          approximate_gelu=approx)
+                    dx, grads = run()
+                    wdx, wgrads = gk.gmlp_block_bwd_reference(x, g, p, rate, approx, seed=7)
+                    report["errors"][f"K3b/{tag}"] = rel_err(torch, (dx, *grads), (wdx, *wgrads),
+                                                             f"K3b/{tag}")
+                    dx2, grads2 = run()
+                    if not all(torch.equal(a, b) for a, b in zip((dx, *grads), (dx2, *grads2))):
+                        raise AssertionError(f"K3b/{tag}: two backward runs differ")
+            for m, mask in enumerate(gk.gmlp_masks(7, B, geom["N"], geom["D"], geom["F"], 0.5,
+                                                   "cuda")):
+                share = (mask > 0).float().mean().item()
+                report.setdefault("kept_share", {})[f"gmlp/{geom_name}/B{B}/mask{m}"] = share
+                if not abs(share - 0.5) <= 0.01:
+                    raise AssertionError(f"gMLP mask {m}: kept share {share} is not 0.5 +- 0.01")
+            print(f"  kept shares of the three masks, {geom_name} B={B}: " + ", ".join(
+                f"{report['kept_share'][f'gmlp/{geom_name}/B{B}/mask{m}']:.4f}" for m in range(3)))
+
+
+def phase_gmlp_serving(torch, gk, serving, np, report):
+    print("[7/12] serving the gMLP config through serving export --pallas (K3f)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gmlp_") as tmp:
+        plain_dir, kernel_dir = os.path.join(tmp, "plain"), os.path.join(tmp, "kernel")
+        serving.main(["export", "-c", GMLP_CFG, "-o", plain_dir])
+        serving.main(["export", "-c", GMLP_CFG, "-p", os.path.join(plain_dir, "weights.npz"),
+                      "-o", kernel_dir, "--pallas"])
+        plain, kernel = serving.load_serving(plain_dir), serving.load_serving(kernel_dir)
+    if kernel.meta["block_flavor"] != "kernel" or plain.meta["block_flavor"] != "plain":
+        raise AssertionError("the gMLP artifacts are not plain and kernel-backed")
+    rng = np.random.RandomState(2)
+    requests = {n: {"image": rng.rand(n, 1, 28, 28).astype(np.float32),
+                    "audio": rng.rand(n, 1, 112, 112).astype(np.float32)} for n in REQUESTS}
+    # the main path: the counter zeroed just before, read just after
+    gk.fused_gmlp_block.launches = 0
+    answers = {n: kernel.predict(feats) for n, feats in requests.items()}
+    launches = gk.fused_gmlp_block.launches
+    print(f"  main-path launches: K3f {launches}")
+    if launches <= 0:
+        raise AssertionError("K3f was never launched on the gMLP serving path")
+    worst, worst_rel = 0.0, 0.0
+    for n, got in answers.items():
+        want = plain.predict(requests[n])
+        for g, w in [(got["logits"], want["logits"])] + list(zip(got["branch_logits"],
+                                                                   want["branch_logits"])):
+            if g.shape != w.shape or not np.isfinite(g).all():
+                raise AssertionError(f"gMLP n={n}: bad output {g.shape} vs {w.shape}")
+            err, scale = float(np.abs(g - w).max()), max(1.0, float(np.abs(w).max()))
+            if not err <= SERVED_REL * scale:
+                raise AssertionError(f"gMLP n={n}: logits differ by {err} > {SERVED_REL} x {scale}")
+            worst, worst_rel = max(worst, err), max(worst_rel, err / scale)
+        print(f"  request of {n}: logits {got['logits'].shape}, worst |err| so far {worst:.3e} "
+              f"({worst_rel:.2e} of max(1, max|plain|))")
+    report["gmlp_served_max_abs_err"] = worst
+    report["gmlp_served_max_rel_err"] = worst_rel
+    report["gmlp_serving_launches"] = launches
+    return plain, kernel
+
+
+def gmlp_zero(gk):
+    gk.fused_gmlp_block.launches = gk.fused_gmlp_block_bwd.launches = 0
+
+
+def gmlp_counters(gk):
+    return {"K3f": gk.fused_gmlp_block.launches, "K3b": gk.fused_gmlp_block_bwd.launches}
+
+
+def gmlp_train_args(tmp, name, kernel):
+    return ["-c", GMLP_CFG, "-n", name, f"train.tensorboard_path={tmp}", "train.epochs=2",
+            "dataset.params.synthetic=true", "dataset.params.synthetic_learnable=true",
+            f"dataset.params.synthetic_sizes={TRAIN_SIZES}",
+            *(GMLP_KERNEL_BLOCKS if kernel else [])]
+
+
+def phase_gmlp_training(torch, gk, serving, run, apply_overrides, load_cfg, synthetic, np,
+                        report):
+    print("[9/12] training the gMLP config through PallasVisiongMLP / PallasFusiongMLP")
+    cfg = load_cfg(GMLP_CFG)
+    apply_overrides(cfg, ["model.dropout=0.0", *GMLP_NO_DEPTH_DROP], warn=False)
+    plain = serving._build_task(cfg, device="cuda")
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in synthetic(32, seed=3, learnable=True).items()}
+    p_losses, p_grads = train_step_one(torch, plain, batch)
+    kernel, _ = serving.to_torch_kernel_serving(cfg, plain.network.state_dict(), device="cuda")
+    gmlp_zero(gk)
+    k_losses, k_grads = train_step_one(torch, kernel, batch)
+    if not all(gmlp_counters(gk).values()):
+        raise AssertionError("gMLP step 1 did not launch K3f and K3b")
+    want = serving.to_torch_kernel_serving(cfg, p_grads, device="cuda")[1]
+    if set(want) != set(k_grads):
+        raise AssertionError("gMLP: gradient names differ")
+    names = sorted(k_grads)
+    key = "gMLP train step 1: loss, branch losses"
+    report["errors"][key] = rel_err(torch, k_losses, p_losses, key)
+    key = f"gMLP train step 1: {len(names)} parameter gradients"
+    report["errors"][key] = rel_err(torch, [k_grads[n] for n in names],
+                                    [want[n].cuda() for n in names], key)
+    del plain, kernel
+
+    runs = report["gmlp_training_runs"] = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gmlp_train_") as tmp:
+        for flavor in ("plain", "kernel"):
+            runs[flavor] = train_run(
+                run, np, gmlp_train_args(tmp, f"smoke_gmlp_{flavor}", flavor == "kernel"),
+                lambda: gmlp_zero(gk), lambda: gmlp_counters(gk), f"gMLP {flavor}", GMLP_MIN_ACC)
+    for name, count in runs["kernel"]["launches"].items():
+        if count <= 0:
+            raise AssertionError(f"{name} was never launched on the gMLP training path")
+    if any(runs["plain"]["launches"].values()):
+        raise AssertionError("the plain-module gMLP run launched a gMLP kernel")
+    report["gmlp_training_launches"] = runs["kernel"]["launches"]
+
+
+def phase_gmlp_times(torch, gk, serving, Trainer, apply_overrides, load_cfg, synthetic, np,
+                     served, report):
+    print("[11/12] gMLP times (CUDA events, median of 5 runs)")
+    times, bounds = report["times_ms"], report["bounds_ms"]
+    for geom_name, geom in (("encoder", GMLP_ENC), ("fusion", GMLP_FUSION)):
+        p = gmlp_params(gk, torch, seed=33, **geom)
+        for B in (32, 512):
+            tag = f"{geom_name}/B{B}"
+            gen = torch.Generator().manual_seed(6)
+            x = torch.randn(B, geom["N"], geom["D"], generator=gen).cuda()
+            g = torch.randn(B, geom["N"], geom["D"], generator=gen).cuda()
+            times[f"K3f/{tag}"] = cuda_ms(torch, lambda: gk.fused_gmlp_block(x, p))
+            times[f"K3f_plain/{tag}"] = cuda_ms(torch, lambda: gk.gmlp_block_reference(x, p))
+            times[f"K3b/{tag}"] = cuda_ms(torch, lambda: gk.fused_gmlp_block_bwd(x, g, p))
+            times[f"K3b_plain/{tag}"] = cuda_ms(torch, lambda: gk.gmlp_block_bwd_reference(x, g, p))
+            if B == 512 and geom_name == "encoder":
+                for name, fn in (("K3f", lambda: gk.fused_gmlp_block(x, p)),
+                                 ("K3b", lambda: gk.fused_gmlp_block_bwd(x, g, p))):
+                    report.setdefault("breakdown_us", {})[f"{name}/{tag}"] = kernel_breakdown(
+                        torch, fn, f"{name} {tag}")
+            flops, pbytes = gmlp_work(B, **geom)
+            act = B * geom["N"] * geom["D"] * 4
+            bounds[f"K3f/{tag}"] = bound(flops, pbytes + 2 * act, "f32")
+            bounds[f"K3b/{tag}"] = bound(2 * flops, 2 * pbytes + 3 * act, "f32")
+            print(f"  {tag}: K3f {times[f'K3f/{tag}']:.4f} ms (plain "
+                  f"{times[f'K3f_plain/{tag}']:.4f}, bound {bounds[f'K3f/{tag}'][0]:.4f}); K3b "
+                  f"{times[f'K3b/{tag}']:.4f} ms (plain {times[f'K3b_plain/{tag}']:.4f}, bound "
+                  f"{bounds[f'K3b/{tag}'][0]:.4f})")
+    rng = np.random.RandomState(3)
+    for B in (32, 512):
+        feats = {"image": torch.from_numpy(rng.rand(B, 1, 28, 28).astype(np.float32)).cuda(),
+                 "audio": torch.from_numpy(rng.rand(B, 1, 112, 112).astype(np.float32)).cuda()}
+        for k, m in served.items():
+            times[f"gmlp_served/{k}/B{B}"] = cuda_ms(torch, lambda: m.forward_device(feats),
+                                                     iters=5)
+        print(f"  served forward B={B}: " + ", ".join(
+            f"{k} {times[f'gmlp_served/{k}/B{B}']:.4f} ms" for k in served))
+    gk.fused_gmlp_block.launches = 0
+    served["kernel"].forward_device(feats)
+    report["gmlp_launches_per_forward"] = gk.fused_gmlp_block.launches
+    data = synthetic(512, seed=4, learnable=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gmlp_steps_") as tmp:
+        for flavor in ("plain", "kernel"):
+            cfg = load_cfg(GMLP_CFG)
+            apply_overrides(cfg, GMLP_KERNEL_BLOCKS if flavor == "kernel" else [], warn=False)
+            task = serving._build_task(cfg, device="cuda")
+            trainer = Trainer(cfg.train, name=f"gmlp_steps_{flavor}", work_dir=tmp)
+            trainer.setup(task)
+            ctx = task.make_ctx(0, "train")
+            for B in (32, 512):
+                batch = {k: torch.from_numpy(v[:B]).cuda() for k, v in data.items()}
+                torch.cuda.reset_peak_memory_stats()
+                times[f"gmlp_train_step/{flavor}/B{B}"] = cuda_ms(
+                    torch, lambda: trainer.train_step(task, batch, ctx), iters=3)
+                report.setdefault("gmlp_train_step_peak_gib", {})[f"{flavor}/B{B}"] = \
+                    torch.cuda.max_memory_allocated() / 2**30
+            trainer.logger.close()
+            del task, trainer
+    print("  train step (the unchanged config: dropout 0, stochastic depth on, the same "
+          "draws on both sides): " + ", ".join(
+              f"{k.split('/', 1)[1]} {v:.4f} ms" for k, v in times.items()
+              if k.startswith("gmlp_train_step/")))
+    print(f"  peak memory of the train steps (GiB): {report['gmlp_train_step_peak_gib']}")
+
+
 def main() -> int:
     import torch
 
@@ -601,12 +916,13 @@ def main() -> int:
     from m2mixer_tpu_torch.datasets import synthetic_avmnist_arrays
     from m2mixer_tpu_torch.models import get_model
     from m2mixer_tpu_torch.ops import _build
+    from m2mixer_tpu_torch.ops import gmlp_kernel as gk
     from m2mixer_tpu_torch.ops import mixer_kernel as mk
     from m2mixer_tpu_torch.training.trainer import Trainer
 
     t_start = time.time()
     report = {"errors": {}, "bf16_checks": {}, "times_ms": {}, "bounds_ms": {}}
-    print("[1/8] building the CUDA kernels")
+    print("[1/12] building the CUDA kernels")
     t0 = time.time()
     _build.build_library(verbose=True)
     _build.load_library()
@@ -615,12 +931,18 @@ def main() -> int:
 
     phase_kernels(torch, mk, report)
     phase_backward(torch, mk, report)
+    phase_gmlp_kernels(torch, gk, report)
     plain, models = phase_serving(torch, mk, serving, get_model, load_cfg, np, report)
+    gmlp_served = dict(zip(("plain", "kernel"), phase_gmlp_serving(torch, gk, serving, np, report)))
     phase_training(torch, mk, serving, run, apply_cli_overrides, load_cfg,
                    synthetic_avmnist_arrays, np, report)
+    phase_gmlp_training(torch, gk, serving, run, apply_cli_overrides, load_cfg,
+                        synthetic_avmnist_arrays, np, report)
     phase_times(torch, mk, serving, np, plain, models, report)
     phase_train_times(torch, mk, serving, Trainer, apply_cli_overrides, load_cfg,
                       synthetic_avmnist_arrays, report)
+    phase_gmlp_times(torch, gk, serving, Trainer, apply_cli_overrides, load_cfg,
+                     synthetic_avmnist_arrays, np, gmlp_served, report)
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -632,6 +954,8 @@ def main() -> int:
     b2, by2 = report["bounds_ms"]["K2f/encoder/B512/f32"]
     b3, by3 = report["bounds_ms"]["K1b/encoder/B512"]
     b4, by4 = report["bounds_ms"]["K2b/encoder/B512"]
+    b5, by5 = report["bounds_ms"]["K3f/encoder/B512"]
+    b6, by6 = report["bounds_ms"]["K3b/encoder/B512"]
     kernels = [
         {"name": "mixer_block_fwd (K1f, one MixerBlock, B=512 N=4 D=128 T=32 C=3072 f32)",
          "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/mixer_fwd.cu",
@@ -663,11 +987,25 @@ def main() -> int:
          "max_abs_err": report["errors"]["K2b/encoderx4/g0/B512/rate0.5/erf"],
          "ms": t["K2b/encoder/B512"], "plain_ms": t["K2b_plain/encoder/B512"],
          "bound_ms": b4, "bound_by": by4, "library_ms": None},
+        {"name": "gmlp_fwd (K3f, one gMLP block, B=512 N=49 D=128 F=768 f32)",
+         "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/gmlp.cu",
+         "replaces": "m2mixer_tpu/ops/gmlp_kernel.py:134",
+         "launches": report["gmlp_serving_launches"],
+         "max_abs_err": report["errors"]["K3f/encoder/B512/rate0.0/erf"],
+         "ms": t["K3f/encoder/B512"], "plain_ms": t["K3f_plain/encoder/B512"],
+         "bound_ms": b5, "bound_by": by5, "library_ms": None},
+        {"name": "gmlp_bwd (K3b, one gMLP block backward, B=512 N=49 D=128 F=768 f32)",
+         "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/gmlp.cu",
+         "replaces": "m2mixer_tpu/ops/gmlp_kernel.py:167",
+         "launches": report["gmlp_training_launches"]["K3b"],
+         "max_abs_err": report["errors"]["K3b/encoder/B512/rate0.0/erf"],
+         "ms": t["K3b/encoder/B512"], "plain_ms": t["K3b_plain/encoder/B512"],
+         "bound_ms": b6, "bound_by": by6, "library_ms": None},
     ]
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({**report, "kernels": kernels}, f, indent=2)
-    print(f"[8/8] done in {report['seconds']:.1f} s")
+    print(f"[12/12] done in {report['seconds']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

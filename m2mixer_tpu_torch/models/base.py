@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..config import DictConfig
-from ..modules.common import DropoutRNG, set_dropout_rng
+from ..modules.common import DepthRNG, DropoutRNG, set_depth_rng, set_dropout_rng
 
 __all__ = ["resolve_dtype", "resolve_device", "TrainTask", "MultiLossTask", "MUTE_NONE"]
 
@@ -100,6 +100,10 @@ class TrainTask(abc.ABC):
         #: generator of random muting (the 'mute' rng)
         self.dropout_rng = DropoutRNG(seed, self.device)
         set_dropout_rng(self.network, self.dropout_rng)
+        #: stochastic depth (the 'stochastic' rng): its own stream, advanced by
+        #: every training forward's draws
+        self.depth_rng = DepthRNG(seed)
+        set_depth_rng(self.network, self.depth_rng)
 
     @abc.abstractmethod
     def build_network(self, generator: torch.Generator) -> torch.nn.Module:

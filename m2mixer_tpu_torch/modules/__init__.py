@@ -14,19 +14,26 @@ import inspect
 
 from .classification import StandardClassifier
 from .fusion import ConcatFusion
+from .gmlp import FusiongMLP, GatingMlpBlock, SpatialGatingUnit, VisiongMLP, gMLP
 from .mixer import FeedForward, FusionMixer, MixerBlock, MLPMixer
-from .pallas_blocks import (PallasFusionMixer, PallasMixerBlock, PallasMLPMixer,
-                            PallasStackedFusionMixer, PallasStackedMLPMixer)
+from .pallas_blocks import (PallasFusiongMLP, PallasFusionMixer, PallasGatingMlpBlock,
+                            PallasMixerBlock, PallasMLPMixer, PallasStackedFusionMixer,
+                            PallasStackedMLPMixer, PallasVisiongMLP)
 
 __all__ = [
     "FeedForward", "MixerBlock", "MLPMixer", "FusionMixer", "ConcatFusion",
     "StandardClassifier", "PallasMixerBlock", "PallasMLPMixer", "PallasFusionMixer",
-    "PallasStackedMLPMixer", "PallasStackedFusionMixer", "build_component",
-    "get_block_by_name", "get_fusion_by_name", "get_classifier_by_name",
+    "PallasStackedMLPMixer", "PallasStackedFusionMixer", "SpatialGatingUnit",
+    "GatingMlpBlock", "gMLP", "VisiongMLP", "FusiongMLP", "PallasGatingMlpBlock",
+    "PallasVisiongMLP", "PallasFusiongMLP", "build_component", "get_block_by_name",
+    "get_fusion_by_name", "get_classifier_by_name",
 ]
 
 BLOCKS = {c.__name__: c for c in (MLPMixer, FusionMixer, PallasMLPMixer, PallasFusionMixer,
-                                  PallasStackedMLPMixer, PallasStackedFusionMixer)}
+                                  PallasStackedMLPMixer, PallasStackedFusionMixer,
+                                  SpatialGatingUnit, GatingMlpBlock, gMLP, VisiongMLP,
+                                  FusiongMLP, PallasGatingMlpBlock, PallasVisiongMLP,
+                                  PallasFusiongMLP)}
 FUSIONS = {"ConcatFusion": ConcatFusion}
 CLASSIFIERS = {"StandardClassifier": StandardClassifier}
 

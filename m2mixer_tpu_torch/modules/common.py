@@ -10,7 +10,9 @@ Initialization takes an explicit CPU ``torch.Generator``: parameters are
 drawn on the CPU, so one seed gives the same weights whatever device the
 network is moved to afterwards. Dropout in training mode draws from the
 network's ``DropoutRNG`` (the counterpart of flax's ``dropout`` rng stream),
-which the task installs with ``set_dropout_rng``.
+which the task installs with ``set_dropout_rng``; stochastic depth draws from
+its ``DepthRNG`` (flax's ``stochastic`` stream), installed with
+``set_depth_rng``.
 """
 
 from __future__ import annotations
@@ -22,8 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Linear", "LayerNorm", "Dropout", "DropoutRNG", "PatchEmbed", "gelu",
-           "set_dropout_rng", "uniform_"]
+__all__ = ["Linear", "LayerNorm", "Dropout", "DropoutRNG", "DepthRNG", "PatchEmbed", "gelu",
+           "set_depth_rng", "set_dropout_rng", "survives", "uniform_"]
 
 
 def uniform_(t: torch.Tensor, bound: float, generator: Optional[torch.Generator]):
@@ -111,6 +113,38 @@ def next_kernel_seed(rng: Optional[DropoutRNG]) -> int:
     if rng is not None:
         return rng.next_seed()
     return int(torch.randint(0, 2**31 - 1, (1,)))
+
+
+class DepthRNG:
+    """A network's stochastic-depth randomness (flax's ``make_rng("stochastic")``):
+    one Bernoulli(survival) draw per block per training forward, from a CPU
+    generator of its own, so that switching stochastic depth on or off does
+    not shift the dropout streams. The draws are not ``jax.random``'s."""
+
+    def __init__(self, seed: int):
+        self.host = torch.Generator().manual_seed(int(seed) + 3)
+
+    def keep(self, survival_prob: float) -> bool:
+        return bool(torch.rand((), generator=self.host) < survival_prob)
+
+
+def set_depth_rng(module: nn.Module, rng: Optional[DepthRNG]) -> None:
+    """Point every stochastic-depth block of ``module`` at ``rng``."""
+    for m in module.modules():
+        if hasattr(m, "depth_rng"):
+            m.depth_rng = rng
+
+
+def survives(block: nn.Module, survival_prob: float) -> bool:
+    """Whether ``block`` runs in this forward: always in eval mode or at
+    survival 1; in training one draw from its ``depth_rng`` (torch's global
+    generator when none is set). A dropped block is the identity."""
+    if not block.training or survival_prob >= 1.0:
+        return True
+    rng = block.depth_rng
+    if rng is not None:
+        return rng.keep(survival_prob)
+    return bool(torch.rand(()) < survival_prob)
 
 
 class Dropout(nn.Module):

@@ -9,7 +9,13 @@ version on CPU tensors):
   (``fused_mixer_block``), then a LayerNorm module;
 - ``PallasStackedMLPMixer`` / ``PallasStackedFusionMixer``: the whole block
   stack and its final LN as one K2f launch (``fused_mixer_stack``), or
-  ceil(K/G) launches with ``stack_group_size=G``.
+  ceil(K/G) launches with ``stack_group_size=G``;
+- ``PallasVisiongMLP`` / ``PallasFusiongMLP``: ``VisiongMLP`` / ``FusiongMLP``
+  whose GatingMlpBlocks are ``PallasGatingMlpBlock``s, one K3f launch each
+  (``ops/gmlp_kernel.py``, float32 only); stochastic depth stays outside the
+  kernel, and a dropped block launches nothing. Their blocks sit under
+  ``gmlp.blocks.j`` as the plain modules' do (JAX's kernel tree has
+  ``block_j`` directly; ``utils/weights.py`` maps the two).
 
 Parameters keep the JAX kernels' layout and names (``w1 (N, T)``,
 ``b{i}_w3 (D, C)``, ...), so the JAX trees map onto them without a transpose.
@@ -26,9 +32,11 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..ops.gmlp_kernel import GmlpBlockParams, fused_gmlp_block
 from ..ops.mixer_kernel import (MixerBlockParams, cast_params, fused_mixer_block,
                                 fused_mixer_stack_grouped)
-from .common import LayerNorm, PatchEmbed, _bound, next_kernel_seed, uniform_
+from .common import LayerNorm, PatchEmbed, _bound, next_kernel_seed, survives, uniform_
+from .gmlp import FusiongMLP, VisiongMLP
 from .mixer import image_tokens
 
 __all__ = [
@@ -37,6 +45,9 @@ __all__ = [
     "PallasFusionMixer",
     "PallasStackedMLPMixer",
     "PallasStackedFusionMixer",
+    "PallasGatingMlpBlock",
+    "PallasVisiongMLP",
+    "PallasFusiongMLP",
 ]
 
 
@@ -197,3 +208,55 @@ class PallasStackedFusionMixer(nn.Module):
 
     def forward(self, x):
         return self.stack(x)
+
+
+class PallasGatingMlpBlock(nn.Module):
+    """One GatingMlpBlock as one K3f launch (``fused_gmlp_block``), with its
+    parameters flat in the kernel's layout and the JAX names."""
+
+    def __init__(self, d_model: int, d_ffn: int, seq_len: int, survival_prob: float = 1.0,
+                 dropout: float = 0.0, *, dtype=None, approximate_gelu: bool = False,
+                 bits_dropout: bool = False, generator=None):
+        # bits_dropout is accepted and ignored: the kernel's masks keep a 32-bit
+        # threshold, as the JAX kernel's do
+        super().__init__()
+        self.survival_prob = float(survival_prob)
+        self.dropout = float(dropout)
+        self.dtype = dtype
+        self.approximate_gelu = approximate_gelu
+        self.dropout_rng = None
+        self.depth_rng = None
+        D, F, N, H = d_model, d_ffn, seq_len, d_ffn // 2
+        u = lambda fan, *shape: uniform_(torch.empty(*shape), _bound(fan), generator)
+        params = {
+            "ln_scale": torch.ones(D), "ln_bias": torch.zeros(D),
+            "w_in": u(D, D, F), "b_in": u(D, F),
+            "sgu_ln_scale": torch.ones(H), "sgu_ln_bias": torch.zeros(H),
+            "sgu_w": torch.empty(N, N).normal_(0.0, 0.02, generator=generator),
+            "sgu_b": torch.ones(N),
+            "w_out": u(H, H, D), "b_out": u(H, D),
+        }
+        for name, t in params.items():
+            self.register_parameter(name, nn.Parameter(t))
+
+    def forward(self, x):
+        rate = self.dropout if self.training else 0.0
+        # the kernel seed first, so a dropped block does not shift the stream
+        seed = next_kernel_seed(self.dropout_rng) if rate > 0.0 else None
+        if not survives(self, self.survival_prob):
+            return x
+        params = GmlpBlockParams(*(getattr(self, f) for f in GmlpBlockParams._fields))
+        return fused_gmlp_block(x.float(), params, seed, rate, self.dtype or torch.float32,
+                                self.approximate_gelu)
+
+
+class PallasVisiongMLP(VisiongMLP):
+    """``VisiongMLP`` with one fused kernel per block (same config keys)."""
+
+    block = PallasGatingMlpBlock
+
+
+class PallasFusiongMLP(FusiongMLP):
+    """``FusiongMLP`` with one fused kernel per block (same config keys)."""
+
+    block = PallasGatingMlpBlock

@@ -424,7 +424,7 @@ def _route(x) -> bool:
         return True
     if x.device.type == "cpu":
         return False
-    raise ValueError(f"the mixer kernels run on CUDA (plain version on CPU), got {x.device}")
+    raise ValueError(f"the port's kernels run on CUDA (plain version on CPU), got {x.device}")
 
 
 def _needs_grad(x, params) -> bool:

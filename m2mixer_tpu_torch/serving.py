@@ -3,7 +3,9 @@
 - ``to_torch_kernel_serving``: re-lay a task's plain ``MLPMixer`` /
   ``FusionMixer`` stacks onto the kernel-backed ``PallasStackedMLPMixer`` /
   ``PallasStackedFusionMixer`` (the counterpart of ``to_pallas_serving``),
-  or with ``per_block`` onto ``PallasMLPMixer`` / ``PallasFusionMixer``.
+  or with ``per_block`` onto ``PallasMLPMixer`` / ``PallasFusionMixer``; and
+  ``VisiongMLP`` / ``FusiongMLP`` onto ``PallasVisiongMLP`` /
+  ``PallasFusiongMLP`` (one gMLP block kernel per block) either way.
 - ``export_serving``: write an artifact directory: ``serving.json`` (features,
   dtypes, buckets, the resolved config, the block flavor) and the weights
   (``weights.npz``, the port's ``state_dict``). The JAX artifact ships a
@@ -47,9 +49,11 @@ __all__ = ["export_serving", "load_serving", "ServedModel", "pick_bucket",
 _META = "serving.json"
 _WEIGHTS = "weights.npz"
 _DEFAULT_BUCKETS = (1, 8, 32, 128, 512)
+_GMLP_KERNELS = {"VisiongMLP": "PallasVisiongMLP", "FusiongMLP": "PallasFusiongMLP"}
 _KERNEL_BLOCKS = {"MLPMixer": "PallasStackedMLPMixer",
-                  "FusionMixer": "PallasStackedFusionMixer"}
-_PER_BLOCK_KERNELS = {"MLPMixer": "PallasMLPMixer", "FusionMixer": "PallasFusionMixer"}
+                  "FusionMixer": "PallasStackedFusionMixer", **_GMLP_KERNELS}
+_PER_BLOCK_KERNELS = {"MLPMixer": "PallasMLPMixer", "FusionMixer": "PallasFusionMixer",
+                      **_GMLP_KERNELS}
 
 
 def pick_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -122,6 +126,21 @@ def _stack_from_blocks(src: dict) -> dict:
     return out
 
 
+def _gmlp_block_flat(b: dict) -> dict:
+    """One plain ``GatingMlpBlock`` subtree (JAX layout) -> the 10 kernel
+    parameters (``GmlpBlockParams`` names), same math (JAX
+    ``serving._gmlp_block_flat``)."""
+    ln = lambda m: m["LayerNorm_0"]
+    return {
+        "ln_scale": ln(b["norm"])["scale"], "ln_bias": ln(b["norm"])["bias"],
+        "w_in": b["proj_1"]["kernel"], "b_in": b["proj_1"]["bias"],
+        "sgu_ln_scale": ln(b["sgu"]["norm"])["scale"],
+        "sgu_ln_bias": ln(b["sgu"]["norm"])["bias"],
+        "sgu_w": b["sgu"]["proj"]["kernel"], "sgu_b": b["sgu"]["proj"]["bias"],
+        "w_out": b["proj_2"]["kernel"], "b_out": b["proj_2"]["bias"],
+    }
+
+
 def _build_task(cfg, device=None, seed: Optional[int] = None):
     if seed is None:
         seed = int(cfg.get("train", {}).get("seed", 0) or 0)
@@ -133,10 +152,12 @@ def to_torch_kernel_serving(cfg, state_dict, device=None, per_block: bool = Fals
     """Swap ``MLPMixer`` -> ``PallasStackedMLPMixer`` and ``FusionMixer`` ->
     ``PallasStackedFusionMixer`` (one stack kernel per mixer) in a copy of
     ``cfg``, or with ``per_block`` -> ``PallasMLPMixer`` / ``PallasFusionMixer``
-    (one block kernel per block), and re-lay the plain modules' weights into
-    the kernels' layout. Returns ``(kernel_task, kernel_state_dict)`` with the
-    weights loaded; the converted tree is checked leaf by leaf against the
-    new network."""
+    (one block kernel per block); ``VisiongMLP`` / ``FusiongMLP`` ->
+    ``PallasVisiongMLP`` / ``PallasFusiongMLP`` either way (one gMLP block
+    kernel per block). Re-lay the plain modules' weights into the kernels'
+    layout. Returns ``(kernel_task, kernel_state_dict)`` with the weights
+    loaded; the converted tree is checked leaf by leaf against the new
+    network."""
     new_cfg = copy.deepcopy(cfg)
     mc = new_cfg.model.modalities
     kinds = _PER_BLOCK_KERNELS if per_block else _KERNEL_BLOCKS
@@ -148,8 +169,8 @@ def to_torch_kernel_serving(cfg, state_dict, device=None, per_block: bool = Fals
             swapped.append(key)
     if not swapped:
         raise ValueError(
-            "no convertible blocks: to_torch_kernel_serving fuses MLPMixer/FusionMixer "
-            f"stacks; this config has "
+            "no convertible blocks: to_torch_kernel_serving fuses MLPMixer/FusionMixer/"
+            f"VisiongMLP/FusiongMLP stacks; this config has "
             f"{sorted(set(mc[k].get('block_type') for k in mc if k != 'classification'))}")
     tree = to_jax_params(state_dict)["params"]
     for k, sub in list(tree.items()):
@@ -162,6 +183,10 @@ def to_torch_kernel_serving(cfg, state_dict, device=None, per_block: bool = Fals
                           if not (kk.startswith("block_") or kk == "norm_out")}
                 newsub["stack"] = _stack_from_blocks(sub)
                 tree[k] = newsub
+        elif isinstance(sub, dict) and "gmlp" in sub:
+            newsub = {kk: vv for kk, vv in sub.items() if kk != "gmlp"}
+            newsub.update({bk: _gmlp_block_flat(bv) for bk, bv in sub["gmlp"].items()})
+            tree[k] = newsub
     task = _build_task(new_cfg, device=device)
     converted = from_jax_params({"params": tree}, task.network)
     task.network.load_state_dict(converted)
@@ -290,7 +315,8 @@ def main(argv: Optional[Sequence[str]] = None):
     ex.add_argument("-o", "--out", required=True)
     ex.add_argument("--buckets", default="1,8,32,128,512")
     ex.add_argument("--pallas", action="store_true",
-                    help="re-lay MLPMixer/FusionMixer stacks onto the CUDA stack kernel")
+                    help="re-lay MLPMixer/FusionMixer stacks onto the CUDA stack kernel, "
+                         "VisiongMLP/FusiongMLP onto the CUDA gMLP block kernel")
     pr = sub.add_parser("predict", help="offline batch inference over an npz of features")
     pr.add_argument("-d", "--dir", required=True)
     pr.add_argument("-i", "--input", required=True)

@@ -12,8 +12,14 @@ maps by rule:
   transpose between the layouts happens here, and only here;
 - ``.../linear/bias`` -> ``....bias``; ``.../LayerNorm_0/{scale,bias}`` ->
   ``....{weight,bias}``;
+- the gMLP family's Dense layers are bare flax ``nn.Dense`` (``proj_1``,
+  ``proj_2``, ``sgu/proj``, ``patch_embedding``), whose leaves sit directly
+  under the layer: ``.../proj_1/kernel`` -> ``....proj_1.weight``
+  (transposed), ``.../proj_1/bias`` -> ``....proj_1.bias``;
 - the kernel blocks' leaves (``stack/b0_w1``, ``block_0/w3``, ...) keep the
-  JAX kernels' layout and pass through unchanged.
+  JAX kernels' layout and pass through unchanged; the kernel gMLP blocks'
+  (``block_0/w_in``, ...) sit one level deeper in the port, under the
+  ``gmlp`` stack the plain modules have (``gmlp.blocks.0.w_in``).
 
 Both directions raise on a leaf left over, a leaf missing, or a shape
 mismatch, leaf by leaf.
@@ -33,6 +39,14 @@ __all__ = ["from_jax_params", "to_jax_params", "flatten_tree", "unflatten_tree",
 _SEQ = re.compile(r"(encoders|heads|block)_(\d+)")
 _PORT_SEQ = {"encoders": "encoders", "heads": "heads", "block": "blocks"}
 _JAX_SEQ = {v: k for k, v in _PORT_SEQ.items()}
+_BARE_DENSE = ("proj_1", "proj_2", "patch_embedding")  # the gMLP family's nn.Dense layers
+# the kernel gMLP block's leaves (ops/gmlp_kernel.py GmlpBlockParams)
+_GMLP_FLAT = ("ln_scale", "ln_bias", "w_in", "b_in", "sgu_ln_scale", "sgu_ln_bias", "sgu_w",
+              "sgu_b", "w_out", "b_out")
+
+
+def _is_bare_dense(mods) -> bool:
+    return bool(mods) and (mods[-1] in _BARE_DENSE or list(mods[-2:]) == ["sgu", "proj"])
 
 
 def flatten_tree(tree, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -67,12 +81,14 @@ def _port_name(path: Tuple[str, ...]) -> Tuple[str, bool]:
             parts += [_PORT_SEQ[m[1]], m[2]]
         elif k not in ("linear", "LayerNorm_0"):
             parts.append(k)
-    if wrapper == "linear":
+    if wrapper == "linear" or (_is_bare_dense(mods) and leaf in ("kernel", "bias")):
         leaf, transpose = {"kernel": ("weight", True), "bias": ("bias", False)}[leaf]
     elif wrapper == "LayerNorm_0":
         leaf, transpose = {"scale": "weight", "bias": "bias"}[leaf], False
     else:
         transpose = False
+    if leaf in _GMLP_FLAT and parts[-2:-1] == ["blocks"] and "gmlp" not in parts:
+        parts.insert(len(parts) - 2, "gmlp")  # before blocks.j
     return ".".join(parts + [leaf]), transpose
 
 
@@ -123,11 +139,14 @@ def to_jax_params(state_dict) -> dict:
         a = t.detach().cpu().float().numpy()
         weight = state_dict.get(".".join(mods + ["weight"]))
         if leaf in ("weight", "bias") and weight is not None and weight.dim() == 2:
-            path += ["linear", "kernel" if leaf == "weight" else "bias"]
+            path += ([] if _is_bare_dense(mods) else ["linear"]) + \
+                ["kernel" if leaf == "weight" else "bias"]
             a = a.T if leaf == "weight" else a
         elif leaf in ("weight", "bias") and weight is not None and weight.dim() == 1:
             path += ["LayerNorm_0", "scale" if leaf == "weight" else "bias"]
         else:
+            if leaf in _GMLP_FLAT and "gmlp" in path:
+                path.remove("gmlp")
             path.append(leaf)
         key = tuple(path)
         if key in flat:

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from m2mixer_tpu_torch.config import loads
+from m2mixer_tpu_torch.ops import gmlp_kernel as gk
 from m2mixer_tpu_torch.ops import mixer_kernel as mk
 
 pytestmark = pytest.mark.gpu
@@ -236,3 +237,76 @@ def test_kernel_modules_train_on_cuda(cuda, kind):
     assert mk.fused_mixer_block_bwd.launches + mk.fused_mixer_stack_bwd.launches > before
     for name, prm in m.named_parameters():
         assert prm.grad is not None and prm.grad.abs().sum().item() > 0, name
+
+
+# ---------------------------------------------------------------------- gMLP
+# "narrow" is the CPU lockstep's width at the encoders' 49 tokens: there d sgu_w
+# and d sgu_b (N^2 + N = 2450 floats) outnumber dW_in (D*F = 2048)
+GMLP_SHAPES = {"small": dict(N=6, D=16, F=32), "narrow": dict(N=49, D=32, F=64),
+               "fusion": dict(N=99, D=128, F=768)}
+
+
+def gmlp_params_on(device, N, D, F, seed=0):
+    """One gMLP block's parameters (JAX layout) at the modules' init scales,
+    LN parameters jittered away from the identity."""
+    g = torch.Generator().manual_seed(seed)
+    H = F // 2
+    u = lambda fan, *shape: (torch.rand(*shape, generator=g) * 2 - 1) / fan ** 0.5
+    jit = lambda n, base: base + 0.1 * torch.randn(n, generator=g)
+    p = (jit(D, 1.0), jit(D, 0.0), u(D, D, F), u(D, F), jit(H, 1.0), jit(H, 0.0),
+         0.02 * torch.randn(N, N, generator=g), torch.ones(N), u(H, H, D), u(H, D))
+    return gk.GmlpBlockParams(*(t.to(device) for t in p))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("approx", [False, True], ids=["erf", "tanh"])
+@pytest.mark.parametrize("shape", sorted(GMLP_SHAPES))
+@pytest.mark.parametrize("B", [3, 33])
+def test_gmlp_kernels_match_plain(cuda, B, shape, approx, rate):
+    """K3f and K3b against the plain version and its autograd (the same
+    masks), every tensor within 1e-4 x max(1, max|plain|); two backward runs
+    bit-identical."""
+    geom = GMLP_SHAPES[shape]
+    p = gmlp_params_on(cuda, **geom)
+    x = torch.randn(B, geom["N"], geom["D"], device=cuda)
+    g = torch.randn_like(x)
+    before = (gk.fused_gmlp_block.launches, gk.fused_gmlp_block_bwd.launches)
+    out = gk.fused_gmlp_block(x, p, seed=5, dropout_rate=rate, approximate_gelu=approx)
+    rel_close(out, gk.gmlp_block_reference(x, p, rate, approx, seed=5))
+    dx, grads = gk.fused_gmlp_block_bwd(x, g, p, seed=5, dropout_rate=rate,
+                                        approximate_gelu=approx)
+    assert (gk.fused_gmlp_block.launches, gk.fused_gmlp_block_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want_dx, want = gk.gmlp_block_bwd_reference(x, g, p, rate, approx, seed=5)
+    rel_close(dx, want_dx)
+    assert len(grads) == len(want) == 10
+    for a, b in zip(grads, want):
+        rel_close(a, b)
+    dx2, grads2 = gk.fused_gmlp_block_bwd(x, g, p, seed=5, dropout_rate=rate,
+                                          approximate_gelu=approx)
+    assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+
+
+def test_gmlp_block_module_trains_on_cuda(cuda):
+    """Every parameter of a PallasGatingMlpBlock gets a non-zero gradient on
+    the card, through K3f and K3b."""
+    from m2mixer_tpu_torch.modules import pallas_blocks as pb
+
+    m = pb.PallasGatingMlpBlock(32, 64, 7, generator=torch.Generator().manual_seed(0))
+    m = m.to(cuda).train()
+    before = (gk.fused_gmlp_block.launches, gk.fused_gmlp_block_bwd.launches)
+    m(torch.randn(5, 7, 32, device=cuda)).square().sum().backward()
+    assert (gk.fused_gmlp_block.launches, gk.fused_gmlp_block_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for name, prm in m.named_parameters():
+        assert prm.grad is not None and prm.grad.abs().sum().item() > 0, name
+
+
+def test_gmlp_kernels_raise_on_cuda(cuda):
+    p = gmlp_params_on(cuda, **GMLP_SHAPES["small"])
+    x = torch.randn(2, 6, 16, device=cuda)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        gk.fused_gmlp_block(x, p, compute_dtype=torch.bfloat16)
+    big = gmlp_params_on(cuda, N=129, D=16, F=32)
+    with pytest.raises(ValueError, match="at most 128 tokens"):
+        gk.fused_gmlp_block(torch.randn(2, 129, 16, device=cuda), big)
