@@ -24,7 +24,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    version apply the same masks (so the forward's and the backward's
    agree), each of the three keeps 0.5 +- 0.01; two backward runs give
    bit-identical gradients;
-6. serving: export the B config (``cfg/avmnist/avmnist_m2-mixer_B.yml``, full
+6. K4f / K4b, the DynaMixerOp kernels, against the plain version and its
+   autograd at the DynaMixer config's op (L=7, C=256, H=8, R=2; S = 7 x 32
+   and 7 x 512 sequences), x as drawn and scaled by 30 (generate logits of
+   about 50: the softmax's stress case): the output, dx and the 6 parameter
+   gradients; two backward runs give bit-identical gradients;
+7. serving: export the B config (``cfg/avmnist/avmnist_m2-mixer_B.yml``, full
    width and depth, seeded weights) through ``serving export --pallas`` (one
    stack kernel per mixer), and through ``to_torch_kernel_serving(...,
    per_block=True)`` + ``export_serving`` (one block kernel per MixerBlock, the
@@ -34,12 +39,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    answer against the plain-module model on the card with the same weights.
    The kernels' launch counters are zeroed just before and read just after;
    each kernel must have launched;
-7. serving the gMLP config (``cfg/avmnist/avmnist_gmlp.yml``, full width and
+8. serving the gMLP config (``cfg/avmnist/avmnist_gmlp.yml``, full width and
    depth: 30 + 30 + 15 blocks, seeded weights): ``serving export`` of the
    plain artifact, then ``serving export --pallas -p`` its weights (K3f per
    block); requests of 1, 7, 32, 100 and 600 samples against the plain
    artifact on the card; the K3f counter zeroed just before, read just after;
-8. training the B config (full width and depth) through both kernel block
+9. serving the DynaMixer config (``cfg/avmnist/avmnist_3loss_dyna.yml``, full
+   width and depth: 8 + 8 + 4 blocks at hidden 256, seeded weights):
+   ``serving export``, then ``load_serving`` on the card (every DynaMixerOp
+   launches K4f) and on the CPU (the plain versions; a plain path on the card
+   would be a fallback); requests of 1, 7, 32, 100 and 600 samples against
+   the CPU; the K4f counter zeroed just before, read just after: 40 a device
+   forward;
+10. training the B config (full width and depth) through both kernel block
    types: step 1 at ``model.dropout=0.0`` (loss, the three branch losses and
    every parameter gradient against the plain-module model with the same
    weights), then ``python -m m2mixer_tpu_torch.run`` (``run.main``) for 2
@@ -49,7 +61,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the last epoch's train loss below the first's, val and test accuracy at
    least 0.2 (chance is 0.1). The launch counters are zeroed just before each
    run and read just after; K1b and K2b must have launched;
-9. training the gMLP config: step 1 with stochastic depth pinned off
+11. training the gMLP config: step 1 with stochastic depth pinned off
    (``prob_0_L=[1.0, 1.0]`` on the three stacks) through
    ``PallasVisiongMLP``/``PallasFusiongMLP`` against the plain modules with
    the same weights (the loss, the branch losses, every gradient); then
@@ -59,16 +71,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    train loss falling, val and test accuracy at least 0.5; K3f and K3b launched in
    the kernel run (counters zeroed just before, read just after) and no
    gMLP kernel in the plain one;
-10. times (CUDA events, median of 5 runs): the mixer kernels and their plain
+12. training the DynaMixer config: step 1 at ``model.dropout=0.0`` on the card
+    against the same step on the CPU with the same weights and batch (the
+    loss and the branch losses within 1e-5 relative, every gradient within
+    1e-4 x max(1, max|CPU|)); then ``run.main`` of the unchanged config
+    (dropout 0.5, Adam at lr 1e-4) for 5 epochs of 1024/256/256 learnable
+    synthetic samples at batch 32 (it learns from the third): losses finite,
+    train loss falling, val and test accuracy at least 0.2; K4f and K4b
+    launched (counters zeroed just before, read just after);
+13. times (CUDA events, median of 5 runs): the mixer kernels and their plain
     versions, the served B forward at batch 32 and 512, the B train step at
     batch 32 and 512 for plain modules and both kernel block types; and the
     device time of each launch of one K1b call (``torch.profiler``);
-11. gMLP times: K3f and K3b alone at the encoder and fusion shapes at batch
+14. gMLP times: K3f and K3b alone at the encoder and fusion shapes at batch
     32 and 512 (with their plain versions and bounds, and the profiler's
     breakdown of one call of each at the encoder shape and batch 512), the
     served forward and the train step at batch 32 and 512, plain modules and
     kernel blocks;
-12. one JSON line naming every ported kernel, the card's name and power limit,
+15. DynaMixer times: K4f and K4b alone at batch 32 and 512 (S = 224 and 3584)
+    with their plain versions and bounds and the profiler's breakdown of one
+    K4b call at batch 512, the served forward and the train step at batch 32
+    and 512, each with the device time its kernels take (``torch.profiler``),
+    so the share of the call in which the card is busy;
+16. one JSON line naming every ported kernel, the card's name and power limit,
     and the result line ``{"ok": true, "device": {...}}``.
 
 Tolerances: float32 outputs within 1e-4 absolute (the kernel and cuBLAS sum
@@ -90,7 +115,9 @@ float noise on both sides and must stay below 1e-3 on both. The gMLP path's
 checks are relative to the plain version's magnitude, every tensor (output,
 logits, gradient) within 1e-4 x max(1, max|plain|) (served logits 2e-4 x),
 none exempt: the token projection starts at bias 1, so magnitudes grow with
-width and depth, and no gMLP gradient is exactly zero in the math.
+width and depth, and no gMLP gradient is exactly zero in the math. The
+DynaMixer path's checks are relative the same way (the card against the CPU
+for the served logits and the train step).
 
 The run writes its numbers to ``chiprun_out/chip_smoke.json``.
 """
@@ -143,6 +170,15 @@ SERVED_REL = 2e-4
 # val accuracy after 2 epochs, chance + 0.4: the plain-module run of the same
 # length reached 1.0 and the kernel-block run 0.906 (H100, PERF.md)
 GMLP_MIN_ACC = 0.5
+DYNA_CFG = os.path.join(REPO, "cfg", "avmnist", "avmnist_3loss_dyna.yml")
+DYNA_OP = dict(L=7, C=256, H=8, R=2)  # the config's op: rows or columns of a 7 x 7 grid
+DYNA_OPS_PER_FORWARD = 40  # mix_h and mix_w in each of the 8 + 8 + 4 DynaMixerBlocks
+LOSS_REL = 1e-5  # card against CPU: the loss and the branch losses
+# the unchanged DynaMixer config (dropout 0.5 after every block, no residual,
+# Adam at lr 1e-4) stays on its initial plateau for two epochs of 1024 learnable
+# samples (val accuracy 0.05, 0.05) and learns from the third (0.34, 0.38, 0.68
+# by the fifth; H100, PERF.md), so its run takes five epochs
+DYNA_EPOCHS = 5
 
 
 def rand_blocks(mk, torch, K, N, D, T, C, seed):
@@ -223,10 +259,10 @@ def cuda_ms(torch, fn, iters: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def kernel_breakdown(torch, fn, what: str, calls: int = 10) -> dict:
+def kernel_breakdown(torch, fn, what, calls: int = 10) -> dict:
     """Device time per call of each CUDA kernel that ``fn`` launches
     (``torch.profiler``, ``calls`` calls after a warm-up): {name: [us per
-    call, launches per call]}, printed largest first."""
+    call, launches per call]}, printed largest first unless ``what`` is None."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -241,10 +277,18 @@ def kernel_breakdown(torch, fn, what: str, calls: int = 10) -> dict:
             name = e.key.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
             us, n = rows.get(name, (0.0, 0.0))
             rows[name] = [us + e.device_time_total / calls, n + e.count / calls]
-    print(f"  {what}, device us per call by kernel:")
-    for name, (us, n) in sorted(rows.items(), key=lambda kv: -kv[1][0]):
-        print(f"    {us:9.1f} us  x{n:g}  {name}")
+    if what is not None:
+        print(f"  {what}, device us per call by kernel:")
+        for name, (us, n) in sorted(rows.items(), key=lambda kv: -kv[1][0]):
+            print(f"    {us:9.1f} us  x{n:g}  {name}")
     return rows
+
+
+def device_busy_ms(torch, fn, calls: int = 3) -> float:
+    """Device time per call of ``fn`` (ms): its kernels' device time summed
+    (``torch.profiler``); against the call's CUDA-event time it gives the
+    share of the call in which the card is busy."""
+    return sum(us for us, _ in kernel_breakdown(torch, fn, None, calls).values()) / 1e3
 
 
 def grad_err(torch, got, want, what: str) -> float:
@@ -311,7 +355,7 @@ def bound(flops: float, nbytes: float, dtype: str):
 
 
 def phase_kernels(torch, mk, report):
-    print("[2/12] K1f fused_mixer_block vs plain version")
+    print("[2/16] K1f fused_mixer_block vs plain version")
     for geom_name, geom in (("encoder", ENC), ("fusion", FUSION)):
         blocks, _, _ = rand_blocks(mk, torch, 1, seed=11, **geom)
         x = torch.randn(512, geom["N"], geom["D"], generator=torch.Generator().manual_seed(1)).cuda()
@@ -328,7 +372,7 @@ def phase_kernels(torch, mk, report):
                     report["errors"][key] = bf16_err(torch, got, want, round_bf16(torch, control),
                                                      key, report)
 
-    print("[3/12] K2f fused_mixer_stack vs plain version")
+    print("[3/16] K2f fused_mixer_stack vs plain version")
     cases = [("encoder", ENC, 4, 0), ("encoder", ENC, 4, 2), ("fusion", FUSION, 2, 0)]
     for geom_name, geom, K, group in cases:
         blocks, ln_s, ln_b = rand_blocks(mk, torch, K, seed=12, **geom)
@@ -350,7 +394,7 @@ def phase_kernels(torch, mk, report):
 
 
 def phase_backward(torch, mk, report):
-    print("[4/12] K1b / K2b backward kernels vs autograd of the plain versions")
+    print("[4/16] K1b / K2b backward kernels vs autograd of the plain versions")
     for B in (32, 512):
         for geom_name, geom in (("encoder", ENC), ("fusion", FUSION)):
             blocks, _, _ = rand_blocks(mk, torch, 1, seed=21, **geom)
@@ -475,7 +519,7 @@ def counters(mk):
 
 
 def phase_training(torch, mk, serving, run, apply_overrides, load_cfg, synthetic, np, report):
-    print("[8/12] training the B config through the kernel block types")
+    print("[10/16] training the B config through the kernel block types")
     plain, cfg = kernel_task(serving, apply_overrides, load_cfg, "plain", ["model.dropout=0.0"])
     batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic(32, seed=3, learnable=True).items()}
     step_one = lambda task: train_step_one(torch, task, batch)
@@ -514,7 +558,7 @@ def phase_training(torch, mk, serving, run, apply_overrides, load_cfg, synthetic
 
 
 def phase_serving(torch, mk, serving, get_model, load_cfg, np, report):
-    print("[6/12] serving the B config through the kernel blocks")
+    print("[7/16] serving the B config through the kernel blocks")
     cfg = load_cfg(B_CFG)
     seed = int(cfg.train.seed)
     plain = get_model(cfg.model.type)(cfg.model, device="cuda", seed=seed)
@@ -564,7 +608,7 @@ def phase_serving(torch, mk, serving, get_model, load_cfg, np, report):
 
 
 def phase_times(torch, mk, serving, np, plain, models, report):
-    print("[10/12] times (CUDA events, median of 5 runs of 20 calls)")
+    print("[13/16] times (CUDA events, median of 5 runs of 20 calls)")
     times = report["times_ms"]
     for geom_name, geom in (("encoder", ENC), ("fusion", FUSION)):
         for B in (32, 512):
@@ -707,7 +751,7 @@ def gmlp_work(B, N, D, F):
 
 
 def phase_gmlp_kernels(torch, gk, report):
-    print("[5/12] K3f / K3b fused gMLP block vs the plain version and its autograd")
+    print("[5/16] K3f / K3b fused gMLP block vs the plain version and its autograd")
     for geom_name, geom in (("encoder", GMLP_ENC), ("fusion", GMLP_FUSION)):
         p = gmlp_params(gk, torch, seed=31, **geom)
         for B in (32, 512):
@@ -741,7 +785,7 @@ def phase_gmlp_kernels(torch, gk, report):
 
 
 def phase_gmlp_serving(torch, gk, serving, np, report):
-    print("[7/12] serving the gMLP config through serving export --pallas (K3f)")
+    print("[8/16] serving the gMLP config through serving export --pallas (K3f)")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_gmlp_") as tmp:
         plain_dir, kernel_dir = os.path.join(tmp, "plain"), os.path.join(tmp, "kernel")
         serving.main(["export", "-c", GMLP_CFG, "-o", plain_dir])
@@ -796,7 +840,7 @@ def gmlp_train_args(tmp, name, kernel):
 
 def phase_gmlp_training(torch, gk, serving, run, apply_overrides, load_cfg, synthetic, np,
                         report):
-    print("[9/12] training the gMLP config through PallasVisiongMLP / PallasFusiongMLP")
+    print("[11/16] training the gMLP config through PallasVisiongMLP / PallasFusiongMLP")
     cfg = load_cfg(GMLP_CFG)
     apply_overrides(cfg, ["model.dropout=0.0", *GMLP_NO_DEPTH_DROP], warn=False)
     plain = serving._build_task(cfg, device="cuda")
@@ -835,7 +879,7 @@ def phase_gmlp_training(torch, gk, serving, run, apply_overrides, load_cfg, synt
 
 def phase_gmlp_times(torch, gk, serving, Trainer, apply_overrides, load_cfg, synthetic, np,
                      served, report):
-    print("[11/12] gMLP times (CUDA events, median of 5 runs)")
+    print("[14/16] gMLP times (CUDA events, median of 5 runs)")
     times, bounds = report["times_ms"], report["bounds_ms"]
     for geom_name, geom in (("encoder", GMLP_ENC), ("fusion", GMLP_FUSION)):
         p = gmlp_params(gk, torch, seed=33, **geom)
@@ -898,6 +942,205 @@ def phase_gmlp_times(torch, gk, serving, Trainer, apply_overrides, load_cfg, syn
     print(f"  peak memory of the train steps (GiB): {report['gmlp_train_step_peak_gib']}")
 
 
+# ----------------------------------------------------------------- DynaMixer
+def dyna_params(dk, torch, L, C, H, R, seed):
+    """One DynaMixerOp's parameters (JAX layout) at the Linear layers' init
+    scales, U(+-1/sqrt(fan_in)), on the card."""
+    g = torch.Generator().manual_seed(seed)
+    u = lambda fan, *shape: (torch.rand(*shape, generator=g) * 2 - 1) / fan ** 0.5
+    p = (u(C, C, H * R), u(C, H * R), u(L * R, L * R, L * L), u(L * R, L * L), u(C, C, C),
+         u(C, C))
+    return dk.DynaMixerOpParams(*(t.cuda() for t in p))
+
+
+def dyna_logit_range(x, p, H, R) -> float:
+    """max |generate logit| of the op at x (what the softmax sees)."""
+    S, L, C = x.shape
+    w = (x.reshape(S * L, C) @ p.w_compress + p.b_compress).reshape(S, L, H, R)
+    w = w.transpose(1, 2).reshape(S * H, L * R)
+    return (w @ p.w_generate + p.b_generate).abs().max().item()
+
+
+def dyna_work(S, L, C, H, R):
+    """(forward flops, parameter bytes) of one DynaMixerOp over S sequences in
+    float32: compress, generate, the per-head mix, the output projection."""
+    HR, LR, LL = H * R, L * R, L * L
+    flops = S * (2 * L * C * HR + 2 * H * LR * LL + 2 * H * LL * (C // H) + 2 * L * C * C)
+    params = C * HR + HR + LR * LL + LL + C * C + C
+    return flops, 4 * params
+
+
+def phase_dyna_kernels(torch, dk, report):
+    print("[6/16] K4f / K4b fused DynaMixerOp vs the plain version and its autograd")
+    H, R = DYNA_OP["H"], DYNA_OP["R"]
+    p = dyna_params(dk, torch, seed=41, **DYNA_OP)
+    for B in (32, 512):
+        gen = torch.Generator().manual_seed(B)
+        shape = (7 * B, DYNA_OP["L"], DYNA_OP["C"])
+        x1 = torch.randn(*shape, generator=gen).cuda()
+        g = torch.randn(*shape, generator=gen).cuda()
+        for scale in (1, 30):  # x30: generate logits of tens, the softmax's stress case
+            tag = f"B{B}/x{scale}"
+            x = scale * x1
+            logits = dyna_logit_range(x, p, H, R)
+            report.setdefault("dyna_max_abs_logit", {})[tag] = logits
+            print(f"  {tag}: max |generate logit| {logits:.1f}")
+            out = dk.fused_dynamixer_op(x, p, H, R)
+            report["errors"][f"K4f/{tag}"] = rel_err(
+                torch, [out], [dk.dynamixer_op_reference(x, p, H, R)], f"K4f/{tag}")
+            run = lambda: dk.fused_dynamixer_op_bwd(x, g, p, H, R)
+            dx, grads = run()
+            wdx, wgrads = dk.dynamixer_op_bwd_reference(x, g, p, H, R)
+            report["errors"][f"K4b/{tag}"] = rel_err(torch, (dx, *grads), (wdx, *wgrads),
+                                                     f"K4b/{tag}")
+            dx2, grads2 = run()
+            if not all(torch.equal(a, b) for a, b in zip((dx, *grads), (dx2, *grads2))):
+                raise AssertionError(f"K4b/{tag}: two backward runs differ")
+
+
+def dyna_counters(dk):
+    return {"K4f": dk.fused_dynamixer_op.launches, "K4b": dk.fused_dynamixer_op_bwd.launches}
+
+
+def dyna_zero(dk):
+    dk.fused_dynamixer_op.launches = dk.fused_dynamixer_op_bwd.launches = 0
+
+
+def phase_dyna_serving(torch, dk, serving, np, report):
+    print("[9/16] serving the DynaMixer config (K4f in every DynaMixerOp)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dyna_") as tmp:
+        serving.main(["export", "-c", DYNA_CFG, "-o", tmp])
+        card, cpu = serving.load_serving(tmp), serving.load_serving(tmp, device="cpu")
+    rng = np.random.RandomState(4)
+    requests = {n: {"image": rng.rand(n, 1, 28, 28).astype(np.float32),
+                    "audio": rng.rand(n, 1, 112, 112).astype(np.float32)} for n in REQUESTS}
+    # the main path: the counter zeroed just before, read just after
+    dyna_zero(dk)
+    answers = {n: card.predict(feats) for n, feats in requests.items()}
+    launches = dk.fused_dynamixer_op.launches
+    forwards = sum(-(-n // max(card.buckets)) for n in REQUESTS)
+    print(f"  main-path launches: K4f {launches} over {forwards} device forwards")
+    if launches != DYNA_OPS_PER_FORWARD * forwards:
+        raise AssertionError(f"K4f launched {launches} times, expected "
+                             f"{DYNA_OPS_PER_FORWARD} x {forwards}")
+    worst, worst_rel = 0.0, 0.0
+    for n, got in answers.items():
+        want = cpu.predict(requests[n])  # the same artifact's plain versions on the CPU
+        for g, w in [(got["logits"], want["logits"])] + list(zip(got["branch_logits"],
+                                                                   want["branch_logits"])):
+            if g.shape != w.shape or not np.isfinite(g).all():
+                raise AssertionError(f"DynaMixer n={n}: bad output {g.shape} vs {w.shape}")
+            err, scale = float(np.abs(g - w).max()), max(1.0, float(np.abs(w).max()))
+            if not err <= SERVED_REL * scale:
+                raise AssertionError(f"DynaMixer n={n}: logits differ by {err} > "
+                                     f"{SERVED_REL} x {scale}")
+            worst, worst_rel = max(worst, err), max(worst_rel, err / scale)
+        print(f"  request of {n}: logits {got['logits'].shape}, worst |err| against the CPU "
+              f"so far {worst:.3e} ({worst_rel:.2e} of max(1, max|CPU|))")
+    report["dyna_served_max_abs_err"] = worst
+    report["dyna_served_max_rel_err"] = worst_rel
+    report["dyna_serving_launches"] = launches
+    return card
+
+
+def phase_dyna_training(torch, dk, serving, run, apply_overrides, load_cfg, synthetic, np,
+                        report):
+    print("[12/16] training the DynaMixer config (K4f / K4b in every DynaMixerOp)")
+    cfg = load_cfg(DYNA_CFG)
+    apply_overrides(cfg, ["model.dropout=0.0"], warn=False)
+    cpu = serving._build_task(cfg, device="cpu")
+    card = serving._build_task(cfg, device="cuda")
+    card.network.load_state_dict(cpu.network.state_dict())
+    data = synthetic(32, seed=3, learnable=True)
+    c_losses, c_grads = train_step_one(torch, cpu, {k: torch.from_numpy(v)
+                                                    for k, v in data.items()})
+    dyna_zero(dk)
+    k_losses, k_grads = train_step_one(torch, card, {k: torch.from_numpy(v).cuda()
+                                                     for k, v in data.items()})
+    launched = dyna_counters(dk)
+    if launched != {"K4f": DYNA_OPS_PER_FORWARD, "K4b": DYNA_OPS_PER_FORWARD}:
+        raise AssertionError(f"DynaMixer step 1 launched {launched}")
+    names = sorted(k_grads)
+    key = "DynaMixer train step 1 (card vs CPU): loss, branch losses"
+    report["errors"][key] = rel_err(torch, [t.cpu() for t in k_losses], c_losses, key,
+                                    rel=LOSS_REL)
+    key = f"DynaMixer train step 1 (card vs CPU): {len(names)} parameter gradients"
+    report["errors"][key] = rel_err(torch, [k_grads[n].cpu() for n in names],
+                                    [c_grads[n] for n in names], key)
+    del cpu, card
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dyna_train_") as tmp:
+        argv = ["-c", DYNA_CFG, "-n", "smoke_dyna", f"train.tensorboard_path={tmp}",
+                f"train.epochs={DYNA_EPOCHS}", "dataset.params.synthetic=true",
+                "dataset.params.synthetic_learnable=true",
+                f"dataset.params.synthetic_sizes={TRAIN_SIZES}"]
+        result = train_run(run, np, argv, lambda: dyna_zero(dk), lambda: dyna_counters(dk),
+                           "DynaMixer", MIN_ACC)
+    for name, count in result["launches"].items():
+        if count <= 0:
+            raise AssertionError(f"{name} was never launched on the DynaMixer training path")
+    report["dyna_training_run"] = result
+
+
+def phase_dyna_times(torch, dk, serving, Trainer, load_cfg, synthetic, np, served, report):
+    print("[15/16] DynaMixer times (CUDA events, median of 5 runs)")
+    times, bounds = report["times_ms"], report["bounds_ms"]
+    busy = report["dyna_device_busy_ms"] = {}
+    H, R = DYNA_OP["H"], DYNA_OP["R"]
+    p = dyna_params(dk, torch, seed=43, **DYNA_OP)
+    for B in (32, 512):
+        S, tag = 7 * B, f"B{B}"
+        gen = torch.Generator().manual_seed(7)
+        x = torch.randn(S, DYNA_OP["L"], DYNA_OP["C"], generator=gen).cuda()
+        g = torch.randn(S, DYNA_OP["L"], DYNA_OP["C"], generator=gen).cuda()
+        times[f"K4f/{tag}"] = cuda_ms(torch, lambda: dk.fused_dynamixer_op(x, p, H, R))
+        times[f"K4f_plain/{tag}"] = cuda_ms(torch, lambda: dk.dynamixer_op_reference(x, p, H, R))
+        times[f"K4b/{tag}"] = cuda_ms(torch, lambda: dk.fused_dynamixer_op_bwd(x, g, p, H, R))
+        times[f"K4b_plain/{tag}"] = cuda_ms(
+            torch, lambda: dk.dynamixer_op_bwd_reference(x, g, p, H, R))
+        if B == 512:
+            report.setdefault("breakdown_us", {})[f"K4b/{tag}"] = kernel_breakdown(
+                torch, lambda: dk.fused_dynamixer_op_bwd(x, g, p, H, R), f"K4b {tag}")
+        flops, pbytes = dyna_work(S, **DYNA_OP)
+        act = x.numel() * 4
+        bounds[f"K4f/{tag}"] = bound(flops, pbytes + 2 * act, "f32")
+        bounds[f"K4b/{tag}"] = bound(2 * flops, 2 * pbytes + 3 * act, "f32")
+        print(f"  {tag} (S={S}): K4f {times[f'K4f/{tag}']:.4f} ms (plain "
+              f"{times[f'K4f_plain/{tag}']:.4f}, bound {bounds[f'K4f/{tag}'][0]:.4f}); K4b "
+              f"{times[f'K4b/{tag}']:.4f} ms (plain {times[f'K4b_plain/{tag}']:.4f}, bound "
+              f"{bounds[f'K4b/{tag}'][0]:.4f})")
+    rng = np.random.RandomState(5)
+    for B in (32, 512):
+        feats = {"image": torch.from_numpy(rng.rand(B, 1, 28, 28).astype(np.float32)).cuda(),
+                 "audio": torch.from_numpy(rng.rand(B, 1, 112, 112).astype(np.float32)).cuda()}
+        fwd = lambda: served.forward_device(feats)
+        times[f"dyna_served/B{B}"] = cuda_ms(torch, fwd, iters=5)
+        busy[f"served/B{B}"] = device_busy_ms(torch, fwd)
+    print(f"  served forward: B=32 {times['dyna_served/B32']:.4f} ms, B=512 "
+          f"{times['dyna_served/B512']:.4f} ms")
+    data = synthetic(512, seed=4, learnable=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dyna_steps_") as tmp:
+        cfg = load_cfg(DYNA_CFG)
+        task = serving._build_task(cfg, device="cuda")
+        trainer = Trainer(cfg.train, name="dyna_steps", work_dir=tmp)
+        trainer.setup(task)
+        ctx = task.make_ctx(0, "train")
+        for B in (32, 512):
+            batch = {k: torch.from_numpy(v[:B]).cuda() for k, v in data.items()}
+            step = lambda: trainer.train_step(task, batch, ctx)
+            torch.cuda.reset_peak_memory_stats()
+            times[f"dyna_train_step/B{B}"] = cuda_ms(torch, step, iters=5)
+            report.setdefault("dyna_train_step_peak_gib", {})[f"B{B}"] = \
+                torch.cuda.max_memory_allocated() / 2**30
+            busy[f"train_step/B{B}"] = device_busy_ms(torch, step)
+        trainer.logger.close()
+    print(f"  train step (the config: dropout 0.5, Adam): B=32 "
+          f"{times['dyna_train_step/B32']:.4f} ms, B=512 {times['dyna_train_step/B512']:.4f} ms; "
+          f"peak memory (GiB) {report['dyna_train_step_peak_gib']}")
+    for key, ms in busy.items():
+        print(f"  device busy, {key}: {ms:.4f} ms a call "
+              f"({ms / times['dyna_' + key]:.1%} of its CUDA-event time)")
+
+
 def main() -> int:
     import torch
 
@@ -916,13 +1159,14 @@ def main() -> int:
     from m2mixer_tpu_torch.datasets import synthetic_avmnist_arrays
     from m2mixer_tpu_torch.models import get_model
     from m2mixer_tpu_torch.ops import _build
+    from m2mixer_tpu_torch.ops import dynamixer_kernel as dk
     from m2mixer_tpu_torch.ops import gmlp_kernel as gk
     from m2mixer_tpu_torch.ops import mixer_kernel as mk
     from m2mixer_tpu_torch.training.trainer import Trainer
 
     t_start = time.time()
     report = {"errors": {}, "bf16_checks": {}, "times_ms": {}, "bounds_ms": {}}
-    print("[1/12] building the CUDA kernels")
+    print("[1/16] building the CUDA kernels")
     t0 = time.time()
     _build.build_library(verbose=True)
     _build.load_library()
@@ -932,17 +1176,23 @@ def main() -> int:
     phase_kernels(torch, mk, report)
     phase_backward(torch, mk, report)
     phase_gmlp_kernels(torch, gk, report)
+    phase_dyna_kernels(torch, dk, report)
     plain, models = phase_serving(torch, mk, serving, get_model, load_cfg, np, report)
     gmlp_served = dict(zip(("plain", "kernel"), phase_gmlp_serving(torch, gk, serving, np, report)))
+    dyna_served = phase_dyna_serving(torch, dk, serving, np, report)
     phase_training(torch, mk, serving, run, apply_cli_overrides, load_cfg,
                    synthetic_avmnist_arrays, np, report)
     phase_gmlp_training(torch, gk, serving, run, apply_cli_overrides, load_cfg,
+                        synthetic_avmnist_arrays, np, report)
+    phase_dyna_training(torch, dk, serving, run, apply_cli_overrides, load_cfg,
                         synthetic_avmnist_arrays, np, report)
     phase_times(torch, mk, serving, np, plain, models, report)
     phase_train_times(torch, mk, serving, Trainer, apply_cli_overrides, load_cfg,
                       synthetic_avmnist_arrays, report)
     phase_gmlp_times(torch, gk, serving, Trainer, apply_cli_overrides, load_cfg,
                      synthetic_avmnist_arrays, np, gmlp_served, report)
+    phase_dyna_times(torch, dk, serving, Trainer, load_cfg, synthetic_avmnist_arrays, np,
+                     dyna_served, report)
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -956,6 +1206,8 @@ def main() -> int:
     b4, by4 = report["bounds_ms"]["K2b/encoder/B512"]
     b5, by5 = report["bounds_ms"]["K3f/encoder/B512"]
     b6, by6 = report["bounds_ms"]["K3b/encoder/B512"]
+    b7, by7 = report["bounds_ms"]["K4f/B512"]
+    b8, by8 = report["bounds_ms"]["K4b/B512"]
     kernels = [
         {"name": "mixer_block_fwd (K1f, one MixerBlock, B=512 N=4 D=128 T=32 C=3072 f32)",
          "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/mixer_fwd.cu",
@@ -1001,11 +1253,25 @@ def main() -> int:
          "max_abs_err": report["errors"]["K3b/encoder/B512/rate0.0/erf"],
          "ms": t["K3b/encoder/B512"], "plain_ms": t["K3b_plain/encoder/B512"],
          "bound_ms": b6, "bound_by": by6, "library_ms": None},
+        {"name": "dyna_fwd (K4f, one DynaMixerOp, S=3584 L=7 C=256 H=8 R=2 f32)",
+         "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/dynamixer.cu",
+         "replaces": "m2mixer_tpu/ops/dynamixer_kernel.py:130",
+         "launches": report["dyna_serving_launches"],
+         "max_abs_err": report["errors"]["K4f/B512/x1"],
+         "ms": t["K4f/B512"], "plain_ms": t["K4f_plain/B512"],
+         "bound_ms": b7, "bound_by": by7, "library_ms": None},
+        {"name": "dyna_bwd (K4b, one DynaMixerOp backward, S=3584 L=7 C=256 H=8 R=2 f32)",
+         "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/dynamixer.cu",
+         "replaces": "m2mixer_tpu/ops/dynamixer_kernel.py:162",
+         "launches": report["dyna_training_run"]["launches"]["K4b"],
+         "max_abs_err": report["errors"]["K4b/B512/x1"],
+         "ms": t["K4b/B512"], "plain_ms": t["K4b_plain/B512"],
+         "bound_ms": b8, "bound_by": by8, "library_ms": None},
     ]
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({**report, "kernels": kernels}, f, indent=2)
-    print(f"[12/12] done in {report['seconds']:.1f} s")
+    print(f"[16/16] done in {report['seconds']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -57,7 +57,7 @@ def build_multimodal_net(model_cfg, modality_keys: Sequence[str], head_pool: boo
 
 class MultimodalNet(nn.Module):
     """N-modality encoder/fusion/heads network; ``fusion`` is a
-    parameter-free callable here (ConcatFusion)."""
+    parameter-free callable (ConcatFusion, ConcatDynaFusion, MaxFusion)."""
 
     def __init__(self, encoders, heads, fusion, fusion_mixer, classifier,
                  head_pool: bool = True):

@@ -13,7 +13,8 @@ from __future__ import annotations
 import inspect
 
 from .classification import StandardClassifier
-from .fusion import ConcatFusion
+from .dynamixer import DynaMixer, DynaMixerBlock, DynaMixerOp, FusionDynaMixer
+from .fusion import ConcatDynaFusion, ConcatFusion, MaxFusion
 from .gmlp import FusiongMLP, GatingMlpBlock, SpatialGatingUnit, VisiongMLP, gMLP
 from .mixer import FeedForward, FusionMixer, MixerBlock, MLPMixer
 from .pallas_blocks import (PallasFusiongMLP, PallasFusionMixer, PallasGatingMlpBlock,
@@ -25,7 +26,8 @@ __all__ = [
     "StandardClassifier", "PallasMixerBlock", "PallasMLPMixer", "PallasFusionMixer",
     "PallasStackedMLPMixer", "PallasStackedFusionMixer", "SpatialGatingUnit",
     "GatingMlpBlock", "gMLP", "VisiongMLP", "FusiongMLP", "PallasGatingMlpBlock",
-    "PallasVisiongMLP", "PallasFusiongMLP", "build_component", "get_block_by_name",
+    "PallasVisiongMLP", "PallasFusiongMLP", "DynaMixerOp", "DynaMixerBlock", "DynaMixer",
+    "FusionDynaMixer", "ConcatDynaFusion", "MaxFusion", "build_component", "get_block_by_name",
     "get_fusion_by_name", "get_classifier_by_name",
 ]
 
@@ -33,8 +35,8 @@ BLOCKS = {c.__name__: c for c in (MLPMixer, FusionMixer, PallasMLPMixer, PallasF
                                   PallasStackedMLPMixer, PallasStackedFusionMixer,
                                   SpatialGatingUnit, GatingMlpBlock, gMLP, VisiongMLP,
                                   FusiongMLP, PallasGatingMlpBlock, PallasVisiongMLP,
-                                  PallasFusiongMLP)}
-FUSIONS = {"ConcatFusion": ConcatFusion}
+                                  PallasFusiongMLP, DynaMixer, FusionDynaMixer)}
+FUSIONS = {c.__name__: c for c in (ConcatFusion, ConcatDynaFusion, MaxFusion)}
 CLASSIFIERS = {"StandardClassifier": StandardClassifier}
 
 

@@ -1,0 +1,465 @@
+// Fused DynaMixerOp forward (K4f) and backward (K4b) kernels for Hopper (sm_90a), float32.
+//
+// Replaces the TPU Pallas kernels of m2mixer_tpu/ops/dynamixer_kernel.py:
+//   m2m_dyna_fwd  <- fused_dynamixer_op's forward (_fwd_call: _fwd_kernel over _op_math)
+//   m2m_dyna_bwd  <- fused_dynamixer_op's _bwd_rule (_bwd_kernel: jax.vjp of _op_math)
+//
+// One DynaMixerOp on x (S, L, C), S sequences of L tokens, H heads of C/H
+// channels, R reduced features a head, in _op_math's order:
+//   comp = x W_c + b_c (S*L, H*R), read as (S, L, H, R);
+//   gin[s, h, l*R + r] = comp[s, l, h*R + r]; logit = gin W_g + b_g (S*H, L*L),
+//   read as w[m, l] at m*L + l; P = softmax over m, the source token (axis -2);
+//   mixed[s, l, c] = sum_m P[s, h(c), m, l] x[s, m, c], h(c) = c / (C/H);
+//   y = mixed W_o + b_o.
+// The weights come input-major (the JAX layout): W_c (C, H*R), W_g (L*R, L*L),
+// W_o (C, C).
+//
+// What bounds it on the H100. Per sequence the op does 2*L*C*(H*R + C) +
+// 2*H*L*L*(L*R + C/H) flops; at the shipped shape (L = 7, C = 256, H = 8,
+// R = 2) that is 1.01 MFLOP, 91% of it the C -> C output projection. At batch
+// 512 (S = 3584 sequences) K4f is 3.62 GFLOP against 51 MB of x in and y out:
+// 54 us of float32 on the CUDA cores (67 TFLOP/s) against 15 us of HBM, so
+// operations bound it; K4b does about twice the work.
+//
+// Design. A sequence is small (L x C float32, 7 KB), and everything but the
+// output projection couples only a sequence's own tokens; the projection is a
+// plain GEMM over all S*L rows with a 256 KB weight, above the 227 KB of
+// shared memory a CTA may use. So:
+//   forward, 2 launches:
+//     1. mix: a CTA owns `spc` whole sequences (1-4, enough CTAs for two
+//        waves), with W_c and W_g in shared memory; it computes comp, the
+//        logits, the softmax (the maximum over m subtracted first) and the mix
+//        there, and writes mixed (S*L, C);
+//     2. out: y = mixed W_o + b_o, the 64x64 SIMT tiles of tile_common.cuh.
+//   backward, 6 launches; the autograd Function saves only x, so the
+//   per-sequence intermediates are recomputed:
+//     1. d_mixed = g W_o^T (tile GEMM);
+//     2. seq: per CTA of whole sequences, W_c (and its transpose) and W_g in
+//        shared memory: recompute comp, P and mixed (written for dW_o); dP =
+//        d_mixed-by-head x^T; the softmax backward over m; d_comp = d_logit
+//        W_g^T, laid back to (S*L, H*R); dx = the mix's backward (sum_l P
+//        d_mixed) + d_comp W_c^T; the CTA's partials of dW_g and db_g;
+//     3. dW_o = mixed^T g and 4. dW_c = x^T d_comp: 64x64 tiles of the weight,
+//        the S*L rows split into a fixed number of slices;
+//     5. db_o, db_c: column sums over row slices (enough for two waves: a
+//        slice is one thread's serial sum);
+//     6. every partial reduced in a fixed order (compensated), one launch.
+//   No float atomics: two runs give bit-identical gradients. dW_c never takes
+//   per-CTA partials (4096 floats a CTA); dW_g and db_g (L*R*L*L + L*L = 735
+//   floats) take one per sequence CTA.
+// The products are simple SIMT loops and tiles (no tensor cores, no TMA),
+// several times off the float32 bound (PERF.md); making them fast is later work.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "mixer_common.cuh"
+#include "tile_common.cuh"
+
+namespace {
+
+constexpr int kMaxL = 32;          // tokens a sequence may have (the wrapper's _MAX_TOKENS)
+constexpr int kMaxC = 1024;        // channels (the wrapper's _MAX_CHANNELS)
+constexpr int kMaxSeqPerCta = 4;   // sequences a per-sequence CTA owns
+constexpr int kMaxSplit = 32;      // row slices of the weight gradients
+constexpr int kMaxColSplit = 256;  // row slices of the bias gradients' column sums
+constexpr int kRedJobs = 5;        // dW_o, dW_c, db_o, db_c, dW_g + db_g
+
+struct Weights {
+  const float* wc;  // (C, H*R)
+  const float* bc;  // (H*R,)
+  const float* wg;  // (L*R, L*L)
+  const float* bg;  // (L*L,)
+  const float* wo;  // (C, C)
+  const float* bo;  // (C,)
+};
+
+// the op's sizes and the shared-memory layout of a per-sequence CTA (offsets
+// in floats; -1 where the forward has no such array)
+struct Geo {
+  int S, L, C, H, R, spc;
+  int wc, wct, bc, wg, bg, x, dm, comp, p, dp, dcomp, total;
+};
+
+Geo make_geo(int S, int L, int C, int H, int R, int spc, bool bwd) {
+  Geo g = {S, L, C, H, R, spc};
+  const int HR = H * R, LR = L * R, LL = L * L;
+  int o = 0;
+  auto take = [&o](int n) {
+    const int at = o;
+    o += n;
+    return at;
+  };
+  g.wc = take(C * HR);
+  g.wct = bwd ? take(C * HR) : -1;
+  g.bc = take(HR);
+  g.wg = take(LR * LL);
+  g.bg = take(LL);
+  g.x = take(spc * L * C);
+  g.dm = bwd ? take(spc * L * C) : -1;
+  g.comp = take(spc * L * HR);
+  g.p = take(spc * H * LL);
+  g.dp = bwd ? take(spc * H * LL) : -1;
+  g.dcomp = bwd ? take(spc * L * HR) : -1;
+  g.total = o;
+  return g;
+}
+
+// W_c, b_c, W_g and b_g into shared memory; the backward also keeps W_c
+// transposed (C fastest), so that dx's d_comp W_c^T reads without conflicts
+__device__ void load_weights(float* sm, const Weights& w, const Geo& g) {
+  const int HR = g.H * g.R, LL = g.L * g.L;
+  for (int i = threadIdx.x; i < g.C * HR; i += kThreads) {
+    const float v = __ldg(w.wc + i);
+    sm[g.wc + i] = v;
+    if (g.wct >= 0) sm[g.wct + (i % HR) * g.C + i / HR] = v;
+  }
+  for (int i = threadIdx.x; i < HR; i += kThreads) sm[g.bc + i] = __ldg(w.bc + i);
+  for (int i = threadIdx.x; i < g.L * g.R * LL; i += kThreads) sm[g.wg + i] = __ldg(w.wg + i);
+  for (int i = threadIdx.x; i < LL; i += kThreads) sm[g.bg + i] = __ldg(w.bg + i);
+}
+
+// comp, the logits and P = softmax over m of the CTA's nq sequences (x in
+// shared memory): comp[q][l][j], p[q][h][m][l]; ends synchronised
+__device__ void mixing_weights(float* sm, const Geo& g, int nq) {
+  const int L = g.L, C = g.C, H = g.H, R = g.R, HR = H * R, LR = L * R, LL = L * L;
+  const float* xs = sm + g.x;
+  const float* wc = sm + g.wc;
+  const float* wg = sm + g.wg;
+  float* comp = sm + g.comp;
+  float* p = sm + g.p;
+  for (int o = threadIdx.x; o < nq * L * HR; o += kThreads) {
+    const int j = o % HR;
+    const float* xr = xs + (o / HR) * C;
+    float acc = 0.f;
+    for (int c = 0; c < C; ++c) acc = fmaf(xr[c], wc[c * HR + j], acc);
+    comp[o] = acc + sm[g.bc + j];
+  }
+  __syncthreads();
+  for (int o = threadIdx.x; o < nq * H * LL; o += kThreads) {
+    const int n = o % LL, qh = o / LL, h = qh % H, q = qh / H;
+    const float* cq = comp + q * L * HR + h * R;  // gin[q, h, i] = cq[(i / R) * HR + i % R]
+    float acc = 0.f;
+    for (int i = 0; i < LR; ++i) acc = fmaf(cq[(i / R) * HR + i % R], wg[i * LL + n], acc);
+    p[o] = acc + sm[g.bg + n];
+  }
+  __syncthreads();
+  for (int o = threadIdx.x; o < nq * H * L; o += kThreads) {  // column (q, h, l), over m
+    float* col = p + (o / L) * LL + o % L;
+    float mx = -INFINITY;
+    for (int m = 0; m < L; ++m) mx = fmaxf(mx, col[m * L]);
+    float sum = 0.f;
+    for (int m = 0; m < L; ++m) {
+      const float e = expf(col[m * L] - mx);
+      col[m * L] = e;
+      sum += e;
+    }
+    for (int m = 0; m < L; ++m) col[m * L] = col[m * L] / sum;
+  }
+  __syncthreads();
+}
+
+// mixed[q][l][c] = sum_m P[q][h(c)][m][l] x[q][m][c] -> out (the CTA's rows)
+__device__ void mix(const float* sm, const Geo& g, int nq, float* __restrict__ out) {
+  const int L = g.L, C = g.C, Ch = C / g.H, LL = L * L;
+  const float* xs = sm + g.x;
+  const float* p = sm + g.p;
+  for (int o = threadIdx.x; o < nq * L * C; o += kThreads) {
+    const int c = o % C, row = o / C, l = row % L, q = row / L;
+    const float* pp = p + (q * g.H + c / Ch) * LL + l;
+    const float* xq = xs + q * L * C + c;
+    float acc = 0.f;
+    for (int m = 0; m < L; ++m) acc = fmaf(pp[m * L], xq[m * C], acc);
+    out[o] = acc;
+  }
+}
+
+__device__ void load_rows(float* dst, const float* __restrict__ src, int n) {
+  for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = src[i];
+}
+
+// K4f step 1: mixed (S*L, C) of the CTA's sequences
+__global__ void __launch_bounds__(kThreads)
+    dyna_mix_kernel(const float* __restrict__ x, const Weights w, const Geo g,
+                    float* __restrict__ mixed) {
+  extern __shared__ __align__(16) float sm[];
+  const int s0 = blockIdx.x * g.spc, nq = min(g.spc, g.S - s0);
+  const size_t off = (size_t)s0 * g.L * g.C;
+  load_weights(sm, w, g);
+  load_rows(sm + g.x, x + off, nq * g.L * g.C);
+  __syncthreads();
+  mixing_weights(sm, g, nq);
+  mix(sm, g, nq, mixed + off);
+}
+
+// out (M x Nn) = A B + bias: one 64x64 tile a CTA (K4f step 2)
+__global__ void __launch_bounds__(kThreads)
+    bias_gemm_kernel(View A, View Bv, const float* __restrict__ bias, float* __restrict__ out,
+                     int M, int Nn, int K) {
+  __shared__ float As[kTileK][kTile + kPad], Bs[kTileK][kTile + kPad];
+  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+  float acc[4][4] = {};
+  gemm_tile(A, Bv, M, Nn, 0, K, m0, n0, As, Bs, acc);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + ty * 4 + i, n = n0 + tx * 4 + j;
+      if (m < M && n < Nn) out[(size_t)m * Nn + n] = acc[i][j] + __ldg(bias + n);
+    }
+}
+
+// K4b step 2, per CTA of whole sequences: mixed (for dW_o), d_comp, dx, and
+// the CTA's partials of dW_g (L*R x L*L) then db_g (L*L) at part[blockIdx.x]
+__global__ void __launch_bounds__(kThreads)
+    dyna_seq_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dmixed,
+                        const Weights w, const Geo g, float* __restrict__ mixed,
+                        float* __restrict__ dcomp_out, float* __restrict__ dx,
+                        float* __restrict__ part) {
+  extern __shared__ __align__(16) float sm[];
+  const int L = g.L, C = g.C, H = g.H, R = g.R, HR = H * R, LR = L * R, LL = L * L;
+  const int Ch = C / H;
+  const int s0 = blockIdx.x * g.spc, nq = min(g.spc, g.S - s0);
+  const size_t off = (size_t)s0 * L * C;
+  const float* xs = sm + g.x;
+  const float* dm = sm + g.dm;
+  const float* comp = sm + g.comp;
+  const float* p = sm + g.p;
+  float* dp = sm + g.dp;
+  float* dcomp = sm + g.dcomp;
+  load_weights(sm, w, g);
+  load_rows(sm + g.x, x + off, nq * L * C);
+  load_rows(sm + g.dm, dmixed + off, nq * L * C);
+  __syncthreads();
+  mixing_weights(sm, g, nq);
+  mix(sm, g, nq, mixed + off);
+  // dP[q][h][m][l] = sum over the head's channels of d_mixed[q][l][c] x[q][m][c]
+  for (int o = threadIdx.x; o < nq * H * LL; o += kThreads) {
+    const int n = o % LL, qh = o / LL, h = qh % H, q = qh / H;
+    const float* a = dm + (q * L + n % L) * C + h * Ch;
+    const float* b = xs + (q * L + n / L) * C + h * Ch;
+    float acc = 0.f;
+    for (int c = 0; c < Ch; ++c) acc = fmaf(a[c], b[c], acc);
+    dp[o] = acc;
+  }
+  __syncthreads();
+  // the softmax backward over m, in place: d_logit = P (dP - sum_m P dP)
+  for (int o = threadIdx.x; o < nq * H * L; o += kThreads) {
+    const int at = (o / L) * LL + o % L;
+    float s = 0.f;
+    for (int m = 0; m < L; ++m) s = fmaf(p[at + m * L], dp[at + m * L], s);
+    for (int m = 0; m < L; ++m) dp[at + m * L] = p[at + m * L] * (dp[at + m * L] - s);
+  }
+  __syncthreads();
+  // d_gin[q][h][i] = sum_n d_logit[q][h][n] W_g[i][n], laid back as d_comp[q][l][h*R + r]
+  const float* wg = sm + g.wg;
+  for (int o = threadIdx.x; o < nq * H * LR; o += kThreads) {
+    const int i = o % LR, qh = o / LR, h = qh % H, q = qh / H;
+    const float* d = dp + qh * LL;
+    float acc = 0.f;
+    for (int n = 0; n < LL; ++n) acc = fmaf(d[n], wg[i * LL + n], acc);
+    const int at = (q * L + i / R) * HR + h * R + i % R;
+    dcomp[at] = acc;
+    dcomp_out[(size_t)s0 * L * HR + at] = acc;
+  }
+  __syncthreads();
+  // dx[q][m][c] = sum_l P[q][h(c)][m][l] d_mixed[q][l][c] + sum_j d_comp[q][m][j] W_c[c][j]
+  const float* wct = sm + g.wct;
+  for (int o = threadIdx.x; o < nq * L * C; o += kThreads) {
+    const int c = o % C, row = o / C, q = row / L;
+    const float* pp = p + (q * H + c / Ch) * LL + (row % L) * L;
+    const float* dq = dm + q * L * C + c;
+    float acc = 0.f;
+    for (int l = 0; l < L; ++l) acc = fmaf(pp[l], dq[l * C], acc);
+    const float* dr = dcomp + row * HR;
+    float acc2 = 0.f;
+    for (int j = 0; j < HR; ++j) acc2 = fmaf(dr[j], wct[j * C + c], acc2);
+    dx[off + o] = acc + acc2;
+  }
+  // the CTA's partials: dW_g[i][n] = sum_q sum_h gin[q][h][i] d_logit[q][h][n], db_g[n]
+  float* mine = part + (size_t)blockIdx.x * (LR * LL + LL);
+  for (int o = threadIdx.x; o < LR * LL + LL; o += kThreads) {
+    float acc = 0.f;
+    if (o < LR * LL) {
+      const int i = o / LL, n = o % LL;
+      for (int q = 0; q < nq; ++q)
+        for (int h = 0; h < H; ++h)
+          acc = fmaf(comp[(q * L + i / R) * HR + h * R + i % R], dp[(q * H + h) * LL + n], acc);
+    } else {
+      for (int qh = 0; qh < nq * H; ++qh) acc += dp[qh * LL + o - LR * LL];
+    }
+    mine[o] = acc;
+  }
+}
+
+struct Plan {
+  Geo fwd, bwd;
+  int ctas_fwd, ctas_bwd;
+  int wsplit, wslice;  // the weight gradients: slices of the rows
+  int csplit, cslice;  // the column sums (db_o, db_c): slices of the rows
+  // workspace offsets (floats)
+  size_t mixed, dm, dcomp, p_gen, p_wo, p_wc, p_col;
+  size_t fwd_floats, bwd_floats;
+};
+
+int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
+
+int check_args(int S, int L, int C, int H, int R) {
+  if (S < 1 || L < 1 || L > kMaxL || C < 1 || C > kMaxC || H < 1 || R < 1 || C % H) return -1;
+  if ((long long)S * L > 64LL * 65535) return -1;  // the row tiles of one grid column
+  return 0;
+}
+
+// the largest count of sequences a CTA (<= want) whose layout fits `limit`
+// bytes of shared memory; 0 if none
+int fit_spc(int S, int L, int C, int H, int R, int want, bool bwd, int limit) {
+  for (int spc = want; spc >= 1; --spc)
+    if ((size_t)make_geo(S, L, C, H, R, spc, bwd).total * 4 <= (size_t)limit) return spc;
+  return 0;
+}
+
+int make_plan(int S, int L, int C, int H, int R, int device, Plan& pl) {
+  int limit = 0, sms = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  // enough sequence CTAs for two waves before a CTA takes more than one sequence
+  int want = S / (2 * sms);
+  want = want < 1 ? 1 : (want > kMaxSeqPerCta ? kMaxSeqPerCta : want);
+  const int spc_f = fit_spc(S, L, C, H, R, want, false, limit);
+  const int spc_b = fit_spc(S, L, C, H, R, want, true, limit);
+  if (!spc_f || !spc_b) return -1;
+  pl.fwd = make_geo(S, L, C, H, R, spc_f, false);
+  pl.bwd = make_geo(S, L, C, H, R, spc_b, true);
+  pl.ctas_fwd = ceil_div(S, spc_f);
+  pl.ctas_bwd = ceil_div(S, spc_b);
+  const long long rows = (long long)S * L;
+  const int HR = H * R, LR = L * R, LL = L * L;
+  // dW_o's few 64x64 tiles x slices of the rows for two waves
+  const int w_tiles = ceil_div(C, kTile) * ceil_div(C, kTile);
+  int ws = ceil_div(2 * sms, w_tiles);
+  const int max_ws = ceil_div(rows, kTile);  // at least 64 rows a slice
+  ws = ws > kMaxSplit ? kMaxSplit : ws;
+  ws = ws > max_ws ? max_ws : ws;
+  ws = ws < 1 ? 1 : ws;
+  pl.wslice = ceil_div(ceil_div(rows, ws), kTileK) * kTileK;
+  pl.wsplit = ceil_div(rows, pl.wslice);
+  // the column sums: a slice is one thread's serial sum, so take enough slices
+  // for two waves of CTAs (C = 256 is a single CTA of columns a slice)
+  int cs = ceil_div(sms, ceil_div(C > HR ? C : HR, kThreads));
+  const int max_cs = ceil_div(rows, kTileK);  // at least 16 rows a slice
+  cs = cs > kMaxColSplit ? kMaxColSplit : cs;
+  cs = cs > max_cs ? max_cs : cs;
+  pl.cslice = ceil_div(rows, cs);
+  pl.csplit = ceil_div(rows, pl.cslice);
+  size_t o = 0;
+  pl.mixed = o, o += (size_t)rows * C;
+  pl.fwd_floats = o;
+  pl.dm = o, o += (size_t)rows * C;
+  pl.dcomp = o, o += (size_t)rows * HR;
+  pl.p_gen = o, o += (size_t)pl.ctas_bwd * (LR * LL + LL);
+  pl.p_wo = o, o += (size_t)pl.wsplit * C * C;
+  pl.p_wc = o, o += (size_t)pl.wsplit * C * HR;
+  pl.p_col = o, o += (size_t)pl.csplit * (C + HR);
+  pl.bwd_floats = o;
+  return 0;
+}
+
+Weights weights(const void* const* q) {
+  auto f = [q](int i) { return static_cast<const float*>(q[i]); };
+  return Weights{f(0), f(1), f(2), f(3), f(4), f(5)};
+}
+
+}  // namespace
+
+extern "C" {
+
+// Workspace bytes of the DynaMixerOp forward (backward = 0) or backward (the
+// wrapper allocates it); 0 for shapes the kernels do not take.
+size_t m2m_dyna_workspace_bytes(int S, int L, int C, int H, int R, int backward, int device) {
+  Plan pl;
+  if (check_args(S, L, C, H, R) || make_plan(S, L, C, H, R, device, pl)) return 0;
+  return (backward ? pl.bwd_floats : pl.fwd_floats) * 4;
+}
+
+// K4f: y = DynaMixerOp(x), x and y (S, L, C) float32. ptrs: the 6 parameters
+// in DynaMixerOpParams order (float32, JAX layout); workspace:
+// m2m_dyna_workspace_bytes(..., 0, ...) bytes.
+int m2m_dyna_fwd(const float* x, float* y, int S, int L, int C, int H, int R, int device,
+                 const void* const* ptrs, void* workspace, void* stream) {
+  if (check_args(S, L, C, H, R)) return -1;
+  M2M_TRY(cudaSetDevice(device));
+  Plan pl;
+  const int code = make_plan(S, L, C, H, R, device, pl);
+  if (code) return code;
+  const size_t smem = (size_t)pl.fwd.total * 4;
+  M2M_TRY(prepare(dyna_mix_kernel, smem));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Weights w = weights(ptrs);
+  float* mixed = static_cast<float*>(workspace) + pl.mixed;
+  dyna_mix_kernel<<<pl.ctas_fwd, kThreads, smem, st>>>(x, w, pl.fwd, mixed);
+  M2M_TRY(cudaGetLastError());
+  const int rows = S * L;
+  bias_gemm_kernel<<<dim3(ceil_div(C, kTile), ceil_div(rows, kTile)), kThreads, 0, st>>>(
+      View{mixed, C, 1}, View{w.wo, C, 1}, w.bo, y, rows, C, C);
+  return (int)cudaGetLastError();
+}
+
+// K4b: dx and the 6 parameter gradients (float32, DynaMixerOpParams order) of
+// one DynaMixerOp at input x for output gradient g; workspace:
+// m2m_dyna_workspace_bytes(..., 1, ...) bytes.
+int m2m_dyna_bwd(const float* x, const float* g, float* dx, int S, int L, int C, int H, int R,
+                 int device, const void* const* ptrs, void* const* grads, void* workspace,
+                 void* stream) {
+  if (check_args(S, L, C, H, R)) return -1;
+  M2M_TRY(cudaSetDevice(device));
+  Plan pl;
+  const int code = make_plan(S, L, C, H, R, device, pl);
+  if (code) return code;
+  const size_t smem = (size_t)pl.bwd.total * 4;
+  M2M_TRY(prepare(dyna_seq_bwd_kernel, smem));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Weights w = weights(ptrs);
+  float* ws = static_cast<float*>(workspace);
+  float* const* gq = reinterpret_cast<float* const*>(grads);
+  const int rows = S * L, HR = H * R, LL = L * L, LR = L * R;
+  // 1. d_mixed = g W_o^T (dynamixer_kernel.py:58)
+  gemm_kernel<<<dim3(ceil_div(C, kTile), ceil_div(rows, kTile), 1), kThreads, 0, st>>>(
+      View{g, C, 1}, View{w.wo, 1, C}, ws + pl.dm, rows, C, C, C);
+  M2M_TRY(cudaGetLastError());
+  // 2. the per-sequence backward (:44-57)
+  dyna_seq_bwd_kernel<<<pl.ctas_bwd, kThreads, smem, st>>>(
+      x, ws + pl.dm, w, pl.bwd, ws + pl.mixed, ws + pl.dcomp, dx, ws + pl.p_gen);
+  M2M_TRY(cudaGetLastError());
+  // 3. dW_o = mixed^T g, 4. dW_c = x^T d_comp: slices of the rows
+  gemm_kernel<<<dim3(ceil_div(C, kTile), ceil_div(C, kTile), pl.wsplit), kThreads, 0, st>>>(
+      View{ws + pl.mixed, 1, C}, View{g, C, 1}, ws + pl.p_wo, C, C, rows, pl.wslice);
+  M2M_TRY(cudaGetLastError());
+  gemm_kernel<<<dim3(ceil_div(HR, kTile), ceil_div(C, kTile), pl.wsplit), kThreads, 0, st>>>(
+      View{x, 1, C}, View{ws + pl.dcomp, HR, 1}, ws + pl.p_wc, C, HR, rows, pl.wslice);
+  M2M_TRY(cudaGetLastError());
+  // 5. db_o, db_c: column sums over slices of the rows
+  ColJobs<2> cj = {};
+  cj.job[0] = ColJob{g, C, ws + pl.p_col};
+  cj.job[1] = ColJob{ws + pl.dcomp, HR, ws + pl.p_col + (size_t)pl.csplit * C};
+  col_slices_kernel<2><<<dim3(ceil_div(C > HR ? C : HR, kThreads), pl.csplit, 2), kThreads, 0,
+                         st>>>(cj, rows, pl.cslice);
+  M2M_TRY(cudaGetLastError());
+  // 6. every partial reduced in slice / CTA order (compensated)
+  RedJobs<kRedJobs> rj = {};
+  rj.job[0] = RedJob{ws + pl.p_wo, pl.wsplit, C * C, gq[4], C * C, nullptr};
+  rj.job[1] = RedJob{ws + pl.p_wc, pl.wsplit, C * HR, gq[0], C * HR, nullptr};
+  rj.job[2] = RedJob{ws + pl.p_col, pl.csplit, C, gq[5], C, nullptr};
+  rj.job[3] = RedJob{ws + pl.p_col + (size_t)pl.csplit * C, pl.csplit, HR, gq[1], HR, nullptr};
+  rj.job[4] = RedJob{ws + pl.p_gen, pl.ctas_bwd, LR * LL + LL, gq[2], LR * LL, gq[3]};
+  int longest = 0;
+  for (const RedJob& j : rj.job) longest = j.P > longest ? j.P : longest;
+  reduce_jobs_kernel<kRedJobs><<<dim3(ceil_div(longest, kThreads), kRedJobs), kThreads, 0, st>>>(
+      rj);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

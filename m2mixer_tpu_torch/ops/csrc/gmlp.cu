@@ -71,6 +71,7 @@ constexpr int kPerThread = kMaxSeq / kGroups;  // tokens a thread owns in a chun
 constexpr int kRowTile = 32;                   // rows per CTA of the LN backward kernels
 constexpr int kMaxSplit = 32;
 constexpr int kMaskIn = 0, kMaskSgu = 1, kMaskOut = 2;
+constexpr int kRedJobs = 7;  // the block's reductions of partials (reduce_jobs_kernel)
 
 struct SguParams {
   const float* ln_s;  // (F/2,)
@@ -407,60 +408,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// column sums over slices of the rows (the B*N rows reach 50688 at batch
-// 512, too many for one serial sum a column): job blockIdx.z writes
-// part[y * C + c] = the sum over rows [y * rslice, (y + 1) * rslice) of a[r, c],
-// rows in order
-struct ColJob {
-  const float* a;
-  int C;
-  float* part;
-};
-struct ColJobs {
-  ColJob job[2];
-};
-
-__global__ void __launch_bounds__(kThreads)
-    col_slices_kernel(const __grid_constant__ ColJobs jobs, int R, int rslice) {
-  const ColJob& jb = jobs.job[blockIdx.z];
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= jb.C) return;
-  const int r0 = blockIdx.y * rslice, r1 = min(R, r0 + rslice);
-  Kahan v;
-  for (int r = r0; r < r1; ++r) v.add(jb.a[(size_t)r * jb.C + c]);
-  jb.part[(size_t)blockIdx.y * jb.C + c] = v.s;
-}
-
-// the block's seven reductions of partials in one launch (mixer_bwd.cu's
-// reduce_kernel takes one): job blockIdx.y sums its tiles x P partials in
-// tile order, element p < len0 to out0[p], the rest to out1[p - len0]. The
-// mixer's one-array column sum and reduction, launched once a job, made K3b
-// 7-8% slower (PERF.md), so the gMLP keeps these two.
-struct RedJob {
-  const float* part;
-  int tiles, P;
-  float* out0;
-  int len0;
-  float* out1;
-};
-constexpr int kRedJobs = 7;
-struct RedJobs {
-  RedJob job[kRedJobs];
-};
-
-__global__ void __launch_bounds__(kThreads)
-    reduce_jobs_kernel(const __grid_constant__ RedJobs jobs) {
-  const RedJob& jb = jobs.job[blockIdx.y];
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p >= jb.P) return;
-  Kahan v;
-  for (int t = 0; t < jb.tiles; ++t) v.add(jb.part[(size_t)t * jb.P + p]);
-  if (p < jb.len0)
-    jb.out0[p] = v.s;
-  else
-    jb.out1[p - jb.len0] = v.s;
-}
-
 struct Plan {
   int nsplit;           // SGU CTAs per sample
   int xsplit, xslice;   // dxn: slices of F
@@ -647,10 +594,10 @@ int m2m_gmlp_bwd(const float* x, const float* g, float* dx, int B, int N, int D,
   gemm_kernel<<<dim3(ceil_div(D, kTile), ceil_div(H, kTile), pl.wsplit), kThreads, 0, st>>>(
       View{ws + pl.gated, 1, H}, View{ws + pl.dout, D, 1}, ws + pl.p_wout, H, D, R, pl.wslice);
   M2M_TRY(cudaGetLastError());
-  ColJobs cj = {};
+  ColJobs<2> cj = {};
   cj.job[0] = ColJob{ws + pl.dpre, F, ws + pl.p_col};
   cj.job[1] = ColJob{ws + pl.dout, D, ws + pl.p_col + (size_t)pl.wsplit * F};
-  col_slices_kernel<<<dim3(ceil_div(F > D ? F : D, kThreads), pl.wsplit, 2), kThreads, 0, st>>>(
+  col_slices_kernel<2><<<dim3(ceil_div(F > D ? F : D, kThreads), pl.wsplit, 2), kThreads, 0, st>>>(
       cj, R, pl.wslice);
   M2M_TRY(cudaGetLastError());
   // the LN backward over D plus the residual g (:61, :80), dxn's slices in order
@@ -659,7 +606,7 @@ int m2m_gmlp_bwd(const float* x, const float* g, float* dx, int B, int N, int D,
       kRowTile);
   M2M_TRY(cudaGetLastError());
   const int NN = N * N;
-  RedJobs rj = {};
+  RedJobs<kRedJobs> rj = {};
   rj.job[0] = RedJob{ws + pl.p_ln, pl.tiles, 2 * D, gq[0], D, gq[1]};
   rj.job[1] = RedJob{ws + pl.p_vln, pl.tiles, 2 * H, gq[4], H, gq[5]};
   rj.job[2] = RedJob{ws + pl.p_sgu, B * pl.nsplit, NN + N, gq[6], NN, gq[7]};
@@ -670,7 +617,7 @@ int m2m_gmlp_bwd(const float* x, const float* g, float* dx, int B, int N, int D,
   // the grid covers the longest job: dW_in, or d sgu_w + d sgu_b where N^2 + N > D*F
   int longest = 0;
   for (const RedJob& j : rj.job) longest = j.P > longest ? j.P : longest;
-  reduce_jobs_kernel<<<dim3(ceil_div(longest, kThreads), kRedJobs), kThreads, 0, st>>>(rj);
+  reduce_jobs_kernel<kRedJobs><<<dim3(ceil_div(longest, kThreads), kRedJobs), kThreads, 0, st>>>(rj);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,9 @@
-// Device code shared by the backward kernels (mixer_bwd.cu, gmlp.cu) and the
-// gMLP forward (gmlp.cu): a simple shared-memory tiled SIMT GEMM (64x64 output
-// tiles, 4x4 outputs a thread, the depth summed in increasing order), the
-// compensated (Kahan) sum, and the LayerNorm backward over rows with its
-// parameter gradients' per-tile partials. No float atomics anywhere: every
+// Device code shared by the backward kernels (mixer_bwd.cu, gmlp.cu,
+// dynamixer.cu) and the gMLP and DynaMixerOp forwards: a simple shared-memory
+// tiled SIMT GEMM (64x64 output tiles, 4x4 outputs a thread, the depth summed
+// in increasing order), the compensated (Kahan) sum, the LayerNorm backward
+// over rows with its parameter gradients' per-tile partials, and row-sliced
+// column sums and reductions of partials over several jobs a launch. No float atomics anywhere: every
 // sum has one order, so two runs give bit-identical results.
 
 #pragma once
@@ -190,6 +191,62 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 inline size_t ln_bwd_smem_bytes(int tile, int D) { return ((size_t)3 * tile * D + 2 * tile) * 4; }
+
+// column sums over slices of the rows (the rows reach 50688 at batch 512, too
+// many for one serial sum a column): job blockIdx.z writes part[y * C + c] =
+// the sum over rows [y * rslice, (y + 1) * rslice) of a[r, c], rows in order.
+// Used by gmlp.cu and dynamixer.cu (the mixer backward keeps its own one-array
+// column sum: sharing this one made K1b/K2b 5-19% slower, PERF.md).
+struct ColJob {
+  const float* a;
+  int C;
+  float* part;
+};
+template <int kJobs>
+struct ColJobs {
+  ColJob job[kJobs];
+};
+
+template <int kJobs>
+__global__ void __launch_bounds__(kThreads)
+    col_slices_kernel(const __grid_constant__ ColJobs<kJobs> jobs, int R, int rslice) {
+  const ColJob& jb = jobs.job[blockIdx.z];
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= jb.C) return;
+  const int r0 = blockIdx.y * rslice, r1 = min(R, r0 + rslice);
+  Kahan v;
+  for (int r = r0; r < r1; ++r) v.add(jb.a[(size_t)r * jb.C + c]);
+  jb.part[(size_t)blockIdx.y * jb.C + c] = v.s;
+}
+
+// a kernel's reductions of partials in one launch: job blockIdx.y sums its
+// tiles x P partials in tile order, element p < len0 to out0[p], the rest to
+// out1[p - len0]; the grid covers the longest job
+struct RedJob {
+  const float* part;
+  int tiles, P;
+  float* out0;
+  int len0;
+  float* out1;
+};
+template <int kJobs>
+struct RedJobs {
+  RedJob job[kJobs];
+};
+
+template <int kJobs>
+__global__ void __launch_bounds__(kThreads)
+    reduce_jobs_kernel(const __grid_constant__ RedJobs<kJobs> jobs) {
+  const RedJob& jb = jobs.job[blockIdx.y];
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= jb.P) return;
+  Kahan v;
+  for (int t = 0; t < jb.tiles; ++t) v.add(jb.part[(size_t)t * jb.P + p]);
+  if (p < jb.len0)
+    jb.out0[p] = v.s;
+  else
+    jb.out1[p - jb.len0] = v.s;
+}
 
 #define M2M_TRY(expr)                          \
   do {                                         \

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from m2mixer_tpu_torch.config import loads
+from m2mixer_tpu_torch.ops import dynamixer_kernel as dk
 from m2mixer_tpu_torch.ops import gmlp_kernel as gk
 from m2mixer_tpu_torch.ops import mixer_kernel as mk
 
@@ -310,3 +311,76 @@ def test_gmlp_kernels_raise_on_cuda(cuda):
     big = gmlp_params_on(cuda, N=129, D=16, F=32)
     with pytest.raises(ValueError, match="at most 128 tokens"):
         gk.fused_gmlp_block(torch.randn(2, 129, 16, device=cuda), big)
+
+
+# ----------------------------------------------------------------- DynaMixer
+# "config" is avmnist_3loss_dyna.yml's op at batch 32 (S = 7 x 32 rows or
+# columns of the 7 x 7 grid); "ragged" has an S*L that is no multiple of the
+# 64-row tiles nor of the sequences a CTA owns
+DYNA_SHAPES = {"small": dict(S=5, L=4, C=16, H=4, R=3),
+               "config": dict(S=224, L=7, C=256, H=8, R=2),
+               "ragged": dict(S=37, L=7, C=256, H=8, R=2)}
+
+
+def dyna_params_on(device, L, C, H, R, seed=0):
+    """One DynaMixerOp's parameters (JAX layout) at the Linear layers' init
+    scales, U(+-1/sqrt(fan_in))."""
+    g = torch.Generator().manual_seed(seed)
+    u = lambda fan, *shape: (torch.rand(*shape, generator=g) * 2 - 1) / fan ** 0.5
+    p = (u(C, C, H * R), u(C, H * R), u(L * R, L * R, L * L), u(L * R, L * L), u(C, C, C),
+         u(C, C))
+    return dk.DynaMixerOpParams(*(t.to(device) for t in p))
+
+
+@pytest.mark.parametrize("scale", [1.0, 30.0], ids=["x1", "x30"])
+@pytest.mark.parametrize("shape", sorted(DYNA_SHAPES))
+def test_dynamixer_kernels_match_plain(cuda, shape, scale):
+    """K4f and K4b against the plain version and its autograd, every tensor
+    within 1e-4 x max(1, max|plain|); x30 drives the generate logits to tens
+    (the softmax's maximum must be subtracted); two backward runs
+    bit-identical."""
+    geom = DYNA_SHAPES[shape]
+    S, L, C, H, R = (geom[k] for k in "SLCHR")
+    p = dyna_params_on(cuda, L, C, H, R)
+    x = scale * torch.randn(S, L, C, device=cuda)
+    g = torch.randn_like(x)
+    before = (dk.fused_dynamixer_op.launches, dk.fused_dynamixer_op_bwd.launches)
+    rel_close(dk.fused_dynamixer_op(x, p, H, R), dk.dynamixer_op_reference(x, p, H, R))
+    dx, grads = dk.fused_dynamixer_op_bwd(x, g, p, H, R)
+    assert (dk.fused_dynamixer_op.launches, dk.fused_dynamixer_op_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want_dx, want = dk.dynamixer_op_bwd_reference(x, g, p, H, R)
+    rel_close(dx, want_dx)
+    assert len(grads) == len(want) == 6
+    for a, b in zip(grads, want):
+        rel_close(a, b)
+    dx2, grads2 = dk.fused_dynamixer_op_bwd(x, g, p, H, R)
+    assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+
+
+def test_dynamixer_block_trains_on_cuda(cuda):
+    """Every parameter of a DynaMixerBlock gets a non-zero gradient on the
+    card; its two DynaMixerOps launch K4f and K4b once each."""
+    from m2mixer_tpu_torch.modules.dynamixer import DynaMixerBlock
+
+    m = DynaMixerBlock(32, 5, 4, generator=torch.Generator().manual_seed(0)).to(cuda).train()
+    before = (dk.fused_dynamixer_op.launches, dk.fused_dynamixer_op_bwd.launches)
+    m(torch.randn(3, 5, 5, 32, device=cuda)).square().sum().backward()
+    assert (dk.fused_dynamixer_op.launches, dk.fused_dynamixer_op_bwd.launches) == \
+        (before[0] + 2, before[1] + 2)
+    for name, prm in m.named_parameters():
+        assert prm.grad is not None and prm.grad.abs().sum().item() > 0, name
+
+
+def test_dynamixer_kernels_raise_on_cuda(cuda):
+    p = dyna_params_on(cuda, **{k: DYNA_SHAPES["small"][k] for k in "LCHR"})
+    x = torch.randn(5, 4, 16, device=cuda)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        dk.fused_dynamixer_op(x, p, 4, 3, compute_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        dk.fused_dynamixer_op(x.transpose(0, 1).contiguous().transpose(0, 1), p, 4, 3)
+    with pytest.raises(ValueError, match="shape"):
+        dk.fused_dynamixer_op(x, p, 4, 2)
+    long = dyna_params_on(cuda, L=33, C=16, H=4, R=2)
+    with pytest.raises(ValueError, match="L <= 32"):
+        dk.fused_dynamixer_op(torch.randn(2, 33, 16, device=cuda), long, 4, 2)

@@ -87,4 +87,5 @@ def test_build_digest_follows_the_sources(tmp_path):
     assert _build._digest([src]) == first
     src.write_text("// b")
     assert _build._digest([src]) != first
-    assert [p.name for p in _build._sources()] == ["gmlp.cu", "mixer_bwd.cu", "mixer_fwd.cu"]
+    assert [p.name for p in _build._sources()] == ["dynamixer.cu", "gmlp.cu", "mixer_bwd.cu",
+                                                   "mixer_fwd.cu"]

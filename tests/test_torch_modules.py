@@ -143,8 +143,8 @@ def test_registries_accept_extras_and_reject_unported():
     assert blk.num_patch == 4
     assert isinstance(tmodules.get_fusion_by_name(fusion_function="ConcatFusion", dim=1),
                       tfusion.ConcatFusion)
-    for getter, key, name in [(tmodules.get_block_by_name, "block_type", "DynaMixer"),
-                              (tmodules.get_fusion_by_name, "fusion_function", "MaxFusion"),
+    for getter, key, name in [(tmodules.get_block_by_name, "block_type", "MLPMixerNoPatching"),
+                              (tmodules.get_fusion_by_name, "fusion_function", "SumFusion"),
                               (tmodules.get_classifier_by_name, "classifier", "MLPClassifier")]:
         with pytest.raises(NotImplementedError, match=f"not yet ported: {name}"):
             getter(**{key: name})
