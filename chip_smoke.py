@@ -1,10 +1,19 @@
 """Chip smoke test of the PyTorch/CUDA port (``m2mixer_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py        # from the repository root, one CUDA device
+    python3 chip_smoke.py --kernel-times [--root DIR]
+    python3 chip_smoke.py --ab PARENT_DIR
+
+With no arguments it runs every phase below. ``--kernel-times`` only builds
+and prints K3b's and K4b's times as one JSON line (``--root``: those of the
+``m2mixer_tpu_torch`` of another checkout). ``--ab`` compares another checkout's K3b/K4b times with this
+one's on the same card, in turns (parent, this, this, parent), each in its
+own process, into ``chiprun_out/kernel_ab.json``.
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
-1. build the CUDA kernels from ``m2mixer_tpu_torch/ops/csrc`` (nvcc, sm_90a);
+1. build the CUDA kernels from ``m2mixer_tpu_torch/ops/csrc`` (nvcc, sm_90a)
+   and print every kernel's registers and spills (ptxas);
 2. K1f ``fused_mixer_block`` on the card against its plain PyTorch version at
    the served shapes (B=512; N=4/C=3072 and N=8/C=3078), f32 and bf16, erf
    and tanh GELU;
@@ -84,15 +93,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     batch 32 and 512 for plain modules and both kernel block types; and the
     device time of each launch of one K1b call (``torch.profiler``);
 14. gMLP times: K3f and K3b alone at the encoder and fusion shapes at batch
-    32 and 512 (with their plain versions and bounds, and the profiler's
-    breakdown of one call of each at the encoder shape and batch 512), the
-    served forward and the train step at batch 32 and 512, plain modules and
-    kernel blocks;
+    32 and 512 (with their plain versions, their float32 bounds and K3b's
+    3xTF32 bound, and the profiler's breakdown of one call of K3f at the
+    encoder shape and of K3b at both, batch 512), the served forward and the
+    train step at batch 32 and 512, plain modules and kernel blocks;
 15. DynaMixer times: K4f and K4b alone at batch 32 and 512 (S = 224 and 3584)
     with their plain versions and bounds and the profiler's breakdown of one
     K4b call at batch 512, the served forward and the train step at batch 32
     and 512, each with the device time its kernels take (``torch.profiler``),
-    so the share of the call in which the card is busy;
+    so the share of the call in which the card is busy; then each of K3b's
+    and K4b's products at batch 512 timed as one ``torch.matmul`` in float32
+    (TF32 off), a yardstick per product that the port never calls;
 16. one JSON line naming every ported kernel, the card's name and power limit,
     and the result line ``{"ok": true, "device": {...}}``.
 
@@ -124,8 +135,12 @@ The run writes its numbers to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import argparse
+import contextlib
+import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -137,6 +152,9 @@ B_CFG = os.path.join(REPO, "cfg", "avmnist", "avmnist_m2-mixer_B.yml")
 # published H100 SXM peaks (dense): float32 on the CUDA cores, bf16 on the
 # tensor cores, HBM3 bandwidth
 PEAK = {"f32": 67e12, "bf16": 989e12}
+# K3b's and K4b's products run as 3xTF32 on the tensor cores: three TF32
+# products each, so at best a third of the dense TF32 peak (495 TFLOP/s)
+TC_3XTF32 = 495e12 / 3
 HBM_BYTES_PER_S = 3.35e12
 F32_ATOL = 1e-4
 BF16_REL = 2e-2
@@ -892,19 +910,23 @@ def phase_gmlp_times(torch, gk, serving, Trainer, apply_overrides, load_cfg, syn
             times[f"K3f_plain/{tag}"] = cuda_ms(torch, lambda: gk.gmlp_block_reference(x, p))
             times[f"K3b/{tag}"] = cuda_ms(torch, lambda: gk.fused_gmlp_block_bwd(x, g, p))
             times[f"K3b_plain/{tag}"] = cuda_ms(torch, lambda: gk.gmlp_block_bwd_reference(x, g, p))
-            if B == 512 and geom_name == "encoder":
-                for name, fn in (("K3f", lambda: gk.fused_gmlp_block(x, p)),
-                                 ("K3b", lambda: gk.fused_gmlp_block_bwd(x, g, p))):
+            if B == 512:
+                calls = [("K3b", lambda: gk.fused_gmlp_block_bwd(x, g, p))]
+                if geom_name == "encoder":
+                    calls.insert(0, ("K3f", lambda: gk.fused_gmlp_block(x, p)))
+                for name, fn in calls:
                     report.setdefault("breakdown_us", {})[f"{name}/{tag}"] = kernel_breakdown(
                         torch, fn, f"{name} {tag}")
             flops, pbytes = gmlp_work(B, **geom)
             act = B * geom["N"] * geom["D"] * 4
             bounds[f"K3f/{tag}"] = bound(flops, pbytes + 2 * act, "f32")
             bounds[f"K3b/{tag}"] = bound(2 * flops, 2 * pbytes + 3 * act, "f32")
+            report.setdefault("bounds_3xtf32_ms", {})[f"K3b/{tag}"] = 2 * flops / TC_3XTF32 * 1e3
             print(f"  {tag}: K3f {times[f'K3f/{tag}']:.4f} ms (plain "
                   f"{times[f'K3f_plain/{tag}']:.4f}, bound {bounds[f'K3f/{tag}'][0]:.4f}); K3b "
                   f"{times[f'K3b/{tag}']:.4f} ms (plain {times[f'K3b_plain/{tag}']:.4f}, bound "
-                  f"{bounds[f'K3b/{tag}'][0]:.4f})")
+                  f"{bounds[f'K3b/{tag}'][0]:.4f}, 3xTF32 bound "
+                  f"{report['bounds_3xtf32_ms'][f'K3b/{tag}']:.4f})")
     rng = np.random.RandomState(3)
     for B in (32, 512):
         feats = {"image": torch.from_numpy(rng.rand(B, 1, 28, 28).astype(np.float32)).cuda(),
@@ -1104,10 +1126,12 @@ def phase_dyna_times(torch, dk, serving, Trainer, load_cfg, synthetic, np, serve
         act = x.numel() * 4
         bounds[f"K4f/{tag}"] = bound(flops, pbytes + 2 * act, "f32")
         bounds[f"K4b/{tag}"] = bound(2 * flops, 2 * pbytes + 3 * act, "f32")
+        report.setdefault("bounds_3xtf32_ms", {})[f"K4b/{tag}"] = 2 * flops / TC_3XTF32 * 1e3
         print(f"  {tag} (S={S}): K4f {times[f'K4f/{tag}']:.4f} ms (plain "
               f"{times[f'K4f_plain/{tag}']:.4f}, bound {bounds[f'K4f/{tag}'][0]:.4f}); K4b "
               f"{times[f'K4b/{tag}']:.4f} ms (plain {times[f'K4b_plain/{tag}']:.4f}, bound "
-              f"{bounds[f'K4b/{tag}'][0]:.4f})")
+              f"{bounds[f'K4b/{tag}'][0]:.4f}, 3xTF32 bound "
+              f"{report['bounds_3xtf32_ms'][f'K4b/{tag}']:.4f})")
     rng = np.random.RandomState(5)
     for B in (32, 512):
         feats = {"image": torch.from_numpy(rng.rand(B, 1, 28, 28).astype(np.float32)).cuda(),
@@ -1141,6 +1165,126 @@ def phase_dyna_times(torch, dk, serving, Trainer, load_cfg, synthetic, np, serve
               f"({ms / times['dyna_' + key]:.1%} of its CUDA-event time)")
 
 
+# ------------------------------------------- yardsticks, registers, A/B times
+def product_yardsticks(torch, report) -> None:
+    """Each of K3b's and K4b's products at batch 512 timed as one
+    ``torch.matmul`` in float32 (TF32 off): a yardstick per product, never
+    called by the port. Shapes (M x K x N); the SGU's token products are
+    batched over the sample's F/2 v-channels."""
+    print("  per-product yardsticks, torch.matmul float32 (TF32 off), batch 512:")
+    ys = report["product_library_ms"] = {}
+
+    def mm(name, M, K, N):
+        a, b = torch.randn(M, K, device="cuda"), torch.randn(K, N, device="cuda")
+        ys[name] = cuda_ms(torch, lambda: torch.matmul(a, b))
+        print(f"    {ys[name]:.4f} ms  {name} ({M} x {K} x {N})")
+
+    for geom_name, geom in (("encoder", GMLP_ENC), ("fusion", GMLP_FUSION)):
+        N, D, F = geom["N"], geom["D"], geom["F"]
+        R, H = 512 * N, F // 2
+        for prod, (M, K, Nn) in {"in_proj": (R, D, F), "dgated": (R, D, H), "dxn": (R, F, D),
+                                 "dW_in": (D, R, F), "dW_out": (H, R, D),
+                                 "sgu t": (512 * H, N, N), "sgu dv'": (512 * H, N, N),
+                                 "sgu d sgu_w": (N, 512 * H, N)}.items():
+            mm(f"K3b/{geom_name}/B512/{prod}", M, K, Nn)
+    rows, C, HR = 7 * 512 * DYNA_OP["L"], DYNA_OP["C"], DYNA_OP["H"] * DYNA_OP["R"]
+    for prod, (M, K, Nn) in {"d_mixed": (rows, C, C), "dW_o": (C, rows, C),
+                             "dW_c": (C, rows, HR)}.items():
+        mm(f"K4b/B512/{prod}", M, K, Nn)
+
+
+def ptxas_usage(log: str) -> dict:
+    """{kernel: [registers, spill store bytes, spill load bytes]} from an
+    ``nvcc -Xptxas -v`` log, names shortened to file::function<template args>."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(_Z\w+)'", line)
+        if m:
+            name = short_kernel_name(m.group(1))
+            usage[name] = [None, 0, 0]
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            usage[name][1:] = [int(m.group(1)), int(m.group(2))]
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            usage[name][0] = int(m.group(1))
+    return usage
+
+
+def short_kernel_name(mangled: str) -> str:
+    """'_ZN<len>_GLOBAL__N__<id>_<file>_cu_<id><len><name>I<args>E...' ->
+    'file.cu::name<args>' (template integers and type names kept)."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    ns_end = m.end() + int(m.group(1))
+    src = re.search(r"_\d+_(\w+?)_cu_", mangled[:ns_end])
+    rest = mangled[ns_end:]
+    n = re.match(r"(\d+)", rest)
+    func = rest[n.end():n.end() + int(n.group(1))] if n else rest
+    args = rest[n.end() + int(n.group(1)):] if n else ""
+    targs = re.findall(r"L[ib](\d+)E|(Epi\w+?)E", args.split("EEv")[0] + "EEv")
+    targ = ",".join(a or b for a, b in targs)
+    return f"{src.group(1) if src else '?'}.cu::{func}" + (f"<{targ}>" if targ else "")
+
+
+def build_kernels(_build, report) -> None:
+    """Build with ptxas's report; print every kernel's registers and spills."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _build.build_library(verbose=True)
+    log = buf.getvalue()
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "build_ptxas.log"), "w") as f:
+        f.write(log)
+    usage = report["registers_spills"] = ptxas_usage(log)
+    print(f"  {len(usage)} kernels (registers, spill store / load bytes):")
+    for name, (regs, st, ld) in sorted(usage.items()):
+        print(f"    {regs:4}  {st}/{ld}  {name}")
+
+
+def kernel_times(torch, gk, dk) -> dict:
+    """K3b (encoder and fusion shape) and K4b alone at batch 32 and 512 (CUDA
+    events, median of 5 runs of 20 calls), the numbers the A/B compares."""
+    times = {}
+    for geom_name, geom in (("encoder", GMLP_ENC), ("fusion", GMLP_FUSION)):
+        p = gmlp_params(gk, torch, seed=33, **geom)
+        for B in (32, 512):
+            gen = torch.Generator().manual_seed(6)
+            x = torch.randn(B, geom["N"], geom["D"], generator=gen).cuda()
+            g = torch.randn(B, geom["N"], geom["D"], generator=gen).cuda()
+            times[f"K3b/{geom_name}/B{B}"] = cuda_ms(torch, lambda: gk.fused_gmlp_block_bwd(x, g, p))
+    H, R = DYNA_OP["H"], DYNA_OP["R"]
+    p = dyna_params(dk, torch, seed=43, **DYNA_OP)
+    for B in (32, 512):
+        gen = torch.Generator().manual_seed(7)
+        x = torch.randn(7 * B, DYNA_OP["L"], DYNA_OP["C"], generator=gen).cuda()
+        g = torch.randn(7 * B, DYNA_OP["L"], DYNA_OP["C"], generator=gen).cuda()
+        times[f"K4b/B{B}"] = cuda_ms(torch, lambda: dk.fused_dynamixer_op_bwd(x, g, p, H, R))
+    return times
+
+
+def card_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+
+
+def ab_times(parent: str) -> int:
+    """K3b/K4b times of the checkout at ``parent`` against this one's on this
+    card, in turns (parent, this, this, parent), each in its own process."""
+    runs = []
+    for root in (parent, REPO, REPO, parent):
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--kernel-times",
+                              "--root", root], capture_output=True, text=True, check=True,
+                             timeout=900).stdout.strip().splitlines()[-1]
+        runs.append({"root": root, **json.loads(out)})
+        print(f"  {root}: {json.dumps(runs[-1]['kernel_times'])}")
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "kernel_ab.json"), "w") as f:
+        json.dump({"card": card_line(), "runs": runs}, f, indent=2)
+    print(card_line())
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1150,7 +1294,18 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    sys.path.insert(0, REPO)
+    ap = argparse.ArgumentParser(description="chip smoke test of the port (no arguments: all "
+                                 "phases)")
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="only build and print K3b/K4b times as one JSON line")
+    ap.add_argument("--root", default=REPO, help="checkout whose m2mixer_tpu_torch is timed "
+                    "(with --kernel-times)")
+    ap.add_argument("--ab", metavar="PARENT",
+                    help="K3b/K4b times of the checkout PARENT against this one, in turns")
+    args = ap.parse_args()
+    if args.ab:
+        return ab_times(os.path.abspath(args.ab))
+    sys.path.insert(0, os.path.abspath(args.root))
     import numpy as np
 
     from m2mixer_tpu_torch import run, serving
@@ -1164,11 +1319,16 @@ def main() -> int:
     from m2mixer_tpu_torch.ops import mixer_kernel as mk
     from m2mixer_tpu_torch.training.trainer import Trainer
 
+    if args.kernel_times:
+        _build.load_library()
+        times = kernel_times(torch, gk, dk)
+        print(json.dumps({"kernel_times": times, "card": card_line()}))
+        return 0
     t_start = time.time()
     report = {"errors": {}, "bf16_checks": {}, "times_ms": {}, "bounds_ms": {}}
     print("[1/16] building the CUDA kernels")
     t0 = time.time()
-    _build.build_library(verbose=True)
+    build_kernels(_build, report)
     _build.load_library()
     report["build_seconds"] = time.time() - t0
     print(f"  build seconds: {report['build_seconds']:.1f}")
@@ -1193,10 +1353,9 @@ def main() -> int:
                      synthetic_avmnist_arrays, np, gmlp_served, report)
     phase_dyna_times(torch, dk, serving, Trainer, load_cfg, synthetic_avmnist_arrays, np,
                      dyna_served, report)
+    product_yardsticks(torch, report)
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     report["card"] = card
     report["seconds"] = time.time() - t_start
     t = report["times_ms"]

@@ -33,22 +33,26 @@
 //     2. out: y = mixed W_o + b_o, the 64x64 SIMT tiles of tile_common.cuh.
 //   backward, 6 launches; the autograd Function saves only x, so the
 //   per-sequence intermediates are recomputed:
-//     1. d_mixed = g W_o^T (tile GEMM);
+//     1. d_mixed = g W_o^T (the tensor-core tile GEMM);
 //     2. seq: per CTA of whole sequences, W_c (and its transpose) and W_g in
 //        shared memory: recompute comp, P and mixed (written for dW_o); dP =
 //        d_mixed-by-head x^T; the softmax backward over m; d_comp = d_logit
 //        W_g^T, laid back to (S*L, H*R); dx = the mix's backward (sum_l P
 //        d_mixed) + d_comp W_c^T; the CTA's partials of dW_g and db_g;
-//     3. dW_o = mixed^T g and 4. dW_c = x^T d_comp: 64x64 tiles of the weight,
-//        the S*L rows split into a fixed number of slices;
+//     3. dW_o = mixed^T g and 4. dW_c = x^T d_comp: tensor-core tiles of the
+//        weight (128x64, and 64x16 for dW_c's H*R = 16 columns), the S*L rows
+//        split into a fixed number of slices;
 //     5. db_o, db_c: column sums over row slices (enough for two waves: a
 //        slice is one thread's serial sum);
 //     6. every partial reduced in a fixed order (compensated), one launch.
 //   No float atomics: two runs give bit-identical gradients. dW_c never takes
 //   per-CTA partials (4096 floats a CTA); dW_g and db_g (L*R*L*L + L*L = 735
 //   floats) take one per sequence CTA.
-// The products are simple SIMT loops and tiles (no tensor cores, no TMA),
-// several times off the float32 bound (PERF.md); making them fast is later work.
+// Products: K4f's output projection and the sequence kernels' small per-head
+// products are SIMT (float32 on the CUDA cores). K4b's three GEMMs (steps 1, 3,
+// 4) run on the tensor cores in 3xTF32 through tc_gemm (tile_common.cuh says
+// why that split and why mma.sync rather than wgmma); its sequence kernel is
+// the next part to redesign (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -338,14 +342,14 @@ int make_plan(int S, int L, int C, int H, int R, int device, Plan& pl) {
   pl.ctas_bwd = ceil_div(S, spc_b);
   const long long rows = (long long)S * L;
   const int HR = H * R, LR = L * R, LL = L * L;
-  // dW_o's few 64x64 tiles x slices of the rows for two waves
-  const int w_tiles = ceil_div(C, kTile) * ceil_div(C, kTile);
+  // dW_o's few tiles x slices of the rows for two CTAs an SM
+  const int w_tiles = ceil_div(C, kTcBM) * ceil_div(C, kTcBN);
   int ws = ceil_div(2 * sms, w_tiles);
-  const int max_ws = ceil_div(rows, kTile);  // at least 64 rows a slice
+  const int max_ws = ceil_div(rows, 64);  // at least 64 rows a slice
   ws = ws > kMaxSplit ? kMaxSplit : ws;
   ws = ws > max_ws ? max_ws : ws;
   ws = ws < 1 ? 1 : ws;
-  pl.wslice = ceil_div(ceil_div(rows, ws), kTileK) * kTileK;
+  pl.wslice = ceil_div(ceil_div(rows, ws), kTcK) * kTcK;
   pl.wsplit = ceil_div(rows, pl.wslice);
   // the column sums: a slice is one thread's serial sum, so take enough slices
   // for two waves of CTAs (C = 256 is a single CTA of columns a slice)
@@ -427,20 +431,17 @@ int m2m_dyna_bwd(const float* x, const float* g, float* dx, int S, int L, int C,
   float* const* gq = reinterpret_cast<float* const*>(grads);
   const int rows = S * L, HR = H * R, LL = L * L, LR = L * R;
   // 1. d_mixed = g W_o^T (dynamixer_kernel.py:58)
-  gemm_kernel<<<dim3(ceil_div(C, kTile), ceil_div(rows, kTile), 1), kThreads, 0, st>>>(
-      View{g, C, 1}, View{w.wo, 1, C}, ws + pl.dm, rows, C, C, C);
-  M2M_TRY(cudaGetLastError());
+  M2M_TRY(tc_gemm_wide(View{g, C, 1}, View{w.wo, 1, C}, ws + pl.dm, rows, C, C, C, 1, st));
   // 2. the per-sequence backward (:44-57)
   dyna_seq_bwd_kernel<<<pl.ctas_bwd, kThreads, smem, st>>>(
       x, ws + pl.dm, w, pl.bwd, ws + pl.mixed, ws + pl.dcomp, dx, ws + pl.p_gen);
   M2M_TRY(cudaGetLastError());
-  // 3. dW_o = mixed^T g, 4. dW_c = x^T d_comp: slices of the rows
-  gemm_kernel<<<dim3(ceil_div(C, kTile), ceil_div(C, kTile), pl.wsplit), kThreads, 0, st>>>(
-      View{ws + pl.mixed, 1, C}, View{g, C, 1}, ws + pl.p_wo, C, C, rows, pl.wslice);
-  M2M_TRY(cudaGetLastError());
-  gemm_kernel<<<dim3(ceil_div(HR, kTile), ceil_div(C, kTile), pl.wsplit), kThreads, 0, st>>>(
-      View{x, 1, C}, View{ws + pl.dcomp, HR, 1}, ws + pl.p_wc, C, HR, rows, pl.wslice);
-  M2M_TRY(cudaGetLastError());
+  // 3. dW_o = mixed^T g, 4. dW_c = x^T d_comp (H*R wide: the narrow tile):
+  // slices of the rows
+  M2M_TRY(tc_gemm_wide(View{ws + pl.mixed, 1, C}, View{g, C, 1}, ws + pl.p_wo, C, C, rows,
+                       pl.wslice, pl.wsplit, st));
+  M2M_TRY(tc_gemm_narrow(View{x, 1, C}, View{ws + pl.dcomp, HR, 1}, ws + pl.p_wc, C, HR, rows,
+                         pl.wslice, pl.wsplit, st));
   // 5. db_o, db_c: column sums over slices of the rows
   ColJobs<2> cj = {};
   cj.job[0] = ColJob{g, C, ws + pl.p_col};

@@ -1,10 +1,40 @@
 // Device code shared by the backward kernels (mixer_bwd.cu, gmlp.cu,
-// dynamixer.cu) and the gMLP and DynaMixerOp forwards: a simple shared-memory
-// tiled SIMT GEMM (64x64 output tiles, 4x4 outputs a thread, the depth summed
-// in increasing order), the compensated (Kahan) sum, the LayerNorm backward
-// over rows with its parameter gradients' per-tile partials, and row-sliced
-// column sums and reductions of partials over several jobs a launch. No float atomics anywhere: every
-// sum has one order, so two runs give bit-identical results.
+// dynamixer.cu) and the gMLP and DynaMixerOp forwards: two tiled GEMMs, the
+// compensated (Kahan) sum, the LayerNorm backward over rows with its
+// parameter gradients' per-tile partials, and row-sliced column sums and
+// reductions of partials over several jobs a launch. No float atomics
+// anywhere: every sum has one order, so two runs give bit-identical results.
+//
+// The two GEMMs, both out[z] = A B over k-slice z on strided Views:
+//   - gemm_tile / gemm_kernel: the simple SIMT tile (64x64 outputs, 4x4 a
+//     thread, the depth summed in increasing order; no tensor cores, no
+//     asynchronous copies). K1f, K1b, K2f, K2b, K3f and K4f still use it.
+//   - tc_gemm: the tensor-core tile of K3b and K4b. What bounds their
+//     products is the rate of float32 multiply-adds: the CUDA cores give 67
+//     TFLOP/s, the tensor cores 495 in TF32, but a single TF32 product keeps
+//     about three decimal digits, too few for the 1e-4 relative gates the
+//     backward kernels are held to. So every product is 3xTF32: with
+//     x_big = tf32(x) and x_small = tf32(x - x_big) (cvt.rna.tf32.f32, in
+//     registers after the fragment loads), a b = a_small b_big + a_big b_small
+//     + a_big b_big, each an mma.sync.m16n8k8 TF32 product with float32
+//     accumulation; the dropped a_small b_small is 2^-22 of the product, so the
+//     result is float32-accurate at a third of the TF32 rate. Operands reach
+//     shared memory through a 3-stage cp.async ring (dynamic shared memory,
+//     set by prepare()), 16 bytes a copy where both Views allow it (unit
+//     stride, rows of whole 16-byte groups, aligned), else 4; each stored with
+//     its View's unit-stride axis contiguous and padded so that the fragment
+//     loads hit 32 distinct banks.
+//     Tiles: 128x64 outputs on 8 warps (32x32 a warp), or 64x16 on 4 warps for
+//     narrow outputs (DynaMixerOp's 16-wide dW_c). The depth is summed in one
+//     order; k-slices are summed later by the reductions below, in slice order.
+//   Why mma.sync and not wgmma: wgmma takes tf32 operands only K-major in
+//   shared memory, and five of K3b's and K4b's eight products have an operand
+//   whose depth is not its contiguous axis (W_in in the recompute, both
+//   operands of the weight gradients, whose depth is the rows); the big/small
+//   split would also have to be stored twice. mma.sync loads its fragments
+//   from shared memory in whatever layout the View gives and splits them in
+//   registers, so one loader serves every product. wgmma with TMA is for the
+//   bf16 backward, where operands are 16-bit and transposes are allowed.
 
 #pragma once
 
@@ -108,6 +138,296 @@ __global__ void __launch_bounds__(kThreads)
       const int m = m0 + ty * 4 + i, n = n0 + tx * 4 + j;
       if (m < M && n < Nn) o[(size_t)m * Nn + n] = acc[i][j];
     }
+}
+
+// ------------------------------------------------ tensor-core tile (3xTF32)
+// x = big + small + O(2^-22 x), each part a TF32 bit pattern
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(big) : "f"(x));
+  const float rest = x - __uint_as_float(big);
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(small) : "f"(rest));
+}
+
+// c (16x8, float32) += a (16x8, row) b (8x8, col), TF32 operands
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b in 3xTF32: the two small cross terms first, then the big one
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4],
+                                           const uint32_t (&b_big)[2],
+                                           const uint32_t (&b_small)[2]) {
+  mma_tf32(c, a_small, b_big);
+  mma_tf32(c, a_big, b_small);
+  mma_tf32(c, a_big, b_big);
+}
+
+// Fragments of mma.m16n8k8 (lane = 4 g + t). A (16x8): a[j] is element
+// (g + 8 (j & 1), t + 4 (j >> 1)); B (8x8): b[j] is element (t + 4 j, g);
+// C (16x8): c[j] is element (g + 8 (j >> 1), 2 t + (j & 1)). Element (r, k)
+// of a shared-memory operand lies at p[r * rs + k * ks].
+__device__ __forceinline__ void frag_a(const float* p, int rs, int ks, uint32_t (&big)[4],
+                                       uint32_t (&small)[4]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    split_tf32(p[(g + 8 * (j & 1)) * rs + (t + 4 * (j >> 1)) * ks], big[j], small[j]);
+}
+
+// element (k, n) of the B operand at p[k * ks + n * ns]
+__device__ __forceinline__ void frag_b(const float* p, int ks, int ns, uint32_t (&big)[2],
+                                       uint32_t (&small)[2]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) split_tf32(p[(t + 4 * j) * ks + g * ns], big[j], small[j]);
+}
+
+// 4-byte asynchronous copy global -> shared; zero-fills when !ok (src unread)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+// 16-byte asynchronous copy of the first `bytes` (0-16) at src, the rest zeros
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+constexpr int kTcK = 32;      // depth of a stage
+constexpr int kTcStages = 3;  // the cp.async ring
+
+// a tile of kWM x kWN warps, each kMI x kNI mma tiles (16x8 outputs); kAK:
+// A's depth axis contiguous in shared memory (else its rows), kBK the same for
+// B; kVec: both operands copied 16 bytes at a time along their unit-stride
+// axis (tc_gemm checks the strides and alignment), else 4 bytes
+template <int kWM, int kWN, int kMI, int kNI, bool kAK, bool kBK, bool kVec>
+struct TcTile {
+  static constexpr int WM = kWM, MI = kMI, NI = kNI;
+  static constexpr bool A_K = kAK, B_K = kBK;
+  static constexpr int kThreadsT = 32 * kWM * kWN;
+  static constexpr int BM = kWM * kMI * 16, BN = kWN * kNI * 8;
+  // row strides in shared memory: = 4 (mod 32) along the depth, = 8 or 24
+  // (mod 32) across it, so that a fragment's 32 loads fall in 32 banks
+  static constexpr int lda = kAK ? kTcK + 4 : BM + 8;
+  static constexpr int ldb = kBK ? kTcK + 4 : BN + 8;
+  static constexpr int a_stage = kAK ? BM * lda : kTcK * lda;
+  static constexpr int b_stage = kBK ? BN * ldb : kTcK * ldb;
+  static constexpr size_t smem_bytes = (size_t)kTcStages * (a_stage + b_stage) * 4;
+  static_assert(BM * kTcK % (4 * kThreadsT) == 0 && BN * kTcK % (4 * kThreadsT) == 0,
+                "whole loads");
+  static_assert(kBK || BN % 16 == 0, "row stride of B across the depth: BN + 8 = 8 or 24 mod 32");
+
+  // the stage of depth [kb, kb + kTcK) (zeros past k1, M or N) into As, Bs;
+  // neighbouring threads copy along each View's unit-stride axis
+  static __device__ __forceinline__ void load(float* As, float* Bs, const View& A,
+                                              const View& B, int M, int N, int kb, int k1,
+                                              int m0, int n0) {
+    if constexpr (kVec) {
+#pragma unroll
+      for (int s = 0; s < BM * kTcK / 4 / kThreadsT; ++s) {
+        const int i = threadIdx.x + s * kThreadsT;
+        const int kk = kAK ? i % (kTcK / 4) * 4 : i / (BM / 4);
+        const int mm = kAK ? i / (kTcK / 4) : i % (BM / 4) * 4;
+        const int m = m0 + mm, k = kb + kk;
+        int n4 = kAK ? (m < M ? k1 - k : 0) : (k < k1 ? M - m : 0);
+        n4 = n4 < 0 ? 0 : (n4 > 4 ? 4 : n4);
+        cp_async16(As + (kAK ? mm * lda + kk : kk * lda + mm),
+                   n4 ? A.p + (long long)m * A.rs + (long long)k * A.cs : A.p, 4 * n4);
+      }
+#pragma unroll
+      for (int s = 0; s < BN * kTcK / 4 / kThreadsT; ++s) {
+        const int i = threadIdx.x + s * kThreadsT;
+        const int kk = kBK ? i % (kTcK / 4) * 4 : i / (BN / 4);
+        const int nn = kBK ? i / (kTcK / 4) : i % (BN / 4) * 4;
+        const int n = n0 + nn, k = kb + kk;
+        int n4 = kBK ? (n < N ? k1 - k : 0) : (k < k1 ? N - n : 0);
+        n4 = n4 < 0 ? 0 : (n4 > 4 ? 4 : n4);
+        cp_async16(Bs + (kBK ? nn * ldb + kk : kk * ldb + nn),
+                   n4 ? B.p + (long long)k * B.rs + (long long)n * B.cs : B.p, 4 * n4);
+      }
+    } else {
+#pragma unroll
+      for (int s = 0; s < BM * kTcK / kThreadsT; ++s) {
+        const int i = threadIdx.x + s * kThreadsT;
+        const int kk = kAK ? i % kTcK : i / BM, mm = kAK ? i / kTcK : i % BM;
+        const int m = m0 + mm, k = kb + kk;
+        const bool ok = m < M && k < k1;
+        cp_async4(As + (kAK ? mm * lda + kk : kk * lda + mm),
+                  ok ? A.p + (long long)m * A.rs + (long long)k * A.cs : A.p, ok);
+      }
+#pragma unroll
+      for (int s = 0; s < BN * kTcK / kThreadsT; ++s) {
+        const int i = threadIdx.x + s * kThreadsT;
+        const int kk = kBK ? i % kTcK : i / BN, nn = kBK ? i / kTcK : i % BN;
+        const int n = n0 + nn, k = kb + kk;
+        const bool ok = n < N && k < k1;
+        cp_async4(Bs + (kBK ? nn * ldb + kk : kk * ldb + nn),
+                  ok ? B.p + (long long)k * B.rs + (long long)n * B.cs : B.p, ok);
+      }
+    }
+  }
+};
+
+// epilogues: the stored value of output (r, c) with sum v
+struct EpiNone {
+  __device__ __forceinline__ float operator()(int, int, float v) const { return v; }
+};
+// (v + bias[c]) times the keep-mask `mask` of block 0 at element r * ld + c
+struct EpiBiasMask {
+  const float* bias;
+  int mask, ld;
+  Dropout dp;
+  __device__ __forceinline__ float operator()(int r, int c, float v) const {
+    return (v + __ldg(bias + c)) * keep(dp, 0, mask, (uint32_t)((size_t)r * ld + c));
+  }
+};
+
+// out[z] (M x N, row-major) = epi(A B) over k-slice z ([z*kslice, (z+1)*kslice)
+// of K): one BM x BN tile a CTA, the depth in kTcK stages through the ring
+template <class T, class Epi>
+__global__ void __launch_bounds__(T::kThreadsT, 512 / T::kThreadsT)  // <= 128 registers
+    tc_gemm_kernel(View A, View B, float* __restrict__ out, int M, int N, int K, int kslice,
+                   const __grid_constant__ Epi epi) {
+  extern __shared__ __align__(16) float tsm[];
+  float* As = tsm;
+  float* Bs = tsm + kTcStages * T::a_stage;
+  constexpr int MI = T::MI, NI = T::NI;
+  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
+  const int k0 = blockIdx.z * kslice, k1 = min(K, k0 + kslice);
+  const int nk = k1 > k0 ? (k1 - k0 + kTcK - 1) / kTcK : 0;
+  const int warp = threadIdx.x >> 5;
+  const int wm = (warp % T::WM) * MI * 16, wn = (warp / T::WM) * NI * 8;
+  float acc[MI][NI][4] = {};
+#pragma unroll
+  for (int s = 0; s < kTcStages - 1; ++s) {
+    if (s < nk)
+      T::load(As + s * T::a_stage, Bs + s * T::b_stage, A, B, M, N, k0 + s * kTcK, k1, m0, n0);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kTcStages - 2>();
+    __syncthreads();  // stage kt landed for every thread; stage kt - 1 is free
+    const int next = kt + kTcStages - 1;
+    if (next < nk) {
+      const int slot = next % kTcStages;
+      T::load(As + slot * T::a_stage, Bs + slot * T::b_stage, A, B, M, N, k0 + next * kTcK, k1,
+              m0, n0);
+    }
+    cp_async_commit();
+    const float* as = As + (kt % kTcStages) * T::a_stage;
+    const float* bs = Bs + (kt % kTcStages) * T::b_stage;
+#pragma unroll
+    for (int ks = 0; ks < kTcK; ks += 8) {
+      uint32_t ab[MI][4], asm_[MI][4], bb[NI][2], bsm[NI][2];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const int r = wm + i * 16;
+        if constexpr (T::A_K)
+          frag_a(as + r * T::lda + ks, T::lda, 1, ab[i], asm_[i]);
+        else
+          frag_a(as + ks * T::lda + r, 1, T::lda, ab[i], asm_[i]);
+      }
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        const int c = wn + j * 8;
+        if constexpr (T::B_K)
+          frag_b(bs + c * T::ldb + ks, 1, T::ldb, bb[j], bsm[j]);
+        else
+          frag_b(bs + ks * T::ldb + c, T::ldb, 1, bb[j], bsm[j]);
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j) mma_3xtf32(acc[i][j], ab[i], asm_[i], bb[j], bsm[j]);
+    }
+  }
+  cp_async_wait<0>();
+  float* o = out + (size_t)blockIdx.z * M * N;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = m0 + wm + i * 16 + g + 8 * (e >> 1), c = n0 + wn + j * 8 + 2 * t + (e & 1);
+        if (r < M && c < N) o[(size_t)r * N + c] = epi(r, c, acc[i][j][e]);
+      }
+}
+
+template <class T, class Epi>
+cudaError_t tc_gemm_launch(const View& A, const View& B, float* out, int M, int N, int K,
+                           int kslice, int ksplit, cudaStream_t st, const Epi& epi) {
+  const cudaError_t e = prepare(tc_gemm_kernel<T, Epi>, T::smem_bytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, ksplit);
+  tc_gemm_kernel<T, Epi><<<grid, T::kThreadsT, T::smem_bytes, st>>>(A, B, out, M, N, K, kslice,
+                                                                      epi);
+  return cudaGetLastError();
+}
+
+template <int kWM, int kWN, int kMI, int kNI, bool kAK, bool kBK, class Epi>
+cudaError_t tc_gemm_layout(const View& A, const View& B, float* out, int M, int N, int K,
+                           int kslice, int ksplit, cudaStream_t st, const Epi& epi, bool vec) {
+  if (vec)
+    return tc_gemm_launch<TcTile<kWM, kWN, kMI, kNI, kAK, kBK, true>>(A, B, out, M, N, K, kslice,
+                                                                      ksplit, st, epi);
+  return tc_gemm_launch<TcTile<kWM, kWN, kMI, kNI, kAK, kBK, false>>(A, B, out, M, N, K, kslice,
+                                                                     ksplit, st, epi);
+}
+
+// can `v` be copied 16 bytes at a time along its unit-stride axis (rows if
+// `unit_cols`, else columns), from a 16-byte-aligned start every 4 elements?
+inline bool vec_ok(const View& v, bool unit_cols) {
+  const long long unit = unit_cols ? v.cs : v.rs, other = unit_cols ? v.rs : v.cs;
+  return unit == 1 && other % 4 == 0 && reinterpret_cast<uintptr_t>(v.p) % 16 == 0;
+}
+
+// out[z] (M x N) = epi(A B) over k-slice z < ksplit of kslice rows of the depth
+// K, on the tile of kWM x kWN warps of kMI x kNI mma tiles; each operand lies
+// in shared memory with its View's unit-stride axis contiguous
+template <int kWM, int kWN, int kMI, int kNI, class Epi = EpiNone>
+cudaError_t tc_gemm(const View& A, const View& B, float* out, int M, int N, int K, int kslice,
+                    int ksplit, cudaStream_t st, const Epi& epi = Epi()) {
+  const bool ak = A.cs == 1, bk = B.rs == 1;
+  // 16-byte copies: unit strides, 16-byte rows and slices starting at multiples of 4
+  const bool vec = vec_ok(A, ak) && vec_ok(B, !bk) && (ksplit == 1 || kslice % 4 == 0);
+  if (ak && bk)
+    return tc_gemm_layout<kWM, kWN, kMI, kNI, true, true>(A, B, out, M, N, K, kslice, ksplit,
+                                                          st, epi, vec);
+  if (ak)
+    return tc_gemm_layout<kWM, kWN, kMI, kNI, true, false>(A, B, out, M, N, K, kslice, ksplit,
+                                                           st, epi, vec);
+  if (bk)
+    return tc_gemm_layout<kWM, kWN, kMI, kNI, false, true>(A, B, out, M, N, K, kslice, ksplit,
+                                                           st, epi, vec);
+  return tc_gemm_layout<kWM, kWN, kMI, kNI, false, false>(A, B, out, M, N, K, kslice, ksplit,
+                                                          st, epi, vec);
+}
+
+// the two tiles: 128x64 outputs on 8 warps, and 64x16 for narrow outputs
+constexpr int kTcBM = 128, kTcBN = 64;  // the wide tile's outputs
+template <class Epi = EpiNone>
+cudaError_t tc_gemm_wide(const View& A, const View& B, float* out, int M, int N, int K,
+                         int kslice, int ksplit, cudaStream_t st, const Epi& epi = Epi()) {
+  return tc_gemm<4, 2, 2, 4>(A, B, out, M, N, K, kslice, ksplit, st, epi);
+}
+template <class Epi = EpiNone>
+cudaError_t tc_gemm_narrow(const View& A, const View& B, float* out, int M, int N, int K,
+                           int kslice, int ksplit, cudaStream_t st, const Epi& epi = Epi()) {
+  return tc_gemm<4, 1, 1, 2>(A, B, out, M, N, K, kslice, ksplit, st, epi);
 }
 
 // dst[d] = sum over the rows of a[r, d] * (xs[r, d] - mean[r]) * inv[r], and

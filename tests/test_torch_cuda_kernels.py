@@ -288,6 +288,36 @@ def test_gmlp_kernels_match_plain(cuda, B, shape, approx, rate):
     assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
 
 
+# K3b's tensor-core shapes: rows that are no multiple of the 128-row tile
+# (37 x 49), widths that are no multiple of 8 or 16 (D = 20, F/2 = 22; F/2 =
+# 20), and token counts padded to whole m16 tiles: 13 -> 16, 65 -> 80 (the
+# 8-tile SGU kernel with 5 in use), 128 (no padding, the largest N)
+GMLP_TC_SHAPES = {"encoder_ragged": dict(B=37, N=49, D=128, F=768),
+                  "odd_widths": dict(B=5, N=13, D=20, F=44),
+                  "n65": dict(B=3, N=65, D=24, F=40),
+                  "n128": dict(B=2, N=128, D=16, F=48)}
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("shape", sorted(GMLP_TC_SHAPES))
+def test_gmlp_backward_tensor_core_edges(cuda, shape, rate):
+    """K3b against autograd of the plain version where the tensor-core tiles
+    and the padded SGU have ragged edges, every tensor within 1e-4 x max(1,
+    max|plain|); two runs bit-identical."""
+    geom = dict(GMLP_TC_SHAPES[shape])
+    B = geom.pop("B")
+    p = gmlp_params_on(cuda, seed=1, **geom)
+    x = torch.randn(B, geom["N"], geom["D"], device=cuda)
+    g = torch.randn_like(x)
+    run = lambda: gk.fused_gmlp_block_bwd(x, g, p, seed=11, dropout_rate=rate)
+    dx, grads = run()
+    want_dx, want = gk.gmlp_block_bwd_reference(x, g, p, rate, seed=11)
+    for a, b in zip((dx, *grads), (want_dx, *want)):
+        rel_close(a, b)
+    dx2, grads2 = run()
+    assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+
+
 def test_gmlp_block_module_trains_on_cuda(cuda):
     """Every parameter of a PallasGatingMlpBlock gets a non-zero gradient on
     the card, through K3f and K3b."""
@@ -316,10 +346,12 @@ def test_gmlp_kernels_raise_on_cuda(cuda):
 # ----------------------------------------------------------------- DynaMixer
 # "config" is avmnist_3loss_dyna.yml's op at batch 32 (S = 7 x 32 rows or
 # columns of the 7 x 7 grid); "ragged" has an S*L that is no multiple of the
-# 64-row tiles nor of the sequences a CTA owns
+# tiles' rows nor of the sequences a CTA owns; "odd" has C = 36 and H*R = 18,
+# no multiple of 8 or 16 (dW_c's narrow tile and the wide tiles' ragged columns)
 DYNA_SHAPES = {"small": dict(S=5, L=4, C=16, H=4, R=3),
                "config": dict(S=224, L=7, C=256, H=8, R=2),
-               "ragged": dict(S=37, L=7, C=256, H=8, R=2)}
+               "ragged": dict(S=37, L=7, C=256, H=8, R=2),
+               "odd": dict(S=9, L=5, C=36, H=6, R=3)}
 
 
 def dyna_params_on(device, L, C, H, R, seed=0):
