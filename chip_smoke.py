@@ -5,10 +5,12 @@
     python3 chip_smoke.py --ab PARENT_DIR
 
 With no arguments it runs every phase below. ``--kernel-times`` only builds
-and prints K3b's and K4b's times as one JSON line (``--root``: those of the
-``m2mixer_tpu_torch`` of another checkout). ``--ab`` compares another checkout's K3b/K4b times with this
-one's on the same card, in turns (parent, this, this, parent), each in its
-own process, into ``chiprun_out/kernel_ab.json``.
+and prints the times of K3f, K3b (encoder and fusion shape), K4f and K4b at
+batch 32 and 512 as one JSON line (``--root``: those of the
+``m2mixer_tpu_torch`` of another checkout). ``--ab`` compares another
+checkout's times of those four kernels with this one's on the same card, in
+turns (parent, this, this, parent), each in its own process, into
+``chiprun_out/kernel_ab.json``.
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
@@ -37,7 +39,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    autograd at the DynaMixer config's op (L=7, C=256, H=8, R=2; S = 7 x 32
    and 7 x 512 sequences), x as drawn and scaled by 30 (generate logits of
    about 50: the softmax's stress case): the output, dx and the 6 parameter
-   gradients; two backward runs give bit-identical gradients;
+   gradients; two backward runs give bit-identical gradients. Then the
+   3xTF32 error against rows: K3b (encoder shape) and K4b at batch 2048 and
+   4096 against autograd of their plain versions on the card, each tensor's
+   error relative to max(1, max|plain|) beside the rows of the slices the
+   plan sums the weight gradients over;
 7. serving: export the B config (``cfg/avmnist/avmnist_m2-mixer_B.yml``, full
    width and depth, seeded weights) through ``serving export --pallas`` (one
    stack kernel per mixer), and through ``to_torch_kernel_serving(...,
@@ -93,17 +99,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     batch 32 and 512 for plain modules and both kernel block types; and the
     device time of each launch of one K1b call (``torch.profiler``);
 14. gMLP times: K3f and K3b alone at the encoder and fusion shapes at batch
-    32 and 512 (with their plain versions, their float32 bounds and K3b's
-    3xTF32 bound, and the profiler's breakdown of one call of K3f at the
-    encoder shape and of K3b at both, batch 512), the served forward and the
-    train step at batch 32 and 512, plain modules and kernel blocks;
+    32 and 512 (with their plain versions, their float32 and 3xTF32 bounds,
+    and the profiler's breakdown of one call of each at both shapes, batch
+    512), the served forward and the train step at batch 32 and 512, plain
+    modules and kernel blocks;
 15. DynaMixer times: K4f and K4b alone at batch 32 and 512 (S = 224 and 3584)
-    with their plain versions and bounds and the profiler's breakdown of one
-    K4b call at batch 512, the served forward and the train step at batch 32
-    and 512, each with the device time its kernels take (``torch.profiler``),
-    so the share of the call in which the card is busy; then each of K3b's
-    and K4b's products at batch 512 timed as one ``torch.matmul`` in float32
-    (TF32 off), a yardstick per product that the port never calls;
+    with their plain versions, float32 and 3xTF32 bounds and the profiler's
+    breakdown of one K4f and one K4b call at batch 512, the served forward
+    and the train step at batch 32 and 512, each with the device time its
+    kernels take (``torch.profiler``), so the share of the call in which the
+    card is busy; then each product of K3f, K3b, K4f and K4b at batch 512
+    timed as one ``torch.matmul`` in float32 (TF32 off), a yardstick per
+    product that the port never calls;
 16. one JSON line naming every ported kernel, the card's name and power limit,
     and the result line ``{"ok": true, "device": {...}}``.
 
@@ -152,8 +159,8 @@ B_CFG = os.path.join(REPO, "cfg", "avmnist", "avmnist_m2-mixer_B.yml")
 # published H100 SXM peaks (dense): float32 on the CUDA cores, bf16 on the
 # tensor cores, HBM3 bandwidth
 PEAK = {"f32": 67e12, "bf16": 989e12}
-# K3b's and K4b's products run as 3xTF32 on the tensor cores: three TF32
-# products each, so at best a third of the dense TF32 peak (495 TFLOP/s)
+# the gMLP and DynaMixer kernels' products run as 3xTF32 on the tensor cores:
+# three TF32 products each, so at best a third of the dense TF32 peak (495 TFLOP/s)
 TC_3XTF32 = 495e12 / 3
 HBM_BYTES_PER_S = 3.35e12
 F32_ATOL = 1e-4
@@ -197,6 +204,7 @@ LOSS_REL = 1e-5  # card against CPU: the loss and the branch losses
 # samples (val accuracy 0.05, 0.05) and learns from the third (0.34, 0.38, 0.68
 # by the fifth; H100, PERF.md), so its run takes five epochs
 DYNA_EPOCHS = 5
+ROWS_BATCHES = (2048, 4096)  # the 3xTF32 error against the weight gradients' row count
 
 
 def rand_blocks(mk, torch, K, N, D, T, C, seed):
@@ -280,7 +288,10 @@ def cuda_ms(torch, fn, iters: int = 20, reps: int = 5) -> float:
 def kernel_breakdown(torch, fn, what, calls: int = 10) -> dict:
     """Device time per call of each CUDA kernel that ``fn`` launches
     (``torch.profiler``, ``calls`` calls after a warm-up): {name: [us per
-    call, launches per call]}, printed largest first unless ``what`` is None."""
+    call, launches per call]}, printed largest first unless ``what`` is None.
+    The trace can lose a kernel's first event in the window, so a kernel's
+    time per call is its mean time a launch times its launches per call (its
+    event count over ``calls``, rounded)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -289,12 +300,17 @@ def kernel_breakdown(torch, fn, what, calls: int = 10) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    rows = {}
+    totals = {}
     for e in prof.key_averages():
-        if e.device_time_total > 0:  # kernels; "(anonymous namespace)::f<...>(args)" -> "f<...>"
-            name = e.key.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
-            us, n = rows.get(name, (0.0, 0.0))
-            rows[name] = [us + e.device_time_total / calls, n + e.count / calls]
+        if e.device_time_total > 0:  # kernels: "(anonymous namespace)::f<...>(args)" -> "f<...>"
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+            name = name.removeprefix("void ")
+            us, n = totals.get(name, (0.0, 0))
+            totals[name] = (us + e.device_time_total, n + e.count)
+    rows = {}
+    for name, (us, n) in totals.items():
+        per_call = max(1, round(n / calls))
+        rows[name] = [us / n * per_call, per_call]
     if what is not None:
         print(f"  {what}, device us per call by kernel:")
         for name, (us, n) in sorted(rows.items(), key=lambda kv: -kv[1][0]):
@@ -911,9 +927,8 @@ def phase_gmlp_times(torch, gk, serving, Trainer, apply_overrides, load_cfg, syn
             times[f"K3b/{tag}"] = cuda_ms(torch, lambda: gk.fused_gmlp_block_bwd(x, g, p))
             times[f"K3b_plain/{tag}"] = cuda_ms(torch, lambda: gk.gmlp_block_bwd_reference(x, g, p))
             if B == 512:
-                calls = [("K3b", lambda: gk.fused_gmlp_block_bwd(x, g, p))]
-                if geom_name == "encoder":
-                    calls.insert(0, ("K3f", lambda: gk.fused_gmlp_block(x, p)))
+                calls = [("K3f", lambda: gk.fused_gmlp_block(x, p)),
+                         ("K3b", lambda: gk.fused_gmlp_block_bwd(x, g, p))]
                 for name, fn in calls:
                     report.setdefault("breakdown_us", {})[f"{name}/{tag}"] = kernel_breakdown(
                         torch, fn, f"{name} {tag}")
@@ -921,9 +936,12 @@ def phase_gmlp_times(torch, gk, serving, Trainer, apply_overrides, load_cfg, syn
             act = B * geom["N"] * geom["D"] * 4
             bounds[f"K3f/{tag}"] = bound(flops, pbytes + 2 * act, "f32")
             bounds[f"K3b/{tag}"] = bound(2 * flops, 2 * pbytes + 3 * act, "f32")
-            report.setdefault("bounds_3xtf32_ms", {})[f"K3b/{tag}"] = 2 * flops / TC_3XTF32 * 1e3
+            tc = report.setdefault("bounds_3xtf32_ms", {})
+            tc[f"K3f/{tag}"] = flops / TC_3XTF32 * 1e3
+            tc[f"K3b/{tag}"] = 2 * flops / TC_3XTF32 * 1e3
             print(f"  {tag}: K3f {times[f'K3f/{tag}']:.4f} ms (plain "
-                  f"{times[f'K3f_plain/{tag}']:.4f}, bound {bounds[f'K3f/{tag}'][0]:.4f}); K3b "
+                  f"{times[f'K3f_plain/{tag}']:.4f}, bound {bounds[f'K3f/{tag}'][0]:.4f}, 3xTF32 "
+                  f"bound {tc[f'K3f/{tag}']:.4f}); K3b "
                   f"{times[f'K3b/{tag}']:.4f} ms (plain {times[f'K3b_plain/{tag}']:.4f}, bound "
                   f"{bounds[f'K3b/{tag}'][0]:.4f}, 3xTF32 bound "
                   f"{report['bounds_3xtf32_ms'][f'K3b/{tag}']:.4f})")
@@ -1018,6 +1036,51 @@ def phase_dyna_kernels(torch, dk, report):
             dx2, grads2 = run()
             if not all(torch.equal(a, b) for a, b in zip((dx, *grads), (dx2, *grads2))):
                 raise AssertionError(f"K4b/{tag}: two backward runs differ")
+
+
+def phase_error_rows(torch, gk, dk, lib, report):
+    """K3b (encoder shape) and K4b at batch 2048 and 4096 against autograd of
+    the plain versions on the card: each tensor's error relative to max(1,
+    max|plain|), beside the rows of the slices the plan sums dW_in/dW_out
+    (dW_o/dW_c) over. Held to the unchanged gate."""
+    print("[6/16] 3xTF32 error against rows: K3b (encoder shape) and K4b at batch "
+          f"{' and '.join(map(str, ROWS_BATCHES))}")
+    out = report["error_vs_rows"] = {}
+    names3 = ["dx", *gk.GmlpBlockParams._fields]
+    names4 = ["dx", *dk.DynaMixerOpParams._fields]
+    p3 = gmlp_params(gk, torch, seed=35, **GMLP_ENC)
+    p4 = dyna_params(dk, torch, seed=45, **DYNA_OP)
+    H, R = DYNA_OP["H"], DYNA_OP["R"]
+    for B in ROWS_BATCHES:
+        gen = torch.Generator().manual_seed(B)
+        N, D, F = GMLP_ENC["N"], GMLP_ENC["D"], GMLP_ENC["F"]
+        x = torch.randn(B, N, D, generator=gen).cuda()
+        g = torch.randn(B, N, D, generator=gen).cuda()
+        got = gk.fused_gmlp_block_bwd(x, g, p3)
+        want = gk.gmlp_block_bwd_reference(x, g, p3)
+        cases = [("K3b", names3, (got[0], *got[1]), (want[0], *want[1]),
+                  lib.m2m_gmlp_row_slice(B, N, D, F, 0), B * N)]
+        del got, want, x, g
+        S = 7 * B
+        x = torch.randn(S, DYNA_OP["L"], DYNA_OP["C"], generator=gen).cuda()
+        g = torch.randn(S, DYNA_OP["L"], DYNA_OP["C"], generator=gen).cuda()
+        got = dk.fused_dynamixer_op_bwd(x, g, p4, H, R)
+        want = dk.dynamixer_op_bwd_reference(x, g, p4, H, R)
+        cases.append(("K4b", names4, (got[0], *got[1]), (want[0], *want[1]),
+                      lib.m2m_dyna_row_slice(S, *DYNA_OP.values(), 0), S * DYNA_OP["L"]))
+        for kernel, names, a, b, rslice, rows in cases:
+            key = f"{kernel}/B{B}"
+            rel = {n: (u - v).abs().max().item() / max(1.0, v.abs().max().item())
+                   for n, u, v in zip(names, a, b)}
+            near = max(rel.values()) >= GRAD_REL / 2
+            out[key] = {"rows": rows, "row_slice": rslice, "rel_err": rel,
+                        "within_2x_of_gate": near}
+            print(f"  {key}: {rows} rows, slices of {rslice} rows; error / max(1, max|plain|): "
+                  + ", ".join(f"{n} {e:.2e}" for n, e in rel.items())
+                  + (" (within 2x of the gate: shorten the slices)" if near else ""))
+            rel_err(torch, a, b, key)
+        del got, want, x, g, cases
+        torch.cuda.empty_cache()
 
 
 def dyna_counters(dk):
@@ -1120,15 +1183,21 @@ def phase_dyna_times(torch, dk, serving, Trainer, load_cfg, synthetic, np, serve
         times[f"K4b_plain/{tag}"] = cuda_ms(
             torch, lambda: dk.dynamixer_op_bwd_reference(x, g, p, H, R))
         if B == 512:
-            report.setdefault("breakdown_us", {})[f"K4b/{tag}"] = kernel_breakdown(
+            bd = report.setdefault("breakdown_us", {})
+            bd[f"K4f/{tag}"] = kernel_breakdown(
+                torch, lambda: dk.fused_dynamixer_op(x, p, H, R), f"K4f {tag}")
+            bd[f"K4b/{tag}"] = kernel_breakdown(
                 torch, lambda: dk.fused_dynamixer_op_bwd(x, g, p, H, R), f"K4b {tag}")
         flops, pbytes = dyna_work(S, **DYNA_OP)
         act = x.numel() * 4
         bounds[f"K4f/{tag}"] = bound(flops, pbytes + 2 * act, "f32")
         bounds[f"K4b/{tag}"] = bound(2 * flops, 2 * pbytes + 3 * act, "f32")
-        report.setdefault("bounds_3xtf32_ms", {})[f"K4b/{tag}"] = 2 * flops / TC_3XTF32 * 1e3
+        tc = report.setdefault("bounds_3xtf32_ms", {})
+        tc[f"K4f/{tag}"] = flops / TC_3XTF32 * 1e3
+        tc[f"K4b/{tag}"] = 2 * flops / TC_3XTF32 * 1e3
         print(f"  {tag} (S={S}): K4f {times[f'K4f/{tag}']:.4f} ms (plain "
-              f"{times[f'K4f_plain/{tag}']:.4f}, bound {bounds[f'K4f/{tag}'][0]:.4f}); K4b "
+              f"{times[f'K4f_plain/{tag}']:.4f}, bound {bounds[f'K4f/{tag}'][0]:.4f}, 3xTF32 bound "
+              f"{tc[f'K4f/{tag}']:.4f}); K4b "
               f"{times[f'K4b/{tag}']:.4f} ms (plain {times[f'K4b_plain/{tag}']:.4f}, bound "
               f"{bounds[f'K4b/{tag}'][0]:.4f}, 3xTF32 bound "
               f"{report['bounds_3xtf32_ms'][f'K4b/{tag}']:.4f})")
@@ -1167,10 +1236,11 @@ def phase_dyna_times(torch, dk, serving, Trainer, load_cfg, synthetic, np, serve
 
 # ------------------------------------------- yardsticks, registers, A/B times
 def product_yardsticks(torch, report) -> None:
-    """Each of K3b's and K4b's products at batch 512 timed as one
+    """Each product of K3f, K3b, K4f and K4b at batch 512 timed as one
     ``torch.matmul`` in float32 (TF32 off): a yardstick per product, never
     called by the port. Shapes (M x K x N); the SGU's token products are
-    batched over the sample's F/2 v-channels."""
+    batched over the sample's F/2 v-channels. K3f's in-projection and token
+    product are K3b's in_proj and sgu t."""
     print("  per-product yardsticks, torch.matmul float32 (TF32 off), batch 512:")
     ys = report["product_library_ms"] = {}
 
@@ -1187,7 +1257,9 @@ def product_yardsticks(torch, report) -> None:
                                  "sgu t": (512 * H, N, N), "sgu dv'": (512 * H, N, N),
                                  "sgu d sgu_w": (N, 512 * H, N)}.items():
             mm(f"K3b/{geom_name}/B512/{prod}", M, K, Nn)
+        mm(f"K3f/{geom_name}/B512/out_proj", R, H, D)
     rows, C, HR = 7 * 512 * DYNA_OP["L"], DYNA_OP["C"], DYNA_OP["H"] * DYNA_OP["R"]
+    mm("K4f/B512/out_proj", rows, C, C)
     for prod, (M, K, Nn) in {"d_mixed": (rows, C, C), "dW_o": (C, rows, C),
                              "dW_c": (C, rows, HR)}.items():
         mm(f"K4b/B512/{prod}", M, K, Nn)
@@ -1242,8 +1314,9 @@ def build_kernels(_build, report) -> None:
 
 
 def kernel_times(torch, gk, dk) -> dict:
-    """K3b (encoder and fusion shape) and K4b alone at batch 32 and 512 (CUDA
-    events, median of 5 runs of 20 calls), the numbers the A/B compares."""
+    """K3f and K3b (encoder and fusion shape), K4f and K4b alone at batch 32
+    and 512 (CUDA events, median of 5 runs of 20 calls), the numbers the A/B
+    compares."""
     times = {}
     for geom_name, geom in (("encoder", GMLP_ENC), ("fusion", GMLP_FUSION)):
         p = gmlp_params(gk, torch, seed=33, **geom)
@@ -1251,6 +1324,7 @@ def kernel_times(torch, gk, dk) -> dict:
             gen = torch.Generator().manual_seed(6)
             x = torch.randn(B, geom["N"], geom["D"], generator=gen).cuda()
             g = torch.randn(B, geom["N"], geom["D"], generator=gen).cuda()
+            times[f"K3f/{geom_name}/B{B}"] = cuda_ms(torch, lambda: gk.fused_gmlp_block(x, p))
             times[f"K3b/{geom_name}/B{B}"] = cuda_ms(torch, lambda: gk.fused_gmlp_block_bwd(x, g, p))
     H, R = DYNA_OP["H"], DYNA_OP["R"]
     p = dyna_params(dk, torch, seed=43, **DYNA_OP)
@@ -1258,6 +1332,7 @@ def kernel_times(torch, gk, dk) -> dict:
         gen = torch.Generator().manual_seed(7)
         x = torch.randn(7 * B, DYNA_OP["L"], DYNA_OP["C"], generator=gen).cuda()
         g = torch.randn(7 * B, DYNA_OP["L"], DYNA_OP["C"], generator=gen).cuda()
+        times[f"K4f/B{B}"] = cuda_ms(torch, lambda: dk.fused_dynamixer_op(x, p, H, R))
         times[f"K4b/B{B}"] = cuda_ms(torch, lambda: dk.fused_dynamixer_op_bwd(x, g, p, H, R))
     return times
 
@@ -1269,8 +1344,9 @@ def card_line() -> str:
 
 
 def ab_times(parent: str) -> int:
-    """K3b/K4b times of the checkout at ``parent`` against this one's on this
-    card, in turns (parent, this, this, parent), each in its own process."""
+    """K3f/K3b/K4f/K4b times of the checkout at ``parent`` against this one's
+    on this card, in turns (parent, this, this, parent), each in its own
+    process."""
     runs = []
     for root in (parent, REPO, REPO, parent):
         out = subprocess.run([sys.executable, os.path.abspath(__file__), "--kernel-times",
@@ -1297,11 +1373,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the port (no arguments: all "
                                  "phases)")
     ap.add_argument("--kernel-times", action="store_true",
-                    help="only build and print K3b/K4b times as one JSON line")
+                    help="only build and print K3f/K3b/K4f/K4b times as one JSON line")
     ap.add_argument("--root", default=REPO, help="checkout whose m2mixer_tpu_torch is timed "
                     "(with --kernel-times)")
     ap.add_argument("--ab", metavar="PARENT",
-                    help="K3b/K4b times of the checkout PARENT against this one, in turns")
+                    help="K3f/K3b/K4f/K4b times of the checkout PARENT against this one, in "
+                    "turns")
     args = ap.parse_args()
     if args.ab:
         return ab_times(os.path.abspath(args.ab))
@@ -1337,6 +1414,7 @@ def main() -> int:
     phase_backward(torch, mk, report)
     phase_gmlp_kernels(torch, gk, report)
     phase_dyna_kernels(torch, dk, report)
+    phase_error_rows(torch, gk, dk, _build.load_library(), report)
     plain, models = phase_serving(torch, mk, serving, get_model, load_cfg, np, report)
     gmlp_served = dict(zip(("plain", "kernel"), phase_gmlp_serving(torch, gk, serving, np, report)))
     dyna_served = phase_dyna_serving(torch, dk, serving, np, report)

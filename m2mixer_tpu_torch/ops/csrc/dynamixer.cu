@@ -30,7 +30,8 @@
 //        waves), with W_c and W_g in shared memory; it computes comp, the
 //        logits, the softmax (the maximum over m subtracted first) and the mix
 //        there, and writes mixed (S*L, C);
-//     2. out: y = mixed W_o + b_o, the 64x64 SIMT tiles of tile_common.cuh.
+//     2. out: y = mixed W_o + b_o on the tensor cores (tc_gemm_auto, the bias in
+//        its epilogue; the 64x64 tile where the wide one would leave SMs idle).
 //   backward, 6 launches; the autograd Function saves only x, so the
 //   per-sequence intermediates are recomputed:
 //     1. d_mixed = g W_o^T (the tensor-core tile GEMM);
@@ -48,11 +49,11 @@
 //   No float atomics: two runs give bit-identical gradients. dW_c never takes
 //   per-CTA partials (4096 floats a CTA); dW_g and db_g (L*R*L*L + L*L = 735
 //   floats) take one per sequence CTA.
-// Products: K4f's output projection and the sequence kernels' small per-head
-// products are SIMT (float32 on the CUDA cores). K4b's three GEMMs (steps 1, 3,
-// 4) run on the tensor cores in 3xTF32 through tc_gemm (tile_common.cuh says
-// why that split and why mma.sync rather than wgmma); its sequence kernel is
-// the next part to redesign (PERF.md).
+// Products: K4f's output projection and K4b's three GEMMs (steps 1, 3, 4) run
+// on the tensor cores in 3xTF32 through tc_gemm (tile_common.cuh says why that
+// split and why mma.sync rather than wgmma); the sequence kernels' small
+// per-head products are SIMT (float32 on the CUDA cores), and are the next
+// part to redesign (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -66,7 +67,9 @@ namespace {
 constexpr int kMaxL = 32;          // tokens a sequence may have (the wrapper's _MAX_TOKENS)
 constexpr int kMaxC = 1024;        // channels (the wrapper's _MAX_CHANNELS)
 constexpr int kMaxSeqPerCta = 4;   // sequences a per-sequence CTA owns
-constexpr int kMaxSplit = 32;      // row slices of the weight gradients
+constexpr int kMaxSplit = 32;      // row slices of the weight gradients for two CTAs an SM
+constexpr int kMaxSliceRows = 2304;  // rows a slice may sum (the 3xTF32 error, as in gmlp.cu)
+constexpr int kMaxRowSplit = 128;  // row slices of the weight gradients, at most
 constexpr int kMaxColSplit = 256;  // row slices of the bias gradients' column sums
 constexpr int kRedJobs = 5;        // dW_o, dW_c, db_o, db_c, dW_g + db_g
 
@@ -197,24 +200,6 @@ __global__ void __launch_bounds__(kThreads)
   mix(sm, g, nq, mixed + off);
 }
 
-// out (M x Nn) = A B + bias: one 64x64 tile a CTA (K4f step 2)
-__global__ void __launch_bounds__(kThreads)
-    bias_gemm_kernel(View A, View Bv, const float* __restrict__ bias, float* __restrict__ out,
-                     int M, int Nn, int K) {
-  __shared__ float As[kTileK][kTile + kPad], Bs[kTileK][kTile + kPad];
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  float acc[4][4] = {};
-  gemm_tile(A, Bv, M, Nn, 0, K, m0, n0, As, Bs, acc);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + ty * 4 + i, n = n0 + tx * 4 + j;
-      if (m < M && n < Nn) out[(size_t)m * Nn + n] = acc[i][j] + __ldg(bias + n);
-    }
-}
-
 // K4b step 2, per CTA of whole sequences: mixed (for dW_o), d_comp, dx, and
 // the CTA's partials of dW_g (L*R x L*L) then db_g (L*L) at part[blockIdx.x]
 __global__ void __launch_bounds__(kThreads)
@@ -299,6 +284,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 struct Plan {
+  int sms;  // the card's SMs (the tile rule of the output projection)
   Geo fwd, bwd;
   int ctas_fwd, ctas_bwd;
   int wsplit, wslice;  // the weight gradients: slices of the rows
@@ -325,11 +311,11 @@ int fit_spc(int S, int L, int C, int H, int R, int want, bool bwd, int limit) {
 }
 
 int make_plan(int S, int L, int C, int H, int R, int device, Plan& pl) {
-  int limit = 0, sms = 0;
-  cudaError_t err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  DeviceInfo dev;
+  const cudaError_t err = device_info(device, dev);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
+  const int limit = dev.smem_optin, sms = dev.sms;
+  pl.sms = sms;
   // enough sequence CTAs for two waves before a CTA takes more than one sequence
   int want = S / (2 * sms);
   want = want < 1 ? 1 : (want > kMaxSeqPerCta ? kMaxSeqPerCta : want);
@@ -342,11 +328,14 @@ int make_plan(int S, int L, int C, int H, int R, int device, Plan& pl) {
   pl.ctas_bwd = ceil_div(S, spc_b);
   const long long rows = (long long)S * L;
   const int HR = H * R, LR = L * R, LL = L * L;
-  // dW_o's few tiles x slices of the rows for two CTAs an SM
+  // dW_o's few tiles x slices of the rows for two CTAs an SM, a whole multiple
+  // of that where a slice would pass kMaxSliceRows rows
   const int w_tiles = ceil_div(C, kTcBM) * ceil_div(C, kTcBN);
   int ws = ceil_div(2 * sms, w_tiles);
-  const int max_ws = ceil_div(rows, 64);  // at least 64 rows a slice
   ws = ws > kMaxSplit ? kMaxSplit : ws;
+  ws *= ceil_div(ceil_div(rows, ws), kMaxSliceRows);  // whole multiples: the CTAs fill whole waves
+  const int max_ws = ceil_div(rows, 64);  // at least 64 rows a slice
+  ws = ws > kMaxRowSplit ? kMaxRowSplit : ws;
   ws = ws > max_ws ? max_ws : ws;
   ws = ws < 1 ? 1 : ws;
   pl.wslice = ceil_div(ceil_div(rows, ws), kTcK) * kTcK;
@@ -389,6 +378,14 @@ size_t m2m_dyna_workspace_bytes(int S, int L, int C, int H, int R, int backward,
   return (backward ? pl.bwd_floats : pl.fwd_floats) * 4;
 }
 
+// Rows of the slices K4b sums dW_o and dW_c over, 0 for shapes the kernels do
+// not take: what the 3xTF32 error is measured against.
+int m2m_dyna_row_slice(int S, int L, int C, int H, int R, int device) {
+  Plan pl;
+  if (check_args(S, L, C, H, R) || make_plan(S, L, C, H, R, device, pl)) return 0;
+  return pl.wslice;
+}
+
 // K4f: y = DynaMixerOp(x), x and y (S, L, C) float32. ptrs: the 6 parameters
 // in DynaMixerOpParams order (float32, JAX layout); workspace:
 // m2m_dyna_workspace_bytes(..., 0, ...) bytes.
@@ -400,16 +397,15 @@ int m2m_dyna_fwd(const float* x, float* y, int S, int L, int C, int H, int R, in
   const int code = make_plan(S, L, C, H, R, device, pl);
   if (code) return code;
   const size_t smem = (size_t)pl.fwd.total * 4;
-  M2M_TRY(prepare(dyna_mix_kernel, smem));
+  M2M_TRY(prepare(dyna_mix_kernel, smem, device));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Weights w = weights(ptrs);
   float* mixed = static_cast<float*>(workspace) + pl.mixed;
   dyna_mix_kernel<<<pl.ctas_fwd, kThreads, smem, st>>>(x, w, pl.fwd, mixed);
   M2M_TRY(cudaGetLastError());
-  const int rows = S * L;
-  bias_gemm_kernel<<<dim3(ceil_div(C, kTile), ceil_div(rows, kTile)), kThreads, 0, st>>>(
-      View{mixed, C, 1}, View{w.wo, C, 1}, w.bo, y, rows, C, C);
-  return (int)cudaGetLastError();
+  // y = mixed W_o + b_o (dynamixer_kernel.py:58)
+  return tc_gemm_auto(View{mixed, C, 1}, View{w.wo, C, 1}, y, S * L, C, C, pl.sms, st,
+                      EpiBias{w.bo});
 }
 
 // K4b: dx and the 6 parameter gradients (float32, DynaMixerOpParams order) of
@@ -424,7 +420,7 @@ int m2m_dyna_bwd(const float* x, const float* g, float* dx, int S, int L, int C,
   const int code = make_plan(S, L, C, H, R, device, pl);
   if (code) return code;
   const size_t smem = (size_t)pl.bwd.total * 4;
-  M2M_TRY(prepare(dyna_seq_bwd_kernel, smem));
+  M2M_TRY(prepare(dyna_seq_bwd_kernel, smem, device));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Weights w = weights(ptrs);
   float* ws = static_cast<float*>(workspace);

@@ -20,13 +20,16 @@
 // (N, F) intermediate is 304 KB at N = 99, above the 227 KB of shared memory a
 // CTA may use. So the block is a short pipeline of kernels through device
 // memory, each parallel over what it owns:
-//   forward, 4 launches:
+//   forward, 5 launches:
 //     1. rows: xn = LN(x), a warp per row;
-//     2. in:   h = gelu((xn W_in + b_in) m0), 64x64 tiles of (rows, F);
-//     3. sgu:  per (sample, share of the v-channels): the LN(v) statistics of the
-//              sample's N rows, then, in chunks of 32 v-channels with sgu_w in
-//              shared memory, t' and gated = u t';
-//     4. out:  y = x + (gated W_out + b_out) m2, 64x64 tiles of (rows, D).
+//     2. in:   h = gelu((xn W_in + b_in) m0), bias, mask 0 and the GELU in the
+//              tensor-core tile's epilogue;
+//     3. vstats: every row's LN(v) mean and 1/std, a warp per row;
+//     4. sgu:  per (sample, share of the v-channels), in chunks of 64: v' =
+//              LN(v), t = v'-by-token sgu_w on the tensor cores, then t' and
+//              gated = u t' element by element;
+//     5. out:  y = x + (gated W_out + b_out) m2, the residual, bias and mask 2
+//              in the tensor-core tile's epilogue.
 //   backward, 12 launches; it recomputes the forward from x (the autograd
 //   Function saves only x), and follows the chain of jax.vjp(_block_math):
 //     1. rows: xn = LN(x) again; dout = g m2 (mask 2 before the F/2 -> D product);
@@ -54,17 +57,22 @@
 //
 // What bounds it on the H100. The forward does B*N*F*(3D + N) flops against a
 // few MB of parameters and activations, the backward twice that plus the
-// recomputed forward: operations bound both. The forward's products are the
-// simple SIMT tiles of tile_common.cuh (float32 on the CUDA cores, 67 TFLOP/s
-// at best). The backward's run on the tensor cores in 3xTF32 (tile_common.cuh
-// says why that split and why mma.sync rather than wgmma): its five GEMMs
-// (steps 2, 3, 6, 7, 8) on tc_gemm, with the bias and mask 0 in step 2's
-// epilogue; its SGU kernel keeps sgu_w in shared memory and runs the chunk's
-// three token products (t = v' sgu_w, dv' = dt sgu_w^T, d sgu_w += v'^T dt) as
-// mma.sync from shared memory, d sgu_w's partial in registers across the
-// chunks and written once. Tokens are padded to whole m16 tiles (49 -> 64,
-// 99 -> 112) with zeros. The rest (the gate, LN(v) and its backward, column
-// sums, reductions) is CUDA-core work on memory (PERF.md).
+// recomputed forward: operations bound both. Both run their products on the
+// tensor cores in 3xTF32 (tile_common.cuh says why that split and why
+// mma.sync rather than wgmma): the forward's two GEMMs (steps 2 and 5) and the
+// backward's five (steps 2, 3, 6, 7, 8) on tc_gemm, the forward's by the tile
+// rule of tc_gemm_auto (the 64x64 tile where the wide one would leave SMs
+// idle, at batch 32). The two SGU kernels share their staging, LN(v) and token
+// projection (sgu_setup, sgu_stage, sgu_normalize, sgu_token_proj): sgu_w in
+// shared memory, a chunk's v columns staged by cp.async and normalized in
+// place, t = v' sgu_w as mma.sync from shared memory; the backward adds its
+// two other products (dv' = dt sgu_w^T, d sgu_w += v'^T dt), d sgu_w's partial
+// in registers across the chunks and written once. Tokens are padded to whole
+// m16 tiles (49 -> 64, 99 -> 112) with zeros. The rest (the gate, LN(v) and
+// its backward, column sums, reductions) is CUDA-core work on memory
+// (PERF.md). The forward stores h = gelu(pm), not pm: each GELU is then taken
+// once, where reading pm would take it in the statistics, the normalization
+// and the gate (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,13 +82,16 @@
 
 namespace {
 
-constexpr int kMaxSeq = 128;                   // tokens a sample may have
-constexpr int kCw = 32;                        // v-channels per SGU chunk (forward)
-constexpr int kCwBwd = 64;                     // v-channels per SGU chunk (backward), 8 a warp
-constexpr int kGroups = kThreads / kCw;        // token groups of an SGU CTA
-constexpr int kPerThread = kMaxSeq / kGroups;  // tokens a thread owns in a chunk
-constexpr int kRowTile = 32;                   // rows per CTA of the LN backward kernels
-constexpr int kMaxSplit = 32;
+constexpr int kMaxSeq = 128;   // tokens a sample may have
+constexpr int kChunk = 64;     // v-channels per SGU chunk, 8 a warp
+constexpr int kRowTile = 32;   // rows per CTA of the LN backward kernels
+constexpr int kMaxSplit = 32;  // slices of F (dxn)
+// The weight gradients' row slices: the 3xTF32 error of a slice's sum grows
+// with its rows (PERF.md: dW_in 3.5e-5 of max(1, max|plain|) at 4576 rows,
+// 6.4e-5 at 9152), so no slice is longer than kMaxSliceRows, the longest the
+// batch-512 plans take (the fusion shape's, 1.6e-5), in at most kMaxRowSplit
+constexpr int kMaxSliceRows = 2304;
+constexpr int kMaxRowSplit = 128;
 constexpr int kMaskIn = 0, kMaskSgu = 1, kMaskOut = 2;
 constexpr int kRedJobs = 7;  // the block's reductions of partials (reduce_jobs_kernel)
 
@@ -110,237 +121,157 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// over one 64x64 tile of (rows, F): pm = (xn W_in + b_in) m0, stored as gelu(pm)
-// (the forward's h) or as pm (the backward's masked pre-activation)
-template <bool kGeluOut>
-__global__ void __launch_bounds__(kThreads)
-    in_proj_kernel(const float* __restrict__ xn, const float* __restrict__ w_in,
-                   const float* __restrict__ b_in, float* __restrict__ out, int R, int D, int F,
-                   int tanh_flavor, const __grid_constant__ Dropout dp) {
-  __shared__ float As[kTileK][kTile + kPad], Bs[kTileK][kTile + kPad];
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  float acc[4][4] = {};
-  gemm_tile(View{xn, D, 1}, View{w_in, F, 1}, R, F, 0, D, m0, n0, As, Bs, acc);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = m0 + ty * 4 + i, c = n0 + tx * 4 + j;
-      if (r < R && c < F) {
-        const size_t e = (size_t)r * F + c;
-        const float v = (acc[i][j] + __ldg(b_in + c)) * keep(dp, 0, kMaskIn, (uint32_t)e);
-        out[e] = kGeluOut ? gelu(v, tanh_flavor) : v;
-      }
-    }
-}
-
-// over one 64x64 tile of (rows, D): y = x + (gated W_out + b_out) m2
-__global__ void __launch_bounds__(kThreads)
-    out_proj_kernel(const float* __restrict__ gated, const float* __restrict__ w_out,
-                    const float* __restrict__ b_out, const float* __restrict__ x,
-                    float* __restrict__ y, int R, int H, int D,
-                    const __grid_constant__ Dropout dp) {
-  __shared__ float As[kTileK][kTile + kPad], Bs[kTileK][kTile + kPad];
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  float acc[4][4] = {};
-  gemm_tile(View{gated, H, 1}, View{w_out, D, 1}, R, D, 0, H, m0, n0, As, Bs, acc);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = m0 + ty * 4 + i, c = n0 + tx * 4 + j;
-      if (r < R && c < D) {
-        const size_t e = (size_t)r * D + c;
-        y[e] = x[e] + (acc[i][j] + __ldg(b_out + c)) * keep(dp, 0, kMaskOut, (uint32_t)e);
-      }
-    }
-}
-
-// element i of the block's activation h: stored as it is (forward), or as the
-// masked pre-activation pm whose GELU it is (backward)
-template <bool kFromPre>
-__device__ __forceinline__ float act_at(const float* a, size_t i, int tanh_flavor) {
-  const float v = a[i];
-  return kFromPre ? gelu(v, tanh_flavor) : v;
-}
-
-// shared memory (floats) of the SGU kernels for N tokens
-__host__ __device__ inline size_t sgu_smem_floats(int N, bool bwd) {
-  const size_t chunk = (size_t)N * (kCw + 1);
-  return bwd ? 2 * (size_t)N * N + 4 * (size_t)N + 2 * chunk
-             : (size_t)N * N + 3 * (size_t)N + chunk;
-}
-
-// the SGU's set-up for sample ab (its N rows of F activations): sgu_w and
-// sgu_b into shared memory, and each row's LN(v) mean and 1/std over its F/2
-// v-channels (a warp per row)
-template <bool kFromPre>
-__device__ void sgu_prologue(const float* ab, const SguParams& p, int N, int F, int tanh_flavor,
-                             float* ws, float* sb, float* mean, float* inv) {
-  const int H = F / 2;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = threadIdx.x; i < N * N; i += kThreads) ws[i] = __ldg(p.w + i);
-  for (int i = threadIdx.x; i < N; i += kThreads) sb[i] = __ldg(p.b + i);
-  for (int m = warp; m < N; m += kThreads / 32) {
-    const size_t row = (size_t)m * F + H;
-    float sum = 0.f;
-    for (int c = lane; c < H; c += 32) sum += act_at<kFromPre>(ab, row + c, tanh_flavor);
-    const float mu = warp_sum(sum) / H;
-    float sq = 0.f;
-    for (int c = lane; c < H; c += 32) {
-      const float t = act_at<kFromPre>(ab, row + c, tanh_flavor) - mu;
-      sq += t * t;
-    }
-    const float var = warp_sum(sq) / H;
-    if (lane == 0) {
-      mean[m] = mu;
-      inv[m] = rsqrtf(var + 1e-5f);
-    }
-  }
-}
-
-// vn[m][cc] = LN(v)[m, c0 + cc] (0 beyond F/2) for the chunk of kCw v-channels at c0
-template <bool kFromPre>
-__device__ void load_chunk(const float* ab, const SguParams& p, int N, int F, int c0,
-                           int tanh_flavor, const float* mean, const float* inv, float* vn) {
-  const int H = F / 2;
-  for (int i = threadIdx.x; i < N * kCw; i += kThreads) {
-    const int m = i / kCw, cc = i - m * kCw, c = c0 + cc;
-    vn[m * (kCw + 1) + cc] =
-        c < H ? (act_at<kFromPre>(ab, (size_t)m * F + H + c, tanh_flavor) - mean[m]) * inv[m] *
-                        __ldg(p.ln_s + c) +
-                    __ldg(p.ln_b + c)
-              : 0.f;
-  }
-}
-
-// acc[j] = sum over m (in order) of a[m][cc] * w[m][grp + kGroups * j] with a the
-// (N, kCw + 1) chunk in shared memory: output token n = grp + kGroups * j
-__device__ __forceinline__ void token_proj(const float* a, const float* w, int N, int cc, int grp,
-                                           float (&acc)[kPerThread]) {
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) acc[j] = 0.f;
-  for (int m = 0; m < N; ++m) {
-    const float v = a[m * (kCw + 1) + cc];
-    const float* wr = w + m * N;
-#pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const int n = grp + kGroups * j;
-      if (n < N) acc[j] = fmaf(v, wr[n], acc[j]);
-    }
-  }
-}
-
-// forward step 3 for sample blockIdx.y and every gridDim.x-th chunk of kCw
-// v-channels from chunk blockIdx.x: gated = u * (LN(v) sgu_w + sgu_b) m1
-__global__ void __launch_bounds__(kThreads)
-    sgu_fwd_kernel(const float* __restrict__ h, float* __restrict__ gated, SguParams p, int N,
-                   int F, const __grid_constant__ Dropout dp) {
-  extern __shared__ __align__(16) float sm[];
-  const int H = F / 2, b = blockIdx.y;
-  float* ws = sm;
-  float* sb = ws + N * N;
-  float* mean = sb + N;
-  float* inv = mean + N;
-  float* vn = inv + N;
-  const float* hb = h + (size_t)b * N * F;
-  sgu_prologue<false>(hb, p, N, F, 0, ws, sb, mean, inv);
-  __syncthreads();
-  const int cc = threadIdx.x % kCw, grp = threadIdx.x / kCw;
-  for (int c0 = blockIdx.x * kCw; c0 < H; c0 += gridDim.x * kCw) {
-    load_chunk<false>(hb, p, N, F, c0, 0, mean, inv, vn);
-    __syncthreads();
-    float acc[kPerThread];
-    token_proj(vn, ws, N, cc, grp, acc);
-    const int c = c0 + cc;
-    if (c < H) {
-#pragma unroll
-      for (int j = 0; j < kPerThread; ++j) {
-        const int n = grp + kGroups * j;
-        if (n < N) {
-          const float m1 = keep(dp, 0, kMaskSgu, ((uint32_t)b * H + c) * N + n);
-          gated[((size_t)b * N + n) * H + c] = hb[(size_t)n * F + c] * ((acc[j] + sb[n]) * m1);
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// the shared-memory layout (floats) of sgu_bwd_kernel for N tokens: the
+// the shared-memory layout (floats) of the SGU kernels for N tokens: the
 // tokens padded to nm (whole m16 tiles) and np (whole k8 steps); sgu_w (nm x
 // ldw, zero beyond N); the chunk's v' (staged raw, then normalized in place),
-// dt, u's pre-activation and dgated (nm x ldc each); sgu_b, d sgu_b, LN(v)'s
-// mean and 1/std
-struct SguBwdLayout {
+// t (the backward: then dt), and the u columns (nm x ldc each); the backward
+// also dgated (nm x ldc) and d sgu_b; sgu_b, LN(v)'s mean and 1/std. Offsets
+// the forward does not use are 0.
+struct SguLayout {
   int nm, np, ldw, ldc;
   size_t w, vn, dt, u, dg, sb, db, mean, inv, floats;
 };
 
-__host__ __device__ inline SguBwdLayout sgu_bwd_layout(int N) {
-  SguBwdLayout s;
+__host__ __device__ inline SguLayout sgu_layout(int N, bool bwd) {
+  SguLayout s = {};
   s.nm = (N + 15) / 16 * 16;
   s.np = (N + 7) / 8 * 8;
   // row strides of 8 or 24 (mod 32): the fragment loads that step down the
   // rows (t's token projection, the dt operand) fall in 32 banks, the others in 16
   s.ldw = s.nm + 8;
-  s.ldc = kCwBwd + 8;
+  s.ldc = kChunk + 8;
   size_t o = 0;
   s.w = o, o += (size_t)s.nm * s.ldw;
   s.vn = o, o += (size_t)s.nm * s.ldc;
   s.dt = o, o += (size_t)s.nm * s.ldc;
   s.u = o, o += (size_t)s.nm * s.ldc;
-  s.dg = o, o += (size_t)s.nm * s.ldc;
+  if (bwd) s.dg = o, o += (size_t)s.nm * s.ldc;
   s.sb = o, o += s.nm;
-  s.db = o, o += s.nm;
+  if (bwd) s.db = o, o += s.nm;
   s.mean = o, o += s.nm;
   s.inv = o, o += s.nm;
   s.floats = o;
   return s;
 }
 
-// dst[m * ldc + cc] = src[m * ld + cc] for m < N, cc < min(kCwBwd, cols)
-// (zeros elsewhere in the nm x kCwBwd block): asynchronous copies, 16 bytes
+// sgu_w (zero-padded to nm x ldw), sgu_b and sample b's LN(v) mean and 1/std
+// (vstats_kernel's stats[r] and stats[R + r]) into shared memory
+template <int kT>
+__device__ void sgu_setup(float* sm, const SguLayout& L, const SguParams& p,
+                          const float* __restrict__ vstats, int N, int R, int b) {
+  float* ws = sm + L.w;
+  for (int i = threadIdx.x; i < L.nm * L.ldw; i += kT) {
+    const int m = i / L.ldw, n = i - m * L.ldw;
+    ws[i] = m < N && n < N ? __ldg(p.w + m * N + n) : 0.f;
+  }
+  for (int i = threadIdx.x; i < L.nm; i += kT) {
+    sm[L.sb + i] = i < N ? __ldg(p.b + i) : 0.f;
+    sm[L.mean + i] = i < N ? vstats[b * N + i] : 0.f;
+    sm[L.inv + i] = i < N ? vstats[R + b * N + i] : 0.f;
+  }
+}
+
+// dst[m * ldc + cc] = src[m * ld + cc] for m < N, cc < min(kChunk, cols)
+// (zeros elsewhere in the nm x kChunk block): asynchronous copies, 16 bytes
 // each when `vec` (src and ld 16-byte aligned), else 4
 template <int kT>
 __device__ __forceinline__ void sgu_stage(float* dst, const float* src, long long ld, int N,
                                           int nm, int cols, int ldc, bool vec) {
   if (vec) {
-    for (int i = threadIdx.x; i < nm * (kCwBwd / 4); i += kT) {
-      const int m = i / (kCwBwd / 4), cc = i % (kCwBwd / 4) * 4;
+    for (int i = threadIdx.x; i < nm * (kChunk / 4); i += kT) {
+      const int m = i / (kChunk / 4), cc = i % (kChunk / 4) * 4;
       int n4 = m < N ? cols - cc : 0;
       n4 = n4 < 0 ? 0 : (n4 > 4 ? 4 : n4);
       cp_async16(dst + m * ldc + cc, n4 ? src + m * ld + cc : src, 4 * n4);
     }
   } else {
-    for (int i = threadIdx.x; i < nm * kCwBwd; i += kT) {
-      const int m = i / kCwBwd, cc = i % kCwBwd;
+    for (int i = threadIdx.x; i < nm * kChunk; i += kT) {
+      const int m = i / kChunk, cc = i % kChunk;
       const bool ok = m < N && cc < cols;
       cp_async4(dst + m * ldc + cc, ok ? src + m * ld + cc : src, ok);
     }
   }
 }
 
-// backward step 4a: every row's LN(v) mean and 1/std over its F/2
-// v-channels, gelu(pm) recomputed, a warp per row: stats[r] and stats[R + r]
+// v' = LN(v) of the chunk at c0, in place in vn, zero beyond N tokens and
+// F/2 channels; vn holds v (kFromPre = false) or the pre-activation whose
+// GELU v is
+template <int kT, bool kFromPre>
+__device__ void sgu_normalize(float* sm, const SguLayout& L, const SguParams& p, int N, int H,
+                              int c0, int tanh_flavor) {
+  float* vn = sm + L.vn;
+  const float* mean = sm + L.mean;
+  const float* inv = sm + L.inv;
+  for (int i = threadIdx.x; i < L.nm * kChunk; i += kT) {
+    const int m = i / kChunk, cc = i % kChunk, c = c0 + cc;
+    float* v = vn + m * L.ldc + cc;
+    const float a = kFromPre ? gelu(*v, tanh_flavor) : *v;
+    *v = m < N && c < H ? (a - mean[m]) * inv[m] * __ldg(p.ln_s + c) + __ldg(p.ln_b + c) : 0.f;
+  }
+}
+
+// the token projection of the chunk, t(n, cc) = sum over m of sgu_w[m, n]
+// v'(m, cc), 3xTF32 mma.sync from shared memory, into dt. The warps stand 4 x
+// kWC: warp (wm, wc) owns the token tiles wm + 4i (m16, kMT of them in all)
+// and the kCB v-channel blocks kCB wc + j (8 wide).
+template <int kMT, int kWC>
+__device__ void sgu_token_proj(float* sm, const SguLayout& L) {
+  constexpr int kMI = kMT / 4, kCB = kChunk / 8 / kWC;
+  const float* ws = sm + L.w;
+  const float* vn = sm + L.vn;
+  float* dts = sm + L.dt;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int mt = L.nm / 16, wm = warp & 3, wc = warp >> 2;
+  float acc[kMI][kCB][4] = {};
+  for (int k = 0; k < L.np; k += 8) {
+    uint32_t bb[kCB][2], bs[kCB][2];
+#pragma unroll
+    for (int j = 0; j < kCB; ++j) frag_b(vn + k * L.ldc + 8 * (kCB * wc + j), L.ldc, 1, bb[j], bs[j]);
+#pragma unroll
+    for (int i = 0; i < kMI; ++i) {
+      const int tile = wm + 4 * i;
+      if (tile < mt) {
+        uint32_t ab[4], as[4];  // A(n, m) = sgu_w[m, n]
+        frag_a(ws + k * L.ldw + 16 * tile, 1, L.ldw, ab, as);
+#pragma unroll
+        for (int j = 0; j < kCB; ++j) mma_3xtf32(acc[i][j], ab, as, bb[j], bs[j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kMI; ++i) {
+    const int tile = wm + 4 * i;
+    if (tile < mt) {
+#pragma unroll
+      for (int j = 0; j < kCB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dts[(16 * tile + g + 8 * (e >> 1)) * L.ldc + 8 * (kCB * wc + j) + 2 * t + (e & 1)] =
+              acc[i][j][e];
+    }
+  }
+}
+
+// every row's LN(v) mean and 1/std over its F/2 v-channels, a warp per row:
+// stats[r] and stats[R + r]; `a` holds h (kFromPre = false: forward step 3) or
+// the pre-activation pm, whose GELU is taken (backward step 4a)
+template <bool kFromPre>
 __global__ void __launch_bounds__(kThreads)
-    vstats_kernel(const float* __restrict__ pm, float* __restrict__ stats, int R, int F,
+    vstats_kernel(const float* __restrict__ a, float* __restrict__ stats, int R, int F,
                   int tanh_flavor) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r = blockIdx.x * (kThreads / 32) + warp;
   if (r >= R) return;  // whole warps leave together
   const int H = F / 2;
-  const float* v = pm + (size_t)r * F + H;
+  const float* v = a + (size_t)r * F + H;
   float sum = 0.f;
 #pragma unroll 4
-  for (int c = lane; c < H; c += 32) sum += gelu(v[c], tanh_flavor);
+  for (int c = lane; c < H; c += 32) sum += kFromPre ? gelu(v[c], tanh_flavor) : v[c];
   const float mu = warp_sum(sum) / H;
   float sq = 0.f;
 #pragma unroll 4
   for (int c = lane; c < H; c += 32) {
-    const float d = gelu(v[c], tanh_flavor) - mu;
+    const float d = (kFromPre ? gelu(v[c], tanh_flavor) : v[c]) - mu;
     sq += d * d;
   }
   const float var = warp_sum(sq) / H;
@@ -350,18 +281,62 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// forward step 4 for sample blockIdx.y and every gridDim.x-th chunk of kChunk
+// v-channels from chunk blockIdx.x: gated = u * (LN(v) sgu_w + sgu_b) m1, the
+// token projection on the tensor cores (sgu_token_proj; the warps stand as
+// there). A chunk's v and u columns of h reach shared memory by cp.async, the
+// u columns while the token projection runs; the gate then runs element by
+// element on t in shared memory, neighbouring threads on neighbouring
+// channels (coalesced stores).
+template <int kMT, int kWC>
+__global__ void __launch_bounds__(128 * kWC)
+    sgu_fwd_kernel(const float* __restrict__ h, const float* __restrict__ vstats,
+                   float* __restrict__ gated, SguParams p, int N, int F,
+                   const __grid_constant__ Dropout dp) {
+  constexpr int kT = 128 * kWC;  // threads: 4 x kWC warps
+  extern __shared__ __align__(16) float sm[];
+  const SguLayout L = sgu_layout(N, false);
+  const int H = F / 2, b = blockIdx.y, R = gridDim.y * N;
+  const float* dts = sm + L.dt;
+  const float* us = sm + L.u;
+  const float* sb = sm + L.sb;
+  const float* hb = h + (size_t)b * N * F;
+  const bool vec = F % 8 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0;
+  sgu_setup<kT>(sm, L, p, vstats, N, R, b);
+  for (int c0 = blockIdx.x * kChunk; c0 < H; c0 += gridDim.x * kChunk) {
+    sgu_stage<kT>(sm + L.vn, hb + H + c0, F, N, L.nm, H - c0, L.ldc, vec);
+    cp_async_commit();
+    sgu_stage<kT>(sm + L.u, hb + c0, F, N, L.nm, H - c0, L.ldc, vec);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    sgu_normalize<kT, false>(sm, L, p, N, H, c0, 0);
+    __syncthreads();
+    sgu_token_proj<kMT, kWC>(sm, L);
+    cp_async_wait<0>();
+    __syncthreads();  // t and the u columns in shared memory
+    for (int q = threadIdx.x; q < N * kChunk; q += kT) {
+      const int n = q / kChunk, cc = q % kChunk, c = c0 + cc;
+      if (c < H) {
+        const float m1 = keep(dp, 0, kMaskSgu, ((uint32_t)b * H + c) * N + n);
+        const int at = n * L.ldc + cc;
+        gated[((size_t)b * N + n) * H + c] = us[at] * ((dts[at] + sb[n]) * m1);
+      }
+    }
+    __syncthreads();
+  }
+}
+
 // backward step 4b (see the top of the file) for sample blockIdx.y and every
-// gridDim.x-th chunk of kCwBwd v-channels from chunk blockIdx.x, its three
+// gridDim.x-th chunk of kChunk v-channels from chunk blockIdx.x, its three
 // products on the tensor cores (3xTF32, tile_common.cuh) from shared memory.
 // A chunk's operands (pm's v and u columns, dgated) reach shared memory by
 // cp.async, the u and dgated columns while the token projection runs; the
 // gate then runs element by element on t in shared memory (coalesced stores).
-// The warps stand 4 x kWC: warp (wm, wc) owns the token tiles wm + 4i (m16,
-// kMT of them in all) and, in the two products over the chunk's v-channels,
-// the kCB v-channel blocks kCB wc + j (8 wide), in d sgu_w the column tiles
-// wc + kWC j (8 wide), so a fragment it loads serves several products. The
-// CTA's partials of d sgu_w (N x N, in registers across the chunks) and
-// d sgu_b (N) go to part[blockIdx.y * gridDim.x + blockIdx.x].
+// The warps stand as in sgu_token_proj; in d sgu_w warp (wm, wc) owns the
+// column tiles wc + kWC j (8 wide), so a fragment it loads serves several
+// products. The CTA's partials of d sgu_w (N x N, in registers across the
+// chunks) and d sgu_b (N) go to part[blockIdx.y * gridDim.x + blockIdx.x].
 template <int kMT, int kWC>
 __global__ void __launch_bounds__(128 * kWC, 1)
     sgu_bwd_kernel(const float* __restrict__ pm, const float* __restrict__ dg,
@@ -370,38 +345,28 @@ __global__ void __launch_bounds__(128 * kWC, 1)
                    int tanh_flavor, const __grid_constant__ Dropout dp) {
   constexpr int kT = 128 * kWC;          // threads: 4 x kWC warps
   constexpr int kMI = kMT / 4;           // token tiles a warp owns
-  constexpr int kCB = kCwBwd / 8 / kWC;  // v-channel blocks a warp owns (of kCwBwd / 8)
+  constexpr int kCB = kChunk / 8 / kWC;  // v-channel blocks a warp owns (of kChunk / 8)
   constexpr int kNT = 2 * kMT / kWC;     // d sgu_w column tiles a warp owns (of 2 kMT)
   extern __shared__ __align__(16) float sm[];
-  const SguBwdLayout L = sgu_bwd_layout(N);
+  const SguLayout L = sgu_layout(N, true);
   const int H = F / 2, b = blockIdx.y, R = gridDim.y * N;
-  float* ws = sm + L.w;
+  const float* ws = sm + L.w;
   float* vn = sm + L.vn;
   float* dts = sm + L.dt;
   float* us = sm + L.u;
   float* gs = sm + L.dg;
-  float* sb = sm + L.sb;
+  const float* sb = sm + L.sb;
   float* dbs = sm + L.db;
-  float* mean = sm + L.mean;
-  float* inv = sm + L.inv;
   const float* pb = pm + (size_t)b * N * F;
   const float* gb = dg + (size_t)b * N * H;
   const bool vec = F % 8 == 0 && reinterpret_cast<uintptr_t>(pm) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(dg) % 16 == 0;
-  for (int i = threadIdx.x; i < L.nm * L.ldw; i += kT) {
-    const int m = i / L.ldw, n = i - m * L.ldw;
-    ws[i] = m < N && n < N ? __ldg(p.w + m * N + n) : 0.f;
-  }
-  for (int i = threadIdx.x; i < L.nm; i += kT) {
-    sb[i] = i < N ? __ldg(p.b + i) : 0.f;
-    dbs[i] = 0.f;
-    mean[i] = i < N ? vstats[b * N + i] : 0.f;
-    inv[i] = i < N ? vstats[R + b * N + i] : 0.f;
-  }
+  sgu_setup<kT>(sm, L, p, vstats, N, R, b);
+  for (int i = threadIdx.x; i < L.nm; i += kT) dbs[i] = 0.f;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int mt = L.nm / 16, wm = warp & 3, wc = warp >> 2;
   float dw[kMI][kNT][4] = {};
-  for (int c0 = blockIdx.x * kCwBwd; c0 < H; c0 += gridDim.x * kCwBwd) {
+  for (int c0 = blockIdx.x * kChunk; c0 < H; c0 += gridDim.x * kChunk) {
     sgu_stage<kT>(vn, pb + H + c0, F, N, L.nm, H - c0, L.ldc, vec);
     cp_async_commit();
     sgu_stage<kT>(us, pb + c0, F, N, L.nm, H - c0, L.ldc, vec);
@@ -409,51 +374,16 @@ __global__ void __launch_bounds__(128 * kWC, 1)
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    // v' = LN(v) of the chunk in place, zero beyond N tokens and F/2 channels
-    for (int i = threadIdx.x; i < L.nm * kCwBwd; i += kT) {
-      const int m = i / kCwBwd, cc = i % kCwBwd, c = c0 + cc;
-      float* v = vn + m * L.ldc + cc;
-      *v = m < N && c < H ? (gelu(*v, tanh_flavor) - mean[m]) * inv[m] * __ldg(p.ln_s + c) +
-                                __ldg(p.ln_b + c)
-                          : 0.f;
-    }
+    sgu_normalize<kT, true>(sm, L, p, N, H, c0, tanh_flavor);
     __syncthreads();
-    // the token projection, recomputed: t(n, cc) = sum over m of sgu_w[m, n] v'(m, cc)
-    float acc[kMI][kCB][4] = {};
-    for (int k = 0; k < L.np; k += 8) {
-      uint32_t bb[kCB][2], bs[kCB][2];
-#pragma unroll
-      for (int j = 0; j < kCB; ++j) frag_b(vn + k * L.ldc + 8 * (kCB * wc + j), L.ldc, 1, bb[j], bs[j]);
-#pragma unroll
-      for (int i = 0; i < kMI; ++i) {
-        const int tile = wm + 4 * i;
-        if (tile < mt) {
-          uint32_t ab[4], as[4];  // A(n, m) = sgu_w[m, n]
-          frag_a(ws + k * L.ldw + 16 * tile, 1, L.ldw, ab, as);
-#pragma unroll
-          for (int j = 0; j < kCB; ++j) mma_3xtf32(acc[i][j], ab, as, bb[j], bs[j]);
-        }
-      }
-    }
-    // t to shared memory (dts) for the element-wise gate
-#pragma unroll
-    for (int i = 0; i < kMI; ++i) {
-      const int tile = wm + 4 * i;
-      if (tile < mt) {
-#pragma unroll
-        for (int j = 0; j < kCB; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            dts[(16 * tile + g + 8 * (e >> 1)) * L.ldc + 8 * (kCB * wc + j) + 2 * t + (e & 1)] =
-                acc[i][j][e];
-      }
-    }
+    // the token projection, recomputed, to dts
+    sgu_token_proj<kMT, kWC>(sm, L);
     cp_async_wait<0>();
     __syncthreads();  // t, and the u and dgated columns, in shared memory
     // the gate, element by element (token n, v-channel c; neighbouring threads
     // on neighbouring channels); dt replaces t in shared memory
-    for (int q = threadIdx.x; q < L.nm * kCwBwd; q += kT) {
-      const int n = q / kCwBwd, cc = q % kCwBwd, c = c0 + cc;
+    for (int q = threadIdx.x; q < L.nm * kChunk; q += kT) {
+      const int n = q / kChunk, cc = q % kChunk, c = c0 + cc;
       float* tq = dts + n * L.ldc + cc;
       float dtv = 0.f;
       if (n < N && c < H) {
@@ -493,7 +423,7 @@ __global__ void __launch_bounds__(128 * kWC, 1)
     }
     // d sgu_w(m, n) += sum over the chunk of v'(m, cc) dt(n, cc)
 #pragma unroll
-    for (int k = 0; k < kCwBwd; k += 8) {
+    for (int k = 0; k < kChunk; k += 8) {
       uint32_t bb[kNT][2], bs[kNT][2];
 #pragma unroll
       for (int j = 0; j < kNT; ++j)
@@ -526,13 +456,13 @@ __global__ void __launch_bounds__(128 * kWC, 1)
     // d sgu_b(n) += sum over the chunk of dt(n, cc)
     for (int n = threadIdx.x; n < N; n += kT) {
       float sum = 0.f;
-      for (int cc = 0; cc < kCwBwd; ++cc) sum += dts[n * L.ldc + cc];
+      for (int cc = 0; cc < kChunk; ++cc) sum += dts[n * L.ldc + cc];
       dbs[n] += sum;
     }
     __syncthreads();
     // dv' to the v half of dpre (raw), neighbouring threads on neighbouring channels
-    for (int q = threadIdx.x; q < N * kCwBwd; q += kT) {
-      const int m = q / kCwBwd, cc = q % kCwBwd, c = c0 + cc;
+    for (int q = threadIdx.x; q < N * kChunk; q += kT) {
+      const int m = q / kChunk, cc = q % kChunk, c = c0 + cc;
       if (c < H) dpre[((size_t)b * N + m) * F + H + c] = us[m * L.ldc + cc];
     }
     __syncthreads();
@@ -610,13 +540,15 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 struct Plan {
-  int nsplit, nsplit_bwd;  // SGU CTAs per sample (forward, backward)
+  int sms;              // the card's SMs (the tile rule of the forward's products)
+  int nsplit;           // SGU CTAs per sample
   int xsplit, xslice;   // dxn: slices of F
   int wsplit, wslice;   // dW_in, dW_out, db_in, db_out: slices of the rows
   int tiles;            // row tiles of the LN backward kernels
+  bool wide_sgu;        // the SGU kernels on 16 warps (8 m16 token tiles), else 8 (4)
   size_t sgu_fwd_smem, sgu_bwd_smem, vln_smem, ln_smem;
   // workspace offsets (floats)
-  size_t xn, act, gated, dout, dg, dpre, dxnp, vstats, p_ln, p_vln, p_sgu, p_win, p_wout, p_col;
+  size_t xn, act, gated, vstats, dout, dg, dpre, dxnp, p_ln, p_vln, p_sgu, p_win, p_wout, p_col;
   size_t fwd_floats, bwd_floats;
 };
 
@@ -630,23 +562,23 @@ int check_args(int B, int N, int D, int F) {
 }
 
 int make_plan(int B, int N, int D, int F, int device, Plan& pl) {
-  int limit = 0, sms = 0;
-  cudaError_t err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  DeviceInfo dev;
+  const cudaError_t err = device_info(device, dev);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
+  const int sms = dev.sms;
+  pl.sms = sms;
   const int H = F / 2;
   const long long R = (long long)B * N;
-  const int chunks = ceil_div(H, kCw), chunks_bwd = ceil_div(H, kCwBwd);
-  int ns = ceil_div(2 * sms, B);
+  const int chunks = ceil_div(H, kChunk);
+  const int ns = ceil_div(2 * sms, B);
   pl.nsplit = ns < 1 ? 1 : (ns > chunks ? chunks : ns);
-  pl.nsplit_bwd = ns < 1 ? 1 : (ns > chunks_bwd ? chunks_bwd : ns);
-  pl.sgu_fwd_smem = sgu_smem_floats(N, false) * 4;
-  pl.sgu_bwd_smem = sgu_bwd_layout(N).floats * 4;
+  pl.wide_sgu = sgu_layout(N, false).nm > 64;
+  pl.sgu_fwd_smem = sgu_layout(N, false).floats * 4;
+  pl.sgu_bwd_smem = sgu_layout(N, true).floats * 4;
   pl.vln_smem = (size_t)2 * kRowTile * H * 4;
   pl.ln_smem = ln_bwd_smem_bytes(kRowTile, D);
-  if (pl.sgu_bwd_smem > (size_t)limit || pl.vln_smem > (size_t)limit ||
-      pl.ln_smem > (size_t)limit)
+  if (pl.sgu_bwd_smem > (size_t)dev.smem_optin || pl.vln_smem > (size_t)dev.smem_optin ||
+      pl.ln_smem > (size_t)dev.smem_optin)
     return -1;
   // dxn = dpre W_in^T: enough (rows x D) tiles x slices of F for two CTAs an SM
   const int out_tiles = ceil_div(R, kTcBM) * ceil_div(D, kTcBN);
@@ -654,11 +586,14 @@ int make_plan(int B, int N, int D, int F, int device, Plan& pl) {
   ks = ks < 1 ? 1 : (ks > kMaxSplit ? kMaxSplit : ks);
   pl.xslice = ceil_div(ceil_div(F, ks), kTcK) * kTcK;
   pl.xsplit = ceil_div(F, pl.xslice);
-  // the weight gradients: dW_in's few tiles x slices of the rows for two CTAs an SM
+  // the weight gradients: dW_in's few tiles x slices of the rows for two CTAs
+  // an SM, a whole multiple of that where a slice would pass kMaxSliceRows rows
   const int w_tiles = ceil_div(D, kTcBM) * ceil_div(F, kTcBN);
   int ws = ceil_div(2 * sms, w_tiles);
-  const int max_ws = ceil_div(R, 64);  // at least 64 rows a slice
   ws = ws > kMaxSplit ? kMaxSplit : ws;
+  ws *= ceil_div(ceil_div(R, ws), kMaxSliceRows);  // whole multiples: the CTAs fill whole waves
+  const int max_ws = ceil_div(R, 64);  // at least 64 rows a slice
+  ws = ws > kMaxRowSplit ? kMaxRowSplit : ws;
   ws = ws > max_ws ? max_ws : ws;
   ws = ws < 1 ? 1 : ws;
   pl.wslice = ceil_div(ceil_div(R, ws), kTcK) * kTcK;
@@ -669,15 +604,15 @@ int make_plan(int B, int N, int D, int F, int device, Plan& pl) {
   pl.xn = o, o += rows * D;
   pl.act = o, o += rows * F;
   pl.gated = o, o += rows * H;
+  pl.vstats = o, o += 2 * rows;
   pl.fwd_floats = o;
   pl.dout = o, o += rows * D;
   pl.dg = o, o += rows * H;
   pl.dpre = o, o += rows * F;
   pl.dxnp = o, o += (size_t)pl.xsplit * rows * D;
-  pl.vstats = o, o += 2 * rows;
   pl.p_ln = o, o += (size_t)pl.tiles * 2 * D;
   pl.p_vln = o, o += (size_t)pl.tiles * 2 * H;
-  pl.p_sgu = o, o += (size_t)B * pl.nsplit_bwd * ((size_t)N * N + N);
+  pl.p_sgu = o, o += (size_t)B * pl.nsplit * ((size_t)N * N + N);
   pl.p_win = o, o += (size_t)pl.wsplit * D * F;
   pl.p_wout = o, o += (size_t)pl.wsplit * H * D;
   pl.p_col = o, o += (size_t)pl.wsplit * (F + D);
@@ -688,27 +623,6 @@ int make_plan(int B, int N, int D, int F, int device, Plan& pl) {
 SguParams sgu_params(const void* const* q) {
   return SguParams{static_cast<const float*>(q[4]), static_cast<const float*>(q[5]),
                    static_cast<const float*>(q[6]), static_cast<const float*>(q[7])};
-}
-
-// steps 1 and 2 of both directions: xn (and dout), then h (forward) or pm (backward)
-int in_half(const Plan& pl, float* ws, const float* x, const float* g, const void* const* q,
-            int B, int N, int D, int F, int tanh_flavor, const Dropout& dp, cudaStream_t st) {
-  const int R = B * N;
-  const float* p0 = static_cast<const float*>(q[0]);
-  const float* p1 = static_cast<const float*>(q[1]);
-  ln_rows_kernel<<<ceil_div(R, kThreads / 32), kThreads, 0, st>>>(
-      x, p0, p1, ws + pl.xn, g, g ? ws + pl.dout : nullptr, R, D, dp);
-  M2M_TRY(cudaGetLastError());
-  const dim3 grid(ceil_div(F, kTile), ceil_div(R, kTile));
-  const float* w_in = static_cast<const float*>(q[2]);
-  const float* b_in = static_cast<const float*>(q[3]);
-  if (g)
-    in_proj_kernel<false><<<grid, kThreads, 0, st>>>(ws + pl.xn, w_in, b_in, ws + pl.act, R, D,
-                                                      F, tanh_flavor, dp);
-  else
-    in_proj_kernel<true><<<grid, kThreads, 0, st>>>(ws + pl.xn, w_in, b_in, ws + pl.act, R, D, F,
-                                                     tanh_flavor, dp);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -723,6 +637,22 @@ size_t m2m_gmlp_workspace_bytes(int B, int N, int D, int F, int backward, int de
   return (backward ? pl.bwd_floats : pl.fwd_floats) * 4;
 }
 
+// Rows of the slices K3b sums its weight gradients over (dW_in, dW_out), 0
+// for shapes the kernels do not take: what the 3xTF32 error is measured against.
+int m2m_gmlp_row_slice(int B, int N, int D, int F, int device) {
+  Plan pl;
+  if (check_args(B, N, D, F) || make_plan(B, N, D, F, device, pl)) return 0;
+  return pl.wslice;
+}
+
+// Rows of the tensor-core tile that tc_gemm_auto takes for an M x N output over
+// ksplit slices on `device`: 128 (the wide tile) or 64; 0 on error.
+int m2m_tc_tile_rows(int M, int N, int ksplit, int device) {
+  DeviceInfo dev;
+  if (M < 1 || N < 1 || ksplit < 1 || device_info(device, dev) != cudaSuccess) return 0;
+  return tc_small_tile(M, N, ksplit, dev.sms) ? 64 : kTcBM;
+}
+
 // K3f: y = GatingMlpBlock(x), x and y (B, N, D) float32. ptrs: the 10
 // parameters in GmlpBlockParams order (float32, JAX layout); keys/thresh/scale:
 // dropout (4 stream keys of block 0, or keys == nullptr for none); workspace:
@@ -733,22 +663,34 @@ int m2m_gmlp_fwd(const float* x, float* y, int B, int N, int D, int F, int tanh_
   if (check_args(B, N, D, F)) return -1;
   M2M_TRY(cudaSetDevice(device));
   Plan pl;
-  int code = make_plan(B, N, D, F, device, pl);
+  const int code = make_plan(B, N, D, F, device, pl);
   if (code) return code;
-  M2M_TRY(prepare(sgu_fwd_kernel, pl.sgu_fwd_smem));
+  // m16 token tiles: 8 on 16 warps, else 4 on 8 warps
+  auto sgu_fwd = pl.wide_sgu ? sgu_fwd_kernel<8, 4> : sgu_fwd_kernel<4, 2>;
+  M2M_TRY(prepare(sgu_fwd, pl.sgu_fwd_smem, device));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dropout dp = make_dropout(keys, 1, thresh, scale);
   float* ws = static_cast<float*>(workspace);
-  code = in_half(pl, ws, x, nullptr, ptrs, B, N, D, F, tanh_flavor, dp, st);
-  if (code) return code;
-  sgu_fwd_kernel<<<dim3(pl.nsplit, B), kThreads, pl.sgu_fwd_smem, st>>>(
-      ws + pl.act, ws + pl.gated, sgu_params(ptrs), N, F, dp);
+  const int R = B * N, H = F / 2;
+  auto q = [ptrs](int i) { return static_cast<const float*>(ptrs[i]); };
+  // 1. xn = LN(x)
+  ln_rows_kernel<<<ceil_div(R, kThreads / 32), kThreads, 0, st>>>(x, q(0), q(1), ws + pl.xn,
+                                                                  nullptr, nullptr, R, D, dp);
   M2M_TRY(cudaGetLastError());
-  const int R = B * N;
-  out_proj_kernel<<<dim3(ceil_div(D, kTile), ceil_div(R, kTile)), kThreads, 0, st>>>(
-      ws + pl.gated, static_cast<const float*>(ptrs[8]), static_cast<const float*>(ptrs[9]), x, y,
-      R, F / 2, D, dp);
-  return (int)cudaGetLastError();
+  // 2. h = gelu((xn W_in + b_in) m0) (gmlp_kernel.py:62-65)
+  M2M_TRY(tc_gemm_auto(View{ws + pl.xn, D, 1}, View{q(2), F, 1}, ws + pl.act, R, F, D, pl.sms,
+                       st, EpiBiasMaskGelu{EpiBiasMask{q(3), kMaskIn, F, dp}, tanh_flavor}));
+  // 3. LN(v)'s statistics (:68)
+  vstats_kernel<false><<<ceil_div(R, kThreads / 32), kThreads, 0, st>>>(ws + pl.act,
+                                                                        ws + pl.vstats, R, F, 0);
+  M2M_TRY(cudaGetLastError());
+  // 4. gated = u (LN(v) sgu_w + sgu_b) m1 (:67-75)
+  sgu_fwd<<<dim3(pl.nsplit, B), pl.wide_sgu ? 512 : 256, pl.sgu_fwd_smem, st>>>(
+      ws + pl.act, ws + pl.vstats, ws + pl.gated, sgu_params(ptrs), N, F, dp);
+  M2M_TRY(cudaGetLastError());
+  // 5. y = x + (gated W_out + b_out) m2 (:77-80)
+  return tc_gemm_auto(View{ws + pl.gated, H, 1}, View{q(8), D, 1}, y, R, D, H, pl.sms, st,
+                      EpiResidual{EpiBiasMask{q(9), kMaskOut, D, dp}, x});
 }
 
 // K3b: dx and the 10 parameter gradients (float32, GmlpBlockParams order) of
@@ -760,14 +702,12 @@ int m2m_gmlp_bwd(const float* x, const float* g, float* dx, int B, int N, int D,
   if (check_args(B, N, D, F)) return -1;
   M2M_TRY(cudaSetDevice(device));
   Plan pl;
-  int code = make_plan(B, N, D, F, device, pl);
+  const int code = make_plan(B, N, D, F, device, pl);
   if (code) return code;
-  // m16 token tiles: 8 on 16 warps, else 4 on 8 warps
-  const bool wide = sgu_bwd_layout(N).nm > 64;
-  auto sgu_bwd = wide ? sgu_bwd_kernel<8, 4> : sgu_bwd_kernel<4, 2>;
-  M2M_TRY(prepare(sgu_bwd, pl.sgu_bwd_smem));
-  M2M_TRY(prepare(vln_bwd_kernel, pl.vln_smem));
-  M2M_TRY(prepare(ln_bwd_kernel, pl.ln_smem));
+  auto sgu_bwd = pl.wide_sgu ? sgu_bwd_kernel<8, 4> : sgu_bwd_kernel<4, 2>;
+  M2M_TRY(prepare(sgu_bwd, pl.sgu_bwd_smem, device));
+  M2M_TRY(prepare(vln_bwd_kernel, pl.vln_smem, device));
+  M2M_TRY(prepare(ln_bwd_kernel, pl.ln_smem, device));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dropout dp = make_dropout(keys, 1, thresh, scale);
   float* ws = static_cast<float*>(workspace);
@@ -785,10 +725,11 @@ int m2m_gmlp_bwd(const float* x, const float* g, float* dx, int B, int N, int D,
   // dgated = dout W_out^T (gmlp_kernel.py:77)
   M2M_TRY(tc_gemm_wide(View{ws + pl.dout, D, 1}, View{w_out, 1, D}, ws + pl.dg, R, H, D, D, 1,
                        st));
-  vstats_kernel<<<ceil_div(R, kThreads / 32), kThreads, 0, st>>>(ws + pl.act, ws + pl.vstats, R,
-                                                                 F, tanh_flavor);
+  vstats_kernel<true><<<ceil_div(R, kThreads / 32), kThreads, 0, st>>>(ws + pl.act,
+                                                                       ws + pl.vstats, R, F,
+                                                                       tanh_flavor);
   M2M_TRY(cudaGetLastError());
-  sgu_bwd<<<dim3(pl.nsplit_bwd, B), wide ? 512 : 256, pl.sgu_bwd_smem, st>>>(
+  sgu_bwd<<<dim3(pl.nsplit, B), pl.wide_sgu ? 512 : 256, pl.sgu_bwd_smem, st>>>(
       ws + pl.act, ws + pl.dg, ws + pl.vstats, ws + pl.gated, ws + pl.dpre, ws + pl.p_sgu,
       sgu_params(ptrs), N, F, tanh_flavor, dp);
   M2M_TRY(cudaGetLastError());
@@ -819,7 +760,7 @@ int m2m_gmlp_bwd(const float* x, const float* g, float* dx, int B, int N, int D,
   RedJobs<kRedJobs> rj = {};
   rj.job[0] = RedJob{ws + pl.p_ln, pl.tiles, 2 * D, gq[0], D, gq[1]};
   rj.job[1] = RedJob{ws + pl.p_vln, pl.tiles, 2 * H, gq[4], H, gq[5]};
-  rj.job[2] = RedJob{ws + pl.p_sgu, B * pl.nsplit_bwd, NN + N, gq[6], NN, gq[7]};
+  rj.job[2] = RedJob{ws + pl.p_sgu, B * pl.nsplit, NN + N, gq[6], NN, gq[7]};
   rj.job[3] = RedJob{ws + pl.p_win, pl.wsplit, D * F, gq[2], D * F, nullptr};
   rj.job[4] = RedJob{ws + pl.p_wout, pl.wsplit, H * D, gq[8], H * D, nullptr};
   rj.job[5] = RedJob{ws + pl.p_col, pl.wsplit, F, gq[3], F, nullptr};

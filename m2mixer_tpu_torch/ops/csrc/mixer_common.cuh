@@ -21,6 +21,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <vector>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -190,15 +193,72 @@ __device__ void token_mix(const float* ys, float* xs, int nb, int N, int T, int 
   }
 }
 
+// The device attributes the launch plans read, queried once per device: each
+// query is a driver call, and at batch 32 the host's time is the step's.
+struct DeviceInfo {
+  int smem_optin = 0;  // dynamic shared memory a block may opt into (bytes)
+  int sms = 0;         // streaming multiprocessors
+};
+constexpr int kMaxDevices = 64;
+
+inline cudaError_t device_info(int device, DeviceInfo& out) {
+  static std::mutex mu;  // the wrappers' ctypes calls release the GIL
+  static DeviceInfo cache[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  DeviceInfo& d = cache[device];
+  if (!d.sms) {
+    DeviceInfo q;
+    cudaError_t err =
+        cudaDeviceGetAttribute(&q.smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&q.sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    d = q;
+  }
+  out = d;
+  return cudaSuccess;
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory on `device`. The
+// attribute is set once per (kernel, device) and again only for a larger size
+// (a larger maximum serves every smaller launch), so a launch pays a table
+// lookup and not three driver calls.
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t smem, int device) {
+  struct Prepared {
+    const void* fn;
+    int device;
+    size_t smem;
+  };
+  static std::mutex mu;
+  static std::vector<Prepared> done;
+  const void* fn = (const void*)kernel;
+  std::lock_guard<std::mutex> lock(mu);
+  Prepared* hit = nullptr;
+  for (Prepared& p : done)
+    if (p.fn == fn && p.device == device) hit = &p;
+  if (hit && hit->smem >= smem) return cudaSuccess;
+  DeviceInfo info;
+  cudaError_t err = device_info(device, info);
+  if (err != cudaSuccess) return err;
+  if (smem > (size_t)info.smem_optin) return cudaErrorInvalidConfiguration;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (hit)
+    hit->smem = smem;
+  else
+    done.push_back(Prepared{fn, device, smem});
+  return cudaSuccess;
+}
+
+// the same on the current device
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, size_t smem) {
-  int dev = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (smem > (size_t)limit) return cudaErrorInvalidConfiguration;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  return prepare(kernel, smem, dev);
 }
 
 // the dropout arguments of a launch: keys[k * 4 + m] per block and mask (host

@@ -8,12 +8,12 @@
 // The two GEMMs, both out[z] = A B over k-slice z on strided Views:
 //   - gemm_tile / gemm_kernel: the simple SIMT tile (64x64 outputs, 4x4 a
 //     thread, the depth summed in increasing order; no tensor cores, no
-//     asynchronous copies). K1f, K1b, K2f, K2b, K3f and K4f still use it.
-//   - tc_gemm: the tensor-core tile of K3b and K4b. What bounds their
-//     products is the rate of float32 multiply-adds: the CUDA cores give 67
-//     TFLOP/s, the tensor cores 495 in TF32, but a single TF32 product keeps
+//     asynchronous copies). Only K1b and K2b (mixer_bwd.cu) still use it.
+//   - tc_gemm: the tensor-core tile of K3f, K3b, K4f and K4b. What bounds
+//     their products is the rate of float32 multiply-adds: the CUDA cores give
+//     67 TFLOP/s, the tensor cores 495 in TF32, but a single TF32 product keeps
 //     about three decimal digits, too few for the 1e-4 relative gates the
-//     backward kernels are held to. So every product is 3xTF32: with
+//     kernels are held to. So every product is 3xTF32: with
 //     x_big = tf32(x) and x_small = tf32(x - x_big) (cvt.rna.tf32.f32, in
 //     registers after the fragment loads), a b = a_small b_big + a_big b_small
 //     + a_big b_big, each an mma.sync.m16n8k8 TF32 product with float32
@@ -24,9 +24,11 @@
 //     stride, rows of whole 16-byte groups, aligned), else 4; each stored with
 //     its View's unit-stride axis contiguous and padded so that the fragment
 //     loads hit 32 distinct banks.
-//     Tiles: 128x64 outputs on 8 warps (32x32 a warp), or 64x16 on 4 warps for
-//     narrow outputs (DynaMixerOp's 16-wide dW_c). The depth is summed in one
-//     order; k-slices are summed later by the reductions below, in slice order.
+//     Tiles: 128x64 outputs on 8 warps (32x32 a warp); 64x64 on 4 warps, which
+//     tc_gemm_auto takes where the wide tile would leave SMs idle (the
+//     forwards' products at batch 32); 64x16 on 4 warps for narrow outputs
+//     (DynaMixerOp's 16-wide dW_c). The depth is summed in one order; k-slices
+//     are summed later by the reductions below, in slice order.
 //   Why mma.sync and not wgmma: wgmma takes tf32 operands only K-major in
 //   shared memory, and five of K3b's and K4b's eight products have an operand
 //   whose depth is not its contiguous axis (W_in in the recompute, both
@@ -34,7 +36,10 @@
 //   split would also have to be stored twice. mma.sync loads its fragments
 //   from shared memory in whatever layout the View gives and splits them in
 //   registers, so one loader serves every product. wgmma with TMA is for the
-//   bf16 backward, where operands are 16-bit and transposes are allowed.
+//   bf16 backward, where operands are 16-bit and transposes are allowed. The
+//   forwards' weights (W_in, W_out, W_o) are small enough to be laid K-major
+//   once per call, which would lift that obstacle for their products; that is
+//   left to the work on the tile's own rate (ROADMAP.md).
 
 #pragma once
 
@@ -284,6 +289,13 @@ struct TcTile {
 struct EpiNone {
   __device__ __forceinline__ float operator()(int, int, float v) const { return v; }
 };
+// v + bias[c]
+struct EpiBias {
+  const float* bias;
+  __device__ __forceinline__ float operator()(int, int c, float v) const {
+    return v + __ldg(bias + c);
+  }
+};
 // (v + bias[c]) times the keep-mask `mask` of block 0 at element r * ld + c
 struct EpiBiasMask {
   const float* bias;
@@ -291,6 +303,22 @@ struct EpiBiasMask {
   Dropout dp;
   __device__ __forceinline__ float operator()(int r, int c, float v) const {
     return (v + __ldg(bias + c)) * keep(dp, 0, mask, (uint32_t)((size_t)r * ld + c));
+  }
+};
+// gelu of EpiBiasMask's value
+struct EpiBiasMaskGelu {
+  EpiBiasMask pre;
+  int tanh_flavor;
+  __device__ __forceinline__ float operator()(int r, int c, float v) const {
+    return gelu(pre(r, c, v), tanh_flavor);
+  }
+};
+// res[r * ld + c] + EpiBiasMask's value (a residual branch's output)
+struct EpiResidual {
+  EpiBiasMask branch;
+  const float* res;
+  __device__ __forceinline__ float operator()(int r, int c, float v) const {
+    return __ldg(res + (size_t)r * branch.ld + c) + branch(r, c, v);
   }
 };
 
@@ -417,7 +445,7 @@ cudaError_t tc_gemm(const View& A, const View& B, float* out, int M, int N, int 
                                                           st, epi, vec);
 }
 
-// the two tiles: 128x64 outputs on 8 warps, and 64x16 for narrow outputs
+// the tiles: 128x64 outputs on 8 warps, 64x64 on 4, and 64x16 for narrow outputs
 constexpr int kTcBM = 128, kTcBN = 64;  // the wide tile's outputs
 template <class Epi = EpiNone>
 cudaError_t tc_gemm_wide(const View& A, const View& B, float* out, int M, int N, int K,
@@ -428,6 +456,27 @@ template <class Epi = EpiNone>
 cudaError_t tc_gemm_narrow(const View& A, const View& B, float* out, int M, int N, int K,
                            int kslice, int ksplit, cudaStream_t st, const Epi& epi = Epi()) {
   return tc_gemm<4, 1, 1, 2>(A, B, out, M, N, K, kslice, ksplit, st, epi);
+}
+
+// The tile rule: the wide tile, unless its CTAs (over ksplit slices) would be
+// fewer than the card's `sms`; then the 64x64 one, which gives twice as many.
+inline bool tc_small_tile(int M, int N, int ksplit, int sms) {
+  const long long wide = (long long)((M + kTcBM - 1) / kTcBM) * ((N + kTcBN - 1) / kTcBN) * ksplit;
+  return wide < sms;
+}
+
+// out = epi(A B) over the whole depth K on the layout of the forwards'
+// products, A (M x K) and B (K x N) both with unit column stride (rows in
+// memory), and the tile by the rule above: one layout instantiated per tile
+// (tc_gemm instantiates four). Any strides are right; other layouts are only
+// copied 4 bytes at a time.
+template <class Epi>
+cudaError_t tc_gemm_auto(const View& A, const View& B, float* out, int M, int N, int K, int sms,
+                         cudaStream_t st, const Epi& epi) {
+  const bool vec = vec_ok(A, true) && vec_ok(B, true);
+  if (tc_small_tile(M, N, 1, sms))
+    return tc_gemm_layout<2, 2, 2, 4, true, false>(A, B, out, M, N, K, K, 1, st, epi, vec);
+  return tc_gemm_layout<4, 2, 2, 4, true, false>(A, B, out, M, N, K, K, 1, st, epi, vec);
 }
 
 // dst[d] = sum over the rows of a[r, d] * (xs[r, d] - mean[r]) * inv[r], and

@@ -318,6 +318,62 @@ def test_gmlp_backward_tensor_core_edges(cuda, shape, rate):
     assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("shape", sorted(GMLP_TC_SHAPES))
+def test_gmlp_forward_tensor_core_edges(cuda, shape, rate):
+    """K3f against the plain version where its tensor-core tiles and the padded
+    SGU have ragged edges, within 1e-4 x max(1, max|plain|); two runs
+    bit-identical."""
+    geom = dict(GMLP_TC_SHAPES[shape])
+    B = geom.pop("B")
+    p = gmlp_params_on(cuda, seed=2, **geom)
+    x = torch.randn(B, geom["N"], geom["D"], device=cuda)
+    before = gk.fused_gmlp_block.launches
+    out = gk.fused_gmlp_block(x, p, seed=13, dropout_rate=rate)
+    assert gk.fused_gmlp_block.launches == before + 1
+    rel_close(out, gk.gmlp_block_reference(x, p, rate, seed=13))
+    assert torch.equal(out, gk.fused_gmlp_block(x, p, seed=13, dropout_rate=rate))
+
+
+def tile_rows(M, N):
+    """The tensor-core tile's rows that the C side's rule takes for an M x N
+    product (one slice), and the rule's answer computed here: the 64x64 tile
+    where the 128x64 one would give fewer CTAs than the card has SMs."""
+    from m2mixer_tpu_torch.ops._build import load_library
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want = 64 if -(-M // 128) * -(-N // 64) < sms else 128
+    return load_library().m2m_tc_tile_rows(M, N, 1, 0), want
+
+
+# the forwards' products at the shapes that take each tile on an H100 (132 SMs):
+# K3f at the encoder shape, B = 3 (both products on the 64x64 tile) and 512
+# (both on the wide one); K4f at batch 32 (S = 224: 52 wide CTAs) and 512
+FWD_TILE_CASES = {"gmlp_B3": ("gmlp", 3, 64), "gmlp_B512": ("gmlp", 512, 128),
+                  "dyna_S224": ("dyna", 224, 64), "dyna_S3584": ("dyna", 3584, 128)}
+
+
+@pytest.mark.parametrize("case", sorted(FWD_TILE_CASES))
+def test_forward_tile_choice(cuda, case):
+    """Each tile of the forwards' products runs, as the rule says, and the
+    kernel agrees with its plain version there within 1e-4 x max(1,
+    max|plain|)."""
+    kind, n, rows = FWD_TILE_CASES[case]
+    if kind == "gmlp":
+        N, D, F = 49, 128, 768
+        for M, cols in ((n * N, F), (n * N, D)):  # the in- and out-projection
+            assert tile_rows(M, cols) == (rows, rows)
+        p = gmlp_params_on(cuda, N, D, F, seed=3)
+        x = torch.randn(n, N, D, device=cuda)
+        rel_close(gk.fused_gmlp_block(x, p), gk.gmlp_block_reference(x, p))
+    else:
+        L, C, H, R = 7, 256, 8, 2
+        assert tile_rows(n * L, C) == (rows, rows)
+        p = dyna_params_on(cuda, L, C, H, R, seed=3)
+        x = torch.randn(n, L, C, device=cuda)
+        rel_close(dk.fused_dynamixer_op(x, p, H, R), dk.dynamixer_op_reference(x, p, H, R))
+
+
 def test_gmlp_block_module_trains_on_cuda(cuda):
     """Every parameter of a PallasGatingMlpBlock gets a non-zero gradient on
     the card, through K3f and K3b."""
