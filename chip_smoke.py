@@ -5,11 +5,13 @@
     python3 chip_smoke.py --ab PARENT_DIR
 
 With no arguments it runs every phase below. ``--kernel-times`` only builds
-and prints the times of K3f, K3b (encoder and fusion shape), K4f and K4b at
-batch 32 and 512 as one JSON line (``--root``: those of the
+and prints the times of K1b and K2b (the encoder and fusion stacks), K3f and
+K3b (encoder and fusion shape), K4f and K4b at batch 32 and 512, and for
+one K1b call at each shape and batch the device time of each launch and
+the host time to enqueue it, as one JSON line (``--root``: those of the
 ``m2mixer_tpu_torch`` of another checkout). ``--ab`` compares another
-checkout's times of those four kernels with this one's on the same card, in
-turns (parent, this, this, parent), each in its own process, into
+checkout's numbers of those six kernels with this one's on the same card,
+in turns (parent, this, this, parent), each in its own process, into
 ``chiprun_out/kernel_ab.json``.
 
 Phases (any failure raises and exits non-zero; nothing is caught):
@@ -40,10 +42,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and 7 x 512 sequences), x as drawn and scaled by 30 (generate logits of
    about 50: the softmax's stress case): the output, dx and the 6 parameter
    gradients; two backward runs give bit-identical gradients. Then the
-   3xTF32 error against rows: K3b (encoder shape) and K4b at batch 2048 and
-   4096 against autograd of their plain versions on the card, each tensor's
-   error relative to max(1, max|plain|) beside the rows of the slices the
-   plan sums the weight gradients over;
+   3xTF32 error against rows: K1b (encoder and fusion shape), K3b (encoder
+   shape) and K4b at batch 2048 and 4096 against autograd of their plain
+   versions on the card, each tensor's error relative to max(1, max|plain|)
+   beside the rows of the slices the plan sums the weight gradients over;
 7. serving: export the B config (``cfg/avmnist/avmnist_m2-mixer_B.yml``, full
    width and depth, seeded weights) through ``serving export --pallas`` (one
    stack kernel per mixer), and through ``to_torch_kernel_serving(...,
@@ -95,9 +97,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     train loss falling, val and test accuracy at least 0.2; K4f and K4b
     launched (counters zeroed just before, read just after);
 13. times (CUDA events, median of 5 runs): the mixer kernels and their plain
-    versions, the served B forward at batch 32 and 512, the B train step at
-    batch 32 and 512 for plain modules and both kernel block types; and the
-    device time of each launch of one K1b call (``torch.profiler``);
+    versions (K1b and K2b at the encoder and fusion shapes, with their float32
+    and 3xTF32 bounds), the served B forward at batch 32 and 512, the B train
+    step at batch 32 and 512 for plain modules and both kernel block types;
+    and the device time of each launch of one K1b call at batch 512 at both
+    shapes (``torch.profiler``);
 14. gMLP times: K3f and K3b alone at the encoder and fusion shapes at batch
     32 and 512 (with their plain versions, their float32 and 3xTF32 bounds,
     and the profiler's breakdown of one call of each at both shapes, batch
@@ -108,7 +112,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     breakdown of one K4f and one K4b call at batch 512, the served forward
     and the train step at batch 32 and 512, each with the device time its
     kernels take (``torch.profiler``), so the share of the call in which the
-    card is busy; then each product of K3f, K3b, K4f and K4b at batch 512
+    card is busy; then each product of K1b, K3f, K3b, K4f and K4b at batch 512
     timed as one ``torch.matmul`` in float32 (TF32 off), a yardstick per
     product that the port never calls;
 16. one JSON line naming every ported kernel, the card's name and power limit,
@@ -694,40 +698,53 @@ def phase_times(torch, mk, serving, np, plain, models, report):
     print(f"  launches per served forward: {report['launches_per_forward']}")
 
 
+MIXER_STACKS = (("encoder", ENC, 4), ("fusion", FUSION, 2))  # the B config's two stack kinds
+
+
+def mixer_bwd_calls(torch, mk, geom, K, B):
+    """K1b and K2b (K blocks + LN) at the training config's dropout 0.5, and
+    their plain versions, on seeded inputs: {name: call}."""
+    blocks, ln_s, ln_b = rand_blocks(mk, torch, K, seed=23, **geom)
+    flat = mk.stack_flat_params(blocks, ln_s, ln_b)
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(B, geom["N"], geom["D"], generator=gen).cuda()
+    g = torch.randn(B, geom["N"], geom["D"], generator=gen).cuda()
+    with torch.no_grad():
+        _, saved = mk._stack_forward(x, flat, 1, 0.5, torch.float32, True, False, save=True)
+    return {"K1b": lambda: mk.fused_mixer_block_bwd(x, g, blocks[0], seed=1, dropout_rate=0.5),
+            "K1b_plain": lambda: mk.mixer_block_bwd_reference(x, g, blocks[0], 0.5, seed=1),
+            "K2b": lambda: mk.fused_mixer_stack_bwd(x, g, flat, seed=1, dropout_rate=0.5,
+                                                    saved=saved),
+            "K2b_plain": lambda: mk.mixer_stack_bwd_reference(x, g, flat, 0.5, seed=1)}
+
+
 def phase_train_times(torch, mk, serving, Trainer, apply_overrides, load_cfg, synthetic, report):
     """Backward kernels alone (training config: dropout 0.5) and the train step."""
-    times = report["times_ms"]
-    for B in (32, 512):
-        tag = f"encoder/B{B}"
-        blocks, ln_s, ln_b = rand_blocks(mk, torch, 4, seed=23, **ENC)
-        flat = mk.stack_flat_params(blocks, ln_s, ln_b)
-        gen = torch.Generator().manual_seed(5)
-        x = torch.randn(B, ENC["N"], ENC["D"], generator=gen).cuda()
-        g = torch.randn(B, ENC["N"], ENC["D"], generator=gen).cuda()
-        times[f"K1b/{tag}"] = cuda_ms(torch, lambda: mk.fused_mixer_block_bwd(
-            x, g, blocks[0], seed=1, dropout_rate=0.5))
-        times[f"K1b_plain/{tag}"] = cuda_ms(torch, lambda: mk.mixer_block_bwd_reference(
-            x, g, blocks[0], 0.5, seed=1))
-        with torch.no_grad():
-            _, saved = mk._stack_forward(x, flat, 1, 0.5, torch.float32, True, False, save=True)
-        times[f"K2b/{tag}"] = cuda_ms(torch, lambda: mk.fused_mixer_stack_bwd(
-            x, g, flat, seed=1, dropout_rate=0.5, saved=saved))
-        times[f"K2b_plain/{tag}"] = cuda_ms(torch, lambda: mk.mixer_stack_bwd_reference(
-            x, g, flat, 0.5, seed=1))
-        if B == 512:
-            report.setdefault("breakdown_us", {})[f"K1b/{tag}"] = kernel_breakdown(
-                torch, lambda: mk.fused_mixer_block_bwd(x, g, blocks[0], seed=1, dropout_rate=0.5),
-                f"K1b {tag}")
-        flops, nbytes = bwd_work(B, **ENC)
-        report["bounds_ms"][f"K1b/{tag}"] = bound(flops, nbytes, "f32")
-        ln_bytes = 4 * 4 * ENC["D"]  # final LN scale and bias, read and their grads written
-        report["bounds_ms"][f"K2b/{tag}"] = bound(
-            4 * flops, 4 * (nbytes - 3 * B * ENC["N"] * ENC["D"] * 4)
-            + 3 * B * ENC["N"] * ENC["D"] * 4 + ln_bytes, "f32")
-        print(f"  {tag}: K1b {times[f'K1b/{tag}']:.4f} ms (plain {times[f'K1b_plain/{tag}']:.4f}, "
-              f"bound {report['bounds_ms'][f'K1b/{tag}'][0]:.4f}); K2b x4 "
-              f"{times[f'K2b/{tag}']:.4f} ms (plain {times[f'K2b_plain/{tag}']:.4f}, bound "
-              f"{report['bounds_ms'][f'K2b/{tag}'][0]:.4f})")
+    times, tc = report["times_ms"], report.setdefault("bounds_3xtf32_ms", {})
+    for geom_name, geom, K in MIXER_STACKS:
+        for B in (32, 512):
+            tag = f"{geom_name}/B{B}"
+            calls = mixer_bwd_calls(torch, mk, geom, K, B)
+            for name, fn in calls.items():
+                times[f"{name}/{tag}"] = cuda_ms(torch, fn)
+            if B == 512:
+                report.setdefault("breakdown_us", {})[f"K1b/{tag}"] = kernel_breakdown(
+                    torch, calls["K1b"], f"K1b {tag}")
+            flops, nbytes = bwd_work(B, **geom)
+            act = 3 * B * geom["N"] * geom["D"] * 4  # x, g and dx
+            ln_bytes = 4 * 4 * geom["D"]  # final LN scale and bias, read and their grads written
+            report["bounds_ms"][f"K1b/{tag}"] = bound(flops, nbytes, "f32")
+            report["bounds_ms"][f"K2b/{tag}"] = bound(K * flops, K * (nbytes - act) + act
+                                                      + ln_bytes, "f32")
+            tc[f"K1b/{tag}"] = flops / TC_3XTF32 * 1e3
+            tc[f"K2b/{tag}"] = K * flops / TC_3XTF32 * 1e3
+            print(f"  {tag}: K1b {times[f'K1b/{tag}']:.4f} ms (plain "
+                  f"{times[f'K1b_plain/{tag}']:.4f}, bound "
+                  f"{report['bounds_ms'][f'K1b/{tag}'][0]:.4f}, 3xTF32 bound "
+                  f"{tc[f'K1b/{tag}']:.4f}); K2b x{K} {times[f'K2b/{tag}']:.4f} ms (plain "
+                  f"{times[f'K2b_plain/{tag}']:.4f}, bound "
+                  f"{report['bounds_ms'][f'K2b/{tag}'][0]:.4f}, 3xTF32 bound "
+                  f"{tc[f'K2b/{tag}']:.4f})")
     data = synthetic(512, seed=4, learnable=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_steps_") as tmp:
         for flavor in ("plain", "stacked", "per_block"):
@@ -1038,14 +1055,41 @@ def phase_dyna_kernels(torch, dk, report):
                 raise AssertionError(f"K4b/{tag}: two backward runs differ")
 
 
-def phase_error_rows(torch, gk, dk, lib, report):
-    """K3b (encoder shape) and K4b at batch 2048 and 4096 against autograd of
-    the plain versions on the card: each tensor's error relative to max(1,
-    max|plain|), beside the rows of the slices the plan sums dW_in/dW_out
-    (dW_o/dW_c) over. Held to the unchanged gate."""
-    print("[6/16] 3xTF32 error against rows: K3b (encoder shape) and K4b at batch "
-          f"{' and '.join(map(str, ROWS_BATCHES))}")
+def phase_error_rows(torch, mk, gk, dk, lib, report):
+    """K1b (encoder and fusion shape), K3b (encoder shape) and K4b at batch
+    2048 and 4096 against autograd of the plain versions on the card: each
+    tensor's error relative to max(1, max|plain|), beside the rows of the
+    slices the plan sums dW3/dW4 (dW_in/dW_out, dW_o/dW_c) over. Held to the
+    unchanged gates (K1b: the mixer's, with its exactly-zero gradient)."""
+    print("[6/16] 3xTF32 error against rows: K1b (encoder and fusion shape), K3b (encoder "
+          f"shape) and K4b at batch {' and '.join(map(str, ROWS_BATCHES))}")
     out = report["error_vs_rows"] = {}
+
+    def record(key, names, a, b, rslice, rows):
+        rel = {n: (u - v).abs().max().item() / max(1.0, v.abs().max().item())
+               for n, u, v in zip(names, a, b)}
+        near = max(rel.values()) >= GRAD_REL / 2
+        out[key] = {"rows": rows, "row_slice": rslice, "rel_err": rel, "within_2x_of_gate": near}
+        print(f"  {key}: {rows} rows, slices of {rslice} rows; error / max(1, max|plain|): "
+              + ", ".join(f"{n} {e:.2e}" for n, e in rel.items())
+              + (" (within 2x of the gate: shorten the slices)" if near else ""))
+
+    names1 = ["dx", *mk.MixerBlockParams._fields]
+    for geom_name, geom in (("encoder", ENC), ("fusion", FUSION)):
+        blocks, _, _ = rand_blocks(mk, torch, 1, seed=25, **geom)
+        for B in ROWS_BATCHES:
+            gen = torch.Generator().manual_seed(B)
+            x = torch.randn(B, geom["N"], geom["D"], generator=gen).cuda()
+            g = torch.randn(B, geom["N"], geom["D"], generator=gen).cuda()
+            got = mk.fused_mixer_block_bwd(x, g, blocks[0])
+            want = mk.mixer_block_bwd_reference(x, g, blocks[0])
+            a, b = (got[0], *got[1]), (want[0], *want[1])
+            key = f"K1b/{geom_name}/B{B}"
+            rslice = lib.m2m_mixer_row_slice(B, geom["N"], geom["T"], geom["D"], geom["C"], 0)
+            record(key, names1, a, b, rslice, B * geom["N"])
+            grad_err(torch, a, b, key)
+            del got, want, a, b, x, g
+            torch.cuda.empty_cache()
     names3 = ["dx", *gk.GmlpBlockParams._fields]
     names4 = ["dx", *dk.DynaMixerOpParams._fields]
     p3 = gmlp_params(gk, torch, seed=35, **GMLP_ENC)
@@ -1069,16 +1113,8 @@ def phase_error_rows(torch, gk, dk, lib, report):
         cases.append(("K4b", names4, (got[0], *got[1]), (want[0], *want[1]),
                       lib.m2m_dyna_row_slice(S, *DYNA_OP.values(), 0), S * DYNA_OP["L"]))
         for kernel, names, a, b, rslice, rows in cases:
-            key = f"{kernel}/B{B}"
-            rel = {n: (u - v).abs().max().item() / max(1.0, v.abs().max().item())
-                   for n, u, v in zip(names, a, b)}
-            near = max(rel.values()) >= GRAD_REL / 2
-            out[key] = {"rows": rows, "row_slice": rslice, "rel_err": rel,
-                        "within_2x_of_gate": near}
-            print(f"  {key}: {rows} rows, slices of {rslice} rows; error / max(1, max|plain|): "
-                  + ", ".join(f"{n} {e:.2e}" for n, e in rel.items())
-                  + (" (within 2x of the gate: shorten the slices)" if near else ""))
-            rel_err(torch, a, b, key)
+            record(f"{kernel}/B{B}", names, a, b, rslice, rows)
+            rel_err(torch, a, b, f"{kernel}/B{B}")
         del got, want, x, g, cases
         torch.cuda.empty_cache()
 
@@ -1236,7 +1272,7 @@ def phase_dyna_times(torch, dk, serving, Trainer, load_cfg, synthetic, np, serve
 
 # ------------------------------------------- yardsticks, registers, A/B times
 def product_yardsticks(torch, report) -> None:
-    """Each product of K3f, K3b, K4f and K4b at batch 512 timed as one
+    """Each product of K1b, K3f, K3b, K4f and K4b at batch 512 timed as one
     ``torch.matmul`` in float32 (TF32 off): a yardstick per product, never
     called by the port. Shapes (M x K x N); the SGU's token products are
     batched over the sample's F/2 v-channels. K3f's in-projection and token
@@ -1249,6 +1285,11 @@ def product_yardsticks(torch, report) -> None:
         ys[name] = cuda_ms(torch, lambda: torch.matmul(a, b))
         print(f"    {ys[name]:.4f} ms  {name} ({M} x {K} x {N})")
 
+    for geom_name, geom in (("encoder", ENC), ("fusion", FUSION)):
+        R, D, C = 512 * geom["N"], geom["D"], geom["C"]
+        for prod, (M, K, Nn) in {"a3": (R, D, C), "dh2": (R, D, C), "dz": (R, C, D),
+                                 "dW3": (D, R, C), "dW4": (C, R, D)}.items():
+            mm(f"K1b/{geom_name}/B512/{prod}", M, K, Nn)
     for geom_name, geom in (("encoder", GMLP_ENC), ("fusion", GMLP_FUSION)):
         N, D, F = geom["N"], geom["D"], geom["F"]
         R, H = 512 * N, F // 2
@@ -1313,11 +1354,34 @@ def build_kernels(_build, report) -> None:
         print(f"    {regs:4}  {st}/{ld}  {name}")
 
 
-def kernel_times(torch, gk, dk) -> dict:
-    """K3f and K3b (encoder and fusion shape), K4f and K4b alone at batch 32
-    and 512 (CUDA events, median of 5 runs of 20 calls), the numbers the A/B
-    compares."""
-    times = {}
+def host_us(torch, fn, calls: int = 20) -> float:
+    """Host time (µs) to enqueue one call of ``fn``, the mean over ``calls``
+    calls in a row after a warm-up: where it exceeds the call's CUDA-event
+    time, the host and not the card sets the pace."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+def kernel_times(torch, mk, gk, dk) -> dict:
+    """K1b and K2b (encoder and fusion stack), K3f and K3b (encoder and fusion
+    shape), K4f and K4b alone at batch 32 and 512 (CUDA events, median of 5
+    runs of 20 calls), the numbers the A/B compares; and for one K1b call at
+    each shape and batch, the device time of each launch and the host time
+    to enqueue it."""
+    times, breakdown, host = {}, {}, {}
+    for geom_name, geom, K in MIXER_STACKS:
+        for B in (32, 512):
+            calls = mixer_bwd_calls(torch, mk, geom, K, B)
+            for name in ("K1b", "K2b"):
+                times[f"{name}/{geom_name}/B{B}"] = cuda_ms(torch, calls[name])
+            breakdown[f"K1b/{geom_name}/B{B}"] = kernel_breakdown(torch, calls["K1b"], None)
+            host[f"K1b/{geom_name}/B{B}"] = host_us(torch, calls["K1b"])
     for geom_name, geom in (("encoder", GMLP_ENC), ("fusion", GMLP_FUSION)):
         p = gmlp_params(gk, torch, seed=33, **geom)
         for B in (32, 512):
@@ -1334,7 +1398,7 @@ def kernel_times(torch, gk, dk) -> dict:
         g = torch.randn(7 * B, DYNA_OP["L"], DYNA_OP["C"], generator=gen).cuda()
         times[f"K4f/B{B}"] = cuda_ms(torch, lambda: dk.fused_dynamixer_op(x, p, H, R))
         times[f"K4b/B{B}"] = cuda_ms(torch, lambda: dk.fused_dynamixer_op_bwd(x, g, p, H, R))
-    return times
+    return {"kernel_times": times, "breakdown_us": breakdown, "host_us": host}
 
 
 def card_line() -> str:
@@ -1344,9 +1408,9 @@ def card_line() -> str:
 
 
 def ab_times(parent: str) -> int:
-    """K3f/K3b/K4f/K4b times of the checkout at ``parent`` against this one's
-    on this card, in turns (parent, this, this, parent), each in its own
-    process."""
+    """K1b/K2b/K3f/K3b/K4f/K4b times (and K1b's breakdown) of the checkout at
+    ``parent`` against this one's on this card, in turns (parent, this, this,
+    parent), each in its own process."""
     runs = []
     for root in (parent, REPO, REPO, parent):
         out = subprocess.run([sys.executable, os.path.abspath(__file__), "--kernel-times",
@@ -1373,12 +1437,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the port (no arguments: all "
                                  "phases)")
     ap.add_argument("--kernel-times", action="store_true",
-                    help="only build and print K3f/K3b/K4f/K4b times as one JSON line")
+                    help="only build and print K1b/K2b/K3f/K3b/K4f/K4b times as one JSON line")
     ap.add_argument("--root", default=REPO, help="checkout whose m2mixer_tpu_torch is timed "
                     "(with --kernel-times)")
     ap.add_argument("--ab", metavar="PARENT",
-                    help="K3f/K3b/K4f/K4b times of the checkout PARENT against this one, in "
-                    "turns")
+                    help="K1b/K2b/K3f/K3b/K4f/K4b times of the checkout PARENT against this "
+                    "one, in turns")
     args = ap.parse_args()
     if args.ab:
         return ab_times(os.path.abspath(args.ab))
@@ -1398,8 +1462,7 @@ def main() -> int:
 
     if args.kernel_times:
         _build.load_library()
-        times = kernel_times(torch, gk, dk)
-        print(json.dumps({"kernel_times": times, "card": card_line()}))
+        print(json.dumps({**kernel_times(torch, mk, gk, dk), "card": card_line()}))
         return 0
     t_start = time.time()
     report = {"errors": {}, "bf16_checks": {}, "times_ms": {}, "bounds_ms": {}}
@@ -1414,7 +1477,7 @@ def main() -> int:
     phase_backward(torch, mk, report)
     phase_gmlp_kernels(torch, gk, report)
     phase_dyna_kernels(torch, dk, report)
-    phase_error_rows(torch, gk, dk, _build.load_library(), report)
+    phase_error_rows(torch, mk, gk, dk, _build.load_library(), report)
     plain, models = phase_serving(torch, mk, serving, get_model, load_cfg, np, report)
     gmlp_served = dict(zip(("plain", "kernel"), phase_gmlp_serving(torch, gk, serving, np, report)))
     dyna_served = phase_dyna_serving(torch, dk, serving, np, report)

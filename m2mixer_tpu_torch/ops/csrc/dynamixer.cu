@@ -67,9 +67,6 @@ namespace {
 constexpr int kMaxL = 32;          // tokens a sequence may have (the wrapper's _MAX_TOKENS)
 constexpr int kMaxC = 1024;        // channels (the wrapper's _MAX_CHANNELS)
 constexpr int kMaxSeqPerCta = 4;   // sequences a per-sequence CTA owns
-constexpr int kMaxSplit = 32;      // row slices of the weight gradients for two CTAs an SM
-constexpr int kMaxSliceRows = 2304;  // rows a slice may sum (the 3xTF32 error, as in gmlp.cu)
-constexpr int kMaxRowSplit = 128;  // row slices of the weight gradients, at most
 constexpr int kMaxColSplit = 256;  // row slices of the bias gradients' column sums
 constexpr int kRedJobs = 5;        // dW_o, dW_c, db_o, db_c, dW_g + db_g
 
@@ -294,8 +291,6 @@ struct Plan {
   size_t fwd_floats, bwd_floats;
 };
 
-int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
-
 int check_args(int S, int L, int C, int H, int R) {
   if (S < 1 || L < 1 || L > kMaxL || C < 1 || C > kMaxC || H < 1 || R < 1 || C % H) return -1;
   if ((long long)S * L > 64LL * 65535) return -1;  // the row tiles of one grid column
@@ -328,18 +323,8 @@ int make_plan(int S, int L, int C, int H, int R, int device, Plan& pl) {
   pl.ctas_bwd = ceil_div(S, spc_b);
   const long long rows = (long long)S * L;
   const int HR = H * R, LR = L * R, LL = L * L;
-  // dW_o's few tiles x slices of the rows for two CTAs an SM, a whole multiple
-  // of that where a slice would pass kMaxSliceRows rows
-  const int w_tiles = ceil_div(C, kTcBM) * ceil_div(C, kTcBN);
-  int ws = ceil_div(2 * sms, w_tiles);
-  ws = ws > kMaxSplit ? kMaxSplit : ws;
-  ws *= ceil_div(ceil_div(rows, ws), kMaxSliceRows);  // whole multiples: the CTAs fill whole waves
-  const int max_ws = ceil_div(rows, 64);  // at least 64 rows a slice
-  ws = ws > kMaxRowSplit ? kMaxRowSplit : ws;
-  ws = ws > max_ws ? max_ws : ws;
-  ws = ws < 1 ? 1 : ws;
-  pl.wslice = ceil_div(ceil_div(rows, ws), kTcK) * kTcK;
-  pl.wsplit = ceil_div(rows, pl.wslice);
+  // dW_o's few tiles x slices of the rows
+  row_slices(rows, ceil_div(C, kTcBM) * ceil_div(C, kTcBN), sms, pl.wslice, pl.wsplit);
   // the column sums: a slice is one thread's serial sum, so take enough slices
   // for two waves of CTAs (C = 256 is a single CTA of columns a slice)
   int cs = ceil_div(sms, ceil_div(C > HR ? C : HR, kThreads));
@@ -440,8 +425,8 @@ int m2m_dyna_bwd(const float* x, const float* g, float* dx, int S, int L, int C,
                          pl.wslice, pl.wsplit, st));
   // 5. db_o, db_c: column sums over slices of the rows
   ColJobs<2> cj = {};
-  cj.job[0] = ColJob{g, C, ws + pl.p_col};
-  cj.job[1] = ColJob{ws + pl.dcomp, HR, ws + pl.p_col + (size_t)pl.csplit * C};
+  cj.job[0] = ColJob{g, C, C, ws + pl.p_col};
+  cj.job[1] = ColJob{ws + pl.dcomp, HR, HR, ws + pl.p_col + (size_t)pl.csplit * C};
   col_slices_kernel<2><<<dim3(ceil_div(C > HR ? C : HR, kThreads), pl.csplit, 2), kThreads, 0,
                          st>>>(cj, rows, pl.cslice);
   M2M_TRY(cudaGetLastError());

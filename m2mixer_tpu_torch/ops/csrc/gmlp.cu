@@ -85,13 +85,6 @@ namespace {
 constexpr int kMaxSeq = 128;   // tokens a sample may have
 constexpr int kChunk = 64;     // v-channels per SGU chunk, 8 a warp
 constexpr int kRowTile = 32;   // rows per CTA of the LN backward kernels
-constexpr int kMaxSplit = 32;  // slices of F (dxn)
-// The weight gradients' row slices: the 3xTF32 error of a slice's sum grows
-// with its rows (PERF.md: dW_in 3.5e-5 of max(1, max|plain|) at 4576 rows,
-// 6.4e-5 at 9152), so no slice is longer than kMaxSliceRows, the longest the
-// batch-512 plans take (the fusion shape's, 1.6e-5), in at most kMaxRowSplit
-constexpr int kMaxSliceRows = 2304;
-constexpr int kMaxRowSplit = 128;
 constexpr int kMaskIn = 0, kMaskSgu = 1, kMaskOut = 2;
 constexpr int kRedJobs = 7;  // the block's reductions of partials (reduce_jobs_kernel)
 
@@ -552,8 +545,6 @@ struct Plan {
   size_t fwd_floats, bwd_floats;
 };
 
-int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
-
 int check_args(int B, int N, int D, int F) {
   if (B < 1 || B > 65535 || N < 1 || N > kMaxSeq || D < 1 || F < 2 || F % 2) return -1;
   const unsigned long long big = (unsigned long long)B * N * (F > D ? F : D);
@@ -580,24 +571,10 @@ int make_plan(int B, int N, int D, int F, int device, Plan& pl) {
   if (pl.sgu_bwd_smem > (size_t)dev.smem_optin || pl.vln_smem > (size_t)dev.smem_optin ||
       pl.ln_smem > (size_t)dev.smem_optin)
     return -1;
-  // dxn = dpre W_in^T: enough (rows x D) tiles x slices of F for two CTAs an SM
-  const int out_tiles = ceil_div(R, kTcBM) * ceil_div(D, kTcBN);
-  int ks = 2 * sms / out_tiles;
-  ks = ks < 1 ? 1 : (ks > kMaxSplit ? kMaxSplit : ks);
-  pl.xslice = ceil_div(ceil_div(F, ks), kTcK) * kTcK;
-  pl.xsplit = ceil_div(F, pl.xslice);
-  // the weight gradients: dW_in's few tiles x slices of the rows for two CTAs
-  // an SM, a whole multiple of that where a slice would pass kMaxSliceRows rows
-  const int w_tiles = ceil_div(D, kTcBM) * ceil_div(F, kTcBN);
-  int ws = ceil_div(2 * sms, w_tiles);
-  ws = ws > kMaxSplit ? kMaxSplit : ws;
-  ws *= ceil_div(ceil_div(R, ws), kMaxSliceRows);  // whole multiples: the CTAs fill whole waves
-  const int max_ws = ceil_div(R, 64);  // at least 64 rows a slice
-  ws = ws > kMaxRowSplit ? kMaxRowSplit : ws;
-  ws = ws > max_ws ? max_ws : ws;
-  ws = ws < 1 ? 1 : ws;
-  pl.wslice = ceil_div(ceil_div(R, ws), kTcK) * kTcK;
-  pl.wsplit = ceil_div(R, pl.wslice);
+  // dxn = dpre W_in^T: (rows x D) tiles x slices of F
+  fill_slices(F, ceil_div(R, kTcBM) * ceil_div(D, kTcBN), sms, pl.xslice, pl.xsplit);
+  // the weight gradients: dW_in's few tiles x slices of the rows
+  row_slices(R, ceil_div(D, kTcBM) * ceil_div(F, kTcBN), sms, pl.wslice, pl.wsplit);
   pl.tiles = ceil_div(R, kRowTile);
   const size_t rows = (size_t)R;
   size_t o = 0;
@@ -746,8 +723,8 @@ int m2m_gmlp_bwd(const float* x, const float* g, float* dx, int B, int N, int D,
   M2M_TRY(tc_gemm_wide(View{ws + pl.gated, 1, H}, View{ws + pl.dout, D, 1}, ws + pl.p_wout, H, D,
                        R, pl.wslice, pl.wsplit, st));
   ColJobs<2> cj = {};
-  cj.job[0] = ColJob{ws + pl.dpre, F, ws + pl.p_col};
-  cj.job[1] = ColJob{ws + pl.dout, D, ws + pl.p_col + (size_t)pl.wsplit * F};
+  cj.job[0] = ColJob{ws + pl.dpre, F, F, ws + pl.p_col};
+  cj.job[1] = ColJob{ws + pl.dout, D, D, ws + pl.p_col + (size_t)pl.wsplit * F};
   col_slices_kernel<2><<<dim3(ceil_div(F > D ? F : D, kThreads), pl.wsplit, 2), kThreads, 0, st>>>(
       cj, R, pl.wslice);
   M2M_TRY(cudaGetLastError());

@@ -1,45 +1,41 @@
 // Device code shared by the backward kernels (mixer_bwd.cu, gmlp.cu,
-// dynamixer.cu) and the gMLP and DynaMixerOp forwards: two tiled GEMMs, the
-// compensated (Kahan) sum, the LayerNorm backward over rows with its
-// parameter gradients' per-tile partials, and row-sliced column sums and
+// dynamixer.cu) and the gMLP and DynaMixerOp forwards: the tensor-core GEMM
+// tile, the compensated (Kahan) sum, the LayerNorm backward over rows with
+// its parameter gradients' per-tile partials, and row-sliced column sums and
 // reductions of partials over several jobs a launch. No float atomics
 // anywhere: every sum has one order, so two runs give bit-identical results.
 //
-// The two GEMMs, both out[z] = A B over k-slice z on strided Views:
-//   - gemm_tile / gemm_kernel: the simple SIMT tile (64x64 outputs, 4x4 a
-//     thread, the depth summed in increasing order; no tensor cores, no
-//     asynchronous copies). Only K1b and K2b (mixer_bwd.cu) still use it.
-//   - tc_gemm: the tensor-core tile of K3f, K3b, K4f and K4b. What bounds
-//     their products is the rate of float32 multiply-adds: the CUDA cores give
-//     67 TFLOP/s, the tensor cores 495 in TF32, but a single TF32 product keeps
-//     about three decimal digits, too few for the 1e-4 relative gates the
-//     kernels are held to. So every product is 3xTF32: with
-//     x_big = tf32(x) and x_small = tf32(x - x_big) (cvt.rna.tf32.f32, in
-//     registers after the fragment loads), a b = a_small b_big + a_big b_small
-//     + a_big b_big, each an mma.sync.m16n8k8 TF32 product with float32
-//     accumulation; the dropped a_small b_small is 2^-22 of the product, so the
-//     result is float32-accurate at a third of the TF32 rate. Operands reach
-//     shared memory through a 3-stage cp.async ring (dynamic shared memory,
-//     set by prepare()), 16 bytes a copy where both Views allow it (unit
-//     stride, rows of whole 16-byte groups, aligned), else 4; each stored with
-//     its View's unit-stride axis contiguous and padded so that the fragment
-//     loads hit 32 distinct banks.
-//     Tiles: 128x64 outputs on 8 warps (32x32 a warp); 64x64 on 4 warps, which
-//     tc_gemm_auto takes where the wide tile would leave SMs idle (the
-//     forwards' products at batch 32); 64x16 on 4 warps for narrow outputs
-//     (DynaMixerOp's 16-wide dW_c). The depth is summed in one order; k-slices
-//     are summed later by the reductions below, in slice order.
-//   Why mma.sync and not wgmma: wgmma takes tf32 operands only K-major in
-//   shared memory, and five of K3b's and K4b's eight products have an operand
-//   whose depth is not its contiguous axis (W_in in the recompute, both
-//   operands of the weight gradients, whose depth is the rows); the big/small
-//   split would also have to be stored twice. mma.sync loads its fragments
-//   from shared memory in whatever layout the View gives and splits them in
-//   registers, so one loader serves every product. wgmma with TMA is for the
-//   bf16 backward, where operands are 16-bit and transposes are allowed. The
-//   forwards' weights (W_in, W_out, W_o) are small enough to be laid K-major
-//   once per call, which would lift that obstacle for their products; that is
-//   left to the work on the tile's own rate (ROADMAP.md).
+// The GEMM, tc_gemm: out[z] = epi(A B) over k-slice z on strided Views, the
+// tile of every product of K1b, K2b, K3f, K3b, K4f and K4b. What bounds their
+// products is the rate of float32 multiply-adds: the CUDA cores give 67
+// TFLOP/s, the tensor cores 495 in TF32, but a single TF32 product keeps
+// about three decimal digits, too few for the 1e-4 relative gates the
+// kernels are held to. So every product is 3xTF32: with x_big = tf32(x) and
+// x_small = tf32(x - x_big) (cvt.rna.tf32.f32, in registers after the
+// fragment loads), a b = a_small b_big + a_big b_small + a_big b_big, each an
+// mma.sync.m16n8k8 TF32 product with float32 accumulation; the dropped
+// a_small b_small is 2^-22 of the product, so the result is float32-accurate
+// at a third of the TF32 rate. Operands reach shared memory through a 3-stage
+// cp.async ring (dynamic shared memory, set by prepare()), 16 bytes a copy
+// where both Views allow it (unit stride, rows of whole 16-byte groups,
+// aligned), else 4; each stored with its View's unit-stride axis contiguous
+// and padded so that the fragment loads hit 32 distinct banks.
+// Tiles: 128x64 outputs on 8 warps (32x32 a warp); 64x64 on 4 warps, which
+// tc_gemm_auto takes where the wide tile would leave SMs idle (the forwards'
+// products and K1b's channel products at batch 32); 64x16 on 4 warps for
+// narrow outputs (DynaMixerOp's 16-wide dW_c). The depth is summed in one
+// order; k-slices are summed later by the reductions below, in slice order.
+// Why mma.sync and not wgmma: wgmma takes tf32 operands only K-major in
+// shared memory, and most backward products have an operand whose depth is
+// not its contiguous axis (both operands of every weight gradient, whose
+// depth is the rows); the big/small split would also have to be stored
+// twice. mma.sync loads its fragments from shared memory in whatever layout
+// the View gives and splits them in registers, so one loader serves every
+// product. wgmma with TMA is for the bf16 backward, where operands are 16-bit
+// and transposes are allowed. The forwards' weights (W_in, W_out, W_o) are
+// small enough to be laid K-major once per call, which would lift that
+// obstacle for their products; that is left to the work on the tile's own
+// rate (ROADMAP.md).
 
 #pragma once
 
@@ -50,9 +46,7 @@
 
 namespace {
 
-constexpr int kTile = 64;   // GEMM output tile, rows and columns
-constexpr int kTileK = 16;  // GEMM depth per shared-memory step
-constexpr int kPad = 4;
+constexpr int kTileK = 16;  // rows of a column-sum slice, at least (dynamixer.cu)
 
 // Compensated (Kahan) sum in a fixed order: the small gradients are sums over
 // up to B*D terms (65536 at batch 512) whose value can be exactly zero (the
@@ -73,77 +67,6 @@ struct View {
   const float* p;
   long long rs, cs;
 };
-
-__device__ __forceinline__ float at(const View& v, int i, int j) {
-  return v.p[(long long)i * v.rs + (long long)j * v.cs];
-}
-
-// acc (this thread's 4x4 of the 64x64 output tile at (m0, n0)) += sum over k in
-// [k0, k1) of A(m, k) B(k, n), k in increasing order (deterministic)
-__device__ void gemm_tile(const View& A, const View& Bv, int M, int Nn, int k0, int k1, int m0,
-                          int n0, float (*As)[kTile + kPad], float (*Bs)[kTile + kPad],
-                          float acc[4][4]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  for (int kb = k0; kb < k1; kb += kTileK) {
-    for (int i = threadIdx.x; i < kTileK * kTile; i += kThreads) {
-      int kk, mm;  // neighbouring threads on neighbouring addresses
-      if (A.cs == 1) {
-        kk = i % kTileK;
-        mm = i / kTileK;
-      } else {
-        mm = i % kTile;
-        kk = i / kTile;
-      }
-      const int m = m0 + mm, k = kb + kk;
-      As[kk][mm] = (m < M && k < k1) ? at(A, m, k) : 0.f;
-    }
-    for (int i = threadIdx.x; i < kTileK * kTile; i += kThreads) {
-      int kk, nn;
-      if (Bv.rs == 1) {
-        kk = i % kTileK;
-        nn = i / kTileK;
-      } else {
-        nn = i % kTile;
-        kk = i / kTile;
-      }
-      const int n = n0 + nn, k = kb + kk;
-      Bs[kk][nn] = (n < Nn && k < k1) ? at(Bv, k, n) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTileK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-// out[z] (M x Nn, row-major) = A B over k-slice z ([z*kslice, (z+1)*kslice) of K)
-__global__ void __launch_bounds__(kThreads)
-    gemm_kernel(View A, View Bv, float* __restrict__ out, int M, int Nn, int K, int kslice) {
-  __shared__ float As[kTileK][kTile + kPad], Bs[kTileK][kTile + kPad];
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  const int k0 = blockIdx.z * kslice, k1 = min(K, k0 + kslice);
-  float acc[4][4] = {};
-  gemm_tile(A, Bv, M, Nn, k0, k1, m0, n0, As, Bs, acc);
-  float* o = out + (size_t)blockIdx.z * M * Nn;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + ty * 4 + i, n = n0 + tx * 4 + j;
-      if (m < M && n < Nn) o[(size_t)m * Nn + n] = acc[i][j];
-    }
-}
 
 // ------------------------------------------------ tensor-core tile (3xTF32)
 // x = big + small + O(2^-22 x), each part a TF32 bit pattern
@@ -212,6 +135,43 @@ __device__ __forceinline__ void cp_async_wait() {
 
 constexpr int kTcK = 32;      // depth of a stage
 constexpr int kTcStages = 3;  // the cp.async ring
+
+inline int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
+
+// Slicing a product's depth into k-slices (summed later in slice order).
+constexpr int kMaxSplit = 32;  // slices for two CTAs an SM, at most
+// The weight gradients' row slices: the 3xTF32 error of a slice's sum grows
+// with its rows (PERF.md: K3b's dW_in 3.5e-5 of max(1, max|plain|) at 4576
+// rows, 6.4e-5 at 9152), so no slice is longer than kMaxSliceRows, the
+// longest the batch-512 plans take, in at most kMaxRowSplit slices
+constexpr int kMaxSliceRows = 2304;
+constexpr int kMaxRowSplit = 128;
+
+// n slices (at least 1) of a depth K, each whole kTcK stages
+inline void split_depth(long long K, int n, int& slice, int& split) {
+  slice = ceil_div(ceil_div(K, n < 1 ? 1 : n), kTcK) * kTcK;
+  split = ceil_div(K, slice);
+}
+
+// the depth K of a product with `tiles` wide-tile outputs: slices for two
+// CTAs an SM, at most kMaxSplit
+inline void fill_slices(long long K, int tiles, int sms, int& slice, int& split) {
+  const int n = 2 * sms / tiles;
+  split_depth(K, n > kMaxSplit ? kMaxSplit : n, slice, split);
+}
+
+// the R rows that a weight gradient with `tiles` wide-tile outputs sums:
+// slices for two CTAs an SM, a whole multiple of that where a slice would
+// pass kMaxSliceRows rows (the CTAs fill whole waves), at most kMaxRowSplit
+// and at least 64 rows a slice
+inline void row_slices(long long R, int tiles, int sms, int& slice, int& split) {
+  int n = ceil_div(2 * sms, tiles);
+  n = n > kMaxSplit ? kMaxSplit : n;
+  n *= ceil_div(ceil_div(R, n), kMaxSliceRows);
+  const int most = ceil_div(R, 64);
+  n = n > kMaxRowSplit ? kMaxRowSplit : n;
+  split_depth(R, n > most ? most : n, slice, split);
+}
 
 // a tile of kWM x kWN warps, each kMI x kNI mma tiles (16x8 outputs); kAK:
 // A's depth axis contiguous in shared memory (else its rows), kBK the same for
@@ -563,12 +523,11 @@ inline size_t ln_bwd_smem_bytes(int tile, int D) { return ((size_t)3 * tile * D 
 
 // column sums over slices of the rows (the rows reach 50688 at batch 512, too
 // many for one serial sum a column): job blockIdx.z writes part[y * C + c] =
-// the sum over rows [y * rslice, (y + 1) * rslice) of a[r, c], rows in order.
-// Used by gmlp.cu and dynamixer.cu (the mixer backward keeps its own one-array
-// column sum: sharing this one made K1b/K2b 5-19% slower, PERF.md).
+// the sum over rows [y * rslice, (y + 1) * rslice) of a[r, c] (rows ld floats
+// apart), rows in order
 struct ColJob {
   const float* a;
-  int C;
+  int C, ld;
   float* part;
 };
 template <int kJobs>
@@ -584,7 +543,7 @@ __global__ void __launch_bounds__(kThreads)
   if (c >= jb.C) return;
   const int r0 = blockIdx.y * rslice, r1 = min(R, r0 + rslice);
   Kahan v;
-  for (int r = r0; r < r1; ++r) v.add(jb.a[(size_t)r * jb.C + c]);
+  for (int r = r0; r < r1; ++r) v.add(jb.a[(size_t)r * jb.ld + c]);
   jb.part[(size_t)blockIdx.y * jb.C + c] = v.s;
 }
 

@@ -196,6 +196,47 @@ def test_stack_backward_matches_plain(cuda, shape, group_size, rate):
         rel_close(a, w)
 
 
+# (batch, shape) at the edges of K1b/K2b's tensor-core products: rows that
+# fill no whole tile, C that is no multiple of 4 (rows of h2, da3 and W3
+# padded to 16-byte groups), the fusion shape in one row tile, the most
+# tokens the kernels take, and more rows than one weight-gradient slice
+MIXER_TC_CASES = {
+    "ragged_rows": (37, SHAPES["encoder"]),
+    "odd_widths": (5, dict(N=3, D=20, T=7, C=46)),
+    "fusion_one_tile": (3, SHAPES["fusion"]),
+    "max_tokens": (9, dict(N=32, D=32, T=16, C=64)),
+    "row_slices": (600, dict(N=8, D=32, T=16, C=64)),
+}
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("case", sorted(MIXER_TC_CASES))
+def test_mixer_backward_tensor_core_edges(cuda, case, rate):
+    """K1b, and K2b as 2 blocks + LN, against autograd of the plain versions;
+    every tensor within 1e-4 x max(1, max|plain|), two runs bit-identical."""
+    from m2mixer_tpu_torch.ops._build import load_library
+
+    B, geom = MIXER_TC_CASES[case]
+    blocks, s, b = blocks_on(cuda, 2, **geom)
+    x = torch.randn(B, geom["N"], geom["D"], device=cuda)
+    g = torch.randn_like(x)
+    rows = B * geom["N"]
+    rslice = load_library().m2m_mixer_row_slice(B, geom["N"], geom["T"], geom["D"], geom["C"], 0)
+    assert 0 < rslice <= 2304
+    if case == "row_slices":
+        assert rslice < rows, (rslice, rows)
+    k1b = lambda: mk.fused_mixer_block_bwd(x, g, blocks[0], seed=5, dropout_rate=rate)
+    flat = mk.stack_flat_params(blocks, s, b)
+    k2b = lambda: mk.fused_mixer_stack_bwd(x, g, flat, seed=6, dropout_rate=rate)
+    for run, want in ((k1b, mk.mixer_block_bwd_reference(x, g, blocks[0], rate, seed=5)),
+                      (k2b, mk.mixer_stack_bwd_reference(x, g, flat, rate, seed=6))):
+        dx, grads = run()
+        for a, w in zip((dx, *grads), (want[0], *want[1])):
+            rel_close(a, w)
+        dx2, grads2 = run()
+        assert torch.equal(dx, dx2) and all(torch.equal(a, c) for a, c in zip(grads, grads2))
+
+
 @pytest.mark.parametrize("shape", ["encoder", "fusion"])
 def test_dropout_forward_matches_plain_and_keeps_half(cuda, shape):
     geom = SHAPES[shape]

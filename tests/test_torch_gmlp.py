@@ -278,8 +278,15 @@ def test_depth_draws_keep_the_survival_share_on_their_own_stream():
         b.register_forward_hook(lambda m, i, o: ran.append((m.survival_prob, o is not i[0])))
     task.network.train()
     feats = {k: torch.from_numpy(v) for k, v in batch(2).items()}
-    for _ in range(300):
-        task.network(**task.network_inputs(feats))
+    # 300 forwards of tiny tensors: one intra-op thread, since the workers of
+    # a parallel test run would otherwise oversubscribe the cores and spin
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for _ in range(300):
+            task.network(**task.network_inputs(feats))
+    finally:
+        torch.set_num_threads(threads)
     kept = [r for p, r in ran if p == pytest.approx(0.3)]
     assert len(kept) == 900 and abs(np.mean(kept) - 0.3) <= 0.05
     assert all(r for p, r in ran if p == 1.0)
