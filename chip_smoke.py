@@ -5,22 +5,24 @@
     python3 chip_smoke.py --ab PARENT_DIR
 
 With no arguments it runs every phase below. ``--kernel-times`` only builds
-and prints the times of K1b and K2b (the encoder and fusion stacks), K3f and
-K3b (encoder and fusion shape), K4f and K4b at batch 32 and 512, and for
-one K1b call at each shape and batch the device time of each launch and
-the host time to enqueue it, as one JSON line (``--root``: those of the
-``m2mixer_tpu_torch`` of another checkout). ``--ab`` compares another
-checkout's numbers of those six kernels with this one's on the same card,
-in turns (parent, this, this, parent), each in its own process, into
-``chiprun_out/kernel_ab.json``.
+and prints the times of all eight kernels: K1f, K2f, K1b and K2b (the
+encoder and fusion stacks), K3f and K3b (encoder and fusion shape), K4f and
+K4b at batch 32 and 512; the device time of each launch of one K1f call at
+each shape at batch 512 and of one K1b call at each shape and batch; the
+host time to enqueue one K1b call; and the B config's served forward and
+train step at batch 32 and 512 (plain modules and both kernel block types),
+as one JSON line (``--root``: those of the ``m2mixer_tpu_torch`` of another
+checkout). ``--ab`` compares another checkout's numbers with this one's on
+the same card, in turns (parent, this, this, parent), each in its own
+process, into ``chiprun_out/kernel_ab.json``.
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. build the CUDA kernels from ``m2mixer_tpu_torch/ops/csrc`` (nvcc, sm_90a)
    and print every kernel's registers and spills (ptxas);
 2. K1f ``fused_mixer_block`` on the card against its plain PyTorch version at
-   the served shapes (B=512; N=4/C=3072 and N=8/C=3078), f32 and bf16, erf
-   and tanh GELU;
+   the served shapes (N=4/C=3072 and N=8/C=3078): batch 512 in f32 and bf16,
+   batch 32 and 600 (above the top bucket) in f32, erf and tanh GELU;
 3. K2f ``fused_mixer_stack``: a 4-block encoder with its final LN, whole and
    with ``group_size=2``, and the 2-block fusion mixer, the same way;
 4. K1b / K2b, the backward kernels, against autograd of the plain versions
@@ -97,11 +99,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     train loss falling, val and test accuracy at least 0.2; K4f and K4b
     launched (counters zeroed just before, read just after);
 13. times (CUDA events, median of 5 runs): the mixer kernels and their plain
-    versions (K1b and K2b at the encoder and fusion shapes, with their float32
-    and 3xTF32 bounds), the served B forward at batch 32 and 512, the B train
-    step at batch 32 and 512 for plain modules and both kernel block types;
-    and the device time of each launch of one K1b call at batch 512 at both
-    shapes (``torch.profiler``);
+    versions (K1f, K2f, K1b and K2b at the encoder and fusion shapes, with
+    their float32 and 3xTF32 bounds), the served B forward at batch 32 and
+    512, the B train step at batch 32 and 512 for plain modules and both
+    kernel block types; and the device time of each launch of one K1f and
+    one K1b call at batch 512 at both shapes (``torch.profiler``);
 14. gMLP times: K3f and K3b alone at the encoder and fusion shapes at batch
     32 and 512 (with their plain versions, their float32 and 3xTF32 bounds,
     and the profiler's breakdown of one call of each at both shapes, batch
@@ -392,43 +394,57 @@ def bound(flops: float, nbytes: float, dtype: str):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+# [2/16] and [3/16]: batch 512 in float32 and bf16, and in float32 also batch 32
+# and 600 (above the 512 bucket: more rows than the batch-512 plans)
+FWD_CASES = ((512, ("f32", "bf16")), (32, ("f32",)), (600, ("f32",)))
+
+
 def phase_kernels(torch, mk, report):
     print("[2/16] K1f fused_mixer_block vs plain version")
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     for geom_name, geom in (("encoder", ENC), ("fusion", FUSION)):
         blocks, _, _ = rand_blocks(mk, torch, 1, seed=11, **geom)
-        x = torch.randn(512, geom["N"], geom["D"], generator=torch.Generator().manual_seed(1)).cuda()
-        for dtype, cd in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-            for approx in (False, True):
-                got = mk.fused_mixer_block(x, blocks[0], compute_dtype=cd, approximate_gelu=approx)
-                want = mk.mixer_block_reference(x, blocks[0], compute_dtype=cd,
-                                                approximate_gelu=approx)
-                key = f"K1f/{geom_name}/{dtype}/{'tanh' if approx else 'erf'}"
-                if dtype == "f32":
-                    report["errors"][key] = max_err(torch, got, want, key)
-                else:
-                    control = mk.mixer_block_reference(x, blocks[0], approximate_gelu=approx)
-                    report["errors"][key] = bf16_err(torch, got, want, round_bf16(torch, control),
-                                                     key, report)
+        for B, names in FWD_CASES:
+            x = torch.randn(B, geom["N"], geom["D"], generator=torch.Generator().manual_seed(1)).cuda()
+            for dtype in names:
+                cd = dtypes[dtype]
+                for approx in (False, True):
+                    got = mk.fused_mixer_block(x, blocks[0], compute_dtype=cd,
+                                               approximate_gelu=approx)
+                    want = mk.mixer_block_reference(x, blocks[0], compute_dtype=cd,
+                                                    approximate_gelu=approx)
+                    batch = "" if B == 512 else f"B{B}/"
+                    key = f"K1f/{geom_name}/{batch}{dtype}/{'tanh' if approx else 'erf'}"
+                    if dtype == "f32":
+                        report["errors"][key] = max_err(torch, got, want, key)
+                    else:
+                        control = mk.mixer_block_reference(x, blocks[0], approximate_gelu=approx)
+                        report["errors"][key] = bf16_err(torch, got, want,
+                                                         round_bf16(torch, control), key, report)
 
     print("[3/16] K2f fused_mixer_stack vs plain version")
     cases = [("encoder", ENC, 4, 0), ("encoder", ENC, 4, 2), ("fusion", FUSION, 2, 0)]
     for geom_name, geom, K, group in cases:
         blocks, ln_s, ln_b = rand_blocks(mk, torch, K, seed=12, **geom)
-        x = torch.randn(512, geom["N"], geom["D"], generator=torch.Generator().manual_seed(2)).cuda()
-        for dtype, cd in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-            for approx in (False, True):
-                got = mk.fused_mixer_stack_grouped(x, blocks, ln_s, ln_b, compute_dtype=cd,
-                                                   group_size=group, approximate_gelu=approx)
-                flat = mk.stack_flat_params(blocks, ln_s, ln_b)
-                want = mk.mixer_stack_reference(x, flat, compute_dtype=cd,
-                                                approximate_gelu=approx)
-                key = f"K2f/{geom_name}x{K}/g{group}/{dtype}/{'tanh' if approx else 'erf'}"
-                if dtype == "f32":
-                    report["errors"][key] = max_err(torch, got, want, key)
-                else:
-                    control = mk.mixer_stack_reference(x, flat, approximate_gelu=approx)
-                    report["errors"][key] = bf16_err(torch, got, want, round_bf16(torch, control),
-                                                     key, report)
+        flat = mk.stack_flat_params(blocks, ln_s, ln_b)
+        for B, names in FWD_CASES:
+            x = torch.randn(B, geom["N"], geom["D"], generator=torch.Generator().manual_seed(2)).cuda()
+            for dtype in names:
+                cd = dtypes[dtype]
+                for approx in (False, True):
+                    got = mk.fused_mixer_stack_grouped(x, blocks, ln_s, ln_b, compute_dtype=cd,
+                                                       group_size=group, approximate_gelu=approx)
+                    want = mk.mixer_stack_reference(x, flat, compute_dtype=cd,
+                                                    approximate_gelu=approx)
+                    batch = "" if B == 512 else f"B{B}/"
+                    key = (f"K2f/{geom_name}x{K}/g{group}/{batch}{dtype}/"
+                           f"{'tanh' if approx else 'erf'}")
+                    if dtype == "f32":
+                        report["errors"][key] = max_err(torch, got, want, key)
+                    else:
+                        control = mk.mixer_stack_reference(x, flat, approximate_gelu=approx)
+                        report["errors"][key] = bf16_err(torch, got, want,
+                                                         round_bf16(torch, control), key, report)
 
 
 def phase_backward(torch, mk, report):
@@ -647,7 +663,7 @@ def phase_serving(torch, mk, serving, get_model, load_cfg, np, report):
 
 def phase_times(torch, mk, serving, np, plain, models, report):
     print("[13/16] times (CUDA events, median of 5 runs of 20 calls)")
-    times = report["times_ms"]
+    times, tc = report["times_ms"], report.setdefault("bounds_3xtf32_ms", {})
     for geom_name, geom in (("encoder", ENC), ("fusion", FUSION)):
         for B in (32, 512):
             K = 4 if geom_name == "encoder" else 2
@@ -672,29 +688,35 @@ def phase_times(torch, mk, serving, np, plain, models, report):
                 report["bounds_ms"][f"K1f/{tag}"] = bound(flops, pbytes + act, dtype)
                 report["bounds_ms"][f"K2f/{tag}"] = bound(
                     K * flops, K * pbytes + 8 * geom["D"] + act, dtype)
+                tc_note = ""
+                if dtype == "f32":  # the float32 route's products run in 3xTF32
+                    tc[f"K1f/{tag}"] = flops / TC_3XTF32 * 1e3
+                    tc[f"K2f/{tag}"] = K * flops / TC_3XTF32 * 1e3
+                    tc_note = f", 3xTF32 bounds {tc[f'K1f/{tag}']:.4f} / {tc[f'K2f/{tag}']:.4f}"
                 print(f"  {tag}: K1f {times[f'K1f/{tag}']:.4f} ms (plain "
                       f"{times[f'K1f_plain/{tag}']:.4f}, bound "
                       f"{report['bounds_ms'][f'K1f/{tag}'][0]:.4f}); K2f x{K} "
                       f"{times[f'K2f/{tag}']:.4f} ms (plain {times[f'K2f_plain/{tag}']:.4f}, "
-                      f"bound {report['bounds_ms'][f'K2f/{tag}'][0]:.4f})")
+                      f"bound {report['bounds_ms'][f'K2f/{tag}'][0]:.4f}){tc_note}")
+                if dtype == "f32" and B == 512:
+                    report.setdefault("breakdown_us", {})[f"K1f/{geom_name}/B512"] = \
+                        kernel_breakdown(torch, lambda: mk.fused_mixer_block(x, block),
+                                         f"K1f {geom_name}/B512")
 
-    rng = np.random.RandomState(1)
     fwd = {"plain": serving.serve_fn(plain)}
     fwd.update({k: m.forward_device for k, m in models.items()})
+    times.update(b_served_times(torch, np, fwd))
     for B in (32, 512):
-        feats = {"image": torch.from_numpy(rng.rand(B, 1, 28, 28).astype(np.float32)).cuda(),
-                 "audio": torch.from_numpy(rng.rand(B, 1, 112, 112).astype(np.float32)).cuda()}
-        for k, f in fwd.items():
-            times[f"served/{k}/B{B}"] = cuda_ms(torch, lambda: f(feats))
-        mk.fused_mixer_block.launches = mk.fused_mixer_stack.launches = 0
-        models["stacked"].forward_device(feats)
-        per_fwd = mk.fused_mixer_stack.launches
-        mk.fused_mixer_block.launches = mk.fused_mixer_stack.launches = 0
-        models["per_block"].forward_device(feats)
-        report["launches_per_forward"] = {"K2f (stacked)": per_fwd,
-                                          "K1f (per_block)": mk.fused_mixer_block.launches}
         print(f"  served forward B={B}: " + ", ".join(
             f"{k} {times[f'served/{k}/B{B}']:.4f} ms" for k in fwd))
+    feats = b_features(torch, np, 32)
+    mk.fused_mixer_block.launches = mk.fused_mixer_stack.launches = 0
+    models["stacked"].forward_device(feats)
+    per_fwd = mk.fused_mixer_stack.launches
+    mk.fused_mixer_block.launches = mk.fused_mixer_stack.launches = 0
+    models["per_block"].forward_device(feats)
+    report["launches_per_forward"] = {"K2f (stacked)": per_fwd,
+                                      "K1f (per_block)": mk.fused_mixer_block.launches}
     print(f"  launches per served forward: {report['launches_per_forward']}")
 
 
@@ -745,6 +767,16 @@ def phase_train_times(torch, mk, serving, Trainer, apply_overrides, load_cfg, sy
                   f"{times[f'K2b_plain/{tag}']:.4f}, bound "
                   f"{report['bounds_ms'][f'K2b/{tag}'][0]:.4f}, 3xTF32 bound "
                   f"{tc[f'K2b/{tag}']:.4f})")
+    times.update(b_train_step_times(torch, serving, Trainer, apply_overrides, load_cfg, synthetic))
+    print("  train step (forward + backward + Adam, dropout 0.5): " + ", ".join(
+        f"{k.split('/', 1)[1]} {v:.4f} ms" for k, v in times.items() if k.startswith("train_step/")))
+
+
+def b_train_step_times(torch, serving, Trainer, apply_overrides, load_cfg, synthetic) -> dict:
+    """The B config's train step (forward, the three losses, backward, Adam;
+    the config's dropout 0.5) at batch 32 and 512 for plain modules and both
+    kernel block types, seeded weights (CUDA events, median of 5 runs of 10)."""
+    times = {}
     data = synthetic(512, seed=4, learnable=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_steps_") as tmp:
         for flavor in ("plain", "stacked", "per_block"):
@@ -758,8 +790,26 @@ def phase_train_times(torch, mk, serving, Trainer, apply_overrides, load_cfg, sy
                     torch, lambda: trainer.train_step(task, batch, ctx), iters=10)
             trainer.logger.close()
             del task, trainer
-    print("  train step (forward + backward + Adam, dropout 0.5): " + ", ".join(
-        f"{k.split('/', 1)[1]} {v:.4f} ms" for k, v in times.items() if k.startswith("train_step/")))
+    return times
+
+
+def b_features(torch, np, B: int) -> dict:
+    """A seeded batch of B config inputs on the card."""
+    rng = np.random.RandomState(B)
+    return {"image": torch.from_numpy(rng.rand(B, 1, 28, 28).astype(np.float32)).cuda(),
+            "audio": torch.from_numpy(rng.rand(B, 1, 112, 112).astype(np.float32)).cuda()}
+
+
+def b_served_times(torch, np, fwd: dict) -> dict:
+    """The B config's eval-mode forward at batch 32 and 512 through each of
+    ``fwd``'s functions ({flavor: forward}: plain modules and the two kernel
+    block types), CUDA events, median of 5 runs of 20."""
+    times = {}
+    for B in (32, 512):
+        feats = b_features(torch, np, B)
+        for flavor, fn in fwd.items():
+            times[f"served/{flavor}/B{B}"] = cuda_ms(torch, lambda: fn(feats))
+    return times
 
 
 # ---------------------------------------------------------------------- gMLP
@@ -1369,13 +1419,23 @@ def host_us(torch, fn, calls: int = 20) -> float:
 
 
 def kernel_times(torch, mk, gk, dk) -> dict:
-    """K1b and K2b (encoder and fusion stack), K3f and K3b (encoder and fusion
-    shape), K4f and K4b alone at batch 32 and 512 (CUDA events, median of 5
-    runs of 20 calls), the numbers the A/B compares; and for one K1b call at
-    each shape and batch, the device time of each launch and the host time
-    to enqueue it."""
+    """K1f, K2f, K1b and K2b (encoder and fusion stack), K3f and K3b (encoder
+    and fusion shape), K4f and K4b alone at batch 32 and 512 (CUDA events,
+    median of 5 runs of 20 calls; the forwards float32 without dropout, as
+    served), the numbers the A/B compares; for one K1f call at each shape at
+    batch 512, and one K1b call at each shape and batch, the device time of
+    each launch; and the host time to enqueue one K1b call."""
     times, breakdown, host = {}, {}, {}
     for geom_name, geom, K in MIXER_STACKS:
+        blocks, ln_s, ln_b = rand_blocks(mk, torch, K, seed=13, **geom)
+        flat = mk.stack_flat_params(blocks, ln_s, ln_b)
+        for B in (32, 512):
+            x = torch.randn(B, geom["N"], geom["D"], generator=torch.Generator().manual_seed(3)).cuda()
+            k1f = lambda: mk.fused_mixer_block(x, blocks[0])
+            times[f"K1f/{geom_name}/B{B}"] = cuda_ms(torch, k1f)
+            times[f"K2f/{geom_name}/B{B}"] = cuda_ms(torch, lambda: mk.fused_mixer_stack(x, flat))
+            if B == 512:
+                breakdown[f"K1f/{geom_name}/B{B}"] = kernel_breakdown(torch, k1f, None)
         for B in (32, 512):
             calls = mixer_bwd_calls(torch, mk, geom, K, B)
             for name in ("K1b", "K2b"):
@@ -1408,16 +1468,17 @@ def card_line() -> str:
 
 
 def ab_times(parent: str) -> int:
-    """K1b/K2b/K3f/K3b/K4f/K4b times (and K1b's breakdown) of the checkout at
-    ``parent`` against this one's on this card, in turns (parent, this, this,
-    parent), each in its own process."""
+    """The eight kernels' times (and K1f's and K1b's breakdowns), the B
+    served forward and the B train step of the checkout at ``parent``
+    against this one's on this card, in turns (parent, this, this, parent),
+    each in its own process."""
     runs = []
     for root in (parent, REPO, REPO, parent):
         out = subprocess.run([sys.executable, os.path.abspath(__file__), "--kernel-times",
                               "--root", root], capture_output=True, text=True, check=True,
                              timeout=900).stdout.strip().splitlines()[-1]
         runs.append({"root": root, **json.loads(out)})
-        print(f"  {root}: {json.dumps(runs[-1]['kernel_times'])}")
+        print(f"  {root}: {json.dumps(runs[-1]['kernel_times'])} {json.dumps(runs[-1]['e2e_ms'])}")
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "kernel_ab.json"), "w") as f:
         json.dump({"card": card_line(), "runs": runs}, f, indent=2)
@@ -1437,12 +1498,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the port (no arguments: all "
                                  "phases)")
     ap.add_argument("--kernel-times", action="store_true",
-                    help="only build and print K1b/K2b/K3f/K3b/K4f/K4b times as one JSON line")
+                    help="only build and print the eight kernels' times as one JSON line")
     ap.add_argument("--root", default=REPO, help="checkout whose m2mixer_tpu_torch is timed "
                     "(with --kernel-times)")
     ap.add_argument("--ab", metavar="PARENT",
-                    help="K1b/K2b/K3f/K3b/K4f/K4b times of the checkout PARENT against this "
-                    "one, in turns")
+                    help="the eight kernels' times of the checkout PARENT against this one, "
+                    "in turns")
     args = ap.parse_args()
     if args.ab:
         return ab_times(os.path.abspath(args.ab))
@@ -1462,7 +1523,13 @@ def main() -> int:
 
     if args.kernel_times:
         _build.load_library()
-        print(json.dumps({**kernel_times(torch, mk, gk, dk), "card": card_line()}))
+        fwd = {flavor: serving.serve_fn(kernel_task(serving, apply_cli_overrides, load_cfg,
+                                                    flavor)[0])
+               for flavor in ("plain", "stacked", "per_block")}
+        e2e = b_served_times(torch, np, fwd)
+        e2e.update(b_train_step_times(torch, serving, Trainer, apply_cli_overrides, load_cfg,
+                                      synthetic_avmnist_arrays))
+        print(json.dumps({**kernel_times(torch, mk, gk, dk), "e2e_ms": e2e, "card": card_line()}))
         return 0
     t_start = time.time()
     report = {"errors": {}, "bf16_checks": {}, "times_ms": {}, "bounds_ms": {}}
@@ -1509,14 +1576,16 @@ def main() -> int:
     b7, by7 = report["bounds_ms"]["K4f/B512"]
     b8, by8 = report["bounds_ms"]["K4b/B512"]
     kernels = [
-        {"name": "mixer_block_fwd (K1f, one MixerBlock, B=512 N=4 D=128 T=32 C=3072 f32)",
+        {"name": "mixer_fwd (K1f, one MixerBlock, B=512 N=4 D=128 T=32 C=3072 f32, channel FF "
+                 "on 3xTF32 tensor cores)",
          "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/mixer_fwd.cu",
          "replaces": "m2mixer_tpu/ops/mixer_kernel.py:213",
          "launches": report["main_path_launches"]["K1f"],
          "max_abs_err": report["errors"]["K1f/encoder/f32/erf"],
          "ms": t["K1f/encoder/B512/f32"], "plain_ms": t["K1f_plain/encoder/B512/f32"],
          "bound_ms": b1, "bound_by": by1, "library_ms": None},
-        {"name": "mixer_stack_fwd (K2f, 4 MixerBlocks + LN, B=512 N=4 D=128 T=32 C=3072 f32)",
+        {"name": "mixer_fwd (K2f, 4 MixerBlocks + LN, B=512 N=4 D=128 T=32 C=3072 f32, "
+                 "channel FF on 3xTF32 tensor cores)",
          "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/mixer_fwd.cu",
          "replaces": "m2mixer_tpu/ops/mixer_kernel.py:421",
          "launches": report["main_path_launches"]["K2f"],

@@ -110,10 +110,15 @@ def _declare(lib):
     lib.m2m_mixer_smem_bytes.restype = c_size_t
     lib.m2m_error_string.argtypes = [c_int]
     lib.m2m_error_string.restype = ctypes.c_char_p
-    lib.m2m_mixer_block_fwd.argtypes = ([c_void_p, c_void_p] + [c_int] * 9 + dropout
+    lib.m2m_mixer_fwd_workspace_bytes.argtypes = [c_int] * 7
+    lib.m2m_mixer_fwd_workspace_bytes.restype = c_size_t
+    lib.m2m_mixer_fwd.argtypes = ([c_void_p] * 3 + [c_int] * 8 + dropout
+                                  + [c_int] + [c_void_p] * 3)
+    lib.m2m_mixer_fwd.restype = c_int
+    lib.m2m_mixer_block_fwd.argtypes = ([c_void_p, c_void_p] + [c_int] * 8 + dropout
                                         + [c_int, c_void_p, c_void_p])
     lib.m2m_mixer_block_fwd.restype = c_int
-    lib.m2m_mixer_stack_fwd.argtypes = ([c_void_p, c_void_p] + [c_int] * 11 + dropout
+    lib.m2m_mixer_stack_fwd.argtypes = ([c_void_p, c_void_p] + [c_int] * 10 + dropout
                                         + [c_void_p, c_int, c_void_p, c_void_p])
     lib.m2m_mixer_stack_fwd.restype = c_int
     lib.m2m_mixer_bwd_workspace_bytes.argtypes = [c_int] * 8

@@ -154,8 +154,9 @@ __device__ void load_token_weights(float* tw, const TokenPtrs& p, int N, int T) 
 // token FF per (sample, d) column: xs += rd(gelu(y w1 + b1) * m0 w2 + b2) * m1, all
 // of a sample's N tokens in registers, weights in shared memory
 // (load_token_weights). Sample s of the tile is sample s0 + s of the batch, and
-// `blk` the block's index in the launch (both key the dropout masks).
-template <bool kBF16, bool kDrop = true>
+// `blk` the block's index in the launch (both key the dropout masks). kMaxN >= N
+// sizes the per-thread token arrays (a smaller bound costs fewer registers).
+template <bool kBF16, bool kDrop = true, int kMaxN = kMaxTokens>
 __device__ void token_mix(const float* ys, float* xs, int nb, int N, int T, int D,
                           const float* tw, int tanh_flavor, const Dropout& dp, int blk, int s0) {
   const float* w1 = tw;
@@ -166,24 +167,24 @@ __device__ void token_mix(const float* ys, float* xs, int nb, int N, int T, int 
     const int s = item / D, d = item - s * D;
     const int base = s * N * D + d;
     const uint32_t col = (uint32_t)(s0 + s) * D + d;  // row of masks 0 and 1
-    float in[kMaxTokens], acc[kMaxTokens];
+    float in[kMaxN], acc[kMaxN];
 #pragma unroll
-    for (int n = 0; n < kMaxTokens; ++n) {
+    for (int n = 0; n < kMaxN; ++n) {
       in[n] = n < N ? ys[base + n * D] : 0.f;
       acc[n] = 0.f;
     }
     for (int j = 0; j < T; ++j) {
       float h = 0.f;
 #pragma unroll
-      for (int n = 0; n < kMaxTokens; ++n)
+      for (int n = 0; n < kMaxN; ++n)
         if (n < N) h += in[n] * w1[n * T + j];
       h = rd<kBF16>(gelu(h + b1[j], tanh_flavor) * keep<kDrop>(dp, blk, 0, col * T + j));
 #pragma unroll
-      for (int n = 0; n < kMaxTokens; ++n)
+      for (int n = 0; n < kMaxN; ++n)
         if (n < N) acc[n] += h * w2[j * N + n];
     }
 #pragma unroll
-    for (int n = 0; n < kMaxTokens; ++n) {
+    for (int n = 0; n < kMaxN; ++n) {
       if (n < N) {
         float* xp = xs + base + n * D;
         const float m1 = keep<kDrop>(dp, blk, 1, col * N + n);

@@ -1,13 +1,13 @@
 // Device code shared by the backward kernels (mixer_bwd.cu, gmlp.cu,
-// dynamixer.cu) and the gMLP and DynaMixerOp forwards: the tensor-core GEMM
+// dynamixer.cu) and the float32 forwards, mixer_fwd.cu's too: the tensor-core GEMM
 // tile, the compensated (Kahan) sum, the LayerNorm backward over rows with
 // its parameter gradients' per-tile partials, and row-sliced column sums and
 // reductions of partials over several jobs a launch. No float atomics
 // anywhere: every sum has one order, so two runs give bit-identical results.
 //
 // The GEMM, tc_gemm: out[z] = epi(A B) over k-slice z on strided Views, the
-// tile of every product of K1b, K2b, K3f, K3b, K4f and K4b. What bounds their
-// products is the rate of float32 multiply-adds: the CUDA cores give 67
+// tile of every float32 product (K1f, K2f, K1b, K2b, K3f, K3b, K4f, K4b). Their
+// bound is the rate of float32 multiply-adds: the CUDA cores give 67
 // TFLOP/s, the tensor cores 495 in TF32, but a single TF32 product keeps
 // about three decimal digits, too few for the 1e-4 relative gates the
 // kernels are held to. So every product is 3xTF32: with x_big = tf32(x) and

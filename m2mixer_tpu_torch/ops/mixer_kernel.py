@@ -55,7 +55,7 @@ __all__ = [
 ]
 
 _N_BLOCK_PARAMS = 12
-_ROWS_MAX = 64  # kRowsMax in csrc/mixer_fwd.cu
+_ROWS_MAX = 64  # kRowsMax in csrc/mixer_fwd.cu (the bf16 route)
 _MAX_TOKENS = 32  # kMaxTokens
 _MAX_BLOCKS = 32  # kMaxBlocks
 _MASKS = 4  # kMasks: dropout masks per block
@@ -283,11 +283,12 @@ def _device_limits(index: int):
 
 
 def _tile_plan(lib, b: int, n: int, d: int, t: int, bf16: bool, sms: int, limit: int):
-    """(samples per row tile, CTAs per cluster) on a card of ``sms`` SMs
-    offering ``limit`` bytes of shared memory per CTA. Tiles of two samples,
-    grown (up to 64 rows) until the tiles fit on the SMs in one wave; then
-    the largest cluster of 1, 2 or 4 CTAs that still fits splits each
-    tile's hidden units. The tile shrinks when shared memory demands it."""
+    """(samples per row tile, CTAs per cluster) of the bf16 route's resident
+    kernel on a card of ``sms`` SMs offering ``limit`` bytes of shared memory
+    per CTA. Tiles of two samples, grown (up to 64 rows) until the tiles fit
+    on the SMs in one wave; then the largest cluster of 1, 2 or 4 CTAs that
+    still fits splits each tile's hidden units. The tile shrinks when shared
+    memory demands it."""
     tb = 2
     while tb * 2 * n <= _ROWS_MAX and -(-b // tb) > sms:
         tb *= 2
@@ -300,6 +301,18 @@ def _tile_plan(lib, b: int, n: int, d: int, t: int, bf16: bool, sms: int, limit:
     tiles = -(-b // tb)
     cluster = next((s for s in (4, 2) if tiles * s <= sms), 1)
     return tb, cluster
+
+
+def _fwd_workspace_bytes(lib, b: int, n: int, t: int, d: int, c: int, n_blocks: int,
+                         dev: int) -> int:
+    """Bytes of device workspace the float32 route (``m2m_mixer_fwd``) needs:
+    the activations between its launches (x1, z, h2 and the down product's
+    slices of C) and, where C is no multiple of 4, the padded W3 copies."""
+    nbytes = lib.m2m_mixer_fwd_workspace_bytes(b, n, t, d, c, n_blocks, dev)
+    if nbytes == 0:
+        raise ValueError(f"the CUDA mixer forward does not take B={b} N={n} T={t} D={d} "
+                         f"C={c} ({n_blocks} blocks)")
+    return nbytes
 
 
 def _kernel_args(x, flat, n_blocks: int, bf16: bool):
@@ -355,6 +368,9 @@ def _device_index(x) -> int:
 
 def _launch(entry: str, x, flat, n_blocks: int, final_ln: bool, compute_dtype,
             approximate_gelu: bool, seed=None, rate: float = 0.0, saved=None):
+    """float32: ``m2m_mixer_fwd`` (the channel FF on the tensor cores, a
+    pipeline of launches through a workspace); bf16: the resident-tile
+    kernel of ``entry`` ("block" or "stack")."""
     from ._build import check, load_library
 
     lib = load_library()
@@ -363,21 +379,28 @@ def _launch(entry: str, x, flat, n_blocks: int, final_ln: bool, compute_dtype,
     T, C, params = _kernel_args(x, flat, n_blocks, bf16)
     B, N, D = x.shape
     dev = _device_index(x)
-    tb, cluster = _tile_plan(lib, B, N, D, T, bf16, *_device_limits(dev))
     out = torch.empty_like(x)
     ptrs = (ctypes.c_void_p * len(params))(*[p.data_ptr() for p in params])
     keys, thresh, scale = _dropout_args(seed, rate, n_blocks)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    saved_ptr = None if saved is None else saved.data_ptr()
+    if not bf16:
+        nbytes = _fwd_workspace_bytes(lib, B, N, T, D, C, n_blocks, dev)
+        workspace = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+        code = lib.m2m_mixer_fwd(x.data_ptr(), out.data_ptr(), saved_ptr, B, N, T, D, C,
+                                 n_blocks, int(final_ln), int(approximate_gelu), keys, thresh,
+                                 scale, dev, ptrs, workspace.data_ptr(), stream)
+        check(lib, code, f"mixer {entry} kernel launch")
+        return out
+    tb, cluster = _tile_plan(lib, B, N, D, T, bf16, *_device_limits(dev))
     if entry == "block":
         code = lib.m2m_mixer_block_fwd(x.data_ptr(), out.data_ptr(), B, N, T, D, C, tb,
-                                       cluster, int(bf16), int(approximate_gelu), keys, thresh,
-                                       scale, dev, ptrs, stream)
+                                       cluster, int(approximate_gelu), keys, thresh, scale, dev,
+                                       ptrs, stream)
     else:
         code = lib.m2m_mixer_stack_fwd(x.data_ptr(), out.data_ptr(), B, N, T, D, C, tb,
-                                       cluster, n_blocks, int(final_ln), int(bf16),
-                                       int(approximate_gelu), keys, thresh, scale,
-                                       None if saved is None else saved.data_ptr(), dev, ptrs,
-                                       stream)
+                                       cluster, n_blocks, int(final_ln), int(approximate_gelu),
+                                       keys, thresh, scale, saved_ptr, dev, ptrs, stream)
     check(lib, code, f"mixer {entry} kernel launch")
     return out
 

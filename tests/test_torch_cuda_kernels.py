@@ -237,6 +237,69 @@ def test_mixer_backward_tensor_core_edges(cuda, case, rate):
         assert torch.equal(dx, dx2) and all(torch.equal(a, c) for a, c in zip(grads, grads2))
 
 
+FWD_SHAPES = {"odd_widths": dict(N=3, D=20, T=7, C=46), "encoder": SHAPES["encoder"],
+              "fusion": SHAPES["fusion"]}
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("B", [1, 7, 600])
+@pytest.mark.parametrize("shape", sorted(FWD_SHAPES))
+def test_forward_tensor_core_edges(cuda, shape, B, rate):
+    """K1f, and K2f as 2 blocks + LN, in float32 (the channel FF on the
+    3xTF32 tile) against the plain versions where the tiles have ragged
+    edges: odd widths (C = 46 padded to 48), one sample, 600 samples (more
+    rows than the batch-512 plans); two runs bit-identical."""
+    geom = FWD_SHAPES[shape]
+    blocks, s, b = blocks_on(cuda, 2, **geom)
+    x = torch.randn(B, geom["N"], geom["D"], device=cuda)
+    flat = mk.stack_flat_params(blocks, s, b)
+    check = (lambda got, want: assert_close(got, want, False)) if rate == 0 else rel_close
+    before = (mk.fused_mixer_block.launches, mk.fused_mixer_stack.launches)
+    k1f = lambda: mk.fused_mixer_block(x, blocks[0], seed=3, dropout_rate=rate)
+    k2f = lambda: mk.fused_mixer_stack(x, flat, seed=4, dropout_rate=rate)
+    for run, want in ((k1f, mk.mixer_block_reference(x, blocks[0], rate, seed=3)),
+                      (k2f, mk.mixer_stack_reference(x, flat, dropout_rate=rate, seed=4))):
+        out = run()
+        check(out, want)
+        assert torch.equal(out, run())
+    assert (mk.fused_mixer_block.launches, mk.fused_mixer_stack.launches) == \
+        (before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.parametrize("shape", sorted(FWD_SHAPES))
+def test_stack_saved_slots_chain_block_outputs(cuda, shape):
+    """K2f's saved slots (what K2b reads) are x and then, bit for bit, the
+    outputs of K1f called block after block; its output is the plain final LN
+    of the last one."""
+    geom = FWD_SHAPES[shape]
+    blocks, s, b = blocks_on(cuda, 3, **geom)
+    x = torch.randn(7, geom["N"], geom["D"], device=cuda)
+    flat = mk.stack_flat_params(blocks, s, b)
+    out, saved = mk._stack_forward(x, flat, None, 0.0, torch.float32, True, False, save=True)
+    chain = [x]
+    for blk in blocks:
+        chain.append(mk.fused_mixer_block(chain[-1], blk))
+    assert saved.shape == (4, *x.shape)
+    for k, want in enumerate(chain):
+        assert torch.equal(saved[k], want), k
+    rows = chain[-1].reshape(-1, geom["D"])
+    want = torch.nn.functional.layer_norm(rows, (geom["D"],), s, b, 1e-5).reshape(x.shape)
+    assert_close(out, want, False)
+
+
+def test_forward_workspace_matches_the_mirror(cuda):
+    """m2m_mixer_fwd_workspace_bytes against tests/test_torch_mixer_fwd_plan.py's
+    Python mirror of its plan, on this card's SM count."""
+    from m2mixer_tpu_torch.ops._build import load_library
+    from test_torch_mixer_fwd_plan import PLANS, fwd_workspace_floats
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = load_library()
+    for shape, _, _ in PLANS.values():
+        assert lib.m2m_mixer_fwd_workspace_bytes(*shape, 0) == \
+            4 * fwd_workspace_floats(*shape, sms=sms), shape
+
+
 @pytest.mark.parametrize("shape", ["encoder", "fusion"])
 def test_dropout_forward_matches_plain_and_keeps_half(cuda, shape):
     geom = SHAPES[shape]
