@@ -31,7 +31,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    0 and 2); batch 32 and 512, erf and tanh, dropout 0 and 0.5; dx and every
    parameter gradient. Also: the forward at dropout 0.5 equals its plain
    version, the kept share is 0.5 +- 0.01, and two backward runs give
-   bit-identical gradients;
+   bit-identical gradients. Then the same cases in bf16 compute (float32
+   parameters, w3/w4 read rounded to bf16): dx and
+   every gradient against autograd of the plain bf16 version, each against
+   a control (the float32 backward, rounded where the bf16 one rounds) that
+   must fail the check; two runs bit-identical;
 5. K3f / K3b, the gMLP block kernels, against the plain version and its
    autograd at the gMLP config's shapes (D=128, F=768; encoder N=49, fusion
    N=99), batch 32 and 512, erf and tanh, dropout 0 and 0.5: the output, dx
@@ -97,7 +101,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     (dropout 0.5, Adam at lr 1e-4) for 5 epochs of 1024/256/256 learnable
     synthetic samples at batch 32 (it learns from the third): losses finite,
     train loss falling, val and test accuracy at least 0.2; K4f and K4b
-    launched (counters zeroed just before, read just after);
+    launched (counters zeroed just before, read just after). Then the bf16
+   recipe B_turbo (``cfg/avmnist/avmnist_m2-mixer_B_turbo.yml``, full width
+   and depth: bf16, tanh GELU, bits dropout, paired encoders, Adam with a
+   bf16 first moment) on path (a), as shipped (a ``PairedMLPMixer`` and the
+   plain ``FusionMixer``, no kernel), and path (b), both kernel block types
+   (bf16 K2f/K2b, K1f/K1b): step 1 at ``model.dropout=0.0`` on the card
+   against the same network on the CPU (where every kernel wrapper takes its
+   plain version), the losses and every gradient within 2e-2 x max(1,
+   max|CPU|); then ``run.main`` for 2 epochs of 1024/256/256 learnable
+   synthetic samples at batch 32 and the config's dropout 0.5 per path:
+   losses finite, train loss falling, val and test accuracy at least 0.2;
+   the bf16 K1b/K2b counters zeroed just before each run and read just
+   after, non-zero on (b), every mixer counter zero on (a). Path (c):
+   ``serving export --pallas`` of path (a)'s best weights (the paired
+   encoders un-paired into per-modality bf16 K2f stacks), requests of 1, 7,
+   32, 100 and 600 samples against the paired network on the card, the K2f
+   counter zeroed just before and read just after;
 13. times (CUDA events, median of 5 runs): the mixer kernels and their plain
     versions (K1f, K2f, K1b and K2b at the encoder and fusion shapes, with
     their float32 and 3xTF32 bounds), the served B forward at batch 32 and
@@ -116,7 +136,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     kernels take (``torch.profiler``), so the share of the call in which the
     card is busy; then each product of K1b, K3f, K3b, K4f and K4b at batch 512
     timed as one ``torch.matmul`` in float32 (TF32 off), a yardstick per
-    product that the port never calls;
+    product that the port never calls, and K1b's also as one bf16
+    ``torch.matmul``; then the bf16 K1b and K2b alone at the encoder and
+    fusion shapes at batch 32 and 512 with their plain versions, their
+    bound at the dense bf16 peak and at the 2xTF32 rate, and the B_turbo
+    served forward and train step at batch 32 and 512 on paths (a) and (b);
 16. one JSON line naming every ported kernel, the card's name and power limit,
     and the result line ``{"ok": true, "device": {...}}``.
 
@@ -141,7 +165,16 @@ logits, gradient) within 1e-4 x max(1, max|plain|) (served logits 2e-4 x),
 none exempt: the token projection starts at bias 1, so magnitudes grow with
 width and depth, and no gMLP gradient is exactly zero in the math. The
 DynaMixer path's checks are relative the same way (the card against the CPU
-for the served logits and the train step).
+for the served logits and the train step). bf16 gradients: each tensor
+within 2e-2 x max(1, max|plain|); those a cast rounds on the bf16 grid, and
+of all their elements taken together at most 10% (K1b) or 40% (K2b, 4
+blocks + LN) differing from the plain version's: a sum over upstream values
+that each may sit one ulp off rounds to the other neighbour now and then,
+and through a stack that compounds (two plain versions, cuBLAS on the card
+and the CPU, differ in about a fifth of the stack's rounded elements; the
+float32-math control in about four fifths, and must fail). B_turbo's served
+logits within 5e-2 of the plain paired network's max magnitude (the paired
+chain keeps its LayerNorm statistics in bf16, the kernels in float32).
 
 The run writes its numbers to ``chiprun_out/chip_smoke.json``.
 """
@@ -355,17 +388,18 @@ def grad_err(torch, got, want, what: str) -> float:
     return worst
 
 
-def plain_grouped(mk, x, blocks, s, b, seed, rate, group_size, approx):
+def plain_grouped(mk, x, blocks, s, b, seed, rate, group_size, approx, compute_dtype=None):
     """The plain version of fused_mixer_stack_grouped (group seeds folded)."""
     k = len(blocks)
+    cd = compute_dtype or x.dtype
     if group_size <= 0 or group_size >= k:
-        return mk.mixer_stack_reference(x, mk.stack_flat_params(blocks, s, b),
+        return mk.mixer_stack_reference(x, mk.stack_flat_params(blocks, s, b), cd,
                                         approximate_gelu=approx, dropout_rate=rate, seed=seed)
     for gi, start in enumerate(range(0, k, group_size)):
         group = blocks[start:start + group_size]
         last = start + len(group) >= k
         flat = mk.stack_flat_params(group, s, b) if last else mk.stack_flat_params(group)
-        x = mk.mixer_stack_reference(x, flat, final_ln=last, approximate_gelu=approx,
+        x = mk.mixer_stack_reference(x, flat, cd, final_ln=last, approximate_gelu=approx,
                                      dropout_rate=rate, seed=seed + 7919 * gi)
     return x
 
@@ -672,17 +706,17 @@ def phase_times(torch, mk, serving, np, plain, models, report):
             x = torch.randn(B, geom["N"], geom["D"], generator=torch.Generator().manual_seed(3)).cuda()
             for dtype, cd in (("f32", torch.float32), ("bf16", torch.bfloat16)):
                 tag = f"{geom_name}/B{B}/{dtype}"
-                # weights stored as the kernel-backed modules store them
-                nflat = mk.cast_params(flat, cd)
-                block = mk.MixerBlockParams(*nflat[:12])
+                # float32 weights, as the kernel-backed modules hold them (in bf16
+                # the wrapper hands the kernel bf16 copies of w3/w4 on each call)
+                block = mk.MixerBlockParams(*flat[:12])
                 times[f"K1f/{tag}"] = cuda_ms(torch, lambda: mk.fused_mixer_block(
                     x, block, compute_dtype=cd))
                 times[f"K1f_plain/{tag}"] = cuda_ms(torch, lambda: mk.mixer_block_reference(
                     x, block, compute_dtype=cd))
                 times[f"K2f/{tag}"] = cuda_ms(torch, lambda: mk.fused_mixer_stack(
-                    x, nflat, compute_dtype=cd))
+                    x, flat, compute_dtype=cd))
                 times[f"K2f_plain/{tag}"] = cuda_ms(torch, lambda: mk.mixer_stack_reference(
-                    x, nflat, compute_dtype=cd))
+                    x, flat, compute_dtype=cd))
                 flops, pbytes = block_work(B, **geom, wbytes=2 if dtype == "bf16" else 4)
                 act = 2 * B * geom["N"] * geom["D"] * 4
                 report["bounds_ms"][f"K1f/{tag}"] = bound(flops, pbytes + act, dtype)
@@ -725,19 +759,27 @@ MIXER_STACKS = (("encoder", ENC, 4), ("fusion", FUSION, 2))  # the B config's tw
 
 def mixer_bwd_calls(torch, mk, geom, K, B):
     """K1b and K2b (K blocks + LN) at the training config's dropout 0.5, and
-    their plain versions, on seeded inputs: {name: call}."""
+    their plain versions, on seeded inputs, in float32 and in bf16 compute:
+    {name: call}."""
     blocks, ln_s, ln_b = rand_blocks(mk, torch, K, seed=23, **geom)
     flat = mk.stack_flat_params(blocks, ln_s, ln_b)
     gen = torch.Generator().manual_seed(5)
     x = torch.randn(B, geom["N"], geom["D"], generator=gen).cuda()
     g = torch.randn(B, geom["N"], geom["D"], generator=gen).cuda()
-    with torch.no_grad():
-        _, saved = mk._stack_forward(x, flat, 1, 0.5, torch.float32, True, False, save=True)
-    return {"K1b": lambda: mk.fused_mixer_block_bwd(x, g, blocks[0], seed=1, dropout_rate=0.5),
-            "K1b_plain": lambda: mk.mixer_block_bwd_reference(x, g, blocks[0], 0.5, seed=1),
-            "K2b": lambda: mk.fused_mixer_stack_bwd(x, g, flat, seed=1, dropout_rate=0.5,
-                                                    saved=saved),
-            "K2b_plain": lambda: mk.mixer_stack_bwd_reference(x, g, flat, 0.5, seed=1)}
+    calls = {}
+    for suffix, cd in (("", torch.float32), ("_bf16", torch.bfloat16)):
+        with torch.no_grad():
+            _, saved = mk._stack_forward(x, flat, 1, 0.5, cd, True, False, save=True)
+        calls.update({
+            f"K1b{suffix}": lambda cd=cd: mk.fused_mixer_block_bwd(
+                x, g, blocks[0], seed=1, dropout_rate=0.5, compute_dtype=cd),
+            f"K1b{suffix}_plain": lambda cd=cd: mk.mixer_block_bwd_reference(
+                x, g, blocks[0], 0.5, cd, seed=1),
+            f"K2b{suffix}": lambda cd=cd, saved=saved: mk.fused_mixer_stack_bwd(
+                x, g, flat, seed=1, dropout_rate=0.5, compute_dtype=cd, saved=saved),
+            f"K2b{suffix}_plain": lambda cd=cd: mk.mixer_stack_bwd_reference(
+                x, g, flat, 0.5, cd, seed=1)})
+    return calls
 
 
 def phase_train_times(torch, mk, serving, Trainer, apply_overrides, load_cfg, synthetic, report):
@@ -748,7 +790,8 @@ def phase_train_times(torch, mk, serving, Trainer, apply_overrides, load_cfg, sy
             tag = f"{geom_name}/B{B}"
             calls = mixer_bwd_calls(torch, mk, geom, K, B)
             for name, fn in calls.items():
-                times[f"{name}/{tag}"] = cuda_ms(torch, fn)
+                if "bf16" not in name:  # phase_bf16_times times those
+                    times[f"{name}/{tag}"] = cuda_ms(torch, fn)
             if B == 512:
                 report.setdefault("breakdown_us", {})[f"K1b/{tag}"] = kernel_breakdown(
                     torch, calls["K1b"], f"K1b {tag}")
@@ -810,6 +853,347 @@ def b_served_times(torch, np, fwd: dict) -> dict:
         for flavor, fn in fwd.items():
             times[f"served/{flavor}/B{B}"] = cuda_ms(torch, lambda: fn(feats))
     return times
+
+
+# ------------------------------------------------- bf16 training: B_turbo
+TURBO_CFG = os.path.join(REPO, "cfg", "avmnist", "avmnist_m2-mixer_B_turbo.yml")
+# which of a block's 12 gradients bf16 compute rounds to bf16 (the transposes
+# of its casts): all but the biases b1..b4, which add in float32
+BF16_ROUNDED = (True, True, True, False, True, False, True, True, True, False, True, False)
+# the share of the rounded gradients' elements allowed to differ from the plain
+# version's, all of a call's tensors taken together: a reduction over upstream
+# values that each may sit one bf16 ulp off rounds to the other neighbour now
+# and then, and through a stack of blocks that compounds; the tile's float32
+# accumulation, less exact than cuBLAS's, adds flips of its own. The plain
+# version on the CPU against the card's measures that floor each run
+# (``cpu_share_differing``). K1b's limit is the bf16 forward's; K2b's sits above
+# the floor of a 4-block stack; the float32-math control exceeds both
+BF16_GRAD_SHARE = {"K1b": 0.10, "K2b": 0.40}
+# served logits of the bf16 K2f stacks against the paired plain network: the
+# two round at different points (the paired chain keeps its LN statistics in
+# bf16, the kernels in float32), as the plain bf16 modules and flax do
+TURBO_SERVED_REL = 5e-2
+TURBO_FLAVORS = ("paired", "stacked", "per_block")  # paired: the config as shipped (path a)
+TC_2XTF32 = 495e12 / 2  # one bf16 operand: two of 3xTF32's three TF32 products
+# the token FF's output bias in the plain, paired, stacked and per-block layouts
+TOKEN_OUT_BIAS = ("token_mix.fc2.bias", "token_fc2_bias", "_b2", ".b2")
+
+
+def bf16_grad_check(torch, got, want, control, cpu, rounded, limit, what, report,
+                    dead=()) -> float:
+    """bf16 gradients: every tensor finite and within BF16_REL x max(1,
+    max|plain|); those a cast rounds on the bf16 grid, and of all their
+    elements at most ``limit`` differing from the plain version's. A gradient
+    that is exactly zero in the math (``dead``: the token FF's output bias of
+    a block followed only by LayerNorms, at dropout 0) is rounding noise on
+    both sides in bf16, a sum of B*D residual-stream values each rounded to
+    bf16 (about 0.5 at batch 32): both sides within BF16_REL x the largest
+    gradient of the call, as the JAX package's bf16 gradient test holds its
+    dead leaves. The ``control`` (the float32 backward, rounded where the
+    bf16 one rounds) must fail the same check. ``cpu``: the plain version on
+    the CPU, a second correct implementation; the share of its rounded
+    elements that differ from the card's plain version is reported, the
+    floor any implementation of these sums meets. Returns the worst absolute
+    error."""
+    dead = tuple(dead) or (False,) * len(want)
+    scale = max(w.abs().max().item() for w in want)
+
+    def stats(ts):
+        ratio = worst = diff = total = 0
+        grid = True
+        for a, w, r, d in zip(ts, want, rounded, dead):
+            if d:
+                ratio = max(ratio, max(a.abs().max().item(), w.abs().max().item())
+                            / (BF16_REL * scale))
+                continue
+            err = (a - w).abs().max().item()
+            worst = max(worst, err)
+            ratio = max(ratio, err / (BF16_REL * max(1.0, w.abs().max().item())))
+            if r:
+                grid = grid and bool((a == a.to(torch.bfloat16).float()).all())
+                diff += int((a != w).sum())
+                total += a.numel()
+        return ratio, worst, diff / total, grid
+
+    if not all(bool(torch.isfinite(a).all()) for a in got):
+        raise AssertionError(f"{what}: non-finite gradient")
+    ratio, worst, share, grid = stats(got)
+    c_ratio, c_worst, c_share, c_grid = stats(control)
+    cpu_share = stats([t.to(want[0].device) for t in cpu])[2]
+    print(f"  {what}: worst |err| {worst:.3e} ({ratio:.3f} of its tolerance), rounded elements "
+          f"differing {share:.4f} (tol {limit}; the plain version on the CPU {cpu_share:.4f}); "
+          f"float32-math control: {c_ratio:.3f} of tolerance, differing {c_share:.4f}")
+    report["bf16_checks"][what] = {"max_abs_err": worst, "err_over_tol": ratio,
+                                   "share_differing": share, "cpu_share_differing": cpu_share,
+                                   "control_err_over_tol": c_ratio,
+                                   "control_share_differing": c_share}
+    if not (grid and ratio <= 1.0 and share <= limit):
+        raise AssertionError(f"{what}: on bf16 grid {grid}, error {ratio} of tolerance, "
+                             f"share differing {share} (tol {limit})")
+    if c_grid and c_ratio <= 1.0 and c_share <= limit:
+        raise AssertionError(f"{what}: the float32-math control passes the bf16 check, "
+                             "so the check cannot see skipped rounding points")
+    return worst
+
+
+def phase_bf16_backward(torch, mk, report):
+    print("[4/16] K1b / K2b in bf16 compute vs autograd of the plain bf16 versions "
+          "(float32 parameters, w3/w4 read rounded to bf16)")
+    bf16 = torch.bfloat16
+    for B in (32, 512):
+        for geom_name, geom in (("encoder", ENC), ("fusion", FUSION)):
+            blocks, _, _ = rand_blocks(mk, torch, 1, seed=21, **geom)
+            gen = torch.Generator().manual_seed(B)
+            x = torch.randn(B, geom["N"], geom["D"], generator=gen).cuda()
+            g = torch.randn(B, geom["N"], geom["D"], generator=gen).cuda()
+            for rate in (0.0, 0.5):
+                for approx in (False, True):
+                    key = f"K1b_bf16/{geom_name}/B{B}/rate{rate}/{'tanh' if approx else 'erf'}"
+                    run = lambda: mk.fused_mixer_block_bwd(x, g, blocks[0], seed=7,
+                                                           dropout_rate=rate, compute_dtype=bf16,
+                                                           approximate_gelu=approx)
+                    dx, grads = run()
+                    want = mk.mixer_block_bwd_reference(x, g, blocks[0], rate, bf16, approx,
+                                                        seed=7)
+                    f32 = mk.mixer_block_bwd_reference(x, g, blocks[0], rate,
+                                                       approximate_gelu=approx, seed=7)
+                    cpu = mk.mixer_block_bwd_reference(
+                        x.cpu(), g.cpu(), [t.cpu() for t in blocks[0]], rate, bf16, approx,
+                        seed=7)
+                    rounded = (True, *BF16_ROUNDED)
+                    control = [round_bf16(torch, t) if r else t
+                               for t, r in zip((f32[0], *f32[1]), rounded)]
+                    report["errors"][key] = bf16_grad_check(
+                        torch, (dx, *grads), (want[0], *want[1]), control, (cpu[0], *cpu[1]),
+                        rounded, BF16_GRAD_SHARE["K1b"], key, report)
+                    dx2, grads2 = run()
+                    if not all(torch.equal(a, b) for a, b in zip((dx, *grads), (dx2, *grads2))):
+                        raise AssertionError(f"{key}: two backward runs differ")
+    for B in (32, 512):
+        blocks, s, b = rand_blocks(mk, torch, 4, seed=22, **ENC)
+        gen = torch.Generator().manual_seed(B + 1)
+        x = torch.randn(B, ENC["N"], ENC["D"], generator=gen).cuda()
+        g = torch.randn(B, ENC["N"], ENC["D"], generator=gen).cuda()
+        for group in (0, 2):
+            for rate in (0.0, 0.5):
+                for approx in (False, True):
+                    key = (f"K2b_bf16/encoderx4/g{group}/B{B}/rate{rate}/"
+                           f"{'tanh' if approx else 'erf'}")
+                    leaves = [t.detach().requires_grad_() for blk in blocks for t in blk]
+                    ls, lb = s.detach().requires_grad_(), b.detach().requires_grad_()
+                    lblocks = [mk.MixerBlockParams(*leaves[i:i + 12]) for i in range(0, 48, 12)]
+                    xx = x.detach().requires_grad_()
+                    wrt = [xx, *leaves, ls, lb]
+
+                    def run():
+                        out = mk.fused_mixer_stack_grouped(xx, lblocks, ls, lb, seed=9,
+                                                           dropout_rate=rate, compute_dtype=bf16,
+                                                           group_size=group,
+                                                           approximate_gelu=approx)
+                        return torch.autograd.grad(out, wrt, g)
+
+                    got = run()
+                    want = torch.autograd.grad(plain_grouped(mk, xx, lblocks, ls, lb, 9, rate,
+                                                             group, approx, bf16), wrt, g)
+                    f32 = torch.autograd.grad(plain_grouped(mk, xx, lblocks, ls, lb, 9, rate,
+                                                            group, approx), wrt, g)
+                    cwrt = [t.detach().cpu().requires_grad_() for t in wrt]
+                    cblocks = [mk.MixerBlockParams(*cwrt[1 + i:13 + i]) for i in range(0, 48, 12)]
+                    cpu = torch.autograd.grad(plain_grouped(mk, cwrt[0], cblocks, cwrt[-2],
+                                                            cwrt[-1], 9, rate, group, approx,
+                                                            bf16), cwrt, g.cpu())
+                    rounded = (True, *(BF16_ROUNDED * 4), True, True)
+                    control = [round_bf16(torch, t) if r else t for t, r in zip(f32, rounded)]
+                    # every block's b2 is exactly zero in the math at dropout 0
+                    b2 = tuple(i == 5 and rate == 0.0 for i in range(12))
+                    report["errors"][key] = bf16_grad_check(
+                        torch, got, want, control, cpu, rounded, BF16_GRAD_SHARE["K2b"], key,
+                        report, dead=(False, *(b2 * 4), False, False))
+                    if not all(torch.equal(a, c) for a, c in zip(got, run())):
+                        raise AssertionError(f"{key}: two backward runs differ")
+
+
+def turbo_task(serving, apply_overrides, load_cfg, flavor, extra=(), device="cuda"):
+    cfg = load_cfg(TURBO_CFG)
+    apply_overrides(cfg, [*KERNEL_BLOCKS.get(flavor, []), *extra], warn=False)
+    return serving._build_task(cfg, device=device), cfg
+
+
+def turbo_train_args(tmp, name, flavor):
+    return ["-c", TURBO_CFG, "-n", name, f"train.tensorboard_path={tmp}", "train.epochs=2",
+            "dataset.params.synthetic=true", "dataset.params.synthetic_learnable=true",
+            f"dataset.params.synthetic_sizes={TRAIN_SIZES}", *KERNEL_BLOCKS.get(flavor, [])]
+
+
+def bf16_counters(mk):
+    return {"K1b_bf16": mk.fused_mixer_block_bwd.bf16_launches,
+            "K2b_bf16": mk.fused_mixer_stack_bwd.bf16_launches, **counters(mk)}
+
+
+def zero_bf16_counters(mk):
+    zero_counters(mk)
+    mk.fused_mixer_block_bwd.bf16_launches = mk.fused_mixer_stack_bwd.bf16_launches = 0
+
+
+def phase_turbo_training(torch, mk, serving, run, apply_overrides, load_cfg, synthetic, np,
+                         report, tmp):
+    """Paths (a) (the config as shipped: paired encoders, plain fusion mixer)
+    and (b) (both kernel block types: bf16 K1f/K1b, K2f/K2b) of B_turbo.
+    Returns the best weights of the path-(a) run."""
+    print("[10/16] training B_turbo (bf16, paired encoders, bf16 Adam moment): step 1 on the "
+          "card against the CPU, then 2-epoch runs")
+    batch = synthetic(32, seed=3, learnable=True)
+    for flavor in TURBO_FLAVORS:
+        task, cfg = turbo_task(serving, apply_overrides, load_cfg, flavor, ["model.dropout=0.0"])
+        cpu, _ = turbo_task(serving, apply_overrides, load_cfg, flavor, ["model.dropout=0.0"],
+                            device="cpu")
+        cpu.network.load_state_dict(task.network.state_dict())
+        zero_bf16_counters(mk)
+        g_losses, g_grads = train_step_one(torch, task, {k: torch.from_numpy(v).cuda()
+                                                         for k, v in batch.items()})
+        launched = bf16_counters(mk)
+        c_losses, c_grads = train_step_one(torch, cpu, {k: torch.from_numpy(v)
+                                                        for k, v in batch.items()})
+        if flavor != "paired" and launched["K1b_bf16"] + launched["K2b_bf16"] <= 0:
+            raise AssertionError(f"B_turbo step 1 ({flavor}) launched no bf16 backward kernel")
+        names = sorted(g_grads)
+        key = f"B_turbo step 1/{flavor}: loss, branch losses"
+        report["errors"][key] = rel_err(torch, torch.stack(g_losses).cpu(),
+                                        torch.stack(c_losses), key, BF16_REL)
+        key = f"B_turbo step 1/{flavor}: {len(names)} parameter gradients"
+        # the token FF's output biases: every block is followed only by
+        # LayerNorms, so their gradients are exactly zero in the math and
+        # bf16 rounding noise on both sides (bf16_grad_check)
+        dead = [n for n in names if n.endswith(TOKEN_OUT_BIAS)]
+        live = [n for n in names if n not in dead]
+        report["errors"][key] = rel_err(torch, [g_grads[n].cpu() for n in live],
+                                        [c_grads[n] for n in live], key, BF16_REL)
+        scale = max(c_grads[n].abs().max().item() for n in names)
+        noise = max(max(g_grads[n].abs().max().item(), c_grads[n].abs().max().item())
+                    for n in dead)
+        print(f"  {len(dead)} exactly-zero gradients (token FF output biases): at most "
+              f"{noise:.3e} on either side (tol {BF16_REL} x {scale:.3e})")
+        if not dead or not noise <= BF16_REL * scale:
+            raise AssertionError(f"{key}: exactly-zero gradients {dead} reach {noise}")
+        del task, cpu
+
+    runs = report["turbo_runs"] = {}
+    for flavor in TURBO_FLAVORS:
+        runs[flavor] = train_run(run, np, turbo_train_args(tmp, f"turbo_{flavor}", flavor),
+                                 lambda: zero_bf16_counters(mk), lambda: bf16_counters(mk),
+                                 f"B_turbo {flavor}", MIN_ACC)
+        got = runs[flavor]["launches"]
+        if flavor == "paired" and any(got.values()):
+            raise AssertionError(f"the plain B_turbo run launched mixer kernels: {got}")
+        for name in {"stacked": ("K2f", "K2b_bf16"), "per_block": ("K1f", "K1b_bf16")}.get(
+                flavor, ()):
+            if got[name] <= 0:
+                raise AssertionError(f"{name} was never launched on the B_turbo training path")
+    report["turbo_training_launches"] = {"K1b_bf16": runs["per_block"]["launches"]["K1b_bf16"],
+                                         "K2b_bf16": runs["stacked"]["launches"]["K2b_bf16"]}
+    log_root = os.path.join(tmp, "turbo_paired")
+    version = sorted(os.listdir(log_root))[-1]
+    return os.path.join(log_root, version, "checkpoints", "best.npz")
+
+
+def phase_turbo_serving(torch, mk, serving, load_cfg, np, report, weights, tmp):
+    """Path (c): ``serving export --pallas`` of the trained paired weights
+    (per-modality bf16 K2f stacks) against the paired plain network."""
+    print("[10/16] serving the trained B_turbo weights through serving export --pallas (bf16 "
+          "K2f stacks, the paired encoders un-paired)")
+    art = os.path.join(tmp, "turbo_art")
+    serving.main(["export", "-c", TURBO_CFG, "-p", weights, "-o", art, "--pallas"])
+    model = serving.load_serving(art)
+    kinds = {type(m).__name__ for m in model.task.network.modules()}
+    if "PallasStackedMLPMixer" not in kinds or "PairedMLPMixer" in kinds:
+        raise AssertionError(f"the B_turbo kernel artifact holds {sorted(kinds)}")
+    cfg = load_cfg(TURBO_CFG)
+    plain = serving._build_task(cfg, device="cuda")
+    plain.network.load_state_dict(serving.load_npz(weights, plain.network))
+    rng = np.random.RandomState(1)
+    requests = {n: {"image": rng.rand(n, 1, 28, 28).astype(np.float32),
+                    "audio": rng.rand(n, 1, 112, 112).astype(np.float32)} for n in REQUESTS}
+    mk.fused_mixer_stack.launches = 0
+    answers = {n: model.predict(f) for n, f in requests.items()}
+    launches = mk.fused_mixer_stack.launches
+    print(f"  main-path launches: K2f {launches}")
+    if launches <= 0:
+        raise AssertionError("K2f was never launched serving B_turbo")
+    worst = 0.0
+    for n, got in answers.items():
+        want = serving.serve_fn(plain)({f: torch.from_numpy(v).cuda()
+                                        for f, v in requests[n].items()})
+        for g, w in [(got["logits"], want["logits"])] + list(zip(got["branch_logits"],
+                                                                 want["branch_logits"])):
+            w = w.float().cpu().numpy()
+            if g.shape != w.shape or not np.isfinite(g).all():
+                raise AssertionError(f"B_turbo request of {n}: bad output {g.shape}")
+            rel = float(np.abs(g - w).max() / np.abs(w).max())
+            worst = max(worst, rel)
+    print(f"  requests of {list(REQUESTS)}: worst |err| / max|plain| {worst:.3e} "
+          f"(tol {TURBO_SERVED_REL})")
+    if not worst <= TURBO_SERVED_REL:
+        raise AssertionError(f"B_turbo served logits differ from the paired network by {worst}")
+    report["turbo_served_rel_err"] = worst
+    report["turbo_serving_launches"] = launches
+    return model, plain
+
+
+def phase_bf16_times(torch, mk, serving, Trainer, apply_overrides, load_cfg, synthetic, np,
+                     report, served):
+    print("[13/16] bf16 K1b / K2b times (CUDA events, median of 5 runs of 20 calls), "
+          "B_turbo served forward and train step")
+    times, tc = report["times_ms"], report.setdefault("bounds_2xtf32_ms", {})
+    for geom_name, geom, K in MIXER_STACKS:
+        for B in (32, 512):
+            tag = f"{geom_name}/B{B}"
+            calls = {k: v for k, v in mixer_bwd_calls(torch, mk, geom, K, B).items()
+                     if "bf16" in k}
+            for name, fn in calls.items():
+                times[f"{name}/{tag}"] = cuda_ms(torch, fn)
+            if B == 512:
+                report.setdefault("breakdown_us", {})[f"K1b_bf16/{tag}"] = kernel_breakdown(
+                    torch, calls["K1b_bf16"], f"K1b bf16 {tag}")
+            # the float32 backward's work: the kernel reads the float32 parameters
+            # and rounds w3/w4 itself
+            flops, nbytes = bwd_work(B, **geom)
+            act = 3 * B * geom["N"] * geom["D"] * 4
+            ln_bytes = 4 * 4 * geom["D"]
+            report["bounds_ms"][f"K1b_bf16/{tag}"] = bound(flops, nbytes, "bf16")
+            stack_bytes = K * (nbytes - act) + act + ln_bytes
+            report["bounds_ms"][f"K2b_bf16/{tag}"] = bound(K * flops, stack_bytes, "bf16")
+            tc[f"K1b_bf16/{tag}"] = max(flops / TC_2XTF32, nbytes / HBM_BYTES_PER_S) * 1e3
+            tc[f"K2b_bf16/{tag}"] = max(K * flops / TC_2XTF32,
+                                        stack_bytes / HBM_BYTES_PER_S) * 1e3
+            print(f"  {tag}: K1b bf16 {times[f'K1b_bf16/{tag}']:.4f} ms (plain "
+                  f"{times[f'K1b_bf16_plain/{tag}']:.4f}, bf16-peak bound "
+                  f"{report['bounds_ms'][f'K1b_bf16/{tag}'][0]:.4f}, 2xTF32 bound "
+                  f"{tc[f'K1b_bf16/{tag}']:.4f}); K2b bf16 x{K} {times[f'K2b_bf16/{tag}']:.4f} ms "
+                  f"(plain {times[f'K2b_bf16_plain/{tag}']:.4f}, bf16-peak bound "
+                  f"{report['bounds_ms'][f'K2b_bf16/{tag}'][0]:.4f}, 2xTF32 bound "
+                  f"{tc[f'K2b_bf16/{tag}']:.4f})")
+    model, plain = served
+    fwd = {"turbo_paired": serving.serve_fn(plain), "turbo_stacked": model.forward_device}
+    times.update(b_served_times(torch, np, fwd))
+    data = synthetic(512, seed=4, learnable=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_turbo_steps_") as tmp:
+        for flavor in TURBO_FLAVORS:
+            task, cfg = turbo_task(serving, apply_overrides, load_cfg, flavor)
+            trainer = Trainer(cfg.train, name=f"turbo_steps_{flavor}", work_dir=tmp)
+            trainer.setup(task)
+            ctx = task.make_ctx(0, "train")
+            for B in (32, 512):
+                batch = {k: torch.from_numpy(v[:B]).cuda() for k, v in data.items()}
+                times[f"turbo_train_step/{flavor}/B{B}"] = cuda_ms(
+                    torch, lambda: trainer.train_step(task, batch, ctx), iters=10)
+            trainer.logger.close()
+            del task, trainer
+    print("  B_turbo served forward: " + ", ".join(
+        f"{k.split('/', 1)[1]} {v:.4f} ms" for k, v in times.items()
+        if k.startswith("served/turbo")))
+    print("  B_turbo train step (forward + backward + bf16-moment Adam, dropout 0.5): " +
+          ", ".join(f"{k.split('/', 1)[1]} {v:.4f} ms" for k, v in times.items()
+                    if k.startswith("turbo_train_step/")))
 
 
 # ---------------------------------------------------------------------- gMLP
@@ -1323,15 +1707,17 @@ def phase_dyna_times(torch, dk, serving, Trainer, load_cfg, synthetic, np, serve
 # ------------------------------------------- yardsticks, registers, A/B times
 def product_yardsticks(torch, report) -> None:
     """Each product of K1b, K3f, K3b, K4f and K4b at batch 512 timed as one
-    ``torch.matmul`` in float32 (TF32 off): a yardstick per product, never
+    ``torch.matmul`` in float32 (TF32 off), and each of K1b's also as one bf16
+    ``torch.matmul`` (the bf16 K1b's yardstick): a yardstick per product, never
     called by the port. Shapes (M x K x N); the SGU's token products are
     batched over the sample's F/2 v-channels. K3f's in-projection and token
     product are K3b's in_proj and sgu t."""
     print("  per-product yardsticks, torch.matmul float32 (TF32 off), batch 512:")
     ys = report["product_library_ms"] = {}
 
-    def mm(name, M, K, N):
-        a, b = torch.randn(M, K, device="cuda"), torch.randn(K, N, device="cuda")
+    def mm(name, M, K, N, dtype=torch.float32):
+        a = torch.randn(M, K, device="cuda").to(dtype)
+        b = torch.randn(K, N, device="cuda").to(dtype)
         ys[name] = cuda_ms(torch, lambda: torch.matmul(a, b))
         print(f"    {ys[name]:.4f} ms  {name} ({M} x {K} x {N})")
 
@@ -1340,6 +1726,8 @@ def product_yardsticks(torch, report) -> None:
         for prod, (M, K, Nn) in {"a3": (R, D, C), "dh2": (R, D, C), "dz": (R, C, D),
                                  "dW3": (D, R, C), "dW4": (C, R, D)}.items():
             mm(f"K1b/{geom_name}/B512/{prod}", M, K, Nn)
+            # the bf16 K1b's product of the same shape as one bf16 torch.matmul
+            mm(f"K1b_bf16/{geom_name}/B512/{prod} (bf16 matmul)", M, K, Nn, torch.bfloat16)
     for geom_name, geom in (("encoder", GMLP_ENC), ("fusion", GMLP_FUSION)):
         N, D, F = geom["N"], geom["D"], geom["F"]
         R, H = 512 * N, F // 2
@@ -1419,8 +1807,9 @@ def host_us(torch, fn, calls: int = 20) -> float:
 
 
 def kernel_times(torch, mk, gk, dk) -> dict:
-    """K1f, K2f, K1b and K2b (encoder and fusion stack), K3f and K3b (encoder
-    and fusion shape), K4f and K4b alone at batch 32 and 512 (CUDA events,
+    """K1f, K2f, K1b and K2b (encoder and fusion stack; K1b and K2b also in
+    bf16 compute), K3f and K3b (encoder and fusion shape), K4f and K4b alone
+    at batch 32 and 512 (CUDA events,
     median of 5 runs of 20 calls; the forwards float32 without dropout, as
     served), the numbers the A/B compares; for one K1f call at each shape at
     batch 512, and one K1b call at each shape and batch, the device time of
@@ -1438,7 +1827,7 @@ def kernel_times(torch, mk, gk, dk) -> dict:
                 breakdown[f"K1f/{geom_name}/B{B}"] = kernel_breakdown(torch, k1f, None)
         for B in (32, 512):
             calls = mixer_bwd_calls(torch, mk, geom, K, B)
-            for name in ("K1b", "K2b"):
+            for name in ("K1b", "K2b", "K1b_bf16", "K2b_bf16"):
                 times[f"{name}/{geom_name}/B{B}"] = cuda_ms(torch, calls[name])
             breakdown[f"K1b/{geom_name}/B{B}"] = kernel_breakdown(torch, calls["K1b"], None)
             host[f"K1b/{geom_name}/B{B}"] = host_us(torch, calls["K1b"])
@@ -1542,6 +1931,7 @@ def main() -> int:
 
     phase_kernels(torch, mk, report)
     phase_backward(torch, mk, report)
+    phase_bf16_backward(torch, mk, report)
     phase_gmlp_kernels(torch, gk, report)
     phase_dyna_kernels(torch, dk, report)
     phase_error_rows(torch, mk, gk, dk, _build.load_library(), report)
@@ -1550,6 +1940,11 @@ def main() -> int:
     dyna_served = phase_dyna_serving(torch, dk, serving, np, report)
     phase_training(torch, mk, serving, run, apply_cli_overrides, load_cfg,
                    synthetic_avmnist_arrays, np, report)
+    turbo_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_turbo_")
+    turbo_weights = phase_turbo_training(torch, mk, serving, run, apply_cli_overrides, load_cfg,
+                                         synthetic_avmnist_arrays, np, report, turbo_tmp.name)
+    turbo_served = phase_turbo_serving(torch, mk, serving, load_cfg, np, report, turbo_weights,
+                                       turbo_tmp.name)
     phase_gmlp_training(torch, gk, serving, run, apply_cli_overrides, load_cfg,
                         synthetic_avmnist_arrays, np, report)
     phase_dyna_training(torch, dk, serving, run, apply_cli_overrides, load_cfg,
@@ -1561,6 +1956,9 @@ def main() -> int:
                      synthetic_avmnist_arrays, np, gmlp_served, report)
     phase_dyna_times(torch, dk, serving, Trainer, load_cfg, synthetic_avmnist_arrays, np,
                      dyna_served, report)
+    phase_bf16_times(torch, mk, serving, Trainer, apply_cli_overrides, load_cfg,
+                     synthetic_avmnist_arrays, np, report, turbo_served)
+    turbo_tmp.cleanup()
     product_yardsticks(torch, report)
 
     card = card_line()
@@ -1575,6 +1973,8 @@ def main() -> int:
     b6, by6 = report["bounds_ms"]["K3b/encoder/B512"]
     b7, by7 = report["bounds_ms"]["K4f/B512"]
     b8, by8 = report["bounds_ms"]["K4b/B512"]
+    b9, by9 = report["bounds_ms"]["K1b_bf16/encoder/B512"]
+    b10, by10 = report["bounds_ms"]["K2b_bf16/encoder/B512"]
     kernels = [
         {"name": "mixer_fwd (K1f, one MixerBlock, B=512 N=4 D=128 T=32 C=3072 f32, channel FF "
                  "on 3xTF32 tensor cores)",
@@ -1636,6 +2036,22 @@ def main() -> int:
          "max_abs_err": report["errors"]["K4b/B512/x1"],
          "ms": t["K4b/B512"], "plain_ms": t["K4b_plain/B512"],
          "bound_ms": b8, "bound_by": by8, "library_ms": None},
+        {"name": "mixer_bwd bf16 (K1b, one MixerBlock backward, bf16 compute, B=512 N=4 D=128 "
+                 "T=32 C=3072, dropout 0.5, products in 2xTF32)",
+         "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/mixer_bwd.cu",
+         "replaces": "m2mixer_tpu/ops/mixer_kernel.py:267",
+         "launches": report["turbo_training_launches"]["K1b_bf16"],
+         "max_abs_err": report["errors"]["K1b_bf16/encoder/B512/rate0.5/erf"],
+         "ms": t["K1b_bf16/encoder/B512"], "plain_ms": t["K1b_bf16_plain/encoder/B512"],
+         "bound_ms": b9, "bound_by": by9, "library_ms": None},
+        {"name": "mixer_bwd bf16 (K2b, 4 MixerBlocks + LN backward, bf16 compute, B=512 N=4 "
+                 "D=128 T=32 C=3072, dropout 0.5, products in 2xTF32)",
+         "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/mixer_bwd.cu",
+         "replaces": "m2mixer_tpu/ops/mixer_kernel.py:506",
+         "launches": report["turbo_training_launches"]["K2b_bf16"],
+         "max_abs_err": report["errors"]["K2b_bf16/encoderx4/g0/B512/rate0.5/erf"],
+         "ms": t["K2b_bf16/encoder/B512"], "plain_ms": t["K2b_bf16_plain/encoder/B512"],
+         "bound_ms": b10, "bound_by": by10, "library_ms": None},
     ]
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

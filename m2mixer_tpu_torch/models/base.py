@@ -269,10 +269,13 @@ class MultiLossTask(TrainTask):
 
     def frozen_param_prefixes(self) -> Tuple[str, ...]:
         """Modules frozen at the freeze epoch: the modality encoders and their
-        heads (the port's names of ``encoders_i`` / ``heads_i``)."""
-        names = []
+        heads (the port's names of ``encoders_i`` / ``heads_i``); with paired
+        encoders the one ``paired_encoder`` first, then the heads (JAX
+        ``base.py:753-765``)."""
+        paired = getattr(self.network, "paired_encoder", None) is not None
+        names = ["paired_encoder."] if paired else []
         for i, _ in enumerate(self.modalities):
-            names += [f"encoders.{i}.", f"heads.{i}."]
+            names += [f"heads.{i}."] if paired else [f"encoders.{i}.", f"heads.{i}."]
         return tuple(names)
 
     def frozen_param_names(self) -> Tuple[str, ...]:

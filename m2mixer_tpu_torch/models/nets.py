@@ -2,7 +2,11 @@
 
 Per-modality encoder -> fusion -> fusion mixer -> per-modality heads on
 mean-pooled tokens + the fusion classifier. Muting zeroes one modality's
-input: code ``i`` mutes modality ``i``, ``-1`` mutes nothing.
+input: code ``i`` mutes modality ``i``, ``-1`` mutes nothing. With
+``model.paired_encoders`` and two encoders that ``can_pair``, one
+``PairedMLPMixer`` (``paired_encoder``) replaces them, as in the JAX
+package (``m2mixer_tpu/models/nets.py:60-70``); otherwise the flag is a
+no-op, as it is there.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from torch import nn
 from ..config import DictConfig
 from ..modules import get_block_by_name, get_classifier_by_name, get_fusion_by_name
 from ..modules.common import Linear
+from ..modules.paired import PairedMLPMixer, can_pair
 from .base import resolve_dtype
 
 __all__ = ["MultimodalNet", "build_multimodal_net", "pool_tokens"]
@@ -30,8 +35,6 @@ def build_multimodal_net(model_cfg, modality_keys: Sequence[str], head_pool: boo
     encoders from ``block_type``, fusion from ``fusion_function`` with shape
     inference (``get_output_shape(..., dim=1)``), Linear heads, and the
     classifier (StandardClassifier when the config omits it)."""
-    if model_cfg.get("paired_encoders", False):
-        raise NotImplementedError("not yet ported: paired_encoders")
     mc = model_cfg.modalities
     dtype = resolve_dtype(model_cfg.get("precision"))
     common = dict(dropout=model_cfg.get("dropout", 0.0), dtype=dtype,
@@ -41,9 +44,22 @@ def build_multimodal_net(model_cfg, modality_keys: Sequence[str], head_pool: boo
     def feat_dim(block_cfg):
         return block_cfg.get("hidden_dim", block_cfg.get("d_model"))
 
-    encoders = [get_block_by_name(**{**mc[k], **common}) for k in modality_keys]
+    paired = None
+    if model_cfg.get("paired_encoders", False) and len(modality_keys) == 2:
+        c0, c1 = (mc[k] for k in modality_keys)
+        if can_pair(c0, c1):
+            paired = PairedMLPMixer(
+                (int(c0.in_channels), int(c1.in_channels)), int(c0.hidden_dim),
+                (int(c0.patch_size), int(c1.patch_size)),
+                (tuple(c0.image_size), tuple(c1.image_size)), int(c0.num_mixers),
+                int(c0.token_dim), int(c0.channel_dim), **common)
+    if paired is not None:  # the paired chain stands in for both encoders
+        encoders, patches = [], [paired.num_patch] * 2
+    else:
+        encoders = [get_block_by_name(**{**mc[k], **common}) for k in modality_keys]
+        patches = [e.num_patch for e in encoders]
     fusion = get_fusion_by_name(**mc.multimodal, dtype=dtype)
-    num_patches = fusion.get_output_shape(*[e.num_patch for e in encoders], dim=1)
+    num_patches = fusion.get_output_shape(*patches, dim=1)
     fusion_mixer = get_block_by_name(**{**mc.multimodal, "num_patches": num_patches, **common})
     num_classes = mc.classification.num_classes
     heads = [Linear(feat_dim(mc[k]), num_classes, dtype=dtype, generator=generator)
@@ -52,17 +68,20 @@ def build_multimodal_net(model_cfg, modality_keys: Sequence[str], head_pool: boo
     cls_cfg.setdefault("classifier", "StandardClassifier")
     cls_cfg.setdefault("input_shape", [feat_dim(mc.multimodal)])
     classifier = get_classifier_by_name(**cls_cfg, dtype=dtype, generator=generator)
-    return MultimodalNet(encoders, heads, fusion, fusion_mixer, classifier, head_pool)
+    return MultimodalNet(encoders, heads, fusion, fusion_mixer, classifier, head_pool,
+                         paired_encoder=paired)
 
 
 class MultimodalNet(nn.Module):
     """N-modality encoder/fusion/heads network; ``fusion`` is a
-    parameter-free callable (ConcatFusion, ConcatDynaFusion, MaxFusion)."""
+    parameter-free callable (ConcatFusion, ConcatDynaFusion, MaxFusion).
+    With ``paired_encoder`` there are no per-modality encoders."""
 
     def __init__(self, encoders, heads, fusion, fusion_mixer, classifier,
-                 head_pool: bool = True):
+                 head_pool: bool = True, paired_encoder=None):
         super().__init__()
         self.encoders = nn.ModuleList(encoders)
+        self.paired_encoder = paired_encoder
         self.heads = nn.ModuleList(heads)
         self.fusion = fusion
         self.fusion_mixer = fusion_mixer
@@ -71,7 +90,10 @@ class MultimodalNet(nn.Module):
 
     def forward(self, inputs, mute_code: int = -1):
         xs = [x * 0.0 if mute_code == i else x for i, x in enumerate(inputs)]
-        encs = [enc(x) for enc, x in zip(self.encoders, xs)]
+        if self.paired_encoder is not None:
+            encs = list(self.paired_encoder(*xs))
+        else:
+            encs = [enc(x) for enc, x in zip(self.encoders, xs)]
         fusion_tokens = self.fusion_mixer(self.fusion(*encs))
         branch_logits = tuple(head(pool_tokens(e) if self.head_pool else e)
                               for head, e in zip(self.heads, encs))

@@ -19,8 +19,11 @@ version on CPU tensors):
 
 Parameters keep the JAX kernels' layout and names (``w1 (N, T)``,
 ``b{i}_w3 (D, C)``, ...), so the JAX trees map onto them without a transpose.
-A bf16 module stores its large channel-FF matrices in bf16 (the JAX package's
-``_castable`` rule), so the kernels read them as they are. In training mode
+They are float32 at any compute dtype, as the JAX modules' are: in bf16 the
+kernels read w3/w4 rounded to bf16 on each call and the gradients
+come back in float32, so Adam updates float32 master weights. The mixer
+blocks take at most 32 tokens (the CUDA kernels' cap; ``check_tokens``),
+on every device: a config beyond it fails when built. In training mode
 every kernel call draws a fresh dropout seed from the module's
 ``dropout_rng``, as the JAX blocks draw one from the ``dropout`` rng.
 """
@@ -33,7 +36,7 @@ import torch
 from torch import nn
 
 from ..ops.gmlp_kernel import GmlpBlockParams, fused_gmlp_block
-from ..ops.mixer_kernel import (MixerBlockParams, cast_params, fused_mixer_block,
+from ..ops.mixer_kernel import (MixerBlockParams, check_tokens, fused_mixer_block,
                                 fused_mixer_stack_grouped)
 from .common import LayerNorm, PatchEmbed, _bound, next_kernel_seed, survives, uniform_
 from .gmlp import FusiongMLP, VisiongMLP
@@ -51,11 +54,11 @@ __all__ = [
 ]
 
 
-def _block_params(D: int, N: int, T: int, C: int, generator, dtype=None) -> dict:
+def _block_params(D: int, N: int, T: int, C: int, generator) -> dict:
     """One block's 12 parameters in ``MixerBlockParams`` order, JAX layout,
-    torch-default init (kernel (in, out) ~ U(+-1/sqrt(in)), bias likewise).
-    With a narrow ``dtype`` the large channel-FF matrices are stored in it
-    (``cast_params``), the kernels' operand dtype."""
+    float32, torch-default init (kernel (in, out) ~ U(+-1/sqrt(in)), bias
+    likewise)."""
+    check_tokens(N)
 
     def w(i, o):
         return uniform_(torch.empty(i, o), _bound(i), generator)
@@ -63,13 +66,12 @@ def _block_params(D: int, N: int, T: int, C: int, generator, dtype=None) -> dict
     def b(fan_in, n):
         return uniform_(torch.empty(n), _bound(fan_in), generator)
 
-    params = {
+    return {
         "ln1_scale": torch.ones(D), "ln1_bias": torch.zeros(D),
         "w1": w(N, T), "b1": b(N, T), "w2": w(T, N), "b2": b(T, N),
         "ln2_scale": torch.ones(D), "ln2_bias": torch.zeros(D),
         "w3": w(D, C), "b3": b(D, C), "w4": w(C, D), "b4": b(C, D),
     }
-    return dict(zip(params, cast_params(tuple(params.values()), dtype or torch.float32)))
 
 
 class PallasMixerBlock(nn.Module):
@@ -84,7 +86,7 @@ class PallasMixerBlock(nn.Module):
         self.approximate_gelu = approximate_gelu
         self.dropout_rng = None
         for name, t in _block_params(hidden_dim, num_patch, token_dim, channel_dim,
-                                     generator, dtype).items():
+                                     generator).items():
             self.register_parameter(name, nn.Parameter(t))
 
     def forward(self, x):
@@ -157,7 +159,7 @@ class _StackedMixerCore(nn.Module):
         self.dropout_rng = None
         for i in range(self.num_mixers):
             for name, t in _block_params(hidden_dim, num_patch, token_dim, channel_dim,
-                                         generator, dtype).items():
+                                         generator).items():
                 self.register_parameter(f"b{i}_{name}", nn.Parameter(t))
         self.ln_out_scale = nn.Parameter(torch.ones(hidden_dim))
         self.ln_out_bias = nn.Parameter(torch.zeros(hidden_dim))

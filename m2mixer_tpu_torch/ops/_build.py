@@ -124,7 +124,7 @@ def _declare(lib):
     lib.m2m_mixer_bwd_workspace_bytes.argtypes = [c_int] * 8
     lib.m2m_mixer_bwd_workspace_bytes.restype = c_size_t
     lib.m2m_mixer_bwd.argtypes = ([c_void_p] * 3 + [c_int] * 8 + dropout
-                                  + [c_int] + [c_void_p] * 4)
+                                  + [c_int, c_int] + [c_void_p] * 4)
     lib.m2m_mixer_bwd.restype = c_int
     lib.m2m_mixer_row_slice.argtypes = [c_int] * 6
     lib.m2m_mixer_row_slice.restype = c_int

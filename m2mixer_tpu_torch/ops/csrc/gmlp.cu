@@ -684,7 +684,7 @@ int m2m_gmlp_bwd(const float* x, const float* g, float* dx, int B, int N, int D,
   auto sgu_bwd = pl.wide_sgu ? sgu_bwd_kernel<8, 4> : sgu_bwd_kernel<4, 2>;
   M2M_TRY(prepare(sgu_bwd, pl.sgu_bwd_smem, device));
   M2M_TRY(prepare(vln_bwd_kernel, pl.vln_smem, device));
-  M2M_TRY(prepare(ln_bwd_kernel, pl.ln_smem, device));
+  M2M_TRY(prepare(ln_bwd_kernel<false>, pl.ln_smem, device));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dropout dp = make_dropout(keys, 1, thresh, scale);
   float* ws = static_cast<float*>(workspace);
@@ -729,7 +729,7 @@ int m2m_gmlp_bwd(const float* x, const float* g, float* dx, int B, int N, int D,
       cj, R, pl.wslice);
   M2M_TRY(cudaGetLastError());
   // the LN backward over D plus the residual g (:61, :80), dxn's slices in order
-  ln_bwd_kernel<<<pl.tiles, kThreads, pl.ln_smem, st>>>(
+  ln_bwd_kernel<false><<<pl.tiles, kThreads, pl.ln_smem, st>>>(
       x, ws + pl.dxnp, pl.xsplit, g, static_cast<const float*>(ptrs[0]), dx, ws + pl.p_ln, R, D,
       kRowTile);
   M2M_TRY(cudaGetLastError());

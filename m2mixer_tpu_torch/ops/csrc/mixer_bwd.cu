@@ -1,10 +1,34 @@
-// Fused MixerBlock / mixer-stack backward kernels for Hopper (sm_90a), float32.
+// Fused MixerBlock / mixer-stack backward kernels for Hopper (sm_90a), float32
+// and bf16 compute.
 //
 // Replaces the TPU Pallas kernels of m2mixer_tpu/ops/mixer_kernel.py:
 //   mixer_block_bwd  <- fused_mixer_block's _bwd_rule (_bwd_kernel: jax.vjp of _block_math)
 //   mixer_stack_bwd  <- fused_mixer_stack's _stack_bwd_rule (_stack_bwd_kernel)
 // Both return dx and every parameter gradient in float32, with the forward's
 // dropout masks regenerated from the same keys (mixer_common.cuh).
+//
+// bf16 compute (compute_dtype=bfloat16) computes what JAX's AD of _block_math
+// computes: the forward recomputed at its casts (x, w1..w4 and the LN
+// parameters, the LN outputs, the GEMM operand h and h2, the residual stream x1
+// and the block output rounded to bf16; the parameters arrive in float32, and
+// stage 0 rounds w3 and w4 as it lays them out), and the transposes of those
+// casts in the backward,
+// each a rounding of a cotangent to bf16 (jax.make_jaxpr of the VJP lists them):
+//   - g, the output's cotangent (the output is bf16 widened to float32);
+//   - every product whose operand was cast to bf16 in the forward: dh2 =
+//     da4 W4^T, dz = da3 W3^T, dh = da2 W2^T and dy = da1 W1^T, and the weight
+//     gradients dW1, dW2, dW3 and dW4 (each summed over the whole batch first);
+//   - each LN: its input gradient (the LN reads its bf16 input in float32),
+//     its scale and bias gradients (summed first; the forward reads them as
+//     bf16), and its scale is read rounded;
+//   - the residual stream's sums, dx1 = g + LN2's input gradient and dx = dx1
+//     + LN1's, are bf16 additions.
+// The biases b1..b4 add in float32 and their gradients are not rounded; the
+// float32 cotangents (da1, da2, da3, da4) are never rounded. JAX sums per-tile
+// bf16-rounded weight gradients over its grid; these kernels round once, after
+// their own sum over the batch. The products keep float32 sums: one operand of
+// each is a bf16 value, exact in TF32, so tc_gemm drops the products with its
+// zero small half (2xTF32; a3 = z W3, both operands bf16: 1xTF32).
 //
 // Design. The TPU kernel differentiates one batch tile in VMEM and sums the
 // parameter gradients over a sequential grid. Here the tiles run in parallel,
@@ -42,7 +66,8 @@
 // on the tensor cores in 3xTF32 (tile_common.cuh's tc_gemm: float32-accurate
 // at a third of the TF32 rate); the two of stage 2 take the 64x64 tile where
 // the wide one would leave SMs idle (batch 32). The rest is CUDA-core work on
-// memory.
+// memory. In bf16 the same pipeline runs with the header's roundings; its
+// products take two mma where float32 takes three (a3 one).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,7 +81,9 @@ constexpr int kLnRows = 16;  // rows per CTA of the final LN's backward
 constexpr int kTr = 32;      // stage 0's transpose tile
 
 // stage 0: w3p[d, c] = w3[d, c], w4t[d, c] = w4[c, d] for c < C, zeros for
-// C <= c < Cp; a kTr x kTr tile a CTA, W4 transposed through shared memory
+// C <= c < Cp; a kTr x kTr tile a CTA, W4 transposed through shared memory.
+// kBF16: both rounded to bf16, the copies JAX's kernels read
+template <bool kBF16>
 __global__ void __launch_bounds__(kTr * 8)
     pad_weights_kernel(const float* __restrict__ w3, const float* __restrict__ w4,
                        float* __restrict__ w3p, float* __restrict__ w4t, int D, int C, int Cp) {
@@ -65,13 +92,13 @@ __global__ void __launch_bounds__(kTr * 8)
   const int tx = threadIdx.x % kTr, ty = threadIdx.x / kTr;
   for (int i = ty; i < kTr; i += 8) {  // W4 rows c0 + i, columns d0 + tx
     const int c = c0 + i, d = d0 + tx;
-    tile[i][tx] = c < C && d < D ? __ldg(w4 + (size_t)c * D + d) : 0.f;
+    tile[i][tx] = c < C && d < D ? rd<kBF16>(__ldg(w4 + (size_t)c * D + d)) : 0.f;
   }
   __syncthreads();
   for (int i = ty; i < kTr; i += 8) {  // rows d0 + i, columns c0 + tx of both
     const int d = d0 + i, c = c0 + tx;
     if (d >= D || c >= Cp) continue;
-    w3p[(size_t)d * Cp + c] = c < C ? __ldg(w3 + (size_t)d * C + c) : 0.f;
+    w3p[(size_t)d * Cp + c] = c < C ? rd<kBF16>(__ldg(w3 + (size_t)d * C + c)) : 0.f;
     w4t[(size_t)d * Cp + c] = tile[tx][i];
   }
 }
@@ -86,7 +113,9 @@ struct EpiA3 {
 };
 // v = dh2: reads a3 from h2[r, c] (ld Cp) and writes h2 = gelu(a3) m2 there;
 // returns da3 = dh2 m2 gelu'(a3), zero in the pad. Each (r, c) is one
-// thread's, in this launch and in the a3 launch before it.
+// thread's, in this launch and in the a3 launch before it. kBF16: dh2 and h2
+// rounded to bf16 (h2 is the down product's bf16 operand).
+template <bool kBF16>
 struct EpiChannelBwd {
   float* h2;
   int C, Cp, tanh_flavor, blk;
@@ -96,8 +125,8 @@ struct EpiChannelBwd {
     float* h = h2 + (size_t)r * Cp + c;
     const float a3 = *h;
     const float m2 = keep(dp, blk, 2, (uint32_t)r * C + c);
-    *h = gelu(a3, tanh_flavor) * m2;
-    return v * m2 * gelu_grad(a3, tanh_flavor);
+    *h = rd<kBF16>(gelu(a3, tanh_flavor) * m2);
+    return rd<kBF16>(v) * m2 * gelu_grad(a3, tanh_flavor);
   }
 };
 
@@ -114,6 +143,8 @@ struct Small {
 };
 
 // stage 1: LN1 -> token FF -> LN2 of the tile's rows again: z and da4 = g m3
+// (kBF16: at the forward's casts, and g rounded to bf16)
+template <bool kBF16>
 __global__ void __launch_bounds__(kThreads)
     prefix_kernel(const float* __restrict__ x, const float* __restrict__ g, float* __restrict__ z,
                   float* __restrict__ da4, int B, int N, int T, int D, int tb, int tanh_flavor,
@@ -124,18 +155,18 @@ __global__ void __launch_bounds__(kThreads)
   float* ys = xs + tb * N * D;
   float* tw = ys + tb * N * D;
   const size_t off = (size_t)s0 * N * D;
-  for (int e = threadIdx.x; e < R * D; e += kThreads) xs[e] = x[off + e];
-  load_token_weights<false>(tw, TokenPtrs{p.w1, p.b1, p.w2, p.b2}, N, T);
+  for (int e = threadIdx.x; e < R * D; e += kThreads) xs[e] = rd<kBF16>(x[off + e]);
+  load_token_weights<kBF16>(tw, TokenPtrs{p.w1, p.b1, p.w2, p.b2}, N, T);
   __syncthreads();
-  layer_norm_rows<false>(xs, ys, R, D, p.ln1_s, p.ln1_b);
+  layer_norm_rows<kBF16>(xs, ys, R, D, p.ln1_s, p.ln1_b);
   __syncthreads();
-  token_mix<false>(ys, xs, nb, N, T, D, tw, tanh_flavor, dp, blk, s0);
+  token_mix<kBF16>(ys, xs, nb, N, T, D, tw, tanh_flavor, dp, blk, s0);
   __syncthreads();
-  layer_norm_rows<false>(xs, ys, R, D, p.ln2_s, p.ln2_b);
+  layer_norm_rows<kBF16>(xs, ys, R, D, p.ln2_s, p.ln2_b);
   __syncthreads();
   for (int e = threadIdx.x; e < R * D; e += kThreads) {
     z[off + e] = ys[e];
-    da4[off + e] = g[off + e] * keep(dp, blk, 3, (uint32_t)(off + e));
+    da4[off + e] = rd<kBF16>(g[off + e]) * keep(dp, blk, 3, (uint32_t)(off + e));
   }
 }
 
@@ -151,7 +182,9 @@ __host__ __device__ int small_floats(int N, int T, int D) { return 4 * D + 2 * N
 // stage 4: the rest of the block's backward on a tile of tb whole samples.
 // dz (the sum of stage 3's slices) -> LN2 backward (+ g) = dx1 -> token FF
 // backward -> dy -> LN1 backward (+ dx1) = dx; the tile's small-gradient
-// partials to part[blockIdx.x].
+// partials to part[blockIdx.x]. kBF16: the forward again at its casts, and
+// dz, dh, dy, the LN input gradients and the residual sums rounded to bf16.
+template <bool kBF16>
 __global__ void __launch_bounds__(kThreads)
     rows_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
                     const float* __restrict__ dzp, int ksplit, float* __restrict__ dx,
@@ -182,8 +215,8 @@ __global__ void __launch_bounds__(kThreads)
   const size_t rows_total = (size_t)B * N * D;
   float* my_part = part + (size_t)blockIdx.x * small_floats(N, T, D);
 
-  for (int e = threadIdx.x; e < R * D; e += kThreads) xs[e] = x[off + e];
-  load_token_weights<false>(tw, TokenPtrs{p.w1, p.b1, p.w2, p.b2}, N, T);
+  for (int e = threadIdx.x; e < R * D; e += kThreads) xs[e] = rd<kBF16>(x[off + e]);
+  load_token_weights<kBF16>(tw, TokenPtrs{p.w1, p.b1, p.w2, p.b2}, N, T);
   __syncthreads();
   for (int r = warp; r < R; r += kThreads / 32) {  // LN1
     float mean, inv;
@@ -193,7 +226,8 @@ __global__ void __launch_bounds__(kThreads)
       inv1[r] = inv;
     }
     for (int d = lane; d < D; d += 32)
-      ys[r * D + d] = (xs[r * D + d] - mean) * inv * __ldg(p.ln1_s + d) + __ldg(p.ln1_b + d);
+      ys[r * D + d] = rd<kBF16>((xs[r * D + d] - mean) * inv * rd<kBF16>(__ldg(p.ln1_s + d)) +
+                                rd<kBF16>(__ldg(p.ln1_b + d)));
   }
   __syncthreads();
   // token FF forward again, keeping a1 and h per column
@@ -213,7 +247,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int n = 0; n < kMaxTokens; ++n)
         if (n < N) a1 += in[n] * w1[n * T + j];
-      const float h = gelu(a1, tanh_flavor) * keep(dp, blk, 0, col * T + j);
+      const float h = rd<kBF16>(gelu(a1, tanh_flavor) * keep(dp, blk, 0, col * T + j));
       c[j] = a1;
       c[T + j] = h;
 #pragma unroll
@@ -223,14 +257,14 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int n = 0; n < kMaxTokens; ++n)
       if (n < N)
-        x1s[base + n * D] =
-            xs[base + n * D] + (acc[n] + b2[n]) * keep(dp, blk, 1, col * N + n);
+        x1s[base + n * D] = rd<kBF16>(
+            xs[base + n * D] + rd<kBF16>((acc[n] + b2[n]) * keep(dp, blk, 1, col * N + n)));
   }
   // dz: stage 3's slices summed in slice order
   for (int e = threadIdx.x; e < R * D; e += kThreads) {
     float v = 0.f;
     for (int k = 0; k < ksplit; ++k) v += dzp[k * rows_total + off + e];
-    gs[e] = v;
+    gs[e] = rd<kBF16>(v);
   }
   __syncthreads();
   for (int r = warp; r < R; r += kThreads / 32) {  // LN2 statistics
@@ -244,9 +278,10 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   // LN2's parameter gradients from dz, then dx1 = g + LN2 backward (in place in gs)
   ln_param_grads(gs, x1s, mean2, inv2, R, D, my_part + 2 * D + 2 * N * T + T + N);
-  for (int e = threadIdx.x; e < R * D; e += kThreads) dys[e] = g[off + e];  // g, for a moment
+  for (int e = threadIdx.x; e < R * D; e += kThreads)
+    dys[e] = rd<kBF16>(g[off + e]);  // g, for a moment
   __syncthreads();
-  ln_backward_rows(gs, dys, x1s, mean2, inv2, p.ln2_s, R, D);
+  ln_backward_rows<kBF16>(gs, dys, x1s, mean2, inv2, p.ln2_s, R, D);
   __syncthreads();
   // token FF backward per column: da2 = dt m1, da1 = (da2 w2^T) m0 gelu'(a1), dy = da1 w1^T
   for (int item = threadIdx.x; item < nb * D; item += kThreads) {
@@ -266,7 +301,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int n = 0; n < kMaxTokens; ++n)
         if (n < N) dh += da2[n] * w2[j * N + n];
-      const float da1 = dh * keep(dp, blk, 0, col * T + j) * gelu_grad(c[j], tanh_flavor);
+      const float da1 =
+          rd<kBF16>(dh) * keep(dp, blk, 0, col * T + j) * gelu_grad(c[j], tanh_flavor);
       c[j] = da1;
 #pragma unroll
       for (int n = 0; n < kMaxTokens; ++n)
@@ -274,7 +310,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 #pragma unroll
     for (int n = 0; n < kMaxTokens; ++n)
-      if (n < N) dys[base + n * D] = dy[n];
+      if (n < N) dys[base + n * D] = rd<kBF16>(dy[n]);
   }
   __syncthreads();
   // the token FF's weight gradients over the tile's columns, in column order
@@ -312,7 +348,7 @@ __global__ void __launch_bounds__(kThreads)
   // LN1's parameter gradients from dy, then dx = dx1 + LN1 backward
   ln_param_grads(dys, xs, mean1, inv1, R, D, my_part);
   __syncthreads();
-  ln_backward_rows(dys, gs, xs, mean1, inv1, p.ln1_s, R, D);
+  ln_backward_rows<kBF16>(dys, gs, xs, mean1, inv1, p.ln1_s, R, D);
   __syncthreads();
   for (int e = threadIdx.x; e < R * D; e += kThreads) dx[off + e] = dys[e];
 }
@@ -321,6 +357,7 @@ constexpr int kMaxSegs = 8;
 struct Segs {
   float* out[kMaxSegs];
   int len[kMaxSegs];
+  int rnd[kMaxSegs];  // round the segment's sums to bf16 (a bf16 cast's transpose)
   int n;
 };
 
@@ -334,7 +371,7 @@ __global__ void __launch_bounds__(kThreads)
   int base = 0;
   for (int i = 0; i < segs.n; ++i) {
     if (p < base + segs.len[i]) {
-      segs.out[i][p - base] = v.s;
+      segs.out[i][p - base] = segs.rnd[i] ? rd<true>(v.s) : v.s;
       return;
     }
     base += segs.len[i];
@@ -422,7 +459,9 @@ int check_args(int B, int N, int T, int D, int C, int n_blocks) {
 }
 
 // one block's backward: x its input, g the gradient of its output; dx and the
-// 12 parameter gradients (float32, MixerBlockParams order) out
+// 12 parameter gradients (float32, MixerBlockParams order) out; kBF16: bf16
+// compute (the header's cast points)
+template <bool kBF16>
 int block_bwd(const Plan& pl, float* ws, const float* x, const float* g, float* dx,
               const void* const* q, void* const* gq, int B, int N, int T, int D, int C,
               int tanh_flavor, const Dropout& dp, int blk, cudaStream_t st) {
@@ -434,6 +473,9 @@ int block_bwd(const Plan& pl, float* ws, const float* x, const float* g, float* 
   const float* w3 = static_cast<const float*>(q[8]);
   const float* b3 = static_cast<const float*>(q[9]);
   const float* w4 = static_cast<const float*>(q[10]);
+  // the operands that hold bf16 values, product by product (tc_gemm's kExact)
+  constexpr int kBoth = kBF16 ? kExactA | kExactB : 0;
+  constexpr int kA = kBF16 ? kExactA : 0, kB = kBF16 ? kExactB : 0;
   float* const* gf = reinterpret_cast<float* const*>(gq);
   float* w3p = ws + pl.w3p;
   float* w4t = ws + pl.w4t;
@@ -444,27 +486,28 @@ int block_bwd(const Plan& pl, float* ws, const float* x, const float* g, float* 
   float* dzp = ws + pl.dzp;
   float* part = ws + pl.part;
 
-  pad_weights_kernel<<<dim3(ceil_div(Cp, kTr), ceil_div(D, kTr)), kTr * 8, 0, st>>>(
+  pad_weights_kernel<kBF16><<<dim3(ceil_div(Cp, kTr), ceil_div(D, kTr)), kTr * 8, 0, st>>>(
       w3, w4, w3p, w4t, D, C, Cp);
   M2M_TRY(cudaGetLastError());
-  prefix_kernel<<<pl.tiles, kThreads, pl.prefix_smem, st>>>(x, g, z, da4, B, N, T, D, pl.tb,
-                                                            tanh_flavor, sp, dp, blk);
+  prefix_kernel<kBF16><<<pl.tiles, kThreads, pl.prefix_smem, st>>>(x, g, z, da4, B, N, T, D,
+                                                                   pl.tb, tanh_flavor, sp, dp, blk);
   M2M_TRY(cudaGetLastError());
   // stage 2: a3 into h2's buffer, then dh2 with the epilogue that finishes h2 and da3
-  M2M_TRY(tc_gemm_auto(View{z, D, 1}, View{w3p, Cp, 1}, h2, R, Cp, D, pl.sms, st, EpiA3{b3, C}));
-  M2M_TRY(tc_gemm_auto(View{da4, D, 1}, View{w4t, Cp, 1}, da3, R, Cp, D, pl.sms, st,
-                       EpiChannelBwd{h2, C, Cp, tanh_flavor, blk, dp}));
+  M2M_TRY(tc_gemm_auto<kBoth>(View{z, D, 1}, View{w3p, Cp, 1}, h2, R, Cp, D, pl.sms, st,
+                              EpiA3{b3, C}));
+  M2M_TRY(tc_gemm_auto<kB>(View{da4, D, 1}, View{w4t, Cp, 1}, da3, R, Cp, D, pl.sms, st,
+                           EpiChannelBwd<kBF16>{h2, C, Cp, tanh_flavor, blk, dp}));
   // stage 3: dz = da3 W3^T, slices of C
-  M2M_TRY(tc_gemm_wide(View{da3, Cp, 1}, View{w3p, 1, Cp}, dzp, R, D, C, pl.kslice, pl.ksplit,
-                       st));
-  rows_bwd_kernel<<<pl.tiles, kThreads, pl.rows_smem, st>>>(x, g, dzp, pl.ksplit, dx, part, B, N,
-                                                            T, D, pl.tb, tanh_flavor, sp, dp, blk);
+  M2M_TRY(tc_gemm_wide<kB>(View{da3, Cp, 1}, View{w3p, 1, Cp}, dzp, R, D, C, pl.kslice,
+                           pl.ksplit, st));
+  rows_bwd_kernel<kBF16><<<pl.tiles, kThreads, pl.rows_smem, st>>>(
+      x, g, dzp, pl.ksplit, dx, part, B, N, T, D, pl.tb, tanh_flavor, sp, dp, blk);
   M2M_TRY(cudaGetLastError());
   // stage 5: dW3 (D x C) = z^T da3, dW4 (C x D) = h2^T da4, slices of the rows
-  M2M_TRY(tc_gemm_wide(View{z, 1, D}, View{da3, Cp, 1}, ws + pl.p_w3, D, C, R, pl.wslice,
-                       pl.wsplit, st));
-  M2M_TRY(tc_gemm_wide(View{h2, 1, Cp}, View{da4, D, 1}, ws + pl.p_w4, C, D, R, pl.wslice,
-                       pl.wsplit, st));
+  M2M_TRY(tc_gemm_wide<kA>(View{z, 1, D}, View{da3, Cp, 1}, ws + pl.p_w3, D, C, R, pl.wslice,
+                           pl.wsplit, st));
+  M2M_TRY(tc_gemm_wide<kA>(View{h2, 1, Cp}, View{da4, D, 1}, ws + pl.p_w4, C, D, R, pl.wslice,
+                           pl.wsplit, st));
   // stage 6: db3, db4 over slices of the rows
   ColJobs<2> cj = {};
   cj.job[0] = ColJob{da3, C, Cp, ws + pl.p_col};
@@ -472,12 +515,14 @@ int block_bwd(const Plan& pl, float* ws, const float* x, const float* g, float* 
   col_slices_kernel<2><<<dim3(ceil_div(C > D ? C : D, kThreads), pl.csplit, 2), kThreads, 0,
                           st>>>(cj, R, pl.cslice);
   M2M_TRY(cudaGetLastError());
-  // the tiles' partials: ln1 (2D), w1, b1, w2, b2, ln2 (2D)
+  // the tiles' partials: ln1 (2D), w1, b1, w2, b2, ln2 (2D); in bf16 all but the
+  // biases b1 and b2 are rounded
   Segs segs = {};
   const int lens[8] = {D, D, N * T, T, T * N, N, D, D};
   for (int i = 0; i < 8; ++i) {
     segs.out[i] = gf[i];
     segs.len[i] = lens[i];
+    segs.rnd[i] = kBF16 && i != 3 && i != 5;
   }
   segs.n = 8;
   const int P = small_floats(N, T, D);
@@ -485,12 +530,61 @@ int block_bwd(const Plan& pl, float* ws, const float* x, const float* g, float* 
   M2M_TRY(cudaGetLastError());
   // dW3, dW4, db3, db4: the row slices' partials in slice order
   RedJobs<4> rj = {};
-  rj.job[0] = RedJob{ws + pl.p_w3, pl.wsplit, D * C, gf[8], D * C, nullptr};
-  rj.job[1] = RedJob{ws + pl.p_w4, pl.wsplit, C * D, gf[10], C * D, nullptr};
-  rj.job[2] = RedJob{ws + pl.p_col, pl.csplit, C, gf[9], C, nullptr};
-  rj.job[3] = RedJob{ws + pl.p_col + (size_t)pl.csplit * C, pl.csplit, D, gf[11], D, nullptr};
+  rj.job[0] = RedJob{ws + pl.p_w3, pl.wsplit, D * C, gf[8], D * C, nullptr, kBF16};
+  rj.job[1] = RedJob{ws + pl.p_w4, pl.wsplit, C * D, gf[10], C * D, nullptr, kBF16};
+  rj.job[2] = RedJob{ws + pl.p_col, pl.csplit, C, gf[9], C, nullptr, 0};
+  rj.job[3] = RedJob{ws + pl.p_col + (size_t)pl.csplit * C, pl.csplit, D, gf[11], D, nullptr, 0};
   reduce_jobs_kernel<4><<<dim3(ceil_div(D * C, kThreads), 4), kThreads, 0, st>>>(rj);
   return (int)cudaGetLastError();
+}
+
+template <bool kBF16>
+int mixer_bwd(const float* saved, const float* g, float* dx, int B, int N, int T, int D, int C,
+              int n_blocks, int final_ln, int tanh_flavor, const unsigned* keys, unsigned thresh,
+              float scale, int device, const void* const* ptrs, void* const* grads,
+              void* workspace, void* stream) {
+  if (check_args(B, N, T, D, C, n_blocks)) return -1;
+  M2M_TRY(cudaSetDevice(device));
+  Plan pl;
+  int code = make_plan(B, N, T, D, C, n_blocks, final_ln, device, pl);
+  if (code) return code;
+  M2M_TRY(prepare(prefix_kernel<kBF16>, pl.prefix_smem, device));
+  M2M_TRY(prepare(rows_bwd_kernel<kBF16>, pl.rows_smem, device));
+  M2M_TRY(prepare(ln_bwd_kernel<kBF16>, ln_bwd_smem_bytes(kLnRows, D), device));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Dropout dp = make_dropout(keys, n_blocks, thresh, scale);
+  float* ws = static_cast<float*>(workspace);
+  const size_t slot = (size_t)B * N * D;
+  float* ping[2] = {ws + pl.ping, ws + pl.ping + slot};
+  const float* cur = g;
+  if (final_ln) {
+    const int rows = B * N, blocks = (rows + kLnRows - 1) / kLnRows;
+    float* out = n_blocks > 0 ? ping[n_blocks % 2] : dx;
+    // the stack's final LN (no residual): kLnRows rows per CTA
+    ln_bwd_kernel<kBF16><<<blocks, kThreads, ln_bwd_smem_bytes(kLnRows, D), st>>>(
+        saved + n_blocks * slot, g, 1, nullptr,
+        static_cast<const float*>(ptrs[n_blocks * kParamsPerBlock]), out, ws + pl.part, rows, D,
+        kLnRows);
+    M2M_TRY(cudaGetLastError());
+    Segs segs = {};
+    segs.out[0] = static_cast<float*>(grads[n_blocks * kParamsPerBlock]);
+    segs.out[1] = static_cast<float*>(grads[n_blocks * kParamsPerBlock + 1]);
+    segs.len[0] = segs.len[1] = D;
+    segs.rnd[0] = segs.rnd[1] = kBF16;
+    segs.n = 2;
+    reduce_kernel<<<(2 * D + kThreads - 1) / kThreads, kThreads, 0, st>>>(ws + pl.part, blocks,
+                                                                         2 * D, segs);
+    M2M_TRY(cudaGetLastError());
+    cur = out;
+  }
+  for (int k = n_blocks - 1; k >= 0; --k) {
+    float* out = k == 0 ? dx : ping[k % 2];
+    code = block_bwd<kBF16>(pl, ws, saved + k * slot, cur, out, ptrs + k * kParamsPerBlock,
+                            grads + k * kParamsPerBlock, B, N, T, D, C, tanh_flavor, dp, k, st);
+    if (code) return code;
+    cur = out;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -518,54 +612,18 @@ int m2m_mixer_row_slice(int B, int N, int T, int D, int C, int device) {
 // input of every block, (n_blocks + 1) slots of (B, N, D) float32 (the last: the
 // output before the final LN), as mixer_stack_fwd writes them; for one block
 // without a final LN, saved is just its input. g: the gradient of the output.
-// ptrs: the parameters (12 per block, then ln scale and bias), grads: float32
-// outputs of the same shapes; keys/thresh/scale: the forward's dropout (keys
-// nullptr for none); workspace: m2m_mixer_bwd_workspace_bytes bytes.
+// ptrs: the parameters, float32 (12 per block, then ln scale and bias), grads:
+// float32 outputs of the same shapes; keys/thresh/scale: the forward's dropout
+// (keys nullptr for none); bf16: the compute dtype is bfloat16 (the header's
+// cast points; w3 and w4 are rounded as stage 0 lays them out); workspace:
+// m2m_mixer_bwd_workspace_bytes bytes.
 int m2m_mixer_bwd(const float* saved, const float* g, float* dx, int B, int N, int T, int D,
                   int C, int n_blocks, int final_ln, int tanh_flavor, const unsigned* keys,
-                  unsigned thresh, float scale, int device, const void* const* ptrs,
+                  unsigned thresh, float scale, int bf16, int device, const void* const* ptrs,
                   void* const* grads, void* workspace, void* stream) {
-  if (check_args(B, N, T, D, C, n_blocks)) return -1;
-  M2M_TRY(cudaSetDevice(device));
-  Plan pl;
-  int code = make_plan(B, N, T, D, C, n_blocks, final_ln, device, pl);
-  if (code) return code;
-  M2M_TRY(prepare(prefix_kernel, pl.prefix_smem, device));
-  M2M_TRY(prepare(rows_bwd_kernel, pl.rows_smem, device));
-  M2M_TRY(prepare(ln_bwd_kernel, ln_bwd_smem_bytes(kLnRows, D), device));
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout dp = make_dropout(keys, n_blocks, thresh, scale);
-  float* ws = static_cast<float*>(workspace);
-  const size_t slot = (size_t)B * N * D;
-  float* ping[2] = {ws + pl.ping, ws + pl.ping + slot};
-  const float* cur = g;
-  if (final_ln) {
-    const int rows = B * N, blocks = (rows + kLnRows - 1) / kLnRows;
-    float* out = n_blocks > 0 ? ping[n_blocks % 2] : dx;
-    // the stack's final LN (no residual): kLnRows rows per CTA
-    ln_bwd_kernel<<<blocks, kThreads, ln_bwd_smem_bytes(kLnRows, D), st>>>(
-        saved + n_blocks * slot, g, 1, nullptr,
-        static_cast<const float*>(ptrs[n_blocks * kParamsPerBlock]), out, ws + pl.part, rows, D,
-        kLnRows);
-    M2M_TRY(cudaGetLastError());
-    Segs segs = {};
-    segs.out[0] = static_cast<float*>(grads[n_blocks * kParamsPerBlock]);
-    segs.out[1] = static_cast<float*>(grads[n_blocks * kParamsPerBlock + 1]);
-    segs.len[0] = segs.len[1] = D;
-    segs.n = 2;
-    reduce_kernel<<<(2 * D + kThreads - 1) / kThreads, kThreads, 0, st>>>(ws + pl.part, blocks,
-                                                                         2 * D, segs);
-    M2M_TRY(cudaGetLastError());
-    cur = out;
-  }
-  for (int k = n_blocks - 1; k >= 0; --k) {
-    float* out = k == 0 ? dx : ping[k % 2];
-    code = block_bwd(pl, ws, saved + k * slot, cur, out, ptrs + k * kParamsPerBlock,
-                     grads + k * kParamsPerBlock, B, N, T, D, C, tanh_flavor, dp, k, st);
-    if (code) return code;
-    cur = out;
-  }
-  return 0;
+  return (bf16 ? mixer_bwd<true> : mixer_bwd<false>)(saved, g, dx, B, N, T, D, C, n_blocks,
+                                                      final_ln, tanh_flavor, keys, thresh, scale,
+                                                      device, ptrs, grads, workspace, stream);
 }
 
 }  // extern "C"

@@ -31,11 +31,13 @@
 // depth is the rows); the big/small split would also have to be stored
 // twice. mma.sync loads its fragments from shared memory in whatever layout
 // the View gives and splits them in registers, so one loader serves every
-// product. wgmma with TMA is for the bf16 backward, where operands are 16-bit
-// and transposes are allowed. The forwards' weights (W_in, W_out, W_o) are
-// small enough to be laid K-major once per call, which would lift that
-// obstacle for their products; that is left to the work on the tile's own
-// rate (ROADMAP.md).
+// product. The forwards' weights (W_in, W_out, W_o) are small enough to be laid
+// K-major once per call, which would lift that obstacle for their products;
+// that is left to the work on the tile's own rate (ROADMAP.md).
+// The bf16 mixer backward (mixer_bwd.cu) runs its products on this tile too:
+// one operand of each holds bf16 values, which TF32 holds exactly, so its small
+// half is zero and two of the three products remain (2xTF32, kExact); a3, both
+// of whose operands are bf16, takes one. Its operands stay float32 in memory.
 
 #pragma once
 
@@ -86,13 +88,21 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// c += a b in 3xTF32: the two small cross terms first, then the big one
+// Operands exact in TF32 (kExact, a bit mask): a bf16 value is, so its small
+// half is zero and the products with it can go. kExactA: A holds bf16 values,
+// kExactB: B does.
+constexpr int kExactA = 1, kExactB = 2;
+
+// c += a b in 3xTF32: the small cross terms first (those of a non-exact
+// operand), then the big one. Both operands inexact: 3 mma; one exact
+// (2xTF32): 2; both: 1.
+template <int kExact = 0>
 __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a_big)[4],
                                            const uint32_t (&a_small)[4],
                                            const uint32_t (&b_big)[2],
                                            const uint32_t (&b_small)[2]) {
-  mma_tf32(c, a_small, b_big);
-  mma_tf32(c, a_big, b_small);
+  if constexpr (!(kExact & kExactA)) mma_tf32(c, a_small, b_big);
+  if constexpr (!(kExact & kExactB)) mma_tf32(c, a_big, b_small);
   mma_tf32(c, a_big, b_big);
 }
 
@@ -283,8 +293,9 @@ struct EpiResidual {
 };
 
 // out[z] (M x N, row-major) = epi(A B) over k-slice z ([z*kslice, (z+1)*kslice)
-// of K): one BM x BN tile a CTA, the depth in kTcK stages through the ring
-template <class T, class Epi>
+// of K): one BM x BN tile a CTA, the depth in kTcK stages through the ring;
+// kExact: the operands that hold bf16 values (mma_3xtf32)
+template <class T, class Epi, int kExact>
 __global__ void __launch_bounds__(T::kThreadsT, 512 / T::kThreadsT)  // <= 128 registers
     tc_gemm_kernel(View A, View B, float* __restrict__ out, int M, int N, int K, int kslice,
                    const __grid_constant__ Epi epi) {
@@ -338,7 +349,8 @@ __global__ void __launch_bounds__(T::kThreadsT, 512 / T::kThreadsT)  // <= 128 r
 #pragma unroll
       for (int i = 0; i < MI; ++i)
 #pragma unroll
-        for (int j = 0; j < NI; ++j) mma_3xtf32(acc[i][j], ab[i], asm_[i], bb[j], bsm[j]);
+        for (int j = 0; j < NI; ++j)
+          mma_3xtf32<kExact>(acc[i][j], ab[i], asm_[i], bb[j], bsm[j]);
     }
   }
   cp_async_wait<0>();
@@ -355,25 +367,25 @@ __global__ void __launch_bounds__(T::kThreadsT, 512 / T::kThreadsT)  // <= 128 r
       }
 }
 
-template <class T, class Epi>
+template <class T, int kExact, class Epi>
 cudaError_t tc_gemm_launch(const View& A, const View& B, float* out, int M, int N, int K,
                            int kslice, int ksplit, cudaStream_t st, const Epi& epi) {
-  const cudaError_t e = prepare(tc_gemm_kernel<T, Epi>, T::smem_bytes);
+  const cudaError_t e = prepare(tc_gemm_kernel<T, Epi, kExact>, T::smem_bytes);
   if (e != cudaSuccess) return e;
   const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, ksplit);
-  tc_gemm_kernel<T, Epi><<<grid, T::kThreadsT, T::smem_bytes, st>>>(A, B, out, M, N, K, kslice,
-                                                                      epi);
+  tc_gemm_kernel<T, Epi, kExact><<<grid, T::kThreadsT, T::smem_bytes, st>>>(A, B, out, M, N, K,
+                                                                              kslice, epi);
   return cudaGetLastError();
 }
 
-template <int kWM, int kWN, int kMI, int kNI, bool kAK, bool kBK, class Epi>
+template <int kWM, int kWN, int kMI, int kNI, bool kAK, bool kBK, int kExact, class Epi>
 cudaError_t tc_gemm_layout(const View& A, const View& B, float* out, int M, int N, int K,
                            int kslice, int ksplit, cudaStream_t st, const Epi& epi, bool vec) {
   if (vec)
-    return tc_gemm_launch<TcTile<kWM, kWN, kMI, kNI, kAK, kBK, true>>(A, B, out, M, N, K, kslice,
-                                                                      ksplit, st, epi);
-  return tc_gemm_launch<TcTile<kWM, kWN, kMI, kNI, kAK, kBK, false>>(A, B, out, M, N, K, kslice,
-                                                                     ksplit, st, epi);
+    return tc_gemm_launch<TcTile<kWM, kWN, kMI, kNI, kAK, kBK, true>, kExact>(
+        A, B, out, M, N, K, kslice, ksplit, st, epi);
+  return tc_gemm_launch<TcTile<kWM, kWN, kMI, kNI, kAK, kBK, false>, kExact>(
+      A, B, out, M, N, K, kslice, ksplit, st, epi);
 }
 
 // can `v` be copied 16 bytes at a time along its unit-stride axis (rows if
@@ -385,32 +397,33 @@ inline bool vec_ok(const View& v, bool unit_cols) {
 
 // out[z] (M x N) = epi(A B) over k-slice z < ksplit of kslice rows of the depth
 // K, on the tile of kWM x kWN warps of kMI x kNI mma tiles; each operand lies
-// in shared memory with its View's unit-stride axis contiguous
-template <int kWM, int kWN, int kMI, int kNI, class Epi = EpiNone>
+// in shared memory with its View's unit-stride axis contiguous; kExact: the
+// operands that hold bf16 values (mma_3xtf32)
+template <int kWM, int kWN, int kMI, int kNI, int kExact = 0, class Epi = EpiNone>
 cudaError_t tc_gemm(const View& A, const View& B, float* out, int M, int N, int K, int kslice,
                     int ksplit, cudaStream_t st, const Epi& epi = Epi()) {
   const bool ak = A.cs == 1, bk = B.rs == 1;
   // 16-byte copies: unit strides, 16-byte rows and slices starting at multiples of 4
   const bool vec = vec_ok(A, ak) && vec_ok(B, !bk) && (ksplit == 1 || kslice % 4 == 0);
   if (ak && bk)
-    return tc_gemm_layout<kWM, kWN, kMI, kNI, true, true>(A, B, out, M, N, K, kslice, ksplit,
-                                                          st, epi, vec);
+    return tc_gemm_layout<kWM, kWN, kMI, kNI, true, true, kExact>(A, B, out, M, N, K, kslice,
+                                                                  ksplit, st, epi, vec);
   if (ak)
-    return tc_gemm_layout<kWM, kWN, kMI, kNI, true, false>(A, B, out, M, N, K, kslice, ksplit,
-                                                           st, epi, vec);
+    return tc_gemm_layout<kWM, kWN, kMI, kNI, true, false, kExact>(A, B, out, M, N, K, kslice,
+                                                                   ksplit, st, epi, vec);
   if (bk)
-    return tc_gemm_layout<kWM, kWN, kMI, kNI, false, true>(A, B, out, M, N, K, kslice, ksplit,
-                                                           st, epi, vec);
-  return tc_gemm_layout<kWM, kWN, kMI, kNI, false, false>(A, B, out, M, N, K, kslice, ksplit,
-                                                          st, epi, vec);
+    return tc_gemm_layout<kWM, kWN, kMI, kNI, false, true, kExact>(A, B, out, M, N, K, kslice,
+                                                                   ksplit, st, epi, vec);
+  return tc_gemm_layout<kWM, kWN, kMI, kNI, false, false, kExact>(A, B, out, M, N, K, kslice,
+                                                                  ksplit, st, epi, vec);
 }
 
 // the tiles: 128x64 outputs on 8 warps, 64x64 on 4, and 64x16 for narrow outputs
 constexpr int kTcBM = 128, kTcBN = 64;  // the wide tile's outputs
-template <class Epi = EpiNone>
+template <int kExact = 0, class Epi = EpiNone>
 cudaError_t tc_gemm_wide(const View& A, const View& B, float* out, int M, int N, int K,
                          int kslice, int ksplit, cudaStream_t st, const Epi& epi = Epi()) {
-  return tc_gemm<4, 2, 2, 4>(A, B, out, M, N, K, kslice, ksplit, st, epi);
+  return tc_gemm<4, 2, 2, 4, kExact>(A, B, out, M, N, K, kslice, ksplit, st, epi);
 }
 template <class Epi = EpiNone>
 cudaError_t tc_gemm_narrow(const View& A, const View& B, float* out, int M, int N, int K,
@@ -430,13 +443,13 @@ inline bool tc_small_tile(int M, int N, int ksplit, int sms) {
 // memory), and the tile by the rule above: one layout instantiated per tile
 // (tc_gemm instantiates four). Any strides are right; other layouts are only
 // copied 4 bytes at a time.
-template <class Epi>
+template <int kExact = 0, class Epi>
 cudaError_t tc_gemm_auto(const View& A, const View& B, float* out, int M, int N, int K, int sms,
                          cudaStream_t st, const Epi& epi) {
   const bool vec = vec_ok(A, true) && vec_ok(B, true);
   if (tc_small_tile(M, N, 1, sms))
-    return tc_gemm_layout<2, 2, 2, 4, true, false>(A, B, out, M, N, K, K, 1, st, epi, vec);
-  return tc_gemm_layout<4, 2, 2, 4, true, false>(A, B, out, M, N, K, K, 1, st, epi, vec);
+    return tc_gemm_layout<2, 2, 2, 4, true, false, kExact>(A, B, out, M, N, K, K, 1, st, epi, vec);
+  return tc_gemm_layout<4, 2, 2, 4, true, false, kExact>(A, B, out, M, N, K, K, 1, st, epi, vec);
 }
 
 // dst[d] = sum over the rows of a[r, d] * (xs[r, d] - mean[r]) * inv[r], and
@@ -456,23 +469,26 @@ __device__ void ln_param_grads(const float* a, const float* xs, const float* mea
 }
 
 // in place: a[r, :] <- base[r, :] + inv * (u - mean(u) - xhat * mean(u * xhat)) with
-// u = a[r, :] * s, xhat = (xs[r, :] - mean[r]) * inv[r]: the LN backward, a warp per row
+// u = a[r, :] * s, xhat = (xs[r, :] - mean[r]) * inv[r]: the LN backward, a warp per row.
+// kBF16: s rounded to bf16 as the forward reads it, the LN's own gradient rounded
+// to bf16 (the transpose of the cast of its input), and so is the sum with base.
+template <bool kBF16 = false>
 __device__ void ln_backward_rows(float* a, const float* base, const float* xs, const float* mean,
                                  const float* inv, const float* __restrict__ s, int R, int D) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < R; r += kThreads / 32) {
     float su = 0.f, sux = 0.f;
     for (int d = lane; d < D; d += 32) {
-      const float u = a[r * D + d] * __ldg(s + d);
+      const float u = a[r * D + d] * rd<kBF16>(__ldg(s + d));
       su += u;
       sux += u * (xs[r * D + d] - mean[r]) * inv[r];
     }
     su = warp_sum(su) / D;
     sux = warp_sum(sux) / D;
     for (int d = lane; d < D; d += 32) {
-      const float u = a[r * D + d] * __ldg(s + d);
+      const float u = a[r * D + d] * rd<kBF16>(__ldg(s + d));
       const float xh = (xs[r * D + d] - mean[r]) * inv[r];
-      a[r * D + d] = base[r * D + d] + inv[r] * (u - su - xh * sux);
+      a[r * D + d] = rd<kBF16>(base[r * D + d] + rd<kBF16>(inv[r] * (u - su - xh * sux)));
     }
   }
 }
@@ -481,7 +497,10 @@ __device__ void ln_backward_rows(float* a, const float* base, const float* xs, c
 // dx = base + the LN's backward of a, with a the sum of `ksplit` slices
 // (a + k * rows * D, added in slice order) and base the residual's gradient,
 // or zeros (nullptr); the CTA's partials of the LN's scale and bias gradients
-// (2 x D) go to part[blockIdx.x]
+// (2 x D) go to part[blockIdx.x]. kBF16: an LN of bf16 compute (its output
+// cast back to float32), so a is rounded to bf16 first (the transpose of that
+// cast), then as ln_backward_rows<true>.
+template <bool kBF16>
 __global__ void __launch_bounds__(kThreads)
     ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ a, int ksplit,
                   const float* __restrict__ base, const float* __restrict__ s,
@@ -500,7 +519,7 @@ __global__ void __launch_bounds__(kThreads)
     bs[e] = base ? base[off + e] : 0.f;
     float v = 0.f;
     for (int k = 0; k < ksplit; ++k) v += a[k * total + off + e];
-    as[e] = v;
+    as[e] = rd<kBF16>(v);
   }
   __syncthreads();
   for (int r = warp; r < R; r += kThreads / 32) {
@@ -514,7 +533,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   ln_param_grads(as, xs, mean, inv, R, D, part + (size_t)blockIdx.x * 2 * D);
   __syncthreads();
-  ln_backward_rows(as, bs, xs, mean, inv, s, R, D);
+  ln_backward_rows<kBF16>(as, bs, xs, mean, inv, s, R, D);
   __syncthreads();
   for (int e = threadIdx.x; e < R * D; e += kThreads) dx[off + e] = as[e];
 }
@@ -549,13 +568,15 @@ __global__ void __launch_bounds__(kThreads)
 
 // a kernel's reductions of partials in one launch: job blockIdx.y sums its
 // tiles x P partials in tile order, element p < len0 to out0[p], the rest to
-// out1[p - len0]; the grid covers the longest job
+// out1[p - len0], each rounded to bf16 when rnd is set (a gradient that a bf16
+// cast transposes); the grid covers the longest job
 struct RedJob {
   const float* part;
   int tiles, P;
   float* out0;
   int len0;
   float* out1;
+  int rnd;
 };
 template <int kJobs>
 struct RedJobs {
@@ -570,10 +591,11 @@ __global__ void __launch_bounds__(kThreads)
   if (p >= jb.P) return;
   Kahan v;
   for (int t = 0; t < jb.tiles; ++t) v.add(jb.part[(size_t)t * jb.P + p]);
+  const float out = jb.rnd ? rd<true>(v.s) : v.s;
   if (p < jb.len0)
-    jb.out0[p] = v.s;
+    jb.out0[p] = out;
   else
-    jb.out1[p - jb.len0] = v.s;
+    jb.out1[p - jb.len0] = out;
 }
 
 #define M2M_TRY(expr)                          \

@@ -12,10 +12,17 @@ layout: ``x (B, N, D)`` float32 in and out, ``w1 (N, T)``, ``w2 (T, N)``,
   hand-written kernels of ``csrc/mixer_fwd.cu`` on CUDA tensors. When a
   gradient is wanted they run inside a ``torch.autograd.Function`` whose
   backward is ``fused_mixer_block_bwd`` (K1b) / ``fused_mixer_stack_bwd``
-  (K2b), the kernels of ``csrc/mixer_bwd.cu`` (float32 only). Each wrapper
-  counts its launches in its ``launches`` attribute. A CPU tensor gets the
-  plain version (the backward: autograd of it); a CUDA tensor gets the
+  (K2b), the kernels of ``csrc/mixer_bwd.cu``, float32 or bf16 compute. Each
+  wrapper counts its launches in its ``launches`` attribute (K1b and K2b also
+  their bf16 ones alone, in ``bf16_launches``). A CPU tensor gets
+  the plain version (the backward: autograd of it); a CUDA tensor gets the
   kernel or an error, never the plain version.
+- Parameters may be float32 at any compute dtype (the JAX modules' layout):
+  in bf16 compute the kernels read w3/w4 rounded to bf16 (the forward from a
+  bf16 copy the wrapper makes on each call, the backward rounding them as it
+  lays them out), as the JAX kernels cast theirs on each call, and every
+  gradient comes back in float32, rounded where JAX's AD rounds it
+  (``csrc/mixer_bwd.cu``).
 - ``fused_mixer_stack_grouped`` splits K blocks into ceil(K/G) stack
   launches with the JAX package's ``group_size`` semantics and
   ``seed + 7919*g`` seed folding.
@@ -40,6 +47,7 @@ import torch.nn.functional as F
 __all__ = [
     "MixerBlockParams",
     "cast_params",
+    "check_tokens",
     "dropout_mask",
     "fused_mixer_block",
     "fused_mixer_block_bwd",
@@ -61,8 +69,6 @@ _MAX_BLOCKS = 32  # kMaxBlocks
 _MASKS = 4  # kMasks: dropout masks per block
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B1  # kGolden
-_BF16_BWD_MSG = ("the backward of the fused mixer kernels runs in float32 only: a bf16 "
-                 "backward (model.precision: bf16 with kernel block types) is not yet ported")
 
 
 class MixerBlockParams(NamedTuple):
@@ -248,17 +254,18 @@ def stack_flat_params(blocks, ln_scale=None, ln_bias=None):
 
 
 def _castable(p) -> bool:
-    """The JAX package's storage rule: only the large channel-FF matrices
-    (first dim >= 16, second >= 128) are stored in the compute dtype; token
-    weights, biases and LN vectors stay float32. Storage only: every GEMM
-    operand is rounded to the compute dtype either way, so a bf16 module
-    holds w3/w4 in bf16 and no launch re-casts them."""
+    """The JAX package's rule for the copies its kernels read: only the large
+    channel-FF matrices (first dim >= 16, second >= 128) enter in the compute
+    dtype; token weights, biases and LN vectors enter in float32. Every GEMM
+    operand is rounded to the compute dtype either way, so the rule changes
+    what is read, not what is computed."""
     return p.dim() == 2 and p.shape[0] >= 16 and p.shape[1] >= 128
 
 
 def cast_params(flat_params, compute_dtype):
-    """``flat_params`` with the castable ones in ``compute_dtype``: how the
-    kernel-backed modules store their weights, and what the kernels read."""
+    """``flat_params`` with the castable ones cast to ``compute_dtype``, as
+    JAX's ``_cast_params`` casts them on each call (the parameters themselves
+    stay float32; autograd of the cast returns their gradients in float32)."""
     if compute_dtype == torch.float32:
         return tuple(flat_params)
     return tuple(p.to(compute_dtype) if _castable(p) else p for p in flat_params)
@@ -315,14 +322,20 @@ def _fwd_workspace_bytes(lib, b: int, n: int, t: int, d: int, c: int, n_blocks: 
     return nbytes
 
 
+def check_tokens(n: int) -> None:
+    """The CUDA mixer kernels hold a sample's tokens in registers: at most
+    ``_MAX_TOKENS`` of them (the JAX kernels have no such cap)."""
+    if n > _MAX_TOKENS:
+        raise ValueError(f"the CUDA mixer kernel takes at most {_MAX_TOKENS} tokens, got {n}")
+
+
 def _kernel_args(x, flat, n_blocks: int, bf16: bool):
     """Validate shapes and devices; return (T, C, kernel-ready params)."""
     if x.dtype != torch.float32 or x.dim() != 3:
         raise ValueError(f"x must be float32 (B, N, D), got {x.dtype} {tuple(x.shape)}")
     B, N, D = x.shape
     T, C = flat[2].shape[1], flat[8].shape[1]
-    if N > _MAX_TOKENS:
-        raise ValueError(f"the CUDA mixer kernel takes at most {_MAX_TOKENS} tokens, got {N}")
+    check_tokens(N)
     if D % 4:
         raise ValueError(f"the CUDA mixer kernel needs hidden_dim % 4 == 0, got {D}")
     if bf16 and C % 2:
@@ -334,8 +347,8 @@ def _kernel_args(x, flat, n_blocks: int, bf16: bool):
     for i, p in enumerate(flat):
         if p.device != x.device:
             raise ValueError(f"parameter {i} is on {p.device}, x on {x.device}")
-        # w3/w4 enter in the kernel's weight dtype (the castable ones already
-        # are); everything else is float32 and rounded inside the kernel
+        # w3/w4 enter in the kernel's weight dtype (a bf16 copy in bf16
+        # compute); everything else is float32 and rounded inside the kernel
         big = i < n_blocks * _N_BLOCK_PARAMS and i % _N_BLOCK_PARAMS in (8, 10)
         q = p.to(wdt if big else torch.float32).contiguous()
         if q.data_ptr() % 16:
@@ -405,15 +418,18 @@ def _launch(entry: str, x, flat, n_blocks: int, final_ln: bool, compute_dtype,
     return out
 
 
-def _launch_bwd(saved, g, flat, n_blocks: int, final_ln: bool, approximate_gelu: bool, seed,
-                rate: float):
+def _launch_bwd(saved, g, flat, n_blocks: int, final_ln: bool, compute_dtype,
+                approximate_gelu: bool, seed, rate: float):
     """dx and the float32 gradients of ``flat`` from ``csrc/mixer_bwd.cu``;
     ``saved``: the block inputs (+ the pre-LN output), (n_blocks + 1, B, N, D),
     or for one block without a final LN its input (B, N, D)."""
     from ._build import check, load_library
 
     lib = load_library()
+    bf16 = _check_compute_dtype(compute_dtype)
     g = g.float().contiguous()
+    # float32 parameters in either dtype: in bf16 the kernel rounds w3/w4 as it
+    # lays them out, the copies the JAX kernels read
     T, C, params = _kernel_args(g, flat, n_blocks, False)
     B, N, D = g.shape
     saved = saved.contiguous()
@@ -435,7 +451,7 @@ def _launch_bwd(saved, g, flat, n_blocks: int, final_ln: bool, approximate_gelu:
     stream = torch.cuda.current_stream(g.device).cuda_stream
     code = lib.m2m_mixer_bwd(saved.data_ptr(), g.data_ptr(), dx.data_ptr(), B, N, T, D, C,
                              n_blocks, int(final_ln), int(approximate_gelu), keys, thresh, scale,
-                             dev, ptrs, gptrs, workspace.data_ptr(), stream)
+                             int(bf16), dev, ptrs, gptrs, workspace.data_ptr(), stream)
     check(lib, code, "mixer backward kernel launch")
     return dx, tuple(grads)
 
@@ -452,11 +468,6 @@ def _route(x) -> bool:
 
 def _needs_grad(x, params) -> bool:
     return torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in params))
-
-
-def _check_bwd_dtype(compute_dtype) -> None:
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(_BF16_BWD_MSG)
 
 
 def _n_blocks(flat, final_ln: bool) -> int:
@@ -568,20 +579,23 @@ fused_mixer_block.launches = 0
 def fused_mixer_block_bwd(x, g, params, seed=None, dropout_rate: float = 0.0,
                           compute_dtype=torch.float32, approximate_gelu: bool = False):
     """K1b: ``(dx, 12 parameter gradients)`` of one fused MixerBlock at input
-    ``x`` for output gradient ``g``, float32, the forward's masks regenerated.
-    bf16 raises ``NotImplementedError`` on both routes."""
-    _check_bwd_dtype(compute_dtype)
+    ``x`` for output gradient ``g``, float32, the forward's masks regenerated;
+    in bf16 compute rounded where JAX's AD of the block rounds them."""
+    _check_compute_dtype(compute_dtype)
     rate = _check_rate(dropout_rate)
     params = tuple(params)
     if not _route(x):
         return mixer_block_bwd_reference(x, g, params, rate, compute_dtype, approximate_gelu,
                                          seed)
-    out = _launch_bwd(x.float(), g, params, 1, False, approximate_gelu, seed, rate)
+    out = _launch_bwd(x.float(), g, params, 1, False, compute_dtype, approximate_gelu, seed,
+                      rate)
     fused_mixer_block_bwd.launches += 1
+    fused_mixer_block_bwd.bf16_launches += int(compute_dtype == torch.bfloat16)
     return out
 
 
 fused_mixer_block_bwd.launches = 0
+fused_mixer_block_bwd.bf16_launches = 0
 
 
 def fused_mixer_stack(x, flat_params, seed=None, dropout_rate: float = 0.0,
@@ -610,8 +624,8 @@ def fused_mixer_stack_bwd(x, g, flat_params, seed=None, dropout_rate: float = 0.
     """K2b: ``(dx, gradients of flat_params)`` of ``fused_mixer_stack``,
     float32, including the final LN's. ``saved``: the block inputs the
     differentiable forward kept on the card; without it (a direct call) one
-    K2f launch recomputes them. bf16 raises ``NotImplementedError``."""
-    _check_bwd_dtype(compute_dtype)
+    K2f launch recomputes them."""
+    _check_compute_dtype(compute_dtype)
     rate = _check_rate(dropout_rate)
     flat = tuple(flat_params)
     if not _route(x):
@@ -621,13 +635,15 @@ def fused_mixer_stack_bwd(x, g, flat_params, seed=None, dropout_rate: float = 0.
         with torch.no_grad():
             _, saved = _stack_forward(x.float(), flat, seed, rate, compute_dtype, final_ln,
                                       approximate_gelu, save=True)
-    out = _launch_bwd(saved, g, flat, _n_blocks(flat, final_ln), final_ln, approximate_gelu,
-                      seed, rate)
+    out = _launch_bwd(saved, g, flat, _n_blocks(flat, final_ln), final_ln, compute_dtype,
+                      approximate_gelu, seed, rate)
     fused_mixer_stack_bwd.launches += 1
+    fused_mixer_stack_bwd.bf16_launches += int(compute_dtype == torch.bfloat16)
     return out
 
 
 fused_mixer_stack_bwd.launches = 0
+fused_mixer_stack_bwd.bf16_launches = 0
 
 
 def fused_mixer_stack_grouped(x, blocks: Sequence[MixerBlockParams], ln_scale, ln_bias,

@@ -5,7 +5,9 @@
   ``PallasStackedFusionMixer`` (the counterpart of ``to_pallas_serving``),
   or with ``per_block`` onto ``PallasMLPMixer`` / ``PallasFusionMixer``; and
   ``VisiongMLP`` / ``FusiongMLP`` onto ``PallasVisiongMLP`` /
-  ``PallasFusiongMLP`` (one gMLP block kernel per block) either way.
+  ``PallasFusiongMLP`` (one gMLP block kernel per block) either way. A
+  ``PairedMLPMixer`` is un-paired into the two per-modality stacks first
+  (``unpair_mlp_mixer_params``), as ``to_pallas_serving`` does.
 - ``export_serving``: write an artifact directory: ``serving.json`` (features,
   dtypes, buckets, the resolved config, the block flavor) and the weights
   (``weights.npz``, the port's ``state_dict``). The JAX artifact ships a
@@ -41,6 +43,7 @@ import torch
 
 from .config import DictConfig, apply_cli_overrides, load, todict
 from .models import get_model, resolve_device
+from .modules.paired import unpair_mlp_mixer_params
 from .utils.weights import from_jax_params, load_npz, to_jax_params
 
 __all__ = ["export_serving", "load_serving", "ServedModel", "pick_bucket",
@@ -155,9 +158,9 @@ def to_torch_kernel_serving(cfg, state_dict, device=None, per_block: bool = Fals
     (one block kernel per block); ``VisiongMLP`` / ``FusiongMLP`` ->
     ``PallasVisiongMLP`` / ``PallasFusiongMLP`` either way (one gMLP block
     kernel per block). Re-lay the plain modules' weights into the kernels'
-    layout. Returns ``(kernel_task, kernel_state_dict)`` with the weights
-    loaded; the converted tree is checked leaf by leaf against the new
-    network."""
+    layout; paired encoders become per-modality ones. Returns
+    ``(kernel_task, kernel_state_dict)`` with the weights loaded; the
+    converted tree is checked leaf by leaf against the new network."""
     new_cfg = copy.deepcopy(cfg)
     mc = new_cfg.model.modalities
     kinds = _PER_BLOCK_KERNELS if per_block else _KERNEL_BLOCKS
@@ -172,7 +175,11 @@ def to_torch_kernel_serving(cfg, state_dict, device=None, per_block: bool = Fals
             "no convertible blocks: to_torch_kernel_serving fuses MLPMixer/FusionMixer/"
             f"VisiongMLP/FusiongMLP stacks; this config has "
             f"{sorted(set(mc[k].get('block_type') for k in mc if k != 'classification'))}")
+    new_cfg.model.paired_encoders = False
     tree = to_jax_params(state_dict)["params"]
+    if "paired_encoder" in tree:
+        tree.update(zip(("encoders_0", "encoders_1"),
+                        unpair_mlp_mixer_params(tree.pop("paired_encoder"))))
     for k, sub in list(tree.items()):
         if isinstance(sub, dict) and "norm_token" in sub.get("block_0", {}):
             if per_block:

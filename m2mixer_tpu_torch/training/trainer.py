@@ -4,8 +4,11 @@
   the decay joins the gradient before the moments, as the JAX chain
   ``add_decayed_weights -> scale_by_adam``) or ``AdamW`` (decoupled decay),
   with betas, eps and weight decay. Adam's update equals optax's
-  ``scale_by_adam`` followed by ``scale_by_learning_rate``. Other optimizer
-  types and options raise "not yet ported".
+  ``scale_by_adam`` followed by ``scale_by_learning_rate``. With
+  ``moment_dtype: bf16`` either one is ``optim.BF16MomentAdam`` (optax's
+  ``mu_dtype=bfloat16``). Other optimizer types and options raise "not yet
+  ported". ``train.prng_impl`` (JAX's PRNG implementation) has no counterpart:
+  the port's randomness is torch generators, and the key is ignored.
 - ``Trainer.train_step``: forward, the task's weighted loss, backward, and
   one optimizer step; when ``ctx['frozen']`` is set the frozen parameters'
   gradients are zero before the step and their values are restored after
@@ -41,6 +44,7 @@ from ..utils.weights import load_npz
 from .callbacks import EarlyStopping, ReduceLROnPlateau
 from .loggers import ExperimentLogger
 from .metrics import confusion_matrix
+from .optim import BF16MomentAdam
 
 __all__ = ["Trainer", "make_optimizer", "seed_everything"]
 
@@ -66,15 +70,23 @@ def make_optimizer(optimizer_cfg, params):
     for key in _UNPORTED_OPTIMIZER:
         if optimizer_cfg.get(key):
             raise NotImplementedError(f"not yet ported: train.optimizer.{key}")
-    if optimizer_cfg.get("moment_dtype") not in (None, "f32", "float32"):
-        raise NotImplementedError("not yet ported: train.optimizer.moment_dtype="
-                                  f"{optimizer_cfg.get('moment_dtype')}")
+    moment_dtype = optimizer_cfg.get("moment_dtype")
+    if moment_dtype not in (None, "f32", "float32", "bf16", "bfloat16"):
+        raise ValueError(f"train.optimizer.moment_dtype={moment_dtype!r}: expected bf16, "
+                         "bfloat16, f32 or float32 (or unset for f32)")
     lr = float(optimizer_cfg.get("lr", 1e-3))
     betas = tuple(float(b) for b in optimizer_cfg.get("betas", (0.9, 0.999)))
     eps = float(optimizer_cfg.get("eps", 1e-8))
     wd = float(optimizer_cfg.get("weight_decay", 0.0))
+    if moment_dtype in ("bf16", "bfloat16"):
+        return BF16MomentAdam(params, lr=lr, betas=betas, eps=eps, weight_decay=wd,
+                              decoupled=opt_type == "adamw"), lr
     cls = torch.optim.Adam if opt_type == "adam" else torch.optim.AdamW
     return cls(params, lr=lr, betas=betas, eps=eps, weight_decay=wd), lr
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return (t.float() if t.is_floating_point() else t).cpu().numpy()
 
 
 def _state_npz(network, path: str) -> None:
@@ -211,7 +223,8 @@ class Trainer:
             k = int(max(p_int.max(), l_int.max())) + 1
             np.save(os.path.join(self.logger.log_dir, f"confusion_matrix_{prefix}_{epoch}.npy"),
                     confusion_matrix(p_int, l_int, k))
-        return logs, {k: torch.cat(v).cpu().numpy() for k, v in artifacts.items() if v}
+        # bf16 logits (model.precision: bf16) are written as float32
+        return logs, {k: _host(torch.cat(v)) for k, v in artifacts.items() if v}
 
     # -------------------------------------------------------------------- fit
     def fit(self, task, datamodule) -> None:

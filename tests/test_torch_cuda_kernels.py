@@ -314,11 +314,113 @@ def test_dropout_forward_matches_plain_and_keeps_half(cuda, shape):
     assert abs((m > 0).float().mean().item() - 0.5) <= 0.01
 
 
-def test_bf16_backward_raises_on_cuda(cuda):
-    blocks, _, _ = blocks_on(cuda, 1, **SHAPES["small"])
-    x = torch.randn(2, 4, 32, device=cuda)
-    with pytest.raises(NotImplementedError, match="float32 only"):
-        mk.fused_mixer_block_bwd(x, x, blocks[0], compute_dtype=torch.bfloat16)
+# which of a block's 12 gradients bf16 compute rounds to bf16 (a cast's
+# transpose): all but the biases b1..b4, which add in float32
+BF16_ROUNDED = (True, True, True, False, True, False, True, True, True, False, True, False)
+
+
+def bf16_grads_close(got, want, rounded, share_limit, dead=()):
+    """bf16-compute gradients: each within 2e-2 x max(1, max|plain|); those a
+    cast rounds on the bf16 grid, and of all their elements at most
+    ``share_limit`` differing from the plain version's. The limits are
+    chip_smoke.py's (``BF16_GRAD_SHARE``, with the measurements behind them):
+    a reduction over upstream values that each may sit one ulp off rounds to
+    the other neighbour now and then, the tile's float32 accumulation is
+    less exact than cuBLAS's, and through a stack of blocks that compounds.
+    A gradient exactly zero in the math (``dead``) is bf16 rounding noise on
+    both sides: both within 2e-2 x the largest gradient (chip_smoke.py)."""
+    diff = total = 0
+    dead = tuple(dead) or (False,) * len(want)
+    scale = max(w.abs().max().item() for w in want)
+    for a, w, r, d in zip(got, want, rounded, dead):
+        assert torch.isfinite(a).all() and a.dtype == torch.float32
+        if d:
+            assert max(a.abs().max().item(), w.abs().max().item()) <= 2e-2 * scale
+            continue
+        err = (a - w).abs().max().item()
+        assert err <= 2e-2 * max(1.0, w.abs().max().item()), err
+        if r:
+            assert torch.equal(a, a.to(torch.bfloat16).float())
+            diff += int((a != w).sum())
+            total += a.numel()
+    assert diff / total <= share_limit, diff / total
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("approx", [False, True], ids=["erf", "tanh"])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("B", [3, 64])
+def test_bf16_block_backward_matches_plain(cuda, B, shape, approx, rate):
+    """K1b in bf16 compute (float32 parameters, w3/w4 read rounded to bf16)
+    against autograd of the plain bf16 version; float32 gradients, rounded
+    where JAX's AD rounds them; two runs bit-identical."""
+    geom = SHAPES[shape]
+    blocks, _, _ = blocks_on(cuda, 1, **geom)
+    gen = torch.Generator().manual_seed(B)
+    x = torch.randn(B, geom["N"], geom["D"], generator=gen).to(cuda)
+    g = torch.randn(B, geom["N"], geom["D"], generator=gen).to(cuda)
+    run = lambda: mk.fused_mixer_block_bwd(x, g, blocks[0], seed=5, dropout_rate=rate,
+                                           compute_dtype=torch.bfloat16, approximate_gelu=approx)
+    before = (mk.fused_mixer_block_bwd.launches, mk.fused_mixer_block_bwd.bf16_launches)
+    dx, grads = run()
+    assert (mk.fused_mixer_block_bwd.launches, mk.fused_mixer_block_bwd.bf16_launches) == \
+        (before[0] + 1, before[1] + 1)
+    want_dx, want = mk.mixer_block_bwd_reference(x, g, blocks[0], rate, torch.bfloat16, approx,
+                                                 seed=5)
+    bf16_grads_close((dx, *grads), (want_dx, *want), (True, *BF16_ROUNDED), 0.10)
+    dx2, grads2 = run()
+    assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("group_size", [0, 2])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_bf16_stack_backward_matches_plain(cuda, shape, group_size, rate):
+    """K2f/K2b in bf16 compute through autograd, 3 blocks + LN, against
+    autograd of the plain bf16 version."""
+    geom = SHAPES[shape]
+    blocks, s, b = blocks_on(cuda, 3, **geom)
+    leaves = [t.requires_grad_() for blk in blocks for t in blk] + [s.requires_grad_(),
+                                                                    b.requires_grad_()]
+    gen = torch.Generator().manual_seed(37)
+    x = torch.randn(37, geom["N"], geom["D"], generator=gen).to(cuda).requires_grad_()
+    g = torch.randn(37, geom["N"], geom["D"], generator=gen).to(cuda)
+    before = mk.fused_mixer_stack_bwd.launches
+    out = mk.fused_mixer_stack_grouped(x, blocks, s, b, seed=9, dropout_rate=rate,
+                                       compute_dtype=torch.bfloat16, group_size=group_size)
+    got = torch.autograd.grad(out, [x, *leaves], g)
+    assert mk.fused_mixer_stack_bwd.launches == before + (1 if group_size == 0 else 2)
+    flat = mk.stack_flat_params(blocks, s, b)
+    want_out = mk.mixer_stack_reference(x, flat, torch.bfloat16, dropout_rate=rate, seed=9) \
+        if group_size == 0 else None
+    if want_out is None:  # the grouped launches' seeds, as plain_grouped folds them
+        y = x
+        for gi, start in enumerate(range(0, 3, group_size)):
+            group = blocks[start:start + group_size]
+            last = start + len(group) >= 3
+            gflat = mk.stack_flat_params(group, s, b) if last else mk.stack_flat_params(group)
+            y = mk.mixer_stack_reference(y, gflat, torch.bfloat16, final_ln=last,
+                                         dropout_rate=rate, seed=9 + 7919 * gi)
+        want_out = y
+    want = torch.autograd.grad(want_out, [x, *leaves], g)
+    b2 = tuple(i == 5 and rate == 0.0 for i in range(12))  # zero in the math at rate 0
+    bf16_grads_close(got, want, (True, *(BF16_ROUNDED * 3), True, True), 0.40,
+                     dead=(False, *(b2 * 3), False, False))
+
+
+def test_bf16_kernel_modules_keep_float32_weights_on_cuda(cuda):
+    """A bf16 kernel-backed stack trains float32 parameters on the card:
+    every gradient float32 and non-zero, K2b launched."""
+    from m2mixer_tpu_torch.modules import pallas_blocks as pb
+
+    m = pb.PallasStackedFusionMixer(32, 8, 2, 16, 64, dtype=torch.bfloat16,
+                                    generator=torch.Generator().manual_seed(0)).to(cuda).train()
+    before = mk.fused_mixer_stack_bwd.launches
+    m(torch.randn(5, 8, 32, device=cuda)).square().sum().backward()
+    assert mk.fused_mixer_stack_bwd.launches == before + 1
+    for name, prm in m.named_parameters():
+        assert prm.dtype == torch.float32 and prm.grad.dtype == torch.float32, name
+        assert prm.grad.abs().sum().item() > 0, name
 
 
 @pytest.mark.parametrize("kind", ["PallasMixerBlock", "PallasMLPMixer", "PallasStackedMLPMixer",

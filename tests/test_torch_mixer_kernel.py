@@ -166,8 +166,9 @@ def test_group_seeds_fold_like_jax(monkeypatch):
 
 
 def test_dropout_raises_until_training_slice():
-    """The training slice runs dropout; what it does not take still raises:
-    a rate outside [0, 1), and a backward in bf16."""
+    """The training slice runs dropout, and the bf16 slice the bf16 backward;
+    what they do not take still raises: a rate outside [0, 1), and a compute
+    dtype other than float32 or bfloat16 (on every route)."""
     x, blocks, ln = make_case(6, 2, 1, **SMALL)
     with pytest.raises(ValueError, match=r"\[0, 1\)"):
         tk.fused_mixer_block(torch.from_numpy(x), torch_blocks(blocks)[0], dropout_rate=1.0)
@@ -175,11 +176,11 @@ def test_dropout_raises_until_training_slice():
         tk.fused_mixer_stack(torch.from_numpy(x),
                              tk.stack_flat_params(torch_blocks(blocks), *map(torch.from_numpy, ln)),
                              dropout_rate=-0.5)
-    with pytest.raises(NotImplementedError, match="float32 only"):
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
         tk.fused_mixer_stack_bwd(torch.from_numpy(x), torch.from_numpy(x),
                                  tk.stack_flat_params(torch_blocks(blocks),
                                                       *map(torch.from_numpy, ln)),
-                                 compute_dtype=torch.bfloat16)
+                                 compute_dtype=torch.float16)
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
@@ -227,10 +228,13 @@ def test_launch_plan(n, b, plan):
     assert tk._tile_plan(Lib, b, n, 128, 32, True, 132, 232448) == plan
 
 
-def test_bf16_kernel_modules_store_channel_weights_narrow():
-    """A bf16 kernel-backed mixer holds w3/w4 in bf16 (the castable rule),
-    everything else in float32, and computes what the wrapper computes from
-    the same weights stored in float32."""
+def test_bf16_kernel_modules_store_channel_weights_narrow(monkeypatch):
+    """The JAX layout: a bf16 kernel-backed mixer keeps all twelve parameters
+    of every block in float32 (as ``m2mixer_tpu/modules/pallas_blocks.py``
+    does), and the kernels are fed bf16 copies of the castable channel
+    weights w3/w4, cast on each call (``_cast_params``). It answers as a
+    module holding w3/w4 in bf16 did: the bf16 forward reads the same bf16
+    values either way."""
     from m2mixer_tpu_torch.modules.pallas_blocks import PallasStackedFusionMixer
 
     def make(dtype):
@@ -238,19 +242,28 @@ def test_bf16_kernel_modules_store_channel_weights_narrow():
                                         generator=torch.Generator().manual_seed(0))
 
     narrow, wide = make(torch.bfloat16), make(None)
-    dtypes = {k: v.dtype for k, v in narrow.stack.named_parameters()}
-    assert {k for k, d in dtypes.items() if d == torch.bfloat16} == \
-        {f"b{i}_{w}" for i in range(2) for w in ("w3", "w4")}
-    assert all(d == torch.float32 for k, d in dtypes.items() if not k.endswith(("w3", "w4")))
+    assert all(p.dtype == torch.float32 for p in narrow.parameters())
     narrow.load_state_dict(wide.state_dict())
+    read = []
+    real = tk._block_math
+
+    def spy(x, p, *a, **k):
+        read.append((p.w3.dtype, p.w4.dtype, p.w1.dtype))
+        return real(x, p, *a, **k)
+
+    monkeypatch.setattr(tk, "_block_math", spy)
     x = torch.from_numpy(np.random.RandomState(0).randn(3, 4, 128).astype(np.float32))
     s = wide.stack
-    blocks = [tk.MixerBlockParams(*(getattr(s, f"b{i}_{f}") for f in tk.MixerBlockParams._fields))
-              for i in range(2)]
+    narrow_w = [tk.MixerBlockParams(*(getattr(s, f"b{i}_{f}").to(torch.bfloat16)
+                                      if f in ("w3", "w4") else getattr(s, f"b{i}_{f}")
+                                      for f in tk.MixerBlockParams._fields))
+                for i in range(2)]
     with torch.no_grad():
-        want = tk.fused_mixer_stack_grouped(x, blocks, s.ln_out_scale, s.ln_out_bias,
+        got = narrow(x)
+        assert read == [(torch.bfloat16, torch.bfloat16, torch.float32)] * 2
+        want = tk.fused_mixer_stack_grouped(x, narrow_w, s.ln_out_scale, s.ln_out_bias,
                                             compute_dtype=torch.bfloat16)
-        assert torch.equal(narrow(x), want)
+        assert torch.equal(got, want)
 
 
 _JAX_NO_EXCESS_PRECISION = """

@@ -181,6 +181,12 @@ def test_multimodal_net_sizes_fusion_and_mutes():
         muted = net((img, aud), mute_code=0)
         zeroed = net((torch.zeros_like(img), aud))
     torch.testing.assert_close(muted["logits"], zeroed["logits"], rtol=0, atol=0)
-    cfg.paired_encoders = True
-    with pytest.raises(NotImplementedError, match="paired_encoders"):
-        build_multimodal_net(cfg, ("image", "audio"))
+    cfg.paired_encoders = True  # same block geometry and patch count: one paired chain
+    paired = build_multimodal_net(cfg, ("image", "audio"),
+                                  generator=torch.Generator().manual_seed(0)).eval()
+    assert paired.paired_encoder is not None and len(paired.encoders) == 0
+    assert paired.fusion_mixer.num_patch == 8
+    with torch.no_grad():
+        muted = paired((img, aud), mute_code=0)
+        zeroed = paired((torch.zeros_like(img), aud))
+    torch.testing.assert_close(muted["logits"], zeroed["logits"], rtol=0, atol=0)
