@@ -8,10 +8,15 @@ config keys and submodule names (``patch_embed``, ``block_i``, ``mix_h``,
 them leaf for leaf (``utils/weights.py``).
 
 ``DynaMixerOp`` has one path: its forward hands its three ``Linear`` layers'
-weights, transposed into the kernel layout, to ``fused_dynamixer_op``, which
-launches K4f (and K4b for the gradient) on a CUDA tensor and runs the plain
-version on a CPU tensor. The JAX module computes the same function with flax
-einsums (the TPU kernel cannot lower the 7-token grid's reshapes).
+float32 weights, as they are (output-major, ``weights_out_in``), to ``fused_dynamixer_op``,
+which launches K4f (and K4b for the gradient) on a CUDA tensor and runs the
+plain version on a CPU tensor, in the module's compute dtype. The JAX module
+computes the same function with flax einsums (the TPU kernel cannot lower the
+7-token grid's reshapes). In bf16 the two round at different places: flax
+rounds every Linear output, the softmax and the mix to bf16, the kernel keeps
+those in float32 (``_op_math``'s casts), and its output is rounded to bf16
+once, where flax's op hands bf16 to the block (``ROADMAP.md`` §3 records the
+measured gap).
 """
 
 from __future__ import annotations
@@ -46,9 +51,10 @@ class DynaMixerOp(nn.Module):
 
     def forward(self, x):
         params = [t for lin in (self.compress, self.generate, self.out)
-                  for t in (lin.weight.t().contiguous(), lin.bias)]
-        return fused_dynamixer_op(x, params, self.num_head, self.reduced_dim,
-                                  compute_dtype=self.compute_dtype)
+                  for t in (lin.weight, lin.bias)]
+        out = fused_dynamixer_op(x.float(), params, self.num_head, self.reduced_dim,
+                                 compute_dtype=self.compute_dtype, weights_out_in=True)
+        return out.to(self.compute_dtype)
 
 
 class DynaMixerBlock(nn.Module):

@@ -22,8 +22,8 @@ Parameters keep the JAX kernels' layout and names (``w1 (N, T)``,
 They are float32 at any compute dtype, as the JAX modules' are: in bf16 the
 kernels read w3/w4 rounded to bf16 on each call and the gradients
 come back in float32, so Adam updates float32 master weights. The mixer
-blocks take at most 32 tokens (the CUDA kernels' cap; ``check_tokens``),
-on every device: a config beyond it fails when built. In training mode
+blocks take any token count, as the JAX kernels do (above 32 tokens the
+CUDA kernels run their token FF as products on the tensor cores). In training mode
 every kernel call draws a fresh dropout seed from the module's
 ``dropout_rng``, as the JAX blocks draw one from the ``dropout`` rng.
 """
@@ -36,8 +36,7 @@ import torch
 from torch import nn
 
 from ..ops.gmlp_kernel import GmlpBlockParams, fused_gmlp_block
-from ..ops.mixer_kernel import (MixerBlockParams, check_tokens, fused_mixer_block,
-                                fused_mixer_stack_grouped)
+from ..ops.mixer_kernel import MixerBlockParams, fused_mixer_block, fused_mixer_stack_grouped
 from .common import LayerNorm, PatchEmbed, _bound, next_kernel_seed, survives, uniform_
 from .gmlp import FusiongMLP, VisiongMLP
 from .mixer import image_tokens
@@ -58,7 +57,6 @@ def _block_params(D: int, N: int, T: int, C: int, generator) -> dict:
     """One block's 12 parameters in ``MixerBlockParams`` order, JAX layout,
     float32, torch-default init (kernel (in, out) ~ U(+-1/sqrt(in)), bias
     likewise)."""
-    check_tokens(N)
 
     def w(i, o):
         return uniform_(torch.empty(i, o), _bound(i), generator)

@@ -110,10 +110,10 @@ def _declare(lib):
     lib.m2m_mixer_smem_bytes.restype = c_size_t
     lib.m2m_error_string.argtypes = [c_int]
     lib.m2m_error_string.restype = ctypes.c_char_p
-    lib.m2m_mixer_fwd_workspace_bytes.argtypes = [c_int] * 7
+    lib.m2m_mixer_fwd_workspace_bytes.argtypes = [c_int] * 8
     lib.m2m_mixer_fwd_workspace_bytes.restype = c_size_t
     lib.m2m_mixer_fwd.argtypes = ([c_void_p] * 3 + [c_int] * 8 + dropout
-                                  + [c_int] + [c_void_p] * 3)
+                                  + [c_int, c_int] + [c_void_p] * 3)
     lib.m2m_mixer_fwd.restype = c_int
     lib.m2m_mixer_block_fwd.argtypes = ([c_void_p, c_void_p] + [c_int] * 8 + dropout
                                         + [c_int, c_void_p, c_void_p])
@@ -126,6 +126,12 @@ def _declare(lib):
     lib.m2m_mixer_bwd.argtypes = ([c_void_p] * 3 + [c_int] * 8 + dropout
                                   + [c_int, c_int] + [c_void_p] * 4)
     lib.m2m_mixer_bwd.restype = c_int
+    lib.m2m_mixer_fwd_token_ff.argtypes = [c_int] * 6
+    lib.m2m_mixer_fwd_token_ff.restype = c_int
+    lib.m2m_mixer_bwd_token_ff.argtypes = [c_int] * 6
+    lib.m2m_mixer_bwd_token_ff.restype = c_int
+    lib.m2m_mixer_token_row_slice.argtypes = [c_int] * 6
+    lib.m2m_mixer_token_row_slice.restype = c_int
     lib.m2m_mixer_row_slice.argtypes = [c_int] * 6
     lib.m2m_mixer_row_slice.restype = c_int
     lib.m2m_gmlp_workspace_bytes.argtypes = [c_int] * 6
@@ -138,13 +144,13 @@ def _declare(lib):
     lib.m2m_gmlp_fwd.restype = c_int
     lib.m2m_gmlp_bwd.argtypes = [c_void_p] * 3 + [c_int] * 5 + dropout + [c_int] + [c_void_p] * 4
     lib.m2m_gmlp_bwd.restype = c_int
-    lib.m2m_dyna_workspace_bytes.argtypes = [c_int] * 7
+    lib.m2m_dyna_workspace_bytes.argtypes = [c_int] * 8
     lib.m2m_dyna_workspace_bytes.restype = c_size_t
     lib.m2m_dyna_row_slice.argtypes = [c_int] * 6
     lib.m2m_dyna_row_slice.restype = c_int
-    lib.m2m_dyna_fwd.argtypes = [c_void_p] * 2 + [c_int] * 6 + [c_void_p] * 3
+    lib.m2m_dyna_fwd.argtypes = [c_void_p] * 2 + [c_int] * 8 + [c_void_p] * 3
     lib.m2m_dyna_fwd.restype = c_int
-    lib.m2m_dyna_bwd.argtypes = [c_void_p] * 3 + [c_int] * 6 + [c_void_p] * 4
+    lib.m2m_dyna_bwd.argtypes = [c_void_p] * 3 + [c_int] * 8 + [c_void_p] * 4
     lib.m2m_dyna_bwd.restype = c_int
     return lib
 

@@ -1,4 +1,5 @@
-// Fused DynaMixerOp forward (K4f) and backward (K4b) kernels for Hopper (sm_90a), float32.
+// Fused DynaMixerOp forward (K4f) and backward (K4b) kernels for Hopper (sm_90a), float32
+// and bf16 compute.
 //
 // Replaces the TPU Pallas kernels of m2mixer_tpu/ops/dynamixer_kernel.py:
 //   m2m_dyna_fwd  <- fused_dynamixer_op's forward (_fwd_call: _fwd_kernel over _op_math)
@@ -12,7 +13,9 @@
 //   mixed[s, l, c] = sum_m P[s, h(c), m, l] x[s, m, c], h(c) = c / (C/H);
 //   y = mixed W_o + b_o.
 // The weights come input-major (the JAX layout): W_c (C, H*R), W_g (L*R, L*L),
-// W_o (C, C).
+// W_o (C, C), or (wt) output-major as a torch Linear stores them: (H*R, C),
+// (L*L, L*R), (C, C) transposed; the gradients come back in the layout the
+// weights came in.
 //
 // What bounds it on the H100. Per sequence the op does 2*L*C*(H*R + C) +
 // 2*H*L*L*(L*R + C/H) flops; at the shipped shape (L = 7, C = 256, H = 8,
@@ -54,6 +57,20 @@
 // split and why mma.sync rather than wgmma); the sequence kernels' small
 // per-head products are SIMT (float32 on the CUDA cores), and are the next
 // part to redesign (PERF.md).
+//
+// bf16 compute (kBF16; compute_dtype=bfloat16) computes what _op_math computes
+// in bf16 (dynamixer_kernel.py:35-59) and what JAX's AD of it computes: x rounded
+// to bf16; W_c, W_g and W_o read rounded (in shared memory, and W_o as a
+// rounded copy in the workspace; the parameters arrive in float32); comp + b_c
+// rounded where the generate product casts it; the logits, the softmax and the
+// mix in float32; mixed rounded where the output product casts it; biases
+// added in float32. The backward rounds each cotangent of a bf16 operand:
+// d_mixed = g W_o^T, d_gin = d_logit W_g^T, the mix's and the compress
+// product's parts of dx (each, before their float32 sum), and dW_o, dW_c and
+// dW_g (after the sum over the batch; JAX rounds per batch tile, which is the
+// whole batch at its tile sizes); the bias gradients stay float32. Products
+// of two bf16 operands take one mma of the tile, of one bf16 operand two
+// (tc_gemm's kExact).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -71,12 +88,13 @@ constexpr int kMaxColSplit = 256;  // row slices of the bias gradients' column s
 constexpr int kRedJobs = 5;        // dW_o, dW_c, db_o, db_c, dW_g + db_g
 
 struct Weights {
-  const float* wc;  // (C, H*R)
+  const float* wc;  // (C, H*R), or (H*R, C) with wt
   const float* bc;  // (H*R,)
-  const float* wg;  // (L*R, L*L)
+  const float* wg;  // (L*R, L*L), or (L*L, L*R) with wt
   const float* bg;  // (L*L,)
-  const float* wo;  // (C, C)
+  const float* wo;  // (C, C), input-major, or output-major with wt
   const float* bo;  // (C,)
+  int wt;           // the weights output-major (torch Linear's layout)
 };
 
 // the op's sizes and the shared-memory layout of a per-sequence CTA (offsets
@@ -110,22 +128,30 @@ Geo make_geo(int S, int L, int C, int H, int R, int spc, bool bwd) {
   return g;
 }
 
-// W_c, b_c, W_g and b_g into shared memory; the backward also keeps W_c
-// transposed (C fastest), so that dx's d_comp W_c^T reads without conflicts
+// W_c, b_c, W_g and b_g into shared memory (the weights rounded to the compute
+// dtype); the backward also keeps W_c transposed (C fastest), so that dx's
+// d_comp W_c^T reads without conflicts
+template <bool kBF16>
 __device__ void load_weights(float* sm, const Weights& w, const Geo& g) {
-  const int HR = g.H * g.R, LL = g.L * g.L;
-  for (int i = threadIdx.x; i < g.C * HR; i += kThreads) {
-    const float v = __ldg(w.wc + i);
-    sm[g.wc + i] = v;
-    if (g.wct >= 0) sm[g.wct + (i % HR) * g.C + i / HR] = v;
+  const int HR = g.H * g.R, LR = g.L * g.R, LL = g.L * g.L;
+  for (int i = threadIdx.x; i < g.C * HR; i += kThreads) {  // source element i: (c, j)
+    const float v = rd<kBF16>(__ldg(w.wc + i));
+    const int c = w.wt ? i % g.C : i / HR, j = w.wt ? i / g.C : i % HR;
+    sm[g.wc + c * HR + j] = v;
+    if (g.wct >= 0) sm[g.wct + j * g.C + c] = v;
   }
   for (int i = threadIdx.x; i < HR; i += kThreads) sm[g.bc + i] = __ldg(w.bc + i);
-  for (int i = threadIdx.x; i < g.L * g.R * LL; i += kThreads) sm[g.wg + i] = __ldg(w.wg + i);
+  for (int i = threadIdx.x; i < LR * LL; i += kThreads) {  // source element i: (k, n)
+    const int k = w.wt ? i % LR : i / LL, n = w.wt ? i / LR : i % LL;
+    sm[g.wg + k * LL + n] = rd<kBF16>(__ldg(w.wg + i));
+  }
   for (int i = threadIdx.x; i < LL; i += kThreads) sm[g.bg + i] = __ldg(w.bg + i);
 }
 
 // comp, the logits and P = softmax over m of the CTA's nq sequences (x in
-// shared memory): comp[q][l][j], p[q][h][m][l]; ends synchronised
+// shared memory): comp[q][l][j] (rounded to the compute dtype: the generate
+// product's operand), p[q][h][m][l]; ends synchronised
+template <bool kBF16>
 __device__ void mixing_weights(float* sm, const Geo& g, int nq) {
   const int L = g.L, C = g.C, H = g.H, R = g.R, HR = H * R, LR = L * R, LL = L * L;
   const float* xs = sm + g.x;
@@ -138,7 +164,7 @@ __device__ void mixing_weights(float* sm, const Geo& g, int nq) {
     const float* xr = xs + (o / HR) * C;
     float acc = 0.f;
     for (int c = 0; c < C; ++c) acc = fmaf(xr[c], wc[c * HR + j], acc);
-    comp[o] = acc + sm[g.bc + j];
+    comp[o] = rd<kBF16>(acc + sm[g.bc + j]);
   }
   __syncthreads();
   for (int o = threadIdx.x; o < nq * H * LL; o += kThreads) {
@@ -164,7 +190,9 @@ __device__ void mixing_weights(float* sm, const Geo& g, int nq) {
   __syncthreads();
 }
 
-// mixed[q][l][c] = sum_m P[q][h(c)][m][l] x[q][m][c] -> out (the CTA's rows)
+// mixed[q][l][c] = sum_m P[q][h(c)][m][l] x[q][m][c] -> out (the CTA's rows),
+// rounded to the compute dtype (the output product's operand)
+template <bool kBF16>
 __device__ void mix(const float* sm, const Geo& g, int nq, float* __restrict__ out) {
   const int L = g.L, C = g.C, Ch = C / g.H, LL = L * L;
   const float* xs = sm + g.x;
@@ -175,35 +203,45 @@ __device__ void mix(const float* sm, const Geo& g, int nq, float* __restrict__ o
     const float* xq = xs + q * L * C + c;
     float acc = 0.f;
     for (int m = 0; m < L; ++m) acc = fmaf(pp[m * L], xq[m * C], acc);
-    out[o] = acc;
+    out[o] = rd<kBF16>(acc);
   }
 }
 
-__device__ void load_rows(float* dst, const float* __restrict__ src, int n) {
-  for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = src[i];
+// n floats of src into dst, rounded to the compute dtype; also to `copy` when given
+template <bool kBF16>
+__device__ void load_rows(float* dst, const float* __restrict__ src, int n,
+                          float* __restrict__ copy = nullptr) {
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const float v = rd<kBF16>(src[i]);
+    dst[i] = v;
+    if (copy) copy[i] = v;
+  }
 }
 
 // K4f step 1: mixed (S*L, C) of the CTA's sequences
+template <bool kBF16>
 __global__ void __launch_bounds__(kThreads)
     dyna_mix_kernel(const float* __restrict__ x, const Weights w, const Geo g,
                     float* __restrict__ mixed) {
   extern __shared__ __align__(16) float sm[];
   const int s0 = blockIdx.x * g.spc, nq = min(g.spc, g.S - s0);
   const size_t off = (size_t)s0 * g.L * g.C;
-  load_weights(sm, w, g);
-  load_rows(sm + g.x, x + off, nq * g.L * g.C);
+  load_weights<kBF16>(sm, w, g);
+  load_rows<kBF16>(sm + g.x, x + off, nq * g.L * g.C);
   __syncthreads();
-  mixing_weights(sm, g, nq);
-  mix(sm, g, nq, mixed + off);
+  mixing_weights<kBF16>(sm, g, nq);
+  mix<kBF16>(sm, g, nq, mixed + off);
 }
 
 // K4b step 2, per CTA of whole sequences: mixed (for dW_o), d_comp, dx, and
-// the CTA's partials of dW_g (L*R x L*L) then db_g (L*L) at part[blockIdx.x]
+// the CTA's partials of dW_g (L*R x L*L) then db_g (L*L) at part[blockIdx.x];
+// kBF16: also x rounded to xr (dW_c's operand)
+template <bool kBF16>
 __global__ void __launch_bounds__(kThreads)
     dyna_seq_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dmixed,
                         const Weights w, const Geo g, float* __restrict__ mixed,
                         float* __restrict__ dcomp_out, float* __restrict__ dx,
-                        float* __restrict__ part) {
+                        float* __restrict__ part, float* __restrict__ xr) {
   extern __shared__ __align__(16) float sm[];
   const int L = g.L, C = g.C, H = g.H, R = g.R, HR = H * R, LR = L * R, LL = L * L;
   const int Ch = C / H;
@@ -215,12 +253,12 @@ __global__ void __launch_bounds__(kThreads)
   const float* p = sm + g.p;
   float* dp = sm + g.dp;
   float* dcomp = sm + g.dcomp;
-  load_weights(sm, w, g);
-  load_rows(sm + g.x, x + off, nq * L * C);
-  load_rows(sm + g.dm, dmixed + off, nq * L * C);
+  load_weights<kBF16>(sm, w, g);
+  load_rows<kBF16>(sm + g.x, x + off, nq * L * C, kBF16 ? xr + off : nullptr);
+  load_rows<false>(sm + g.dm, dmixed + off, nq * L * C);
   __syncthreads();
-  mixing_weights(sm, g, nq);
-  mix(sm, g, nq, mixed + off);
+  mixing_weights<kBF16>(sm, g, nq);
+  mix<kBF16>(sm, g, nq, mixed + off);
   // dP[q][h][m][l] = sum over the head's channels of d_mixed[q][l][c] x[q][m][c]
   for (int o = threadIdx.x; o < nq * H * LL; o += kThreads) {
     const int n = o % LL, qh = o / LL, h = qh % H, q = qh / H;
@@ -247,8 +285,8 @@ __global__ void __launch_bounds__(kThreads)
     float acc = 0.f;
     for (int n = 0; n < LL; ++n) acc = fmaf(d[n], wg[i * LL + n], acc);
     const int at = (q * L + i / R) * HR + h * R + i % R;
-    dcomp[at] = acc;
-    dcomp_out[(size_t)s0 * L * HR + at] = acc;
+    dcomp[at] = rd<kBF16>(acc);
+    dcomp_out[(size_t)s0 * L * HR + at] = rd<kBF16>(acc);
   }
   __syncthreads();
   // dx[q][m][c] = sum_l P[q][h(c)][m][l] d_mixed[q][l][c] + sum_j d_comp[q][m][j] W_c[c][j]
@@ -262,14 +300,15 @@ __global__ void __launch_bounds__(kThreads)
     const float* dr = dcomp + row * HR;
     float acc2 = 0.f;
     for (int j = 0; j < HR; ++j) acc2 = fmaf(dr[j], wct[j * C + c], acc2);
-    dx[off + o] = acc + acc2;
+    dx[off + o] = rd<kBF16>(acc) + rd<kBF16>(acc2);
   }
-  // the CTA's partials: dW_g[i][n] = sum_q sum_h gin[q][h][i] d_logit[q][h][n], db_g[n]
+  // the CTA's partials: dW_g[i][n] = sum_q sum_h gin[q][h][i] d_logit[q][h][n] (at
+  // [n][i] with wt), db_g[n]
   float* mine = part + (size_t)blockIdx.x * (LR * LL + LL);
   for (int o = threadIdx.x; o < LR * LL + LL; o += kThreads) {
     float acc = 0.f;
     if (o < LR * LL) {
-      const int i = o / LL, n = o % LL;
+      const int i = w.wt ? o % LR : o / LL, n = w.wt ? o / LR : o % LL;
       for (int q = 0; q < nq; ++q)
         for (int h = 0; h < H; ++h)
           acc = fmaf(comp[(q * L + i / R) * HR + h * R + i % R], dp[(q * H + h) * LL + n], acc);
@@ -286,8 +325,8 @@ struct Plan {
   int ctas_fwd, ctas_bwd;
   int wsplit, wslice;  // the weight gradients: slices of the rows
   int csplit, cslice;  // the column sums (db_o, db_c): slices of the rows
-  // workspace offsets (floats)
-  size_t mixed, dm, dcomp, p_gen, p_wo, p_wc, p_col;
+  // workspace offsets (floats): wor, xr only in bf16 (W_o and x rounded)
+  size_t mixed, wor, dm, dcomp, p_gen, p_wo, p_wc, p_col, xr;
   size_t fwd_floats, bwd_floats;
 };
 
@@ -305,7 +344,7 @@ int fit_spc(int S, int L, int C, int H, int R, int want, bool bwd, int limit) {
   return 0;
 }
 
-int make_plan(int S, int L, int C, int H, int R, int device, Plan& pl) {
+int make_plan(int S, int L, int C, int H, int R, int bf16, int device, Plan& pl) {
   DeviceInfo dev;
   const cudaError_t err = device_info(device, dev);
   if (err != cudaSuccess) return err;
@@ -335,6 +374,7 @@ int make_plan(int S, int L, int C, int H, int R, int device, Plan& pl) {
   pl.csplit = ceil_div(rows, pl.cslice);
   size_t o = 0;
   pl.mixed = o, o += (size_t)rows * C;
+  pl.wor = o, o += bf16 ? (size_t)C * C : 0;
   pl.fwd_floats = o;
   pl.dm = o, o += (size_t)rows * C;
   pl.dcomp = o, o += (size_t)rows * HR;
@@ -342,87 +382,88 @@ int make_plan(int S, int L, int C, int H, int R, int device, Plan& pl) {
   pl.p_wo = o, o += (size_t)pl.wsplit * C * C;
   pl.p_wc = o, o += (size_t)pl.wsplit * C * HR;
   pl.p_col = o, o += (size_t)pl.csplit * (C + HR);
+  pl.xr = o, o += bf16 ? (size_t)rows * C : 0;
   pl.bwd_floats = o;
   return 0;
 }
 
-Weights weights(const void* const* q) {
+Weights weights(const void* const* q, int wt) {
   auto f = [q](int i) { return static_cast<const float*>(q[i]); };
-  return Weights{f(0), f(1), f(2), f(3), f(4), f(5)};
+  return Weights{f(0), f(1), f(2), f(3), f(4), f(5), wt};
 }
 
-}  // namespace
-
-extern "C" {
-
-// Workspace bytes of the DynaMixerOp forward (backward = 0) or backward (the
-// wrapper allocates it); 0 for shapes the kernels do not take.
-size_t m2m_dyna_workspace_bytes(int S, int L, int C, int H, int R, int backward, int device) {
-  Plan pl;
-  if (check_args(S, L, C, H, R) || make_plan(S, L, C, H, R, device, pl)) return 0;
-  return (backward ? pl.bwd_floats : pl.fwd_floats) * 4;
-}
-
-// Rows of the slices K4b sums dW_o and dW_c over, 0 for shapes the kernels do
-// not take: what the 3xTF32 error is measured against.
-int m2m_dyna_row_slice(int S, int L, int C, int H, int R, int device) {
-  Plan pl;
-  if (check_args(S, L, C, H, R) || make_plan(S, L, C, H, R, device, pl)) return 0;
-  return pl.wslice;
-}
-
-// K4f: y = DynaMixerOp(x), x and y (S, L, C) float32. ptrs: the 6 parameters
-// in DynaMixerOpParams order (float32, JAX layout); workspace:
-// m2m_dyna_workspace_bytes(..., 0, ...) bytes.
-int m2m_dyna_fwd(const float* x, float* y, int S, int L, int C, int H, int R, int device,
-                 const void* const* ptrs, void* workspace, void* stream) {
+template <bool kBF16>
+int dyna_fwd(const float* x, float* y, int S, int L, int C, int H, int R, int wt, int device,
+             const void* const* ptrs, void* workspace, void* stream) {
   if (check_args(S, L, C, H, R)) return -1;
   M2M_TRY(cudaSetDevice(device));
   Plan pl;
-  const int code = make_plan(S, L, C, H, R, device, pl);
+  const int code = make_plan(S, L, C, H, R, kBF16, device, pl);
   if (code) return code;
   const size_t smem = (size_t)pl.fwd.total * 4;
-  M2M_TRY(prepare(dyna_mix_kernel, smem, device));
+  M2M_TRY(prepare(dyna_mix_kernel<kBF16>, smem, device));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Weights w = weights(ptrs);
-  float* mixed = static_cast<float*>(workspace) + pl.mixed;
-  dyna_mix_kernel<<<pl.ctas_fwd, kThreads, smem, st>>>(x, w, pl.fwd, mixed);
+  const Weights w = weights(ptrs, wt);
+  float* ws = static_cast<float*>(workspace);
+  float* mixed = ws + pl.mixed;
+  const float* wo = w.wo;
+  if (kBF16) {
+    M2M_TRY(round_copy(w.wo, ws + pl.wor, C * C, st));
+    wo = ws + pl.wor;
+  }
+  dyna_mix_kernel<kBF16><<<pl.ctas_fwd, kThreads, smem, st>>>(x, w, pl.fwd, mixed);
   M2M_TRY(cudaGetLastError());
   // y = mixed W_o + b_o (dynamixer_kernel.py:58)
-  return tc_gemm_auto(View{mixed, C, 1}, View{w.wo, C, 1}, y, S * L, C, C, pl.sms, st,
-                      EpiBias{w.bo});
+  constexpr int kBoth = kBF16 ? kExactA | kExactB : 0;
+  if (wt)
+    return tc_gemm_auto<kBoth, true>(View{mixed, C, 1}, View{wo, 1, C}, y, S * L, C, C, pl.sms,
+                                     st, EpiBias{w.bo});
+  return tc_gemm_auto<kBoth>(View{mixed, C, 1}, View{wo, C, 1}, y, S * L, C, C, pl.sms, st,
+                             EpiBias{w.bo});
 }
 
-// K4b: dx and the 6 parameter gradients (float32, DynaMixerOpParams order) of
-// one DynaMixerOp at input x for output gradient g; workspace:
-// m2m_dyna_workspace_bytes(..., 1, ...) bytes.
-int m2m_dyna_bwd(const float* x, const float* g, float* dx, int S, int L, int C, int H, int R,
-                 int device, const void* const* ptrs, void* const* grads, void* workspace,
-                 void* stream) {
+template <bool kBF16>
+int dyna_bwd(const float* x, const float* g, float* dx, int S, int L, int C, int H, int R,
+             int wt, int device, const void* const* ptrs, void* const* grads, void* workspace,
+             void* stream) {
   if (check_args(S, L, C, H, R)) return -1;
   M2M_TRY(cudaSetDevice(device));
   Plan pl;
-  const int code = make_plan(S, L, C, H, R, device, pl);
+  const int code = make_plan(S, L, C, H, R, kBF16, device, pl);
   if (code) return code;
   const size_t smem = (size_t)pl.bwd.total * 4;
-  M2M_TRY(prepare(dyna_seq_bwd_kernel, smem, device));
+  M2M_TRY(prepare(dyna_seq_bwd_kernel<kBF16>, smem, device));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Weights w = weights(ptrs);
+  const Weights w = weights(ptrs, wt);
   float* ws = static_cast<float*>(workspace);
   float* const* gq = reinterpret_cast<float* const*>(grads);
   const int rows = S * L, HR = H * R, LL = L * L, LR = L * R;
-  // 1. d_mixed = g W_o^T (dynamixer_kernel.py:58)
-  M2M_TRY(tc_gemm_wide(View{g, C, 1}, View{w.wo, 1, C}, ws + pl.dm, rows, C, C, C, 1, st));
+  // the operands that hold bf16 values, product by product (tc_gemm's kExact)
+  constexpr int kA = kBF16 ? kExactA : 0, kB = kBF16 ? kExactB : 0;
+  constexpr int kRnd = kBF16 ? kRnd0 : 0;
+  const float* wo = w.wo;
+  if (kBF16) {
+    M2M_TRY(round_copy(w.wo, ws + pl.wor, C * C, st));
+    wo = ws + pl.wor;
+  }
+  // 1. d_mixed = g W_o^T (dynamixer_kernel.py:58), rounded in bf16
+  M2M_TRY(tc_gemm_wide<kB>(View{g, C, 1}, wt ? View{wo, C, 1} : View{wo, 1, C}, ws + pl.dm,
+                           rows, C, C, C, 1, st, EpiRound<kBF16>{}));
   // 2. the per-sequence backward (:44-57)
-  dyna_seq_bwd_kernel<<<pl.ctas_bwd, kThreads, smem, st>>>(
-      x, ws + pl.dm, w, pl.bwd, ws + pl.mixed, ws + pl.dcomp, dx, ws + pl.p_gen);
+  dyna_seq_bwd_kernel<kBF16><<<pl.ctas_bwd, kThreads, smem, st>>>(
+      x, ws + pl.dm, w, pl.bwd, ws + pl.mixed, ws + pl.dcomp, dx, ws + pl.p_gen, ws + pl.xr);
   M2M_TRY(cudaGetLastError());
-  // 3. dW_o = mixed^T g, 4. dW_c = x^T d_comp (H*R wide: the narrow tile):
-  // slices of the rows
-  M2M_TRY(tc_gemm_wide(View{ws + pl.mixed, 1, C}, View{g, C, 1}, ws + pl.p_wo, C, C, rows,
-                       pl.wslice, pl.wsplit, st));
-  M2M_TRY(tc_gemm_narrow(View{x, 1, C}, View{ws + pl.dcomp, HR, 1}, ws + pl.p_wc, C, HR, rows,
-                         pl.wslice, pl.wsplit, st));
+  // 3. dW_o = mixed^T g (with wt its transpose g^T mixed), 4. dW_c = x^T d_comp
+  // (H*R wide: the narrow tile; in bf16 x rounded; with wt transposed as its
+  // partials are reduced): slices of the rows
+  if (wt)
+    M2M_TRY(tc_gemm_wide<kB>(View{g, 1, C}, View{ws + pl.mixed, C, 1}, ws + pl.p_wo, C, C, rows,
+                             pl.wslice, pl.wsplit, st));
+  else
+    M2M_TRY(tc_gemm_wide<kA>(View{ws + pl.mixed, 1, C}, View{g, C, 1}, ws + pl.p_wo, C, C, rows,
+                             pl.wslice, pl.wsplit, st));
+  M2M_TRY(tc_gemm_narrow<kA | kB>(View{kBF16 ? ws + pl.xr : x, 1, C}, View{ws + pl.dcomp, HR, 1},
+                                  ws + pl.p_wc, C, HR, rows, pl.wslice, pl.wsplit, st));
   // 5. db_o, db_c: column sums over slices of the rows
   ColJobs<2> cj = {};
   cj.job[0] = ColJob{g, C, C, ws + pl.p_col};
@@ -430,18 +471,64 @@ int m2m_dyna_bwd(const float* x, const float* g, float* dx, int S, int L, int C,
   col_slices_kernel<2><<<dim3(ceil_div(C > HR ? C : HR, kThreads), pl.csplit, 2), kThreads, 0,
                          st>>>(cj, rows, pl.cslice);
   M2M_TRY(cudaGetLastError());
-  // 6. every partial reduced in slice / CTA order (compensated)
+  // 6. every partial reduced in slice / CTA order (compensated); in bf16 the
+  // weight gradients rounded, the bias gradients not
   RedJobs<kRedJobs> rj = {};
-  rj.job[0] = RedJob{ws + pl.p_wo, pl.wsplit, C * C, gq[4], C * C, nullptr};
-  rj.job[1] = RedJob{ws + pl.p_wc, pl.wsplit, C * HR, gq[0], C * HR, nullptr};
-  rj.job[2] = RedJob{ws + pl.p_col, pl.csplit, C, gq[5], C, nullptr};
-  rj.job[3] = RedJob{ws + pl.p_col + (size_t)pl.csplit * C, pl.csplit, HR, gq[1], HR, nullptr};
-  rj.job[4] = RedJob{ws + pl.p_gen, pl.ctas_bwd, LR * LL + LL, gq[2], LR * LL, gq[3]};
+  rj.job[0] = RedJob{ws + pl.p_wo, pl.wsplit, C * C, gq[4], C * C, nullptr, kRnd};
+  rj.job[1] = RedJob{ws + pl.p_wc, pl.wsplit, C * HR, gq[0], C * HR, nullptr, kRnd,
+                     wt ? C : 0};
+  rj.job[2] = RedJob{ws + pl.p_col, pl.csplit, C, gq[5], C, nullptr, 0};
+  rj.job[3] = RedJob{ws + pl.p_col + (size_t)pl.csplit * C, pl.csplit, HR, gq[1], HR, nullptr, 0};
+  rj.job[4] = RedJob{ws + pl.p_gen, pl.ctas_bwd, LR * LL + LL, gq[2], LR * LL, gq[3], kRnd};
   int longest = 0;
   for (const RedJob& j : rj.job) longest = j.P > longest ? j.P : longest;
   reduce_jobs_kernel<kRedJobs><<<dim3(ceil_div(longest, kThreads), kRedJobs), kThreads, 0, st>>>(
       rj);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Workspace bytes of the DynaMixerOp forward (backward = 0) or backward in
+// float32 or (bf16) bf16 compute (the wrapper allocates it); 0 for shapes the
+// kernels do not take.
+size_t m2m_dyna_workspace_bytes(int S, int L, int C, int H, int R, int backward, int bf16,
+                                int device) {
+  Plan pl;
+  if (check_args(S, L, C, H, R) || make_plan(S, L, C, H, R, bf16, device, pl)) return 0;
+  return (backward ? pl.bwd_floats : pl.fwd_floats) * 4;
+}
+
+// Rows of the slices K4b sums dW_o and dW_c over, 0 for shapes the kernels do
+// not take: what the 3xTF32 error is measured against.
+int m2m_dyna_row_slice(int S, int L, int C, int H, int R, int device) {
+  Plan pl;
+  if (check_args(S, L, C, H, R) || make_plan(S, L, C, H, R, 0, device, pl)) return 0;
+  return pl.wslice;
+}
+
+// K4f: y = DynaMixerOp(x), x and y (S, L, C) float32. ptrs: the 6 parameters
+// in DynaMixerOpParams order (float32, the JAX layout, or with wt the weights
+// output-major); bf16: bf16 compute; workspace: m2m_dyna_workspace_bytes(...,
+// 0, ...) bytes.
+int m2m_dyna_fwd(const float* x, float* y, int S, int L, int C, int H, int R, int bf16, int wt,
+                 int device, const void* const* ptrs, void* workspace, void* stream) {
+  return (bf16 ? dyna_fwd<true> : dyna_fwd<false>)(x, y, S, L, C, H, R, wt, device, ptrs,
+                                                    workspace, stream);
+}
+
+// K4b: dx and the 6 parameter gradients (float32, DynaMixerOpParams order) of
+// one DynaMixerOp at input x for output gradient g (the weight gradients in
+// the weights' layout, wt as m2m_dyna_fwd's); bf16: bf16 compute (the
+// gradients rounded where JAX's AD rounds them); workspace:
+// m2m_dyna_workspace_bytes(..., 1, ...) bytes.
+int m2m_dyna_bwd(const float* x, const float* g, float* dx, int S, int L, int C, int H, int R,
+                 int bf16, int wt, int device, const void* const* ptrs, void* const* grads,
+                 void* workspace, void* stream) {
+  return (bf16 ? dyna_bwd<true> : dyna_bwd<false>)(x, g, dx, S, L, C, H, R, wt, device, ptrs,
+                                                    grads, workspace, stream);
 }
 
 }  // extern "C"

@@ -56,6 +56,15 @@
 //      summed in slice order, as stage 5's) and the small gradients (the
 //      tiles' partials, summed in tile order); these sums are compensated
 //      (Kahan), since some of them are exactly zero.
+// Above kMaxTokens tokens (the L config's 64 and 80) a sample no longer fits
+// stages 1 and 4's row tiles, so the token half runs on token_ff.cuh's
+// layouts: stage 1 is the forward's token pipeline again (keeping a1 for
+// gelu'), and stage 4 becomes LN2's backward (ln_bwd_kernel) -> dx1, da2 =
+// dx1^T m1 (a transpose), dh = da2 W2^T with da1 = dh m0 gelu'(a1) in its
+// epilogue, dW2 = h^T da2 and dW1 = y^T da1 over slices of the B*D rows (at
+// most kMaxSliceRows a slice), dy = (da1 W1^T)^T, and LN1's backward -> dx;
+// the four products on the tensor cores, the partials summed in slice or
+// tile order as the rest.
 // The stack runs the final LN's backward and then this pipeline block by
 // block, last block first, on the block inputs the forward saved.
 //
@@ -74,6 +83,7 @@
 
 #include "mixer_common.cuh"
 #include "tile_common.cuh"
+#include "token_ff.cuh"
 
 namespace {
 
@@ -380,8 +390,13 @@ __global__ void __launch_bounds__(kThreads)
 
 struct Plan {
   int sms;         // the card's SMs (the tile rule of stage 2's products)
-  int tb;          // samples per row tile (stages 1 and 4)
+  int reg;         // 1: stages 1 and 4 on row tiles of whole samples (N <= kMaxTokens,
+                   // and one sample's rows fit them); 0: token_ff.cuh's pipeline and its
+                   // transposes
+  int tb;          // samples per row tile (stages 1 and 4, register route)
   int tiles;       // row tiles
+  int nc;          // tokens per row tile (token pipeline)
+  int ln_tiles;    // CTAs of kLnRows rows of an LN backward (token pipeline)
   int Cp;          // C rounded up to whole 16-byte groups: the row stride of h2, da3, W3 and W4^T
   int ksplit;      // slices of C in stage 3
   int kslice;      // hidden units per slice
@@ -389,11 +404,28 @@ struct Plan {
   int wslice;      // rows per slice
   int csplit;      // slices of the rows in stage 6's column sums
   int cslice;      // rows per slice
+  int tsplit, tslice;    // the token weight gradients' slices of the B*D rows
+  int tcsplit, tcslice;  // db1 and db2's column sums: slices of the B*D rows
   size_t prefix_smem, rows_smem;
   size_t ws_floats;  // workspace
   // workspace offsets (floats, each a multiple of 4: 16-byte aligned)
   size_t w3p, w4t, z, da4, h2, da3, dzp, p_w3, p_w4, p_col, part, ping;
+  // the token pipeline's: rounded w1 and w2 (bf16), x1, LN1 out transposed, h,
+  // a1, da1, the down product's output then dy transposed, da2, dx1, dy, and
+  // the partials of both LNs' parameters, dW1, dW2, db1 and db2
+  size_t twr, x1, yt, ht, a1, da1, tt, da2, dx1, dy, p_ln1, p_ln2, p_w1, p_w2, p_tcol;
 };
+
+// column sums over R rows: slices for two CTAs an SM of the widest job (cols
+// columns), at least 16 rows a slice, at most kMaxRowSplit slices
+void col_plan(long long R, int cols, int sms, int& slice, int& split) {
+  int cs = ceil_div(2 * sms, ceil_div(cols, kThreads));
+  const int max_cs = ceil_div(R, 16);
+  cs = cs > kMaxRowSplit ? kMaxRowSplit : cs;
+  cs = cs > max_cs ? max_cs : cs;
+  slice = ceil_div(R, cs);
+  split = ceil_div(R, slice);
+}
 
 int make_plan(int B, int N, int T, int D, int C, int n_blocks, int final_ln, int device,
               Plan& pl) {
@@ -402,33 +434,48 @@ int make_plan(int B, int N, int T, int D, int C, int n_blocks, int final_ln, int
   if (err != cudaSuccess) return err;
   const int sms = dev.sms;
   pl.sms = sms;
-  int tb = kThreads / D > 1 ? kThreads / D : 1;
-  if (tb > B) tb = B;
-  while (tb > 1 && rows_smem_floats(tb, N, T, D) * 4 > (size_t)dev.smem_optin) --tb;
-  if (rows_smem_floats(tb, N, T, D) * 4 > (size_t)dev.smem_optin) return -1;
-  pl.tb = tb;
-  pl.tiles = ceil_div(B, tb);
-  pl.rows_smem = rows_smem_floats(tb, N, T, D) * 4;
-  pl.prefix_smem = (2 * (size_t)tb * N * D + 2 * (size_t)N * T + T + N) * 4;
+  auto prefix_bytes = [=](int tb) {
+    return (2 * (size_t)tb * N * D + 2 * (size_t)N * T + T + N) * 4;
+  };
+  pl.reg = N <= kMaxTokens && rows_smem_floats(1, N, T, D) * 4 <= (size_t)dev.smem_optin &&
+           prefix_bytes(1) <= (size_t)dev.smem_optin;
   const long long R = (long long)B * N;
-  const size_t rows = (size_t)R;
+  const size_t rows = (size_t)R, cols = (size_t)B * D;
+  pl.ln_tiles = ceil_div(R, kLnRows);
+  if ((!pl.reg || final_ln) && ln_bwd_smem_bytes(kLnRows, D) > (size_t)dev.smem_optin) return -1;
+  if (pl.reg) {
+    int tb = kThreads / D > 1 ? kThreads / D : 1;
+    if (tb > B) tb = B;
+    while (tb > 1 && rows_smem_floats(tb, N, T, D) * 4 > (size_t)dev.smem_optin) --tb;
+    if (rows_smem_floats(tb, N, T, D) * 4 > (size_t)dev.smem_optin) return -1;
+    pl.tb = tb;
+    pl.tiles = ceil_div(B, tb);
+    pl.rows_smem = rows_smem_floats(tb, N, T, D) * 4;
+    pl.prefix_smem = prefix_bytes(tb);
+    pl.nc = 0;
+    pl.tsplit = pl.tslice = pl.tcsplit = pl.tcslice = 0;
+  } else {
+    if (cols > (size_t)kTcBM * 65535 || B > 65535)
+      return -1;  // the token products' row tiles, the row kernels' grid y
+    pl.tb = pl.tiles = 0;
+    pl.rows_smem = pl.prefix_smem = 0;
+    pl.nc = tok_tile_tokens(N, D, dev.smem_optin);
+    if (!pl.nc) return -1;
+    // dW1 (N x T) and dW2 (T x N): the larger tile count of the two, slices of the B*D rows
+    const int t1 = ceil_div(N, kTcBM) * ceil_div(T, kTcBN), t2 = ceil_div(T, kTcBM) * ceil_div(N, kTcBN);
+    row_slices((long long)cols, t1 > t2 ? t1 : t2, sms, pl.tslice, pl.tsplit);
+    col_plan((long long)cols, T > N ? T : N, sms, pl.tcslice, pl.tcsplit);
+  }
   pl.Cp = (C + 3) / 4 * 4;
   // dz = da3 W3^T: (rows x D) tiles x slices of C
   fill_slices(C, ceil_div(R, kTcBM) * ceil_div(D, kTcBN), sms, pl.kslice, pl.ksplit);
   // dW3, dW4: dW3's few tiles x slices of the rows
   row_slices(R, ceil_div(D, kTcBM) * ceil_div(C, kTcBN), sms, pl.wslice, pl.wsplit);
-  // db3, db4: a slice is one thread's serial sum, so enough slices for two
-  // CTAs an SM, at least 16 rows a slice
-  int cs = ceil_div(2 * sms, ceil_div(C, kThreads));
-  const int max_cs = ceil_div(R, 16);
-  cs = cs > kMaxRowSplit ? kMaxRowSplit : cs;
-  cs = cs > max_cs ? max_cs : cs;
-  pl.cslice = ceil_div(R, cs);
-  pl.csplit = ceil_div(R, pl.cslice);
-  const size_t small = small_floats(N, T, D);
-  const size_t ln_tiles = ceil_div(R, kLnRows);
-  size_t part = pl.tiles * small;
-  if (final_ln && ln_tiles * 2 * D > part) part = ln_tiles * 2 * D;
+  // db3, db4: a slice is one thread's serial sum
+  col_plan(R, C, sms, pl.cslice, pl.csplit);
+  size_t part = pl.reg ? (size_t)pl.tiles * small_floats(N, T, D) : 0;
+  if (final_ln && (size_t)pl.ln_tiles * 2 * D > part) part = (size_t)pl.ln_tiles * 2 * D;
+  const size_t tok = pl.reg ? 0 : 1;  // the token pipeline's buffers, or none
   size_t o = 0;
   auto take = [&o](size_t& at, size_t floats) { at = o, o += (floats + 3) / 4 * 4; };
   take(pl.w3p, (size_t)D * pl.Cp);
@@ -443,12 +490,27 @@ int make_plan(int B, int N, int T, int D, int C, int n_blocks, int final_ln, int
   take(pl.p_col, (size_t)pl.csplit * (C + D));
   take(pl.part, part);
   take(pl.ping, (n_blocks > 1 || final_ln) ? 2 * rows * D : 0);
+  take(pl.twr, tok * 2 * N * T);
+  take(pl.x1, tok * rows * D);
+  take(pl.yt, tok * cols * N);
+  take(pl.ht, tok * cols * T);
+  take(pl.a1, tok * cols * T);
+  take(pl.da1, tok * cols * T);
+  take(pl.tt, tok * cols * N);
+  take(pl.da2, tok * cols * N);
+  take(pl.dx1, tok * rows * D);
+  take(pl.dy, tok * rows * D);
+  take(pl.p_ln1, tok * pl.ln_tiles * 2 * D);
+  take(pl.p_ln2, tok * pl.ln_tiles * 2 * D);
+  take(pl.p_w1, tok * pl.tsplit * N * T);
+  take(pl.p_w2, tok * pl.tsplit * T * N);
+  take(pl.p_tcol, tok * pl.tcsplit * (T + N));
   pl.ws_floats = o;
   return 0;
 }
 
 int check_args(int B, int N, int T, int D, int C, int n_blocks) {
-  if (B < 1 || N < 1 || N > kMaxTokens || T < 1 || D < 1 || C < 1) return -1;
+  if (B < 1 || N < 1 || T < 1 || D < 1 || C < 1) return -1;
   if (n_blocks < 1 || n_blocks > kMaxBlocks) return -1;
   if ((size_t)B * N * (C > D ? C : D) >= (1ull << 32) ||
       (size_t)B * D * (T > N ? T : N) >= (1ull << 32))
@@ -456,6 +518,50 @@ int check_args(int B, int N, int T, int D, int C, int n_blocks) {
   if ((size_t)B * N > (size_t)kTcBM * 65535 || C > kTcBM * 65535)
     return -1;  // the products' row tiles (grid y)
   return 0;
+}
+
+constexpr int kTokJobs = 6;  // the token pipeline's reductions: LN1, LN2, dW1, dW2, db1, db2
+
+// Stage 4 above kMaxTokens tokens, on token_ff.cuh's layouts (stage 1 left x1,
+// a1 and h there): LN2 backward -> dx1; da2 = dx1^T m1 (B*D, N); da1 = (da2
+// W2^T) m0 gelu'(a1); dW2 = h^T da2, dW1 = y^T da1 (slices of the B*D rows);
+// dy = (da1 W1^T)^T; LN1 backward -> dx; the partials of db1, db2 and both
+// LNs' parameters. kBF16: the roundings of rows_bwd_kernel, at the same points.
+template <bool kBF16>
+int token_backward(const Plan& pl, float* ws, const float* x, const float* g, float* dx,
+                   const Small& sp, const float* w1, const float* w2, int B, int N, int T, int D,
+                   int tanh_flavor, const Dropout& dp, int blk, cudaStream_t st) {
+  constexpr int kA = kBF16 ? kExactA : 0, kB = kBF16 ? kExactB : 0;
+  const int R = B * N, cols = B * D;
+  const size_t lsm = ln_bwd_smem_bytes(kLnRows, D);
+  float* dx1 = ws + pl.dx1;
+  float* da2 = ws + pl.da2;
+  float* da1 = ws + pl.da1;
+  float* dyt = ws + pl.tt;  // the forward's tt is spent
+  float* dy = ws + pl.dy;
+  // dx1 = g + LN2's backward of dz (stage 3's slices, summed in slice order)
+  ln_bwd_kernel<kBF16><<<pl.ln_tiles, kThreads, lsm, st>>>(
+      ws + pl.x1, ws + pl.dzp, pl.ksplit, g, sp.ln2_s, dx1, ws + pl.p_ln2, R, D, kLnRows);
+  M2M_TRY(cudaGetLastError());
+  M2M_TRY(launch_transpose<kBF16>(dx1, da2, B, N, D, 1, dp, blk, st));
+  M2M_TRY(tc_gemm_wide<kB>(View{da2, N, 1}, View{w2, 1, N}, da1, cols, T, N, N, 1, st,
+                           EpiTokenBwd<kBF16>{ws + pl.a1, T, tanh_flavor, blk, dp}));
+  M2M_TRY(tc_gemm_wide<kA>(View{ws + pl.ht, 1, T}, View{da2, N, 1}, ws + pl.p_w2, T, N, cols,
+                           pl.tslice, pl.tsplit, st));
+  M2M_TRY(tc_gemm_wide<kA>(View{ws + pl.yt, 1, N}, View{da1, T, 1}, ws + pl.p_w1, N, T, cols,
+                           pl.tslice, pl.tsplit, st));
+  M2M_TRY(tc_gemm_wide<kB>(View{da1, T, 1}, View{w1, 1, T}, dyt, cols, N, T, T, 1, st));
+  M2M_TRY(launch_transpose<kBF16>(dyt, dy, B, D, N, 0, dp, blk, st));
+  // dx = dx1 + LN1's backward of dy, on the block input
+  ln_bwd_kernel<kBF16><<<pl.ln_tiles, kThreads, lsm, st>>>(x, dy, 1, dx1, sp.ln1_s, dx,
+                                                           ws + pl.p_ln1, R, D, kLnRows);
+  M2M_TRY(cudaGetLastError());
+  ColJobs<2> cj = {};
+  cj.job[0] = ColJob{da1, T, T, ws + pl.p_tcol};
+  cj.job[1] = ColJob{da2, N, N, ws + pl.p_tcol + (size_t)pl.tcsplit * T};
+  col_slices_kernel<2><<<dim3(ceil_div(T > N ? T : N, kThreads), pl.tcsplit, 2), kThreads, 0,
+                          st>>>(cj, cols, pl.tcslice);
+  return (int)cudaGetLastError();
 }
 
 // one block's backward: x its input, g the gradient of its output; dx and the
@@ -489,9 +595,26 @@ int block_bwd(const Plan& pl, float* ws, const float* x, const float* g, float* 
   pad_weights_kernel<kBF16><<<dim3(ceil_div(Cp, kTr), ceil_div(D, kTr)), kTr * 8, 0, st>>>(
       w3, w4, w3p, w4t, D, C, Cp);
   M2M_TRY(cudaGetLastError());
-  prefix_kernel<kBF16><<<pl.tiles, kThreads, pl.prefix_smem, st>>>(x, g, z, da4, B, N, T, D,
-                                                                   pl.tb, tanh_flavor, sp, dp, blk);
-  M2M_TRY(cudaGetLastError());
+  // the token weights the token pipeline's products read (rounded copies in bf16)
+  const float* w1 = sp.w1;
+  const float* w2 = sp.w2;
+  if (pl.reg) {
+    prefix_kernel<kBF16><<<pl.tiles, kThreads, pl.prefix_smem, st>>>(
+        x, g, z, da4, B, N, T, D, pl.tb, tanh_flavor, sp, dp, blk);
+    M2M_TRY(cudaGetLastError());
+  } else {
+    if (kBF16) {
+      M2M_TRY(round_token_weights(sp.w1, sp.w2, ws + pl.twr, N * T, st));
+      w1 = ws + pl.twr;
+      w2 = ws + pl.twr + N * T;
+    }
+    // stage 1 on the token pipeline: the forward again from the block input,
+    // keeping a1, with da4 = g m3
+    const TokenBufs tb{ws + pl.yt, ws + pl.ht, ws + pl.tt, ws + pl.a1};
+    M2M_TRY_INT(token_forward<kBF16>(x, nullptr, 0, nullptr, ws + pl.x1, z, nullptr, tb, sp.ln1_s,
+                                 sp.ln1_b, w1, sp.b1, w2, sp.b2, sp.ln2_s, sp.ln2_b, g, da4, B, N,
+                                 T, D, pl.nc, pl.sms, tanh_flavor, dp, blk, st));
+  }
   // stage 2: a3 into h2's buffer, then dh2 with the epilogue that finishes h2 and da3
   M2M_TRY(tc_gemm_auto<kBoth>(View{z, D, 1}, View{w3p, Cp, 1}, h2, R, Cp, D, pl.sms, st,
                               EpiA3{b3, C}));
@@ -500,9 +623,14 @@ int block_bwd(const Plan& pl, float* ws, const float* x, const float* g, float* 
   // stage 3: dz = da3 W3^T, slices of C
   M2M_TRY(tc_gemm_wide<kB>(View{da3, Cp, 1}, View{w3p, 1, Cp}, dzp, R, D, C, pl.kslice,
                            pl.ksplit, st));
-  rows_bwd_kernel<kBF16><<<pl.tiles, kThreads, pl.rows_smem, st>>>(
-      x, g, dzp, pl.ksplit, dx, part, B, N, T, D, pl.tb, tanh_flavor, sp, dp, blk);
-  M2M_TRY(cudaGetLastError());
+  if (pl.reg) {
+    rows_bwd_kernel<kBF16><<<pl.tiles, kThreads, pl.rows_smem, st>>>(
+        x, g, dzp, pl.ksplit, dx, part, B, N, T, D, pl.tb, tanh_flavor, sp, dp, blk);
+    M2M_TRY(cudaGetLastError());
+  } else {
+    M2M_TRY_INT(token_backward<kBF16>(pl, ws, x, g, dx, sp, w1, w2, B, N, T, D, tanh_flavor, dp, blk,
+                                  st));
+  }
   // stage 5: dW3 (D x C) = z^T da3, dW4 (C x D) = h2^T da4, slices of the rows
   M2M_TRY(tc_gemm_wide<kA>(View{z, 1, D}, View{da3, Cp, 1}, ws + pl.p_w3, D, C, R, pl.wslice,
                            pl.wsplit, st));
@@ -515,26 +643,42 @@ int block_bwd(const Plan& pl, float* ws, const float* x, const float* g, float* 
   col_slices_kernel<2><<<dim3(ceil_div(C > D ? C : D, kThreads), pl.csplit, 2), kThreads, 0,
                           st>>>(cj, R, pl.cslice);
   M2M_TRY(cudaGetLastError());
-  // the tiles' partials: ln1 (2D), w1, b1, w2, b2, ln2 (2D); in bf16 all but the
-  // biases b1 and b2 are rounded
-  Segs segs = {};
-  const int lens[8] = {D, D, N * T, T, T * N, N, D, D};
-  for (int i = 0; i < 8; ++i) {
-    segs.out[i] = gf[i];
-    segs.len[i] = lens[i];
-    segs.rnd[i] = kBF16 && i != 3 && i != 5;
-  }
-  segs.n = 8;
-  const int P = small_floats(N, T, D);
-  reduce_kernel<<<ceil_div(P, kThreads), kThreads, 0, st>>>(part, pl.tiles, P, segs);
-  M2M_TRY(cudaGetLastError());
   // dW3, dW4, db3, db4: the row slices' partials in slice order
-  RedJobs<4> rj = {};
-  rj.job[0] = RedJob{ws + pl.p_w3, pl.wsplit, D * C, gf[8], D * C, nullptr, kBF16};
-  rj.job[1] = RedJob{ws + pl.p_w4, pl.wsplit, C * D, gf[10], C * D, nullptr, kBF16};
+  constexpr int kRnd = kBF16 ? kRnd0 | kRnd1 : 0;
+  RedJobs<kTokJobs + 4> rj = {};
+  rj.job[0] = RedJob{ws + pl.p_w3, pl.wsplit, D * C, gf[8], D * C, nullptr, kRnd};
+  rj.job[1] = RedJob{ws + pl.p_w4, pl.wsplit, C * D, gf[10], C * D, nullptr, kRnd};
   rj.job[2] = RedJob{ws + pl.p_col, pl.csplit, C, gf[9], C, nullptr, 0};
   rj.job[3] = RedJob{ws + pl.p_col + (size_t)pl.csplit * C, pl.csplit, D, gf[11], D, nullptr, 0};
-  reduce_jobs_kernel<4><<<dim3(ceil_div(D * C, kThreads), 4), kThreads, 0, st>>>(rj);
+  int jobs = 4;
+  if (pl.reg) {
+    // the tiles' partials: ln1 (2D), w1, b1, w2, b2, ln2 (2D); in bf16 all but the
+    // biases b1 and b2 are rounded
+    Segs segs = {};
+    const int lens[8] = {D, D, N * T, T, T * N, N, D, D};
+    for (int i = 0; i < 8; ++i) {
+      segs.out[i] = gf[i];
+      segs.len[i] = lens[i];
+      segs.rnd[i] = kBF16 && i != 3 && i != 5;
+    }
+    segs.n = 8;
+    const int P = small_floats(N, T, D);
+    reduce_kernel<<<ceil_div(P, kThreads), kThreads, 0, st>>>(part, pl.tiles, P, segs);
+    M2M_TRY(cudaGetLastError());
+  } else {
+    // the token pipeline's partials: both LNs' (scale and bias, rounded in bf16),
+    // dW1 and dW2 (rounded in bf16), db1 and db2
+    rj.job[4] = RedJob{ws + pl.p_ln1, pl.ln_tiles, 2 * D, gf[0], D, gf[1], kRnd};
+    rj.job[5] = RedJob{ws + pl.p_ln2, pl.ln_tiles, 2 * D, gf[6], D, gf[7], kRnd};
+    rj.job[6] = RedJob{ws + pl.p_w1, pl.tsplit, N * T, gf[2], N * T, nullptr, kRnd};
+    rj.job[7] = RedJob{ws + pl.p_w2, pl.tsplit, T * N, gf[4], T * N, nullptr, kRnd};
+    rj.job[8] = RedJob{ws + pl.p_tcol, pl.tcsplit, T, gf[3], T, nullptr, 0};
+    rj.job[9] = RedJob{ws + pl.p_tcol + (size_t)pl.tcsplit * T, pl.tcsplit, N, gf[5], N, nullptr,
+                       0};
+    jobs += kTokJobs;
+  }
+  reduce_jobs_kernel<kTokJobs + 4><<<dim3(ceil_div(D * C > N * T ? D * C : N * T, kThreads), jobs),
+                                     kThreads, 0, st>>>(rj);
   return (int)cudaGetLastError();
 }
 
@@ -548,9 +692,13 @@ int mixer_bwd(const float* saved, const float* g, float* dx, int B, int N, int T
   Plan pl;
   int code = make_plan(B, N, T, D, C, n_blocks, final_ln, device, pl);
   if (code) return code;
-  M2M_TRY(prepare(prefix_kernel<kBF16>, pl.prefix_smem, device));
-  M2M_TRY(prepare(rows_bwd_kernel<kBF16>, pl.rows_smem, device));
-  M2M_TRY(prepare(ln_bwd_kernel<kBF16>, ln_bwd_smem_bytes(kLnRows, D), device));
+  if (pl.reg) {
+    M2M_TRY(prepare(prefix_kernel<kBF16>, pl.prefix_smem, device));
+    M2M_TRY(prepare(rows_bwd_kernel<kBF16>, pl.rows_smem, device));
+  } else {
+    M2M_TRY(prepare_token_kernels<kBF16>(pl.nc, D, device));
+  }
+  if (!pl.reg || final_ln) M2M_TRY(prepare(ln_bwd_kernel<kBF16>, ln_bwd_smem_bytes(kLnRows, D), device));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dropout dp = make_dropout(keys, n_blocks, thresh, scale);
   float* ws = static_cast<float*>(workspace);
@@ -598,6 +746,24 @@ size_t m2m_mixer_bwd_workspace_bytes(int B, int N, int T, int D, int C, int n_bl
   if (check_args(B, N, T, D, C, n_blocks) || make_plan(B, N, T, D, C, n_blocks, final_ln, device, pl))
     return 0;
   return pl.ws_floats * 4;
+}
+
+// 1 if the backward runs the token FF on token_ff.cuh's pipeline (above
+// kMaxTokens tokens, or where a sample's rows do not fit stages 1 and 4's
+// tiles), 0 if on row tiles in registers, -1 for shapes the kernels do not take.
+int m2m_mixer_bwd_token_ff(int B, int N, int T, int D, int C, int device) {
+  Plan pl;
+  if (check_args(B, N, T, D, C, 1) || make_plan(B, N, T, D, C, 1, 0, device, pl)) return -1;
+  return !pl.reg;
+}
+
+// Rows of the slices K1b/K2b sum dW1 and dW2 over on the token pipeline (slices
+// of the B*D rows), 0 on the register route or for shapes the kernels do not
+// take: what the 3xTF32 error of the token weight gradients is measured against.
+int m2m_mixer_token_row_slice(int B, int N, int T, int D, int C, int device) {
+  Plan pl;
+  if (check_args(B, N, T, D, C, 1) || make_plan(B, N, T, D, C, 1, 0, device, pl)) return 0;
+  return pl.reg ? 0 : pl.tslice;
 }
 
 // Rows of the slices K1b/K2b sum dW3 and dW4 over, 0 for shapes the kernels

@@ -27,7 +27,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxTokens = 32;
+constexpr int kMaxTokens = 32;  // tokens the register token FF takes (token_ff.cuh above)
 constexpr int kMaxBlocks = 32;
 constexpr int kParamsPerBlock = 12;
 constexpr int kMasks = 4;

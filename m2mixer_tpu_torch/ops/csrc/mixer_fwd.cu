@@ -1,9 +1,9 @@
 // Fused MixerBlock / mixer-stack forward kernels for Hopper (sm_90a).
 //
 // Replaces the TPU Pallas kernels of m2mixer_tpu/ops/mixer_kernel.py:
-//   m2m_mixer_fwd (float32), mixer_block_fwd (bf16)
+//   m2m_mixer_fwd (float32 and bf16), mixer_block_fwd (bf16, at most 32 tokens)
 //       <- fused_mixer_block forward (_fwd_kernel over _block_math)
-//   m2m_mixer_fwd (float32), mixer_stack_fwd (bf16)
+//   m2m_mixer_fwd (float32 and bf16), mixer_stack_fwd (bf16, at most 32 tokens)
 //       <- fused_mixer_stack forward (_stack_fwd_kernel over _stack_math)
 //
 // One block computes, on x (B, N, D):
@@ -14,51 +14,61 @@
 // keyed on the element's index in the JAX layouts, so the backward kernels
 // (mixer_bwd.cu) regenerate the same masks.
 //
-// float32 design (K1f and K2f). Per block the channel FF does 4*B*N*D*C flops
-// against 2*D*C weights, the token FF 4*B*D*N*T: operations bound the block at
-// the served batches, and float32 FMA on the CUDA cores (67 TFLOP/s) was the
-// old kernel's ceiling. Both channel products now run on the tensor cores in
-// 3xTF32 (tile_common.cuh's tc_gemm, float32-accurate at a third of TF32's
-// 495 TFLOP/s), so the block becomes a short pipeline through device memory,
-// the forward half of K1b's:
-//   0. once per call, where C is no multiple of 4 (the fusion mixer's 3078):
-//      every block's W3 copied into D x Cp rows, Cp = C rounded up to whole
-//      16-byte groups, zeros in the pad columns (exact: gelu(0) = 0);
-//   1. prefix, row tiles of whole samples (the token mix couples a sample's N
-//      tokens): the block input -- x, or for a later block the finish of the
-//      one before (below) -- saved to K2f's slot when training, then LN1,
-//      token FF (masks 0, 1), x1, LN2 -> x1 and z to device memory;
+// The pipeline (K1f and K2f, m2m_mixer_fwd). Per block the channel FF does
+// 4*B*N*D*C flops against 2*D*C weights, the token FF 4*B*D*N*T: operations
+// bound the block at the served batches, and float32 FMA on the CUDA cores (67
+// TFLOP/s) was the old kernel's ceiling. Both channel products run on the
+// tensor cores in 3xTF32 (tile_common.cuh's tc_gemm, float32-accurate at a
+// third of TF32's 495 TFLOP/s), so the block is a short pipeline through
+// device memory, the forward half of K1b's:
+//   0. once per call, where C is no multiple of 4 (the fusion mixer's 3078) or
+//      in bf16: every block's W3 copied into D x Cp rows, Cp = C rounded up to
+//      whole 16-byte groups, zeros in the pad columns (exact: gelu(0) = 0),
+//      and in bf16 W4 too, both rounded;
+//   1. the token half, on the block input -- x, or for a later block the
+//      finish of the one before (below) -- saved to K2f's slot when training:
+//      LN1, token FF (masks 0, 1), x1, LN2 -> x1 and z to device memory. At
+//      most kMaxTokens tokens one prefix launch on row tiles of whole samples
+//      (the token mix couples a sample's N tokens) keeps a sample's tokens in
+//      registers, sized by a template bound (8 for the B config's 4 and 8
+//      tokens, else kMaxTokens) so that it keeps several CTAs an SM. Above
+//      that, token_ff.cuh's pipeline: LN1 written transposed, the token FF's
+//      two products on the tile (GELU, masks and bias in their epilogues),
+//      the residual and LN2 (the L config's 64 and 80 tokens);
 //   2. up: h2 = gelu(z W3 + b3) m2 on the tile (bias, GELU and mask 2 in its
 //      epilogue), (B*N) x Cp with zero pad columns;
 //   3. down: h2 W4 over slices of C (partials summed later in slice order);
-//   4. finish: x1 + (the slices' sum + b4) m3, in the next block's prefix as
-//      it loads its input, and after the last block in finish_kernel, which
-//      also writes the pre-LN output to the last saved slot and applies the
-//      stack's final LN.
+//   4. finish: x1 + (the slices' sum + b4) m3, in the next block's first
+//      launch as it loads its input, and after the last block in
+//      finish_kernel, which also writes the pre-LN output to the last saved
+//      slot and applies the stack's final LN.
 // No float atomics and one order for every sum: two runs give bit-identical
-// outputs, and a stack's saved slots equal a chain of one-block calls. The
-// prefix keeps a sample's tokens in registers, sized by a template bound (8
-// for the B config's 4 and 8 tokens, else kMaxTokens) so that it keeps
-// several CTAs an SM.
+// outputs, and a stack's saved slots equal a chain of one-block calls.
+// bf16 compute runs the same pipeline with _block_math's casts (rd<true> at
+// each: the block input, the LN outputs, h, h2 and the residual stream rounded
+// to bf16; LN statistics, sums, biases and GELU float32) and products of bf16
+// operands, exact in TF32, so one mma in place of three (kExact).
 //
-// bf16 (serving only; the backward runs in float32). One launch keeps a row
-// tile of `tb` whole samples in shared memory for the whole stack: x/x1, z and
-// a channel-FF accumulator (R x D each, R = tb * N rows). A cluster of S CTAs
-// (1, 2 or 4, chosen at launch with tb so that the grid fills the SMs in one
-// wave) shares the tile: all compute LN1, the token mix and LN2 on the same
-// rows; CTA `rank` runs the channel FF over hidden chunks rank, rank + S, ...
-// of kChunk units: h = gelu(z W3[:, c:c+kChunk] + b3) into shared memory, then
-// its partial acc += h W4[c:c+kChunk, :], so the R x C hidden activation never
-// reaches device memory. The partials meet through distributed shared memory,
-// summed in rank order. Weight chunks stream from L2 with cp.async into two
-// buffers. Casts follow _block_math exactly: the residual stream, the LN
-// outputs and every GEMM operand are rounded to bf16; LN statistics, GEMM sums,
-// biases and GELU stay float32. Products run as float32 FMA on the CUDA cores
-// (products of bf16 values are exact in float32), latency-bound per chunk,
-// several times off the bound (PERF.md); wgmma with TMA is ROADMAP.md's item.
+// The bf16 resident tile (mixer_block_fwd, mixer_stack_fwd), at most
+// kMaxTokens tokens: one launch keeps a row tile of `tb` whole samples in
+// shared memory for the whole stack: x/x1, z and a channel-FF accumulator (R
+// x D each, R = tb * N rows). A cluster of S CTAs (1, 2 or 4, chosen at
+// launch with tb so that the grid fills the SMs in one wave) shares the tile:
+// all compute LN1, the token mix and LN2 on the same rows; CTA `rank` runs the
+// channel FF over hidden chunks rank, rank + S, ... of kChunk units: h =
+// gelu(z W3[:, c:c+kChunk] + b3) into shared memory, then its partial acc += h
+// W4[c:c+kChunk, :], so the R x C hidden activation never reaches device
+// memory. The partials meet through distributed shared memory, summed in rank
+// order. Weight chunks stream from L2 with cp.async into two buffers. Casts
+// follow _block_math exactly, as the pipeline's. Products run as float32 FMA on
+// the CUDA cores (products of bf16 values are exact in float32),
+// latency-bound per chunk, several times off the bound (PERF.md). An L sample
+// (80 x 512 float32, 160 KB) does not fit its tile, so above kMaxTokens bf16
+// takes the pipeline.
 //
-// Limits checked by the wrappers and again here: N <= kMaxTokens, D % 4 == 0,
-// K <= kMaxBlocks; bf16: C even, shared memory <= the opt-in limit.
+// Limits checked by the wrappers and again here: D % 4 == 0, K <= kMaxBlocks,
+// the masks' 32-bit element counts; the resident tile: N <= kMaxTokens, C even,
+// shared memory <= the opt-in limit.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -70,6 +80,7 @@
 
 #include "mixer_common.cuh"
 #include "tile_common.cuh"
+#include "token_ff.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -126,43 +137,36 @@ StackArgs pack(const void* const* ptrs, int n_blocks, int final_ln, float* saved
   return a;
 }
 
-// ============================================ float32: the tensor-core pipeline
+// ============================================ the pipeline (float32 and bf16)
 
 constexpr int kFewTokens = 8;  // the prefix's narrow token bound (the B config: N = 4, 8)
 
-// stage 0: w3p[k] (D x Cp) = block k's W3 (D x C), zeros in columns C..Cp-1
-struct W3Srcs {
+// stage 0: for block blockIdx.y, w3p (D x Cp) = its W3 (D x C), zeros in
+// columns C..Cp-1, and in bf16 w4r (C x D) = its W4; both rounded to the
+// compute dtype (the copies the products read)
+struct W34Srcs {
   const float* w3[kMaxBlocks];
+  const float* w4[kMaxBlocks];
 };
+template <bool kBF16>
 __global__ void __launch_bounds__(kThreads)
-    pad_w3_kernel(const __grid_constant__ W3Srcs src, float* __restrict__ w3p, int D, int C,
-                  int Cp) {
-  const float* w3 = src.w3[blockIdx.y];
-  float* dst = w3p + (size_t)blockIdx.y * D * Cp;
+    prep_w34_kernel(const __grid_constant__ W34Srcs src, float* __restrict__ w3p,
+                    float* __restrict__ w4r, int D, int C, int Cp) {
+  const int k = blockIdx.y;
   const int e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= D * Cp) return;
-  const int d = e / Cp, c = e - d * Cp;
-  dst[e] = c < C ? __ldg(w3 + (size_t)d * C + c) : 0.f;
+  if (e < D * Cp) {
+    const int d = e / Cp, c = e - d * Cp;
+    w3p[(size_t)k * D * Cp + e] = c < C ? rd<kBF16>(__ldg(src.w3[k] + (size_t)d * C + c)) : 0.f;
+  }
+  if (kBF16 && e < C * D) w4r[(size_t)k * C * D + e] = rd<kBF16>(__ldg(src.w4[k] + e));
 }
 
-// stage 4: block blk's output at element e of the (B*N) x D stream, x1 + (h2 W4 +
-// b4) m3, the down product's ksplit partials (`total` floats apart) added in
-// slice order. Both roundings of _block_math are kept (no FMA contraction), so
-// the prefix and finish_kernel compute it alike.
-__device__ __forceinline__ float finish(const float* x1, const float* part, int ksplit,
-                                        size_t total, size_t e, float b4, const Dropout& dp,
-                                        int blk) {
-  float s = 0.f;
-  for (int k = 0; k < ksplit; ++k) s += part[k * total + e];
-  return x1[e] + __fmul_rn(s + b4, keep(dp, blk, 3, (uint32_t)e));
-}
-
-// stage 1 of block `blk` on a tile of tb whole samples: the block input u (x for
-// the first block, else the finish of block blk - 1 from x1 and `part`), saved
-// to `save` when given, then LN1 -> token FF -> x1 = u + token FF -> LN2 = z;
-// x1 and z to device memory. x1 is read and rewritten in place: a tile's rows
-// are its own.
-template <int kMaxN>
+// stage 1 of block `blk` on a tile of tb whole samples, at most kMaxTokens
+// tokens: the block input u (x rounded to the compute dtype for the first
+// block, else the finish of block blk - 1 from x1 and `part`), saved to `save`
+// when given, then LN1 -> token FF -> x1 = u + token FF -> LN2 = z; x1 and z
+// to device memory. x1 is read and rewritten in place: a tile's rows are its own.
+template <int kMaxN, bool kBF16>
 __global__ void __launch_bounds__(kThreads)
     fwd_prefix_kernel(const float* __restrict__ x, const float* __restrict__ part, int ksplit,
                       const float* __restrict__ b4_prev, float* x1, float* __restrict__ z,
@@ -176,18 +180,19 @@ __global__ void __launch_bounds__(kThreads)
   const size_t off = (size_t)s0 * N * D, total = (size_t)B * N * D;
   for (int e = threadIdx.x; e < R * D; e += kThreads) {
     const size_t g = off + e;
-    const float u = x ? x[g] : finish(x1, part, ksplit, total, g, __ldg(b4_prev + e % D), dp,
+    const float u = x ? rd<kBF16>(x[g])
+                      : finish<kBF16>(x1, part, ksplit, total, g, __ldg(b4_prev + e % D), dp,
                                       blk - 1);
     xs[e] = u;
     if (save) save[g] = u;
   }
-  load_token_weights<false>(tw, TokenPtrs{p.w1, p.b1, p.w2, p.b2}, N, T);
+  load_token_weights<kBF16>(tw, TokenPtrs{p.w1, p.b1, p.w2, p.b2}, N, T);
   __syncthreads();
-  layer_norm_rows<false>(xs, ys, R, D, p.ln1_s, p.ln1_b);
+  layer_norm_rows<kBF16>(xs, ys, R, D, p.ln1_s, p.ln1_b);
   __syncthreads();
-  token_mix<false, true, kMaxN>(ys, xs, nb, N, T, D, tw, tanh_flavor, dp, blk, s0);
+  token_mix<kBF16, true, kMaxN>(ys, xs, nb, N, T, D, tw, tanh_flavor, dp, blk, s0);
   __syncthreads();
-  layer_norm_rows<false>(xs, ys, R, D, p.ln2_s, p.ln2_b);
+  layer_norm_rows<kBF16>(xs, ys, R, D, p.ln2_s, p.ln2_b);
   __syncthreads();
   for (int e = threadIdx.x; e < R * D; e += kThreads) {
     x1[off + e] = xs[e];
@@ -195,21 +200,25 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// stage 2's epilogue over (rows) x Cp: h2 = gelu(v + b3) m2, zero in the pad
+// stage 2's epilogue over (rows) x Cp: h2 = rd(gelu(v + b3) m2), zero in the pad
 // columns (K1b's EpiA3 and then EpiChannelBwd compute the same h2)
+template <bool kBF16>
 struct EpiUp {
   const float* b3;
   int C, tanh_flavor, blk;
   Dropout dp;
   __device__ __forceinline__ float operator()(int r, int c, float v) const {
     if (c >= C) return 0.f;
-    return gelu(v + __ldg(b3 + c), tanh_flavor) * keep(dp, blk, 2, (uint32_t)r * C + c);
+    return rd<kBF16>(gelu(v + __ldg(b3 + c), tanh_flavor) *
+                     keep(dp, blk, 2, (uint32_t)r * C + c));
   }
 };
 
 // stage 4 after the last block (`blk`): its output v (the finish), to `save`
 // when given (the stack's output before its final LN), then out = LN(v) with
-// the final LN's scale and bias, or v without one; a warp per row
+// the final LN's scale and bias (rounded as the block LNs), or v without one;
+// a warp per row
+template <bool kBF16>
 __global__ void __launch_bounds__(kThreads)
     finish_kernel(const float* __restrict__ x1, const float* __restrict__ part, int ksplit,
                   const float* __restrict__ b4, float* __restrict__ save, float* __restrict__ out,
@@ -222,7 +231,7 @@ __global__ void __launch_bounds__(kThreads)
   float* v = sm + warp * D;
   const size_t row = (size_t)r * D, total = (size_t)rows * D;
   for (int d = lane; d < D; d += 32) {
-    v[d] = finish(x1, part, ksplit, total, row + d, __ldg(b4 + d), dp, blk);
+    v[d] = finish<kBF16>(x1, part, ksplit, total, row + d, __ldg(b4 + d), dp, blk);
     if (save) save[row + d] = v[d];
   }
   __syncwarp();
@@ -233,21 +242,25 @@ __global__ void __launch_bounds__(kThreads)
   float mean, inv;
   row_stats(v, D, mean, inv);
   for (int d = lane; d < D; d += 32)
-    out[row + d] = (v[d] - mean) * inv * __ldg(lnf_s + d) + __ldg(lnf_b + d);
+    out[row + d] = rd<kBF16>((v[d] - mean) * inv * rd<kBF16>(__ldg(lnf_s + d)) +
+                             rd<kBF16>(__ldg(lnf_b + d)));
 }
 
 struct FwdPlan {
-  int sms;            // the card's SMs (the up product's tile rule, the down product's slices)
-  int tb, tiles;      // samples per prefix tile, prefix tiles
+  int sms;            // the card's SMs (the products' tile rule, the down product's slices)
+  int reg;            // 1: the token FF in registers (N <= kMaxTokens and a sample's
+                      // rows fit the prefix tile); 0: token_ff.cuh's pipeline
+  int tb, tiles;      // register route: samples per prefix tile, prefix tiles
+  int nc;             // token pipeline: tokens per row tile
   int Cp;             // C rounded up to whole 16-byte groups: h2's row stride
   int kslice, ksplit; // the down product's slices of C
   size_t prefix_smem, finish_smem;
   // workspace offsets (floats, each a multiple of 4: 16-byte aligned)
-  size_t w3p, x1, z, h2, part, ws_floats;
+  size_t w3p, w4r, twr, x1, z, h2, part, yt, ht, tt, ws_floats;
 };
 
 int check_f32(int B, int N, int T, int D, int C, int n_blocks) {
-  if (B < 1 || N < 1 || N > kMaxTokens || T < 1 || D < 4 || D % 4 != 0 || C < 1) return -1;
+  if (B < 1 || N < 1 || T < 1 || D < 4 || D % 4 != 0 || C < 1) return -1;
   if (n_blocks < 1 || n_blocks > kMaxBlocks) return -1;
   if ((size_t)B * N * (C > D ? C : D) >= (1ull << 32) ||
       (size_t)B * D * (T > N ? T : N) >= (1ull << 32))
@@ -256,7 +269,8 @@ int check_f32(int B, int N, int T, int D, int C, int n_blocks) {
   return 0;
 }
 
-int make_fwd_plan(int B, int N, int T, int D, int C, int n_blocks, int device, FwdPlan& pl) {
+int make_fwd_plan(int B, int N, int T, int D, int C, int n_blocks, int bf16, int device,
+                  FwdPlan& pl) {
   DeviceInfo dev;
   const cudaError_t err = device_info(device, dev);
   if (err != cudaSuccess) return err;
@@ -264,68 +278,116 @@ int make_fwd_plan(int B, int N, int T, int D, int C, int n_blocks, int device, F
   auto prefix_bytes = [=](int tb) {
     return (2 * (size_t)tb * N * D + 2 * (size_t)N * T + T + N) * 4;
   };
-  int tb = kThreads / D > 1 ? kThreads / D : 1;  // a token-mix column per thread
-  if (tb > B) tb = B;
-  while (tb > 1 && prefix_bytes(tb) > (size_t)dev.smem_optin) --tb;
-  pl.tb = tb;
-  pl.tiles = ceil_div(B, tb);
-  pl.prefix_smem = prefix_bytes(tb);
+  pl.reg = N <= kMaxTokens && prefix_bytes(1) <= (size_t)dev.smem_optin;
   pl.finish_smem = (size_t)(kThreads / 32) * D * 4;
-  if (pl.prefix_smem > (size_t)dev.smem_optin || pl.finish_smem > (size_t)dev.smem_optin)
-    return -1;
+  if (pl.finish_smem > (size_t)dev.smem_optin) return -1;
+  if (pl.reg) {
+    int tb = kThreads / D > 1 ? kThreads / D : 1;  // a token-mix column per thread
+    if (tb > B) tb = B;
+    while (tb > 1 && prefix_bytes(tb) > (size_t)dev.smem_optin) --tb;
+    pl.tb = tb;
+    pl.tiles = ceil_div(B, tb);
+    pl.prefix_smem = prefix_bytes(tb);
+    if (pl.prefix_smem > (size_t)dev.smem_optin) return -1;
+    pl.nc = 0;
+  } else {
+    if ((size_t)B * D > (size_t)kTcBM * 65535 || B > 65535)
+      return -1;  // the token products' row tiles, the row kernels' grid y
+    pl.tb = pl.tiles = 0;
+    pl.prefix_smem = 0;
+    pl.nc = tok_tile_tokens(N, D, dev.smem_optin);
+    if (!pl.nc) return -1;
+  }
   const long long R = (long long)B * N;
-  const size_t rows = (size_t)R;
+  const size_t rows = (size_t)R, cols = (size_t)B * D;
   pl.Cp = (C + 3) / 4 * 4;
   // the down product (rows x D) in wide tiles x slices of C, as K1b's dz
   fill_slices(C, ceil_div(R, kTcBM) * ceil_div(D, kTcBN), pl.sms, pl.kslice, pl.ksplit);
   size_t o = 0;
   auto take = [&o](size_t& at, size_t floats) { at = o, o += (floats + 3) / 4 * 4; };
-  take(pl.w3p, pl.Cp != C ? (size_t)n_blocks * D * pl.Cp : 0);
+  take(pl.w3p, pl.Cp != C || bf16 ? (size_t)n_blocks * D * pl.Cp : 0);
+  take(pl.w4r, bf16 ? (size_t)n_blocks * C * D : 0);
+  take(pl.twr, bf16 && !pl.reg ? 2 * (size_t)N * T : 0);
   take(pl.x1, rows * D);
   take(pl.z, rows * D);
   take(pl.h2, rows * pl.Cp);
   take(pl.part, (size_t)pl.ksplit * rows * D);
+  take(pl.yt, pl.reg ? 0 : cols * N);
+  take(pl.ht, pl.reg ? 0 : cols * T);
+  take(pl.tt, pl.reg ? 0 : cols * N);
   pl.ws_floats = o;
   return 0;
 }
 
-// K1f (n_blocks 1, no final LN, no saved slots) and K2f in float32
-int run_f32(const float* x, float* out, int B, int N, int T, int D, int C, int n_blocks,
-            int final_ln, int tanh_flavor, const StackArgs& a, float* ws, int device,
-            cudaStream_t st) {
+// K1f (n_blocks 1, no final LN, no saved slots) and K2f on the pipeline,
+// float32 or (kBF16) bf16 compute
+template <bool kBF16>
+int run_pipeline(const float* x, float* out, int B, int N, int T, int D, int C, int n_blocks,
+                 int final_ln, int tanh_flavor, const StackArgs& a, float* ws, int device,
+                 cudaStream_t st) {
   FwdPlan pl;
-  const int code = make_fwd_plan(B, N, T, D, C, n_blocks, device, pl);
+  const int code = make_fwd_plan(B, N, T, D, C, n_blocks, kBF16, device, pl);
   if (code) return code;
-  auto prefix = N <= kFewTokens ? fwd_prefix_kernel<kFewTokens> : fwd_prefix_kernel<kMaxTokens>;
-  M2M_TRY(prepare(prefix, pl.prefix_smem, device));
-  M2M_TRY(prepare(finish_kernel, pl.finish_smem, device));
+  constexpr int kBoth = kBF16 ? kExactA | kExactB : 0;
+  auto prefix = N <= kFewTokens ? fwd_prefix_kernel<kFewTokens, kBF16>
+                                : fwd_prefix_kernel<kMaxTokens, kBF16>;
+  if (pl.reg)
+    M2M_TRY(prepare(prefix, pl.prefix_smem, device));
+  else
+    M2M_TRY(prepare_token_kernels<kBF16>(pl.nc, D, device));
+  M2M_TRY(prepare(finish_kernel<kBF16>, pl.finish_smem, device));
   const int R = B * N, Cp = pl.Cp;
   const size_t slot = (size_t)R * D;  // one saved block input
   float* w3p = ws + pl.w3p;
+  float* w4r = ws + pl.w4r;
+  float* twr = ws + pl.twr;
   float* x1 = ws + pl.x1;
   float* z = ws + pl.z;
   float* h2 = ws + pl.h2;
   float* part = ws + pl.part;
-  if (Cp != C) {
-    W3Srcs src = {};
-    for (int k = 0; k < n_blocks; ++k) src.w3[k] = static_cast<const float*>(a.blocks[k].w3);
-    pad_w3_kernel<<<dim3(ceil_div((long long)D * Cp, kThreads), n_blocks), kThreads, 0, st>>>(
-        src, w3p, D, C, Cp);
+  const bool copy_w3 = Cp != C || kBF16;
+  if (copy_w3) {
+    W34Srcs src = {};
+    for (int k = 0; k < n_blocks; ++k) {
+      src.w3[k] = static_cast<const float*>(a.blocks[k].w3);
+      src.w4[k] = static_cast<const float*>(a.blocks[k].w4);
+    }
+    const long long most = (long long)D * (Cp > C ? Cp : C);
+    prep_w34_kernel<kBF16><<<dim3(ceil_div(most, kThreads), n_blocks), kThreads, 0, st>>>(
+        src, w3p, w4r, D, C, Cp);
     M2M_TRY(cudaGetLastError());
   }
+  const TokenBufs tbufs{ws + pl.yt, ws + pl.ht, ws + pl.tt, nullptr};
   for (int k = 0; k < n_blocks; ++k) {
     const BlockPtrs& p = a.blocks[k];
-    prefix<<<pl.tiles, kThreads, pl.prefix_smem, st>>>(
-        k ? nullptr : x, part, pl.ksplit, k ? a.blocks[k - 1].b4 : nullptr, x1, z,
-        a.saved ? a.saved + k * slot : nullptr, B, N, T, D, pl.tb, tanh_flavor, p, a.dp, k);
-    M2M_TRY(cudaGetLastError());
-    const float* w3 = Cp != C ? w3p + (size_t)k * D * Cp : static_cast<const float*>(p.w3);
-    M2M_TRY(tc_gemm_auto(View{z, D, 1}, View{w3, Cp, 1}, h2, R, Cp, D, pl.sms, st,
-                         EpiUp{p.b3, C, tanh_flavor, k, a.dp}));
-    M2M_TRY(tc_gemm_wide(View{h2, Cp, 1}, View{static_cast<const float*>(p.w4), D, 1}, part, R,
-                         D, C, pl.kslice, pl.ksplit, st));
+    const float* in = k ? nullptr : x;
+    const float* b4_prev = k ? a.blocks[k - 1].b4 : nullptr;
+    float* save = a.saved ? a.saved + k * slot : nullptr;
+    if (pl.reg) {
+      prefix<<<pl.tiles, kThreads, pl.prefix_smem, st>>>(in, part, pl.ksplit, b4_prev, x1, z,
+                                                         save, B, N, T, D, pl.tb, tanh_flavor, p,
+                                                         a.dp, k);
+      M2M_TRY(cudaGetLastError());
+    } else {
+      const float* w1 = p.w1;
+      const float* w2 = p.w2;
+      if (kBF16) {  // the token weights rounded, the copies the bf16 products read
+        M2M_TRY(round_token_weights(p.w1, p.w2, twr, N * T, st));
+        w1 = twr;
+        w2 = twr + N * T;
+      }
+      M2M_TRY_INT(token_forward<kBF16>(in, part, pl.ksplit, b4_prev, x1, z, save, tbufs, p.ln1_s,
+                                   p.ln1_b, w1, p.b1, w2, p.b2, p.ln2_s, p.ln2_b, nullptr,
+                                   nullptr, B, N, T, D, pl.nc, pl.sms, tanh_flavor, a.dp, k, st));
+    }
+    const float* w3 = copy_w3 ? w3p + (size_t)k * D * Cp : static_cast<const float*>(p.w3);
+    const float* w4 = kBF16 ? w4r + (size_t)k * C * D : static_cast<const float*>(p.w4);
+    M2M_TRY(tc_gemm_auto<kBoth>(View{z, D, 1}, View{w3, Cp, 1}, h2, R, Cp, D, pl.sms, st,
+                                EpiUp<kBF16>{p.b3, C, tanh_flavor, k, a.dp}));
+    M2M_TRY(tc_gemm_wide<kBoth>(View{h2, Cp, 1}, View{w4, D, 1}, part, R, D, C, pl.kslice,
+                                pl.ksplit, st));
   }
-  finish_kernel<<<ceil_div(R, kThreads / 32), kThreads, pl.finish_smem, st>>>(
+  finish_kernel<kBF16><<<ceil_div(R, kThreads / 32), kThreads, pl.finish_smem, st>>>(
       x1, part, pl.ksplit, a.blocks[n_blocks - 1].b4, a.saved ? a.saved + n_blocks * slot : nullptr,
       out, final_ln ? a.lnf_s : nullptr, a.lnf_b, R, D, a.dp, n_blocks - 1);
   return (int)cudaGetLastError();
@@ -717,34 +779,47 @@ const char* m2m_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Workspace bytes of the float32 forward of n_blocks blocks (the wrapper
-// allocates it); 0 for shapes the kernels do not take.
-size_t m2m_mixer_fwd_workspace_bytes(int B, int N, int T, int D, int C, int n_blocks, int device) {
+// 1 if the pipeline forward runs the token FF as products (token_ff.cuh: above
+// kMaxTokens tokens, or where a sample's rows do not fit the prefix tile), 0 if
+// in registers, -1 for shapes the kernels do not take.
+int m2m_mixer_fwd_token_ff(int B, int N, int T, int D, int C, int device) {
   FwdPlan pl;
-  if (check_f32(B, N, T, D, C, n_blocks) || make_fwd_plan(B, N, T, D, C, n_blocks, device, pl))
+  if (check_f32(B, N, T, D, C, 1) || make_fwd_plan(B, N, T, D, C, 1, 0, device, pl)) return -1;
+  return !pl.reg;
+}
+
+// Workspace bytes of the pipeline forward of n_blocks blocks (float32, or bf16
+// compute; the wrapper allocates it); 0 for shapes the kernels do not take.
+size_t m2m_mixer_fwd_workspace_bytes(int B, int N, int T, int D, int C, int n_blocks, int bf16,
+                                     int device) {
+  FwdPlan pl;
+  if (check_f32(B, N, T, D, C, n_blocks) ||
+      make_fwd_plan(B, N, T, D, C, n_blocks, bf16, device, pl))
     return 0;
   return pl.ws_floats * 4;
 }
 
-// K1f / K2f in float32: n_blocks MixerBlocks (+ the final LN when final_ln), x and
+// K1f / K2f on the pipeline: n_blocks MixerBlocks (+ the final LN when final_ln), x and
 // out (B, N, D). ptrs: 12 parameter pointers per block in MixerBlockParams order,
 // then (ln_scale, ln_bias) if final_ln; saved: nullptr, or room for n_blocks + 1
 // (B, N, D) float32 slots that receive every block's input and the output before
 // the final LN (what m2m_mixer_bwd reads). keys: 4 dropout stream keys per block
 // (host array), or nullptr for no dropout; thresh and scale: keep iff bits >=
-// thresh, kept values times scale. device: the CUDA device the tensors and the
-// stream live on (this library has its own runtime); workspace:
+// thresh, kept values times scale. bf16: bf16 compute (_block_math's casts; every
+// parameter float32, rounded where JAX casts it). device: the CUDA device the
+// tensors and the stream live on (this library has its own runtime); workspace:
 // m2m_mixer_fwd_workspace_bytes bytes.
 int m2m_mixer_fwd(const float* x, float* out, float* saved, int B, int N, int T, int D, int C,
                   int n_blocks, int final_ln, int tanh_flavor, const unsigned* keys,
-                  unsigned thresh, float scale, int device, const void* const* ptrs,
+                  unsigned thresh, float scale, int bf16, int device, const void* const* ptrs,
                   void* workspace, void* stream) {
   if (check_f32(B, N, T, D, C, n_blocks)) return -1;
   M2M_TRY(cudaSetDevice(device));
   const StackArgs a = pack(ptrs, n_blocks, final_ln, saved,
                            make_dropout(keys, n_blocks, thresh, scale));
-  return run_f32(x, out, B, N, T, D, C, n_blocks, final_ln, tanh_flavor, a,
-                 static_cast<float*>(workspace), device, static_cast<cudaStream_t>(stream));
+  return (bf16 ? run_pipeline<true> : run_pipeline<false>)(
+      x, out, B, N, T, D, C, n_blocks, final_ln, tanh_flavor, a, static_cast<float*>(workspace),
+      device, static_cast<cudaStream_t>(stream));
 }
 
 // K1f in bf16: tb samples per row tile, each tile on a cluster of `cluster` CTAs

@@ -34,10 +34,11 @@
 // product. The forwards' weights (W_in, W_out, W_o) are small enough to be laid
 // K-major once per call, which would lift that obstacle for their products;
 // that is left to the work on the tile's own rate (ROADMAP.md).
-// The bf16 mixer backward (mixer_bwd.cu) runs its products on this tile too:
-// one operand of each holds bf16 values, which TF32 holds exactly, so its small
-// half is zero and two of the three products remain (2xTF32, kExact); a3, both
-// of whose operands are bf16, takes one. Its operands stay float32 in memory.
+// The bf16 kernels (the mixer's pipelines, the DynaMixerOp's) run their products
+// on this tile too: an operand that holds bf16 values is exact in TF32, so its
+// small half is zero and the products with it go (kExact): two of the three
+// remain where one operand is bf16 (2xTF32), one where both are. Their operands
+// stay float32 in memory.
 
 #pragma once
 
@@ -259,6 +260,24 @@ struct TcTile {
 struct EpiNone {
   __device__ __forceinline__ float operator()(int, int, float v) const { return v; }
 };
+// dst = src rounded to bf16 (n floats): a weight's copy that the bf16 products
+// read (bf16 values are exact in TF32: tc_gemm's kExact)
+__global__ void __launch_bounds__(kThreads)
+    round_copy_kernel(const float* __restrict__ src, float* __restrict__ dst, int n) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i < n) dst[i] = rd<true>(__ldg(src + i));
+}
+
+inline cudaError_t round_copy(const float* src, float* dst, int n, cudaStream_t st) {
+  round_copy_kernel<<<ceil_div(n, kThreads), kThreads, 0, st>>>(src, dst, n);
+  return cudaGetLastError();
+}
+
+// v rounded to the compute dtype (a product whose cotangent a bf16 cast rounds)
+template <bool kBF16>
+struct EpiRound {
+  __device__ __forceinline__ float operator()(int, int, float v) const { return rd<kBF16>(v); }
+};
 // v + bias[c]
 struct EpiBias {
   const float* bias;
@@ -425,10 +444,10 @@ cudaError_t tc_gemm_wide(const View& A, const View& B, float* out, int M, int N,
                          int kslice, int ksplit, cudaStream_t st, const Epi& epi = Epi()) {
   return tc_gemm<4, 2, 2, 4, kExact>(A, B, out, M, N, K, kslice, ksplit, st, epi);
 }
-template <class Epi = EpiNone>
+template <int kExact = 0, class Epi = EpiNone>
 cudaError_t tc_gemm_narrow(const View& A, const View& B, float* out, int M, int N, int K,
                            int kslice, int ksplit, cudaStream_t st, const Epi& epi = Epi()) {
-  return tc_gemm<4, 1, 1, 2>(A, B, out, M, N, K, kslice, ksplit, st, epi);
+  return tc_gemm<4, 1, 1, 2, kExact>(A, B, out, M, N, K, kslice, ksplit, st, epi);
 }
 
 // The tile rule: the wide tile, unless its CTAs (over ksplit slices) would be
@@ -439,17 +458,18 @@ inline bool tc_small_tile(int M, int N, int ksplit, int sms) {
 }
 
 // out = epi(A B) over the whole depth K on the layout of the forwards'
-// products, A (M x K) and B (K x N) both with unit column stride (rows in
-// memory), and the tile by the rule above: one layout instantiated per tile
-// (tc_gemm instantiates four). Any strides are right; other layouts are only
-// copied 4 bytes at a time.
-template <int kExact = 0, class Epi>
+// products, A (M x K) with unit column stride (rows in memory) and B (K x N)
+// with unit column stride, or (kBK) unit row stride (a weight stored output-
+// major, as a torch Linear's), and the tile by the rule above: one layout
+// instantiated per tile (tc_gemm instantiates four). Any strides are right;
+// other layouts are only copied 4 bytes at a time.
+template <int kExact = 0, bool kBK = false, class Epi>
 cudaError_t tc_gemm_auto(const View& A, const View& B, float* out, int M, int N, int K, int sms,
                          cudaStream_t st, const Epi& epi) {
-  const bool vec = vec_ok(A, true) && vec_ok(B, true);
+  const bool vec = vec_ok(A, true) && vec_ok(B, !kBK);
   if (tc_small_tile(M, N, 1, sms))
-    return tc_gemm_layout<2, 2, 2, 4, true, false, kExact>(A, B, out, M, N, K, K, 1, st, epi, vec);
-  return tc_gemm_layout<4, 2, 2, 4, true, false, kExact>(A, B, out, M, N, K, K, 1, st, epi, vec);
+    return tc_gemm_layout<2, 2, 2, 4, true, kBK, kExact>(A, B, out, M, N, K, K, 1, st, epi, vec);
+  return tc_gemm_layout<4, 2, 2, 4, true, kBK, kExact>(A, B, out, M, N, K, K, 1, st, epi, vec);
 }
 
 // dst[d] = sum over the rows of a[r, d] * (xs[r, d] - mean[r]) * inv[r], and
@@ -499,7 +519,8 @@ __device__ void ln_backward_rows(float* a, const float* base, const float* xs, c
 // or zeros (nullptr); the CTA's partials of the LN's scale and bias gradients
 // (2 x D) go to part[blockIdx.x]. kBF16: an LN of bf16 compute (its output
 // cast back to float32), so a is rounded to bf16 first (the transpose of that
-// cast), then as ln_backward_rows<true>.
+// cast), then as ln_backward_rows<true>; the LN's input x and base are read
+// rounded to bf16 (the forward's rounded input, the cotangent of a bf16 value).
 template <bool kBF16>
 __global__ void __launch_bounds__(kThreads)
     ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ a, int ksplit,
@@ -515,8 +536,8 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const size_t off = (size_t)r0 * D, total = (size_t)rows * D;
   for (int e = threadIdx.x; e < R * D; e += kThreads) {
-    xs[e] = x[off + e];
-    bs[e] = base ? base[off + e] : 0.f;
+    xs[e] = rd<kBF16>(x[off + e]);
+    bs[e] = base ? rd<kBF16>(base[off + e]) : 0.f;
     float v = 0.f;
     for (int k = 0; k < ksplit; ++k) v += a[k * total + off + e];
     as[e] = rd<kBF16>(v);
@@ -568,8 +589,11 @@ __global__ void __launch_bounds__(kThreads)
 
 // a kernel's reductions of partials in one launch: job blockIdx.y sums its
 // tiles x P partials in tile order, element p < len0 to out0[p], the rest to
-// out1[p - len0], each rounded to bf16 when rnd is set (a gradient that a bf16
-// cast transposes); the grid covers the longest job
+// out1[p - len0]; rnd rounds to bf16 (a gradient that a bf16 cast transposes)
+// the out0 elements (bit kRnd0) and the out1 ones (kRnd1); tr: 0, or the rows
+// of out0's partials read as a tr x (len0 / tr) matrix, which out0 receives
+// transposed; the grid covers the longest job
+constexpr int kRnd0 = 1, kRnd1 = 2;
 struct RedJob {
   const float* part;
   int tiles, P;
@@ -577,6 +601,7 @@ struct RedJob {
   int len0;
   float* out1;
   int rnd;
+  int tr;
 };
 template <int kJobs>
 struct RedJobs {
@@ -591,17 +616,24 @@ __global__ void __launch_bounds__(kThreads)
   if (p >= jb.P) return;
   Kahan v;
   for (int t = 0; t < jb.tiles; ++t) v.add(jb.part[(size_t)t * jb.P + p]);
-  const float out = jb.rnd ? rd<true>(v.s) : v.s;
-  if (p < jb.len0)
-    jb.out0[p] = out;
-  else
-    jb.out1[p - jb.len0] = out;
+  if (p < jb.len0) {
+    const int cols = jb.tr ? jb.len0 / jb.tr : 0;
+    jb.out0[jb.tr ? (p % cols) * jb.tr + p / cols : p] = jb.rnd & kRnd0 ? rd<true>(v.s) : v.s;
+  } else {
+    jb.out1[p - jb.len0] = jb.rnd & kRnd1 ? rd<true>(v.s) : v.s;
+  }
 }
 
 #define M2M_TRY(expr)                          \
   do {                                         \
     cudaError_t e_ = (expr);                   \
     if (e_ != cudaSuccess) return (int)e_;     \
+  } while (0)
+// the same for a step that returns an int code (0: success)
+#define M2M_TRY_INT(expr)                      \
+  do {                                         \
+    const int c_ = (expr);                     \
+    if (c_) return c_;                         \
   } while (0)
 
 }  // namespace

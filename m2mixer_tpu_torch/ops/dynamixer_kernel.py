@@ -3,7 +3,11 @@
 Counterpart of ``m2mixer_tpu/ops/dynamixer_kernel.py`` with the same public
 layout: ``x (S, L, C)`` float32 in and out (S sequences of L tokens), and the
 parameters input-major as the JAX kernel takes them: ``w_compress (C, H*R)``,
-``w_generate (L*R, L*L)``, ``w_out (C, C)``.
+``w_generate (L*R, L*L)``, ``w_out (C, C)``; or, with ``weights_out_in``,
+the three weights output-major as the port's ``Linear`` layers store them
+(``(H*R, C)``, ``(L*L, L*R)``, ``(C, C)`` transposed), which the kernels read
+as they are (no transposed copy a call), their gradients returned in the
+same layout.
 
 - ``dynamixer_op_reference`` is the plain PyTorch version of ``_op_math``,
   step for step: compress ``C -> H*R``; the compressed features ``(S, L, H,
@@ -20,8 +24,17 @@ parameters input-major as the JAX kernel takes them: ``w_compress (C, H*R)``,
   counts its launches in its ``launches`` attribute. A CPU tensor gets the
   plain version (the backward: autograd of it); a CUDA tensor gets the
   kernel or an error, never the plain version.
-- Float32 only: ``compute_dtype=torch.bfloat16`` raises
-  ``NotImplementedError`` on both routes. The op has no dropout.
+- ``compute_dtype`` is float32 or bfloat16. In bf16 both routes follow
+  ``_op_math``'s casts: x rounded to bf16; the compress, generate and output
+  products on bf16 operands (the parameters arrive in float32 and are
+  rounded where JAX casts ``w.astype(cd)``) with float32 sums and float32
+  biases; the softmax in float32; the token mix of float32 weights and bf16
+  x in float32; the output float32. The backward is the VJP of that
+  (autograd of the plain version on the CPU): the cotangent of each bf16
+  operand is rounded to bf16, so dx and the three weight gradients are
+  rounded where JAX's AD rounds them, the bias gradients are not. Each
+  wrapper counts its bf16 launches alone too, in ``bf16_launches``. The op
+  has no dropout.
 """
 
 from __future__ import annotations
@@ -38,8 +51,6 @@ __all__ = ["DynaMixerOpParams", "dynamixer_op_reference", "dynamixer_op_bwd_refe
 
 _MAX_TOKENS = 32  # kMaxL in csrc/dynamixer.cu
 _MAX_CHANNELS = 1024  # kMaxC in csrc/dynamixer.cu
-_BF16_MSG = ("not yet ported: the fused DynaMixerOp kernels run in float32 only "
-             "(model.precision: bf16 with the DynaMixer block types)")
 
 
 class DynaMixerOpParams(NamedTuple):
@@ -51,23 +62,36 @@ class DynaMixerOpParams(NamedTuple):
     b_out: torch.Tensor  # (C,)
 
 
-def _op_math(x, p: DynaMixerOpParams, num_head: int, reduced_dim: int):
+def _op_math(x, p: DynaMixerOpParams, num_head: int, reduced_dim: int, compute_dtype):
+    cd = compute_dtype
     S, L, C = x.shape
     H, R = num_head, reduced_dim
-    x2 = x.reshape(S * L, C)
-    w = x2 @ p.w_compress + p.b_compress  # (S*L, H*R)
+
+    def mm(a, w):  # operands in the compute dtype, float32 sums
+        return torch.matmul(a.to(cd).float(), w.to(cd).float())
+
+    w = mm(x.reshape(S * L, C), p.w_compress) + p.b_compress  # (S*L, H*R)
     w = w.reshape(S, L, H, R).transpose(1, 2).reshape(S * H, L * R)
-    w = w @ p.w_generate + p.b_generate  # (S*H, L*L)
-    w = torch.softmax(w.reshape(S * H, L, L), dim=-2)  # over the source token m
-    xh = x.reshape(S, L, H, C // H).transpose(1, 2).reshape(S * H, L, C // H)
+    w = mm(w, p.w_generate) + p.b_generate  # (S*H, L*L)
+    w = torch.softmax(w.reshape(S * H, L, L), dim=-2)  # over the source token m, float32
+    xh = x.to(cd).float().reshape(S, L, H, C // H).transpose(1, 2).reshape(S * H, L, C // H)
     mixed = torch.bmm(w.transpose(1, 2), xh)  # (S*H, L, C/H): sum_m w[m, l] x[m, c]
     mixed = mixed.reshape(S, H, L, C // H).transpose(1, 2).reshape(S * L, C)
-    return (mixed @ p.w_out + p.b_out).reshape(S, L, C)
+    return (mm(mixed, p.w_out) + p.b_out).reshape(S, L, C)
+
+
+def _check_dtype(compute_dtype) -> bool:
+    """True for bf16 compute, False for float32; anything else raises."""
+    if compute_dtype == torch.float32:
+        return False
+    if compute_dtype == torch.bfloat16:
+        return True
+    raise ValueError(f"compute_dtype {compute_dtype}: the DynaMixerOp kernels take float32 "
+                     "or bfloat16")
 
 
 def _check(x, num_head: int, reduced_dim: int, compute_dtype) -> None:
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(_BF16_MSG)
+    _check_dtype(compute_dtype)
     if x.dtype != torch.float32 or x.dim() != 3:
         raise ValueError(f"x must be float32 (S, L, C), got {x.dtype} {tuple(x.shape)}")
     if num_head < 1 or reduced_dim < 1 or x.shape[2] % num_head:
@@ -75,19 +99,31 @@ def _check(x, num_head: int, reduced_dim: int, compute_dtype) -> None:
                          f"(reduced_dim {reduced_dim})")
 
 
-def dynamixer_op_reference(x, params: DynaMixerOpParams, num_head: int, reduced_dim: int = 2):
-    """Plain PyTorch version of one fused DynaMixerOp (``_op_math``)."""
-    return _op_math(x, DynaMixerOpParams(*params), num_head, reduced_dim)
+def _input_major(p: DynaMixerOpParams, weights_out_in: bool) -> DynaMixerOpParams:
+    if not weights_out_in:
+        return p
+    return p._replace(w_compress=p.w_compress.t(), w_generate=p.w_generate.t(),
+                      w_out=p.w_out.t())
 
 
-def dynamixer_op_bwd_reference(x, g, params, num_head: int, reduced_dim: int = 2):
+def dynamixer_op_reference(x, params: DynaMixerOpParams, num_head: int, reduced_dim: int = 2,
+                           compute_dtype=torch.float32, weights_out_in: bool = False):
+    """Plain PyTorch version of one fused DynaMixerOp (``_op_math``, cast for
+    cast in bf16 compute)."""
+    p = _input_major(DynaMixerOpParams(*params), weights_out_in)
+    return _op_math(x, p, num_head, reduced_dim, compute_dtype)
+
+
+def dynamixer_op_bwd_reference(x, g, params, num_head: int, reduced_dim: int = 2,
+                               compute_dtype=torch.float32, weights_out_in: bool = False):
     """Plain version of K4b: autograd of ``dynamixer_op_reference``."""
     return _autograd_of(lambda xx, pp: dynamixer_op_reference(
-        xx, DynaMixerOpParams(*pp), num_head, reduced_dim), x, g, tuple(params))
+        xx, DynaMixerOpParams(*pp), num_head, reduced_dim, compute_dtype, weights_out_in),
+        x, g, tuple(params))
 
 
 # ------------------------------------------------------------------ kernels
-def _check_kernel_args(x, params, num_head: int, reduced_dim: int) -> None:
+def _check_kernel_args(x, params, num_head: int, reduced_dim: int, wt: bool) -> None:
     """Check x and the parameters for the kernels: device, dtype, shape,
     contiguity and the kernels' limits. Raises on anything else."""
     S, L, C = x.shape
@@ -99,7 +135,8 @@ def _check_kernel_args(x, params, num_head: int, reduced_dim: int) -> None:
         raise ValueError(f"the CUDA DynaMixerOp kernels take L <= {_MAX_TOKENS} and "
                          f"C <= {_MAX_CHANNELS}, got L={L} C={C}")
     HR, LR, LL = num_head * reduced_dim, L * reduced_dim, L * L
-    expect = [(C, HR), (HR,), (LR, LL), (LL,), (C, C), (C,)]
+    expect = [(HR, C) if wt else (C, HR), (HR,), (LL, LR) if wt else (LR, LL), (LL,), (C, C),
+              (C,)]
     for name, p, shape in zip(DynaMixerOpParams._fields, params, expect):
         if p.device != x.device or p.dtype != torch.float32:
             raise ValueError(f"parameter {name} is {p.dtype} on {p.device}, x float32 on "
@@ -110,18 +147,19 @@ def _check_kernel_args(x, params, num_head: int, reduced_dim: int) -> None:
             raise ValueError(f"parameter {name} must be contiguous")
 
 
-def _launch(x, params, num_head: int, reduced_dim: int, g=None):
+def _launch(x, params, num_head: int, reduced_dim: int, bf16: bool, wt: bool, g=None):
     """K4f (``g`` None): the op's output; K4b: (dx, the 6 float32 parameter
-    gradients)."""
+    gradients); ``bf16``: bf16 compute (``csrc/dynamixer.cu``'s casts);
+    ``wt``: the weights output-major."""
     from ._build import check, load_library
 
     lib = load_library()
-    _check_kernel_args(x, params, num_head, reduced_dim)
+    _check_kernel_args(x, params, num_head, reduced_dim, wt)
     S, L, C = x.shape
     dev = _device_index(x)
     backward = g is not None
     dims = (S, L, C, num_head, reduced_dim)
-    nbytes = lib.m2m_dyna_workspace_bytes(*dims, int(backward), dev)
+    nbytes = lib.m2m_dyna_workspace_bytes(*dims, int(backward), int(bf16), dev)
     if nbytes == 0:
         raise ValueError(f"the CUDA DynaMixerOp kernels do not take S={S} L={L} C={C} "
                          f"H={num_head} R={reduced_dim}")
@@ -130,8 +168,8 @@ def _launch(x, params, num_head: int, reduced_dim: int, g=None):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if not backward:
         out = torch.empty_like(x)
-        code = lib.m2m_dyna_fwd(x.data_ptr(), out.data_ptr(), *dims, dev, ptrs,
-                                workspace.data_ptr(), stream)
+        code = lib.m2m_dyna_fwd(x.data_ptr(), out.data_ptr(), *dims, int(bf16), int(wt), dev,
+                                ptrs, workspace.data_ptr(), stream)
         check(lib, code, "DynaMixerOp forward kernel launch")
         return out
     if g.shape != x.shape or g.device != x.device or g.dtype != torch.float32:
@@ -141,17 +179,19 @@ def _launch(x, params, num_head: int, reduced_dim: int, g=None):
     dx = torch.empty_like(x)
     grads = [torch.empty(p.shape, dtype=torch.float32, device=x.device) for p in params]
     gptrs = (ctypes.c_void_p * len(grads))(*[q.data_ptr() for q in grads])
-    code = lib.m2m_dyna_bwd(x.data_ptr(), g.data_ptr(), dx.data_ptr(), *dims, dev, ptrs, gptrs,
-                            workspace.data_ptr(), stream)
+    code = lib.m2m_dyna_bwd(x.data_ptr(), g.data_ptr(), dx.data_ptr(), *dims, int(bf16), int(wt),
+                            dev, ptrs, gptrs, workspace.data_ptr(), stream)
     check(lib, code, "DynaMixerOp backward kernel launch")
     return dx, tuple(grads)
 
 
-def _forward(x, params, num_head, reduced_dim):
+def _forward(x, params, num_head, reduced_dim, compute_dtype, wt):
     if not _route(x):
-        return dynamixer_op_reference(x, params, num_head, reduced_dim)
-    out = _launch(x, params, num_head, reduced_dim)
+        return dynamixer_op_reference(x, params, num_head, reduced_dim, compute_dtype, wt)
+    bf16 = _check_dtype(compute_dtype)
+    out = _launch(x, params, num_head, reduced_dim, bf16, wt)
     fused_dynamixer_op.launches += 1
+    fused_dynamixer_op.bf16_launches += int(bf16)
     return out
 
 
@@ -160,44 +200,51 @@ class _DynaFn(torch.autograd.Function):
     saves only x and the parameters, as the JAX kernel's backward recomputes."""
 
     @staticmethod
-    def forward(ctx, x, num_head, reduced_dim, *params):
-        ctx.cfg = (num_head, reduced_dim)
+    def forward(ctx, x, num_head, reduced_dim, compute_dtype, wt, *params):
+        ctx.cfg = (num_head, reduced_dim, compute_dtype, wt)
         ctx.save_for_backward(x, *params)
-        return _forward(x, params, num_head, reduced_dim)
+        return _forward(x, params, num_head, reduced_dim, compute_dtype, wt)
 
     @staticmethod
     def backward(ctx, g):
         x, *params = ctx.saved_tensors
         dx, grads = fused_dynamixer_op_bwd(x, g, params, *ctx.cfg)
-        return (dx, None, None, *grads)
+        return (dx, None, None, None, None, *grads)
 
 
 def fused_dynamixer_op(x, params: DynaMixerOpParams, num_head: int, reduced_dim: int = 2,
-                       compute_dtype=torch.float32):
-    """One fused DynaMixerOp, ``x (S, L, C) -> (S, L, C)`` (float32). When
+                       compute_dtype=torch.float32, weights_out_in: bool = False):
+    """One fused DynaMixerOp, ``x (S, L, C) -> (S, L, C)`` (float32 in and out,
+    float32 or bf16 compute; ``weights_out_in``: the module docstring). When
     ``x`` or a parameter requires a gradient, the call is differentiable and
     its backward is ``fused_dynamixer_op_bwd``."""
     _check(x, num_head, reduced_dim, compute_dtype)
     params = tuple(params)
     if _needs_grad(x, params):
-        return _DynaFn.apply(x, num_head, reduced_dim, *params)
-    return _forward(x, params, num_head, reduced_dim)
+        return _DynaFn.apply(x, num_head, reduced_dim, compute_dtype, weights_out_in, *params)
+    return _forward(x, params, num_head, reduced_dim, compute_dtype, weights_out_in)
 
 
 fused_dynamixer_op.launches = 0
+fused_dynamixer_op.bf16_launches = 0
 
 
 def fused_dynamixer_op_bwd(x, g, params, num_head: int, reduced_dim: int = 2,
-                           compute_dtype=torch.float32):
+                           compute_dtype=torch.float32, weights_out_in: bool = False):
     """K4b: ``(dx, 6 parameter gradients)`` of one fused DynaMixerOp at input
-    ``x`` for output gradient ``g``, float32."""
+    ``x`` for output gradient ``g``, float32 (in bf16 compute rounded where
+    JAX's AD of ``_op_math`` rounds them), the weights' in their layout."""
     _check(x, num_head, reduced_dim, compute_dtype)
     params = tuple(params)
     if not _route(x):
-        return dynamixer_op_bwd_reference(x, g, params, num_head, reduced_dim)
-    out = _launch(x, params, num_head, reduced_dim, g=g)
+        return dynamixer_op_bwd_reference(x, g, params, num_head, reduced_dim, compute_dtype,
+                                          weights_out_in)
+    bf16 = _check_dtype(compute_dtype)
+    out = _launch(x, params, num_head, reduced_dim, bf16, weights_out_in, g=g)
     fused_dynamixer_op_bwd.launches += 1
+    fused_dynamixer_op_bwd.bf16_launches += int(bf16)
     return out
 
 
 fused_dynamixer_op_bwd.launches = 0
+fused_dynamixer_op_bwd.bf16_launches = 0

@@ -12,15 +12,20 @@ layout: ``x (B, N, D)`` float32 in and out, ``w1 (N, T)``, ``w2 (T, N)``,
   hand-written kernels of ``csrc/mixer_fwd.cu`` on CUDA tensors. When a
   gradient is wanted they run inside a ``torch.autograd.Function`` whose
   backward is ``fused_mixer_block_bwd`` (K1b) / ``fused_mixer_stack_bwd``
-  (K2b), the kernels of ``csrc/mixer_bwd.cu``, float32 or bf16 compute. Each
-  wrapper counts its launches in its ``launches`` attribute (K1b and K2b also
-  their bf16 ones alone, in ``bf16_launches``). A CPU tensor gets
+  (K2b), the kernels of ``csrc/mixer_bwd.cu``, float32 or bf16 compute, at
+  any token count (up to 32 tokens the token FF runs in registers where a
+  sample fits the tiles, else as products on the tensor cores,
+  ``csrc/token_ff.cuh``). Each wrapper counts its launches in its
+  ``launches`` attribute (K1b and K2b also their bf16 ones alone, in
+  ``bf16_launches``; all four those that ran the token FF as products, in
+  ``token_ff_launches``). A CPU tensor gets
   the plain version (the backward: autograd of it); a CUDA tensor gets the
   kernel or an error, never the plain version.
 - Parameters may be float32 at any compute dtype (the JAX modules' layout):
-  in bf16 compute the kernels read w3/w4 rounded to bf16 (the forward from a
-  bf16 copy the wrapper makes on each call, the backward rounding them as it
-  lays them out), as the JAX kernels cast theirs on each call, and every
+  in bf16 compute the kernels read w3/w4 rounded to bf16 (the resident-tile
+  forward from a bf16 copy the wrapper makes on each call, the pipelines
+  rounding them as they lay them out), as the JAX kernels cast theirs on
+  each call, and every
   gradient comes back in float32, rounded where JAX's AD rounds it
   (``csrc/mixer_bwd.cu``).
 - ``fused_mixer_stack_grouped`` splits K blocks into ceil(K/G) stack
@@ -47,7 +52,6 @@ import torch.nn.functional as F
 __all__ = [
     "MixerBlockParams",
     "cast_params",
-    "check_tokens",
     "dropout_mask",
     "fused_mixer_block",
     "fused_mixer_block_bwd",
@@ -63,8 +67,8 @@ __all__ = [
 ]
 
 _N_BLOCK_PARAMS = 12
-_ROWS_MAX = 64  # kRowsMax in csrc/mixer_fwd.cu (the bf16 route)
-_MAX_TOKENS = 32  # kMaxTokens
+_ROWS_MAX = 64  # kRowsMax in csrc/mixer_fwd.cu (the bf16 resident tile)
+_REG_TOKENS = 32  # kMaxTokens: at most this many tokens, the token FF runs in registers
 _MAX_BLOCKS = 32  # kMaxBlocks
 _MASKS = 4  # kMasks: dropout masks per block
 _M32 = 0xFFFFFFFF
@@ -311,31 +315,26 @@ def _tile_plan(lib, b: int, n: int, d: int, t: int, bf16: bool, sms: int, limit:
 
 
 def _fwd_workspace_bytes(lib, b: int, n: int, t: int, d: int, c: int, n_blocks: int,
-                         dev: int) -> int:
-    """Bytes of device workspace the float32 route (``m2m_mixer_fwd``) needs:
-    the activations between its launches (x1, z, h2 and the down product's
-    slices of C) and, where C is no multiple of 4, the padded W3 copies."""
-    nbytes = lib.m2m_mixer_fwd_workspace_bytes(b, n, t, d, c, n_blocks, dev)
+                         bf16: bool, dev: int) -> int:
+    """Bytes of device workspace the pipeline route (``m2m_mixer_fwd``)
+    needs: the activations between its launches (x1, z, h2, the down
+    product's slices of C and, above 32 tokens, the token FF's), the padded
+    W3 copies where C is no multiple of 4, and in bf16 the rounded weights."""
+    nbytes = lib.m2m_mixer_fwd_workspace_bytes(b, n, t, d, c, n_blocks, int(bf16), dev)
     if nbytes == 0:
         raise ValueError(f"the CUDA mixer forward does not take B={b} N={n} T={t} D={d} "
                          f"C={c} ({n_blocks} blocks)")
     return nbytes
 
 
-def check_tokens(n: int) -> None:
-    """The CUDA mixer kernels hold a sample's tokens in registers: at most
-    ``_MAX_TOKENS`` of them (the JAX kernels have no such cap)."""
-    if n > _MAX_TOKENS:
-        raise ValueError(f"the CUDA mixer kernel takes at most {_MAX_TOKENS} tokens, got {n}")
-
-
 def _kernel_args(x, flat, n_blocks: int, bf16: bool):
-    """Validate shapes and devices; return (T, C, kernel-ready params)."""
+    """Validate shapes and devices; return (T, C, kernel-ready params).
+    ``bf16``: the resident tile's weight dtype (w3/w4 handed over as bf16
+    copies); the pipeline routes take every parameter in float32."""
     if x.dtype != torch.float32 or x.dim() != 3:
         raise ValueError(f"x must be float32 (B, N, D), got {x.dtype} {tuple(x.shape)}")
     B, N, D = x.shape
     T, C = flat[2].shape[1], flat[8].shape[1]
-    check_tokens(N)
     if D % 4:
         raise ValueError(f"the CUDA mixer kernel needs hidden_dim % 4 == 0, got {D}")
     if bf16 and C % 2:
@@ -379,30 +378,48 @@ def _device_index(x) -> int:
     return x.device.index if x.device.index is not None else torch.cuda.current_device()
 
 
+def _fwd_route(lib, bf16: bool, n: int, d: int, t: int, dev: int, route=None) -> str:
+    """The forward's route: "pipeline" (``m2m_mixer_fwd``: launches through a
+    workspace, products on the tensor cores; float32, and bf16 with JAX's
+    casts) or "tile" (the bf16 resident-tile kernel, which holds whole
+    samples in shared memory: at most ``_REG_TOKENS`` tokens, and one sample's
+    tile must fit the card's shared memory, which the L config's D = 512
+    does not). bf16 takes the tile where it fits unless ``route`` names one."""
+    fits = bf16 and n <= _REG_TOKENS and \
+        lib.m2m_mixer_smem_bytes(1, n, d, t, 1) <= _device_limits(dev)[1]
+    if route is None:
+        route = "tile" if fits else "pipeline"
+    if route not in ("tile", "pipeline") or (route == "tile" and not fits):
+        raise ValueError(f"no mixer forward route {route!r} for {'bf16' if bf16 else 'float32'} "
+                         f"compute at {n} tokens, hidden_dim {d}, token_dim {t}")
+    return route
+
+
 def _launch(entry: str, x, flat, n_blocks: int, final_ln: bool, compute_dtype,
-            approximate_gelu: bool, seed=None, rate: float = 0.0, saved=None):
-    """float32: ``m2m_mixer_fwd`` (the channel FF on the tensor cores, a
-    pipeline of launches through a workspace); bf16: the resident-tile
-    kernel of ``entry`` ("block" or "stack")."""
+            approximate_gelu: bool, seed=None, rate: float = 0.0, saved=None, route=None):
+    """The pipeline route (``m2m_mixer_fwd``, float32 or bf16 compute) or the
+    bf16 resident-tile kernel of ``entry`` ("block" or "stack"); ``route``
+    as ``_fwd_route`` takes it."""
     from ._build import check, load_library
 
     lib = load_library()
     bf16 = _check_compute_dtype(compute_dtype)
     x = x.contiguous()
-    T, C, params = _kernel_args(x, flat, n_blocks, bf16)
     B, N, D = x.shape
     dev = _device_index(x)
+    tile = _fwd_route(lib, bf16, N, D, flat[2].shape[1], dev, route) == "tile"
+    T, C, params = _kernel_args(x, flat, n_blocks, tile)
     out = torch.empty_like(x)
     ptrs = (ctypes.c_void_p * len(params))(*[p.data_ptr() for p in params])
     keys, thresh, scale = _dropout_args(seed, rate, n_blocks)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     saved_ptr = None if saved is None else saved.data_ptr()
-    if not bf16:
-        nbytes = _fwd_workspace_bytes(lib, B, N, T, D, C, n_blocks, dev)
+    if not tile:
+        nbytes = _fwd_workspace_bytes(lib, B, N, T, D, C, n_blocks, bf16, dev)
         workspace = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
         code = lib.m2m_mixer_fwd(x.data_ptr(), out.data_ptr(), saved_ptr, B, N, T, D, C,
                                  n_blocks, int(final_ln), int(approximate_gelu), keys, thresh,
-                                 scale, dev, ptrs, workspace.data_ptr(), stream)
+                                 scale, int(bf16), dev, ptrs, workspace.data_ptr(), stream)
         check(lib, code, f"mixer {entry} kernel launch")
         return out
     tb, cluster = _tile_plan(lib, B, N, D, T, bf16, *_device_limits(dev))
@@ -454,6 +471,29 @@ def _launch_bwd(saved, g, flat, n_blocks: int, final_ln: bool, compute_dtype,
                              int(bf16), dev, ptrs, gptrs, workspace.data_ptr(), stream)
     check(lib, code, "mixer backward kernel launch")
     return dx, tuple(grads)
+
+
+def _token_ff(entry: str, x, flat, compute_dtype) -> int:
+    """1 if the kernel just launched for ``x`` ran its token FF as products
+    (``csrc/token_ff.cuh``: above 32 tokens, or where a sample does not fit
+    the register route's tiles), else 0; ``entry``: "fwd" or "bwd"."""
+    B, N, D = x.shape
+    return _token_ff_route(entry, B, N, flat[2].shape[1], D, flat[8].shape[1],
+                           compute_dtype == torch.bfloat16, _device_index(x))
+
+
+@functools.lru_cache(maxsize=None)
+def _token_ff_route(entry: str, B: int, N: int, T: int, D: int, C: int, bf16: bool,
+                    dev: int) -> int:
+    """``_token_ff`` for one shape (asked of the library once; a launch at
+    batch 32 costs tens of µs on the host)."""
+    from ._build import load_library
+
+    lib = load_library()
+    if entry == "fwd" and _fwd_route(lib, bf16, N, D, T, dev) == "tile":
+        return 0
+    query = lib.m2m_mixer_fwd_token_ff if entry == "fwd" else lib.m2m_mixer_bwd_token_ff
+    return int(query(B, N, T, D, C, dev) == 1)
 
 
 def _route(x) -> bool:
@@ -508,6 +548,7 @@ def _block_forward(x, params, seed, rate, compute_dtype, approximate_gelu):
     out = _launch("block", x, tuple(params), 1, False, compute_dtype, approximate_gelu, seed,
                   rate)
     fused_mixer_block.launches += 1
+    fused_mixer_block.token_ff_launches += _token_ff("fwd", x, params, compute_dtype)
     return out
 
 
@@ -521,6 +562,7 @@ def _stack_forward(x, flat, seed, rate, compute_dtype, final_ln, approximate_gel
     out = _launch("stack", x, flat, n, final_ln, compute_dtype, approximate_gelu, seed, rate,
                   saved)
     fused_mixer_stack.launches += 1
+    fused_mixer_stack.token_ff_launches += _token_ff("fwd", x, flat, compute_dtype)
     return out, saved
 
 
@@ -574,6 +616,7 @@ def fused_mixer_block(x, params: MixerBlockParams, seed=None, dropout_rate: floa
 
 
 fused_mixer_block.launches = 0
+fused_mixer_block.token_ff_launches = 0
 
 
 def fused_mixer_block_bwd(x, g, params, seed=None, dropout_rate: float = 0.0,
@@ -591,11 +634,13 @@ def fused_mixer_block_bwd(x, g, params, seed=None, dropout_rate: float = 0.0,
                       rate)
     fused_mixer_block_bwd.launches += 1
     fused_mixer_block_bwd.bf16_launches += int(compute_dtype == torch.bfloat16)
+    fused_mixer_block_bwd.token_ff_launches += _token_ff("bwd", x, params, compute_dtype)
     return out
 
 
 fused_mixer_block_bwd.launches = 0
 fused_mixer_block_bwd.bf16_launches = 0
+fused_mixer_block_bwd.token_ff_launches = 0
 
 
 def fused_mixer_stack(x, flat_params, seed=None, dropout_rate: float = 0.0,
@@ -616,6 +661,7 @@ def fused_mixer_stack(x, flat_params, seed=None, dropout_rate: float = 0.0,
 
 
 fused_mixer_stack.launches = 0
+fused_mixer_stack.token_ff_launches = 0
 
 
 def fused_mixer_stack_bwd(x, g, flat_params, seed=None, dropout_rate: float = 0.0,
@@ -639,11 +685,13 @@ def fused_mixer_stack_bwd(x, g, flat_params, seed=None, dropout_rate: float = 0.
                       approximate_gelu, seed, rate)
     fused_mixer_stack_bwd.launches += 1
     fused_mixer_stack_bwd.bf16_launches += int(compute_dtype == torch.bfloat16)
+    fused_mixer_stack_bwd.token_ff_launches += _token_ff("bwd", x, flat, compute_dtype)
     return out
 
 
 fused_mixer_stack_bwd.launches = 0
 fused_mixer_stack_bwd.bf16_launches = 0
+fused_mixer_stack_bwd.token_ff_launches = 0
 
 
 def fused_mixer_stack_grouped(x, blocks: Sequence[MixerBlockParams], ln_scale, ln_bias,

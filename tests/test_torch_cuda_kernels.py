@@ -90,9 +90,17 @@ def test_stack_kernel_matches_plain(cuda, shape, dtype, group_size):
 
 
 def test_unsupported_shapes_raise_on_cuda(cuda):
+    """No token cap (40 tokens launch); a hidden_dim that is no multiple of 4
+    raises, as does the resident tile's route above 32 tokens."""
     blocks, _, _ = blocks_on(cuda, 1, N=40, D=32, T=8, C=64)
-    with pytest.raises(ValueError, match="at most 32 tokens"):
-        mk.fused_mixer_block(torch.randn(2, 40, 32, device=cuda), blocks[0])
+    x = torch.randn(2, 40, 32, device=cuda)
+    assert_close(mk.fused_mixer_block(x, blocks[0]), mk.mixer_block_reference(x, blocks[0]),
+                 False)
+    with pytest.raises(ValueError, match="no mixer forward route"):
+        mk._launch("block", x, tuple(blocks[0]), 1, False, torch.bfloat16, False, route="tile")
+    odd, _, _ = blocks_on(cuda, 1, N=4, D=30, T=8, C=64)
+    with pytest.raises(ValueError, match="hidden_dim % 4"):
+        mk.fused_mixer_block(torch.randn(2, 4, 30, device=cuda), odd[0])
 
 
 def test_served_kernel_model_matches_plain_on_cuda(cuda):
@@ -296,8 +304,9 @@ def test_forward_workspace_matches_the_mirror(cuda):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     lib = load_library()
     for shape, _, _ in PLANS.values():
-        assert lib.m2m_mixer_fwd_workspace_bytes(*shape, 0) == \
-            4 * fwd_workspace_floats(*shape, sms=sms), shape
+        for bf16 in (0, 1):
+            assert lib.m2m_mixer_fwd_workspace_bytes(*shape, bf16, 0) == \
+                4 * fwd_workspace_floats(*shape, bf16, sms=sms), (shape, bf16)
 
 
 @pytest.mark.parametrize("shape", ["encoder", "fusion"])
@@ -669,8 +678,8 @@ def test_dynamixer_block_trains_on_cuda(cuda):
 def test_dynamixer_kernels_raise_on_cuda(cuda):
     p = dyna_params_on(cuda, **{k: DYNA_SHAPES["small"][k] for k in "LCHR"})
     x = torch.randn(5, 4, 16, device=cuda)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        dk.fused_dynamixer_op(x, p, 4, 3, compute_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        dk.fused_dynamixer_op(x, p, 4, 3, compute_dtype=torch.float16)
     with pytest.raises(ValueError, match="contiguous"):
         dk.fused_dynamixer_op(x.transpose(0, 1).contiguous().transpose(0, 1), p, 4, 3)
     with pytest.raises(ValueError, match="shape"):
@@ -678,3 +687,167 @@ def test_dynamixer_kernels_raise_on_cuda(cuda):
     long = dyna_params_on(cuda, L=33, C=16, H=4, R=2)
     with pytest.raises(ValueError, match="L <= 32"):
         dk.fused_dynamixer_op(torch.randn(2, 33, 16, device=cuda), long, 4, 2)
+
+
+# DynaMixerOp in bf16 compute. The forward's output is float32 (sums of
+# products of bf16 values, biases added in float32), so it is held within
+# DYNA_BF16_FWD of max(1, max|plain|): the kernel and the plain version round
+# at the same points, and a float32 sum taken in another order moves a
+# rounded intermediate by one ulp now and then (on the CPU, float64 sums with
+# the same casts sit 5.8e-4 from the float32 ones at the config shape), while
+# the float32-math control (the op without its casts) sits 3.2e-3 away and
+# must fail. The gradients: bf16_grads_close, dW_c, dW_g and dW_o rounded.
+DYNA_BF16_FWD = 1.5e-3
+DYNA_ROUNDED = (False, True, False, True, False, True, False)  # dx, then DynaMixerOpParams
+
+
+@pytest.mark.parametrize("scale", [1.0, 30.0], ids=["x1", "x30"])
+@pytest.mark.parametrize("shape", sorted(DYNA_SHAPES))
+def test_dynamixer_bf16_kernels_match_plain(cuda, shape, scale):
+    geom = DYNA_SHAPES[shape]
+    S, L, C, H, R = (geom[k] for k in "SLCHR")
+    p = dyna_params_on(cuda, L, C, H, R)
+    x = scale * torch.randn(S, L, C, device=cuda)
+    g = torch.randn_like(x)
+    bf16 = torch.bfloat16
+    before = (dk.fused_dynamixer_op.bf16_launches, dk.fused_dynamixer_op_bwd.bf16_launches)
+    got = dk.fused_dynamixer_op(x, p, H, R, compute_dtype=bf16)
+    want = dk.dynamixer_op_reference(x, p, H, R, bf16)
+    tol = DYNA_BF16_FWD * max(1.0, want.abs().max().item())
+    assert torch.isfinite(got).all() and (got - want).abs().max().item() <= tol
+    if shape == "config":  # the control separates at the served shape
+        control = dk.dynamixer_op_reference(x, p, H, R)
+        assert (control - want).abs().max().item() > tol
+    dx, grads = dk.fused_dynamixer_op_bwd(x, g, p, H, R, compute_dtype=bf16)
+    assert (dk.fused_dynamixer_op.bf16_launches, dk.fused_dynamixer_op_bwd.bf16_launches) == \
+        (before[0] + 1, before[1] + 1)
+    want_dx, want_g = dk.dynamixer_op_bwd_reference(x, g, p, H, R, bf16)
+    bf16_grads_close((dx, *grads), (want_dx, *want_g), DYNA_ROUNDED, 0.10)
+    dx2, grads2 = dk.fused_dynamixer_op_bwd(x, g, p, H, R, compute_dtype=bf16)
+    assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+
+
+# Above 32 tokens the mixer kernels run the token FF as products
+# (csrc/token_ff.cuh); "l_like" has the L config's token and hidden ratios at
+# a narrow width
+TOKEN_SHAPES = {"n33": dict(N=33, D=32, T=16, C=64), "l_like": dict(N=80, D=64, T=48, C=96)}
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", sorted(TOKEN_SHAPES))
+def test_token_pipeline_forward_matches_plain(cuda, shape, dtype, rate):
+    """K1f and K2f (2 blocks + LN) above 32 tokens against the plain versions,
+    the same masks; two runs bit-identical."""
+    geom = TOKEN_SHAPES[shape]
+    blocks, s, b = blocks_on(cuda, 2, **geom)
+    x = torch.randn(19, geom["N"], geom["D"], device=cuda)
+    flat = mk.stack_flat_params(blocks, s, b)
+    bf = dtype == torch.bfloat16
+    check = (lambda got, want: assert_close(got, want, bf)) if rate == 0 or bf else rel_close
+    k1f = lambda: mk.fused_mixer_block(x, blocks[0], seed=3, dropout_rate=rate,
+                                       compute_dtype=dtype)
+    k2f = lambda: mk.fused_mixer_stack(x, flat, seed=4, dropout_rate=rate, compute_dtype=dtype)
+    before = (mk.fused_mixer_block.launches, mk.fused_mixer_stack.launches)
+    for run, want in ((k1f, mk.mixer_block_reference(x, blocks[0], rate, dtype, seed=3)),
+                      (k2f, mk.mixer_stack_reference(x, flat, dtype, dropout_rate=rate,
+                                                     seed=4))):
+        out = run()
+        check(out, want)
+        assert torch.equal(out, run())
+    assert (mk.fused_mixer_block.launches, mk.fused_mixer_stack.launches) == \
+        (before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("shape", sorted(TOKEN_SHAPES))
+def test_token_pipeline_backward_matches_plain(cuda, shape, rate):
+    """K1b, and K2b as 2 blocks + LN, above 32 tokens against autograd of the
+    plain versions; every tensor within 1e-4 x max(1, max|plain|), two runs
+    bit-identical."""
+    geom = TOKEN_SHAPES[shape]
+    blocks, s, b = blocks_on(cuda, 2, **geom)
+    x = torch.randn(19, geom["N"], geom["D"], device=cuda)
+    g = torch.randn_like(x)
+    flat = mk.stack_flat_params(blocks, s, b)
+    k1b = lambda: mk.fused_mixer_block_bwd(x, g, blocks[0], seed=5, dropout_rate=rate)
+    k2b = lambda: mk.fused_mixer_stack_bwd(x, g, flat, seed=6, dropout_rate=rate)
+    for run, want in ((k1b, mk.mixer_block_bwd_reference(x, g, blocks[0], rate, seed=5)),
+                      (k2b, mk.mixer_stack_bwd_reference(x, g, flat, rate, seed=6))):
+        dx, grads = run()
+        for i, (a, w) in enumerate(zip((dx, *grads), (want[0], *want[1]))):
+            if i % 12 == 6 and rate == 0.0 and w.abs().max().item() <= 1e-3:
+                assert a.abs().max().item() <= 1e-3  # b2: zero in the math under an LN
+                continue
+            rel_close(a, w)
+        dx2, grads2 = run()
+        assert torch.equal(dx, dx2) and all(torch.equal(a, c) for a, c in zip(grads, grads2))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("shape", sorted(TOKEN_SHAPES))
+def test_bf16_token_pipeline_backward_matches_plain(cuda, shape, rate):
+    """K1b and K2b (3 blocks + LN) in bf16 compute above 32 tokens against
+    autograd of the plain bf16 versions (bf16_grads_close)."""
+    geom = TOKEN_SHAPES[shape]
+    blocks, s, b = blocks_on(cuda, 3, **geom)
+    gen = torch.Generator().manual_seed(19)
+    x = torch.randn(19, geom["N"], geom["D"], generator=gen).to(cuda)
+    g = torch.randn(19, geom["N"], geom["D"], generator=gen).to(cuda)
+    bf16 = torch.bfloat16
+    dx, grads = mk.fused_mixer_block_bwd(x, g, blocks[0], seed=5, dropout_rate=rate,
+                                         compute_dtype=bf16)
+    want_dx, want = mk.mixer_block_bwd_reference(x, g, blocks[0], rate, bf16, seed=5)
+    bf16_grads_close((dx, *grads), (want_dx, *want), (True, *BF16_ROUNDED), 0.10)
+    flat = mk.stack_flat_params(blocks, s, b)
+    dx, grads = mk.fused_mixer_stack_bwd(x, g, flat, seed=6, dropout_rate=rate,
+                                         compute_dtype=bf16)
+    want_dx, want = mk.mixer_stack_bwd_reference(x, g, flat, rate, bf16, seed=6)
+    b2 = tuple(i == 5 and rate == 0.0 for i in range(12))
+    bf16_grads_close((dx, *grads), (want_dx, *want), (True, *(BF16_ROUNDED * 3), True, True),
+                     0.40, dead=(False, *(b2 * 3), False, False))
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_bf16_pipeline_route_below_the_cap(cuda, shape):
+    """The bf16 forward's pipeline route, which serves above 32 tokens, also
+    at the B shapes (where the resident tile serves by default): K1f and K2f
+    (3 blocks + LN) against the plain bf16 versions, and against the tile."""
+    geom = SHAPES[shape]
+    blocks, s, b = blocks_on(cuda, 3, **geom)
+    x = torch.randn(37, geom["N"], geom["D"], device=cuda)
+    flat = mk.stack_flat_params(blocks, s, b)
+    bf16 = torch.bfloat16
+    for entry, params, n, ln, want in (
+            ("block", tuple(blocks[0]), 1, False, mk.mixer_block_reference(x, blocks[0],
+                                                                           compute_dtype=bf16)),
+            ("stack", flat, 3, True, mk.mixer_stack_reference(x, flat, bf16))):
+        got = mk._launch(entry, x, params, n, ln, bf16, False, route="pipeline")
+        assert_close(got, want, True)
+        tile = mk._launch(entry, x, params, n, ln, bf16, False, route="tile")
+        assert_close(got, tile, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", sorted(DYNA_SHAPES))
+def test_dynamixer_kernels_read_output_major_weights(cuda, shape, dtype):
+    """K4f / K4b with the weights output-major (``weights_out_in``, what
+    DynaMixerOp hands over) against the plain version in the same layout:
+    1e-4 x max(1, max|plain|) in float32; bf16 as its test above."""
+    geom = DYNA_SHAPES[shape]
+    S, L, C, H, R = (geom[k] for k in "SLCHR")
+    p = [t.t().contiguous() if t.dim() == 2 else t for t in dyna_params_on(cuda, L, C, H, R)]
+    x = torch.randn(S, L, C, device=cuda)
+    g = torch.randn_like(x)
+    got = dk.fused_dynamixer_op(x, p, H, R, compute_dtype=dtype, weights_out_in=True)
+    want = dk.dynamixer_op_reference(x, p, H, R, dtype, weights_out_in=True)
+    dx, grads = dk.fused_dynamixer_op_bwd(x, g, p, H, R, dtype, weights_out_in=True)
+    want_dx, want_g = dk.dynamixer_op_bwd_reference(x, g, p, H, R, dtype, weights_out_in=True)
+    if dtype == torch.float32:
+        rel_close(got, want)
+        for a, b in zip((dx, *grads), (want_dx, *want_g)):
+            rel_close(a, b)
+    else:
+        tol = DYNA_BF16_FWD * max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= tol
+        bf16_grads_close((dx, *grads), (want_dx, *want_g), DYNA_ROUNDED, 0.10)

@@ -117,12 +117,43 @@ def test_backward_wrapper_is_autograd_of_the_plain_version():
 
 
 def test_bf16_and_bad_shapes_raise_on_the_cpu_route():
+    """bf16 compute raises nothing on the CPU route: the wrappers run the bf16
+    plain version and its autograd, bit for bit, and launch no kernel (the
+    plain version is held to JAX in tests/test_torch_dynamixer_bf16.py). A
+    compute dtype the kernels do not take and bad shapes raise."""
     x, g, params = case(5, **SHAPES["small"])
-    xt, pt = torch.from_numpy(x), list(map(torch.from_numpy, params))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        td.fused_dynamixer_op(xt, pt, 4, 3, compute_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        td.fused_dynamixer_op_bwd(xt, torch.from_numpy(g), pt, 4, 3,
-                                  compute_dtype=torch.bfloat16)
+    xt, gt, pt = torch.from_numpy(x), torch.from_numpy(g), list(map(torch.from_numpy, params))
+    bf16 = torch.bfloat16
+    out = td.fused_dynamixer_op(xt, pt, 4, 3, compute_dtype=bf16)
+    assert out.dtype == torch.float32
+    assert torch.equal(out, td.dynamixer_op_reference(xt, pt, 4, 3, bf16))
+    dx, grads = td.fused_dynamixer_op_bwd(xt, gt, pt, 4, 3, compute_dtype=bf16)
+    want_dx, want = td.dynamixer_op_bwd_reference(xt, gt, pt, 4, 3, bf16)
+    assert torch.equal(dx, want_dx) and all(torch.equal(a, b) for a, b in zip(grads, want))
+    assert td.fused_dynamixer_op.bf16_launches == td.fused_dynamixer_op_bwd.bf16_launches == 0
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        td.fused_dynamixer_op(xt, pt, 4, 3, compute_dtype=torch.float16)
     with pytest.raises(ValueError, match="must split into"):
         td.fused_dynamixer_op(xt, pt, 5, 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_output_major_weights_match_the_jax_layout(dtype):
+    """``weights_out_in``: the three weights handed over output-major (the
+    port's Linear layout, what DynaMixerOp passes) give the JAX layout's
+    output, and their gradients come back output-major, the same values
+    transposed (float32 sums in another order: 1e-6 x max(1, max|.|))."""
+    x, g, params = case(6, **SHAPES["odd"])
+    H, R = SHAPES["odd"]["H"], SHAPES["odd"]["R"]
+    jax_major = [torch.from_numpy(a) for a in params]
+    out_in = [t.t().contiguous() if t.dim() == 2 else t for t in jax_major]
+    xt, gt = torch.from_numpy(x), torch.from_numpy(g)
+    want = td.fused_dynamixer_op(xt, jax_major, H, R, compute_dtype=dtype)
+    got = td.fused_dynamixer_op(xt, out_in, H, R, compute_dtype=dtype, weights_out_in=True)
+    assert_rel_close(got.numpy(), want.numpy(), 1e-6)
+    want_dx, want_g = td.fused_dynamixer_op_bwd(xt, gt, jax_major, H, R, dtype)
+    dx, grads = td.fused_dynamixer_op_bwd(xt, gt, out_in, H, R, dtype, weights_out_in=True)
+    assert_rel_close(dx.numpy(), want_dx.numpy(), 1e-6)
+    for a, b in zip(grads, want_g):
+        a = a.t() if a.dim() == 2 else a
+        assert_rel_close(a.numpy(), b.numpy(), 1e-6)

@@ -31,7 +31,7 @@ from m2mixer_tpu_torch import run
 from m2mixer_tpu_torch.datasets import synthetic_avmnist_arrays
 from m2mixer_tpu_torch.models import get_model
 from m2mixer_tpu_torch.training.trainer import Trainer
-from m2mixer_tpu_torch.utils.weights import from_jax_params
+from m2mixer_tpu_torch.utils.weights import from_jax_params, to_jax_params
 
 REPO = Path(__file__).resolve().parents[1]
 DYNA_CFG = str(REPO / "cfg" / "avmnist" / "avmnist_3loss_dyna.yml")
@@ -68,10 +68,13 @@ def batches(n):
 
 @pytest.fixture(scope="module")
 def lockstep():
-    """The JAX trajectory: initial parameters, per-step losses, final parameters."""
+    """The JAX trajectory from the port's seeded weights carried to the JAX
+    layout: initial parameters, per-step losses, final parameters."""
     jc = jcfg.loads(CFG)
     jtask = j_get_model(jc.model.type)(jc.model, jc.train.optimizer)
-    params = jax.tree.map(np.asarray, jtask.init_params(jax.random.PRNGKey(0), batches(1)[0]))
+    pc = pcfg.loads(CFG)
+    net = get_model(pc.model.type)(pc.model, pc.train.optimizer, device="cpu", seed=1).network
+    params = jax.tree.map(np.array, to_jax_params(net.state_dict()))
     opt, _ = j_make_optimizer(jtask.optimizer_cfg)
 
     @jax.jit

@@ -4,11 +4,14 @@ On the CPU the port's bf16 backward is autograd of the plain bf16 version
 (``mixer_block_reference`` / ``mixer_stack_reference``, cast for cast the JAX
 kernels' ``_block_math``); the CUDA kernels of ``csrc/mixer_bwd.cu`` are held
 to that on the card (tests/test_torch_cuda_kernels.py, chip_smoke.py). The
-JAX side is ``jax.grad`` through ``fused_mixer_block`` / ``fused_mixer_stack``
-with ``compute_dtype=bfloat16``, the Pallas kernels and their in-kernel
-``jax.vjp`` in interpret mode, as ``tests/modules/test_pallas_kernel.py``
-runs them, in one subprocess with XLA's ``--xla_allow_excess_precision``
-off: with it on (the default) XLA on the CPU skips rounding points inside
+JAX side is what the Pallas kernels' in-kernel ``jax.vjp`` differentiates:
+``jax.grad`` of the JAX package's own ``_block_math`` / ``_stack_apply`` on
+the ``_cast_params`` copies with ``compute_dtype=bfloat16``, jitted. At these
+sizes the kernels' batch tile is the whole batch, so their gradients are
+those same numbers, bit for bit (``test_block_math_gradients_equal_the_kernels``
+checks one case against ``fused_mixer_block``'s Pallas backward in interpret
+mode, as ``tests/modules/test_pallas_kernel.py`` runs it). Every case runs in
+one subprocess with XLA's ``--xla_allow_excess_precision`` off: with it on (the default) XLA on the CPU skips rounding points inside
 its fusions, and its gradients drift from its own program's casts (in a
 3-block stack up to 4 bf16 ulps: block 1's LN1 scale gradient, 0.0625 at a
 magnitude of 2.47, where the port's float32 backward is within 0.022). The
@@ -99,27 +102,45 @@ import jax.numpy as jnp
 jax.config.update("jax_platforms", "cpu")
 from m2mixer_tpu.modules.common import set_gelu_approximate
 from m2mixer_tpu.ops import mixer_kernel as jk
+bf = jnp.bfloat16
 z = dict(np.load(sys.argv[1]))
 out = {}
+
+
+def block(x, p):
+    return jk._block_math(x, jk.MixerBlockParams(*jk._cast_params(p, bf)), None, bf)
+
+
+def stack(x, p):
+    return jk._stack_apply(x, jk._cast_params(p, bf), [None] * (len(p) // 12), bf, True)
+
+
+def kernel(x, p):  # the Pallas kernel's backward, interpret mode
+    return jk.fused_mixer_block(x, jk.MixerBlockParams(*p), compute_dtype=bf)
+
+
 for case in sorted({k.split("/")[0] for k in z}):
     set_gelu_approximate(bool(z[case + "/approx"]))
     flat = tuple(jnp.asarray(z[f"{case}/p{i}"]) for i in range(int(z[case + "/n"])))
     g = jnp.asarray(z[case + "/g"])
-    if case.startswith("block"):
-        fn = lambda x, p: jk.fused_mixer_block(x, jk.MixerBlockParams(*p),
-                                               compute_dtype=jnp.bfloat16)
-    else:
-        fn = lambda x, p: jk.fused_mixer_stack(x, p, compute_dtype=jnp.bfloat16)
-    gx, gp = jax.grad(lambda x, p: jnp.vdot(fn(x, p), g), argnums=(0, 1))(
-        jnp.asarray(z[case + "/x"]), flat)
-    for i, a in enumerate([gx, *gp]):
-        out[f"{case}/{i}"] = np.asarray(a)
+    fns = {"": block if case.startswith("block") else stack}
+    if case == sys.argv[3]:
+        fns["kernel/"] = kernel
+    for tag, fn in fns.items():
+        grad = jax.grad(lambda x, p: jnp.vdot(fn(x, p), g), argnums=(0, 1))
+        gx, gp = (grad if tag else jax.jit(grad))(jnp.asarray(z[case + "/x"]), flat)
+        for i, a in enumerate([gx, *gp]):
+            out[f"{tag}{case}/{i}"] = np.asarray(a)
 np.savez(sys.argv[2], **out)
 """
 
 GELUS = ("erf", "tanh")
 CASES = {f"{kind}-{n}-{gelu}": (kind, n, gelu) for kind in sorted(KINDS) for n in (4, 8)
          for gelu in GELUS}
+# above 32 tokens (the CUDA kernels' token pipeline), erf
+CASES.update({f"{kind}-{n}-erf": (kind, n, "erf") for kind in ("block", "stack3")
+              for n in (33, 40)})
+KERNEL_CASE = "block-4-erf"  # also through the Pallas kernel's backward
 BIT_CASE = "stack3-bits"  # the cast-point case: 3 blocks + LN, N=4, erf
 
 
@@ -146,11 +167,22 @@ def jax_refs(tmp_path_factory):
     env = dict(os.environ, XLA_FLAGS="--xla_allow_excess_precision=false", JAX_PLATFORMS="cpu")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", _JAX_NO_EXCESS_PRECISION, str(tmp / "in.npz"),
-                    str(tmp / "out.npz")], check=True, env=env, cwd=repo, timeout=600)
+                    str(tmp / "out.npz"), KERNEL_CASE], check=True, env=env, cwd=repo,
+                   timeout=600)
     with np.load(tmp / "out.npz") as z:
         out = {k: z[k] for k in z.files}
-    return {name: [out[f"{name}/{i}"] for i in range(len(rounded_mask(case_inputs(name)[0])))]
-            for name in [*CASES, BIT_CASE]}
+    names = [*CASES, BIT_CASE, f"kernel/{KERNEL_CASE}"]
+    return {name: [out[f"{name}/{i}"]
+                   for i in range(len(rounded_mask(case_inputs(name.split("/")[-1])[0])))]
+            for name in names}
+
+
+def test_block_math_gradients_equal_the_kernels(jax_refs):
+    """The JAX references above are the Pallas kernel's own gradients: jitted
+    ``jax.grad`` of ``_block_math`` and the kernel's backward in interpret
+    mode agree bit for bit."""
+    for a, b in zip(jax_refs[KERNEL_CASE], jax_refs[f"kernel/{KERNEL_CASE}"]):
+        assert np.array_equal(a, b)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))

@@ -1,12 +1,12 @@
-"""The float32 mixer forward's workspace (K1f/K2f, ``csrc/mixer_fwd.cu``).
+"""The pipeline mixer forward's workspace (K1f/K2f, ``csrc/mixer_fwd.cu``).
 
 The wrapper sizes its workspace with ``m2m_mixer_fwd_workspace_bytes``. That
 C function runs only where the kernels are built, so here it is mirrored in
 Python (``fwd_workspace_floats``, the arithmetic of ``make_fwd_plan`` and of
 ``tile_common.cuh``'s slice planner) behind a fake library, and the wrapper
-is held to the mirror's byte counts at the B config's shapes, pinned below.
-``tests/test_torch_cuda_kernels.py`` holds the real function to the same
-mirror on the card.
+is held to the mirror's byte counts at the B and L configs' shapes, float32
+and bf16, pinned below. ``tests/test_torch_cuda_kernels.py`` holds the real
+function to the same mirror on the card.
 """
 
 import pytest
@@ -15,7 +15,8 @@ from m2mixer_tpu_torch.ops import mixer_kernel as mk
 
 SMS = 132  # an H100 SXM
 TC_BM, TC_BN, TC_K, MAX_SPLIT = 128, 64, 32, 32  # kTcBM, kTcBN, kTcK, kMaxSplit
-MAX_TOKENS, MAX_BLOCKS = 32, 32
+REG_TOKENS, MAX_BLOCKS = 32, 32  # kMaxTokens (the register token FF), kMaxBlocks
+SMEM_OPTIN = 232_448  # shared memory a CTA may opt into on an H100
 
 
 def cdiv(a: int, b: int) -> int:
@@ -30,27 +31,36 @@ def fill_slices(depth: int, tiles: int, sms: int):
     return size, cdiv(depth, size)
 
 
-def fwd_workspace_floats(B, N, T, D, C, n_blocks, sms=SMS):
+def fwd_workspace_floats(B, N, T, D, C, n_blocks, bf16=0, sms=SMS):
     """make_fwd_plan's workspace in floats, or 0 for shapes the kernels do
-    not take (check_f32): padded W3 copies where C % 4, x1, z, h2 (rows x
-    Cp) and the down product's slices of C (ksplit x rows x D), each
+    not take (check_f32): W3 copies (D x Cp a block) where C % 4 or in bf16,
+    W4 copies (C x D a block) in bf16, x1, z, h2 (rows x Cp), the down
+    product's slices of C (ksplit x rows x D) and, where the token FF runs as
+    products (above REG_TOKENS tokens, or where one sample's rows do not fit
+    the register route's prefix tile), the token pipeline's yt, ht, tt (B*D x
+    N, T, N) with, in bf16, the rounded token weights (2 x N x T); each
     rounded up to whole 16-byte groups."""
-    if not (B >= 1 and 1 <= N <= MAX_TOKENS and T >= 1 and D >= 4 and D % 4 == 0 and C >= 1
+    if not (B >= 1 and N >= 1 and T >= 1 and D >= 4 and D % 4 == 0 and C >= 1
             and 1 <= n_blocks <= MAX_BLOCKS):
         return 0
     if B * N * max(C, D) >= 2**32 or B * D * max(T, N) >= 2**32 or B * N > TC_BM * 65535:
         return 0
-    rows, cp = B * N, cdiv(C, 4) * 4
+    reg = N <= REG_TOKENS and (2 * N * D + 2 * N * T + T + N) * 4 <= SMEM_OPTIN
+    if not reg and (B * D > TC_BM * 65535 or B > 65535):
+        return 0
+    rows, cols, cp = B * N, B * D, cdiv(C, 4) * 4
     _, ksplit = fill_slices(C, cdiv(rows, TC_BM) * cdiv(D, TC_BN), sms)
-    parts = [n_blocks * D * cp if cp != C else 0, rows * D, rows * D, rows * cp,
-             ksplit * rows * D]
+    tok = 0 if reg else 1
+    parts = [n_blocks * D * cp if cp != C or bf16 else 0, n_blocks * C * D if bf16 else 0,
+             2 * N * T * tok if bf16 else 0, rows * D, rows * D, rows * cp, ksplit * rows * D,
+             tok * cols * N, tok * cols * T, tok * cols * N]
     return sum(cdiv(p, 4) * 4 for p in parts)
 
 
 class MirrorLib:
     @staticmethod
-    def m2m_mixer_fwd_workspace_bytes(b, n, t, d, c, n_blocks, dev):
-        return fwd_workspace_floats(b, n, t, d, c, n_blocks) * 4
+    def m2m_mixer_fwd_workspace_bytes(b, n, t, d, c, n_blocks, bf16, dev):
+        return fwd_workspace_floats(b, n, t, d, c, n_blocks, bf16) * 4
 
 
 # (B, N, T, D, C, blocks) -> (down-product slices, workspace bytes) on 132 SMs
@@ -63,7 +73,15 @@ PLANS = {
     "fusion_x2_B512": ((512, 8, 32, 128, 3078, 2), 4, 66_199_552),
     "odd_widths_B7": ((7, 3, 7, 20, 46, 2), 2, 18_432),
     "batch_600": ((600, 4, 32, 128, 3072, 1), 6, 39_321_600),
+    "l_image_B512": ((512, 16, 256, 512, 4096, 1), 1, 184_549_376),
+    "l_audio_x4_B512": ((512, 64, 256, 512, 4096, 4), 1, 1_140_850_688),
+    "l_fusion_B32": ((32, 80, 256, 512, 4096, 1), 1, 84_934_656),
+    "l_fusion_x2_B512": ((512, 80, 256, 512, 4096, 2), 1, 1_358_954_496),
 }
+# the same shapes in bf16 compute (the pipeline route: above 32 tokens, or
+# where the resident tile is not taken)
+BF16_PLANS = {"encoder_B512": 38_797_312, "fusion_x2_B512": 69_351_424,
+              "l_audio_x4_B512": 1_208_090_624, "l_fusion_x2_B512": 1_392_672_768}
 
 
 @pytest.mark.parametrize("case", sorted(PLANS))
@@ -71,7 +89,13 @@ def test_workspace_matches_the_plan(case):
     (B, N, T, D, C, K), ksplit, nbytes = PLANS[case]
     rows = B * N
     assert fill_slices(C, cdiv(rows, TC_BM) * cdiv(D, TC_BN), SMS)[1] == ksplit
-    assert mk._fwd_workspace_bytes(MirrorLib, B, N, T, D, C, K, 0) == nbytes
+    assert mk._fwd_workspace_bytes(MirrorLib, B, N, T, D, C, K, False, 0) == nbytes
+
+
+@pytest.mark.parametrize("case", sorted(BF16_PLANS))
+def test_bf16_workspace_matches_the_plan(case):
+    (B, N, T, D, C, K), _, _ = PLANS[case]
+    assert mk._fwd_workspace_bytes(MirrorLib, B, N, T, D, C, K, True, 0) == BF16_PLANS[case]
 
 
 def test_only_an_unaligned_channel_width_pads_w3():
@@ -83,9 +107,23 @@ def test_only_an_unaligned_channel_width_pads_w3():
     assert fus[1] - fus[0] == 128 * 3080
 
 
-@pytest.mark.parametrize("shape", [(4, 33, 32, 128, 3072, 1), (4, 4, 32, 130, 3072, 1),
+# too_many_tokens: more than the dropout masks' 32-bit element counts take
+@pytest.mark.parametrize("shape", [(1, 2**24, 8, 256, 8, 1), (4, 4, 32, 130, 3072, 1),
                                    (4, 4, 32, 128, 3072, 33)],
                          ids=["too_many_tokens", "unaligned_width", "too_many_blocks"])
 def test_shapes_the_kernels_do_not_take_raise(shape):
     with pytest.raises(ValueError, match="does not take"):
-        mk._fwd_workspace_bytes(MirrorLib, *shape, 0)
+        mk._fwd_workspace_bytes(MirrorLib, *shape, False, 0)
+
+
+def test_more_than_32_tokens_take_the_token_pipeline():
+    """Above 32 tokens the plan adds the token FF's buffers (yt, ht, tt) and
+    no token cap: 33 tokens plan, and the step from 32 to 33 is exactly
+    those buffers and the larger x1, z, h2 and slices."""
+    B, T, D, C = 4, 32, 128, 3072
+    at32, at33 = (fwd_workspace_floats(B, n, T, D, C, 1) for n in (32, 33))
+    assert at32 and at33
+    _, ksplit = fill_slices(C, cdiv(B * 33, TC_BM) * cdiv(D, TC_BN), SMS)
+    base33 = sum(cdiv(p, 4) * 4 for p in (B * 33 * D, B * 33 * D, B * 33 * C,
+                                          ksplit * B * 33 * D))
+    assert at33 - base33 == sum(cdiv(p, 4) * 4 for p in (B * D * 33, B * D * T, B * D * 33))

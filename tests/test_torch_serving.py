@@ -143,16 +143,20 @@ def test_narrow_slice_matches_jax(narrow_params, narrow_jax_outputs, kernel, var
 
 @pytest.fixture(scope="module")
 def b_case():
-    """Full-B weights from the port's seeded init, carried to the JAX layout."""
+    """Full-B weights from the port's seeded init, carried to the JAX layout,
+    and JAX's served outputs with its plain flax blocks."""
     sd = _build_task(load(B_CFG), device="cpu", seed=3).network.state_dict()
-    return jload(B_CFG), to_jax_params(sd), batch(2, seed=4)
+    jcfg, params, feats = jload(B_CFG), to_jax_params(sd), batch(2, seed=4)
+    return params, feats, jax_outputs(jcfg, params, feats, False)
 
 
 @pytest.mark.parametrize("kernel", [False, True], ids=["plain", "kernel"])
 def test_full_b_config_matches_jax_at_batch_2(b_case, kernel):
-    jcfg, params, feats = b_case
-    assert_outputs_close(port_outputs(load(B_CFG), params, feats, kernel),
-                         jax_outputs(jcfg, params, feats, kernel))
+    """The port's plain modules and its stack kernel blocks against JAX's
+    plain forward of the same function (JAX's own Pallas flavor of it is held
+    to this port flavor at narrow width in test_narrow_slice_matches_jax)."""
+    params, feats, want = b_case
+    assert_outputs_close(port_outputs(load(B_CFG), params, feats, kernel), want)
 
 
 def test_kernel_task_swaps_block_types():
