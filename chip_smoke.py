@@ -35,12 +35,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    parameters, w3/w4 read rounded to bf16): dx and
    every gradient against autograd of the plain bf16 version, each against
    a control (the float32 backward, rounded where the bf16 one rounds) that
-   must fail the check; two runs bit-identical. Then K1f, K2f (2 blocks +
-   LN), K1b and K2b at the L config's three mixer shapes (N = 16, 64, 80;
-   D 512, T 256, C 4096; tanh GELU), batch 32 (dropout 0.5) and 512, float32
-   and bf16: there every token FF runs as products (``token_ff.cuh``); the
-   bf16 stacks held to the share of a second implementation (the plain
-   version with float64 sums) + 0.2;
+   must fail the check; two runs bit-identical. Then K1f, K2f and K2b at the
+   main path's depth (4 image, 4 audio, 2 fusion blocks + LN), and K1b, at
+   the L config's three mixer shapes (N = 16, 64, 80; D 512, T 256, C 4096;
+   tanh GELU), batch 32 (dropout 0.5) and 512, float32 and bf16: there every
+   token FF runs as products (``token_ff.cuh``); the bf16 stacks held to the
+   share of a second implementation (the plain version with float64 sums) +
+   ``L_STACK_EXCESS``;
 5. K3f / K3b, the gMLP block kernels, against the plain version and its
    autograd at the gMLP config's shapes (D=128, F=768; encoder N=49, fusion
    N=99), batch 32 and 512, erf and tanh, dropout 0 and 0.5: the output, dx
@@ -50,7 +51,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    bit-identical gradients;
 6. K4f / K4b, the DynaMixerOp kernels, against the plain version and its
    autograd at the DynaMixer config's op (L=7, C=256, H=8, R=2; S = 7 x 32
-   and 7 x 512 sequences), x as drawn and scaled by 30 (generate logits of
+   and 7 x 512 sequences; the weights output-major, as ``DynaMixerOp``
+   hands them over), x as drawn and scaled by 30 (generate logits of
    about 50: the softmax's stress case): the output, dx and the 6 parameter
    gradients; two backward runs give bit-identical gradients. Then the same
    in bf16 compute (float32 parameters): the output within 1.5e-3 x max(1,
@@ -168,8 +170,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     then the routes this slice added: K1f, K2f, K1b and K2b at the three L
     shapes, batch 32 and 512, float32 and bf16, with their plain versions,
     bounds and tensor-core bounds (and the profiler's breakdown at the fusion
-    shape, batch 512); the bf16 forward's resident tile against its
-    pipeline route at the B shapes; bf16 K4f and K4b; the L served forward
+    shape, batch 512); bf16 K4f and K4b; the L served forward
     and train step (plain, stacked, per-block) and the bf16 DynaMixer
     served forward, batch 32 and 512;
 16. one JSON line naming every ported kernel (the bf16 K4f/K4b and the
@@ -410,17 +411,30 @@ def device_busy_ms(torch, fn, calls: int = 3) -> float:
     return sum(us for us, _ in kernel_breakdown(torch, fn, None, calls).values()) / 1e3
 
 
-def grad_err(torch, got, want, what: str) -> float:
+def grad_err(torch, got, want, what: str, dead=()) -> float:
     """Gradient check: every tensor within GRAD_REL x max(1, max|plain|);
     returns the worst absolute error. A gradient that is exactly zero in the
     math (the token FF's output bias b2 under a following LayerNorm: a sum
     of B*D terms that cancel) is float noise on both sides, of ~1e-4 at
-    batch 512; it passes when both sides stay below ZERO_GRAD everywhere."""
+    batch 512; it passes when both sides stay below ZERO_GRAD everywhere.
+    ``dead`` marks such gradients where the noise scales past ZERO_GRAD (the
+    L stacks: 262,144 terms of a residual stream in the tens): both sides
+    within GRAD_REL x the largest gradient of the call, as bf16_grad_check
+    holds its dead leaves."""
+    dead = tuple(dead) or (False,) * len(want)
+    call = max(w.abs().max().item() for w in want)
     worst, zeros = 0.0, 0
     for i, (a, b) in enumerate(zip(got, want)):
         if not bool(torch.isfinite(a).all()):
             raise AssertionError(f"{what}: tensor {i} is not finite")
         scale = b.abs().max().item()
+        if dead[i]:
+            noise = max(scale, a.abs().max().item())
+            if not noise <= GRAD_REL * call:
+                raise AssertionError(f"{what}: exactly-zero tensor {i} reaches {noise} > "
+                                     f"{GRAD_REL} x {call}")
+            zeros += 1
+            continue
         tol = GRAD_REL * max(1.0, scale)
         err = (a - b).abs().max().item()
         if err <= tol:
@@ -1488,11 +1502,12 @@ def phase_gmlp_times(torch, gk, serving, Trainer, apply_overrides, load_cfg, syn
 
 # ----------------------------------------------------------------- DynaMixer
 def dyna_params(dk, torch, L, C, H, R, seed):
-    """One DynaMixerOp's parameters (JAX layout) at the Linear layers' init
-    scales, U(+-1/sqrt(fan_in)), on the card."""
+    """One DynaMixerOp's parameters at the Linear layers' init scales,
+    U(+-1/sqrt(fan_in)), on the card; the weights output-major, as
+    DynaMixerOp hands them over."""
     g = torch.Generator().manual_seed(seed)
     u = lambda fan, *shape: (torch.rand(*shape, generator=g) * 2 - 1) / fan ** 0.5
-    p = (u(C, C, H * R), u(C, H * R), u(L * R, L * R, L * L), u(L * R, L * L), u(C, C, C),
+    p = (u(C, H * R, C), u(C, H * R), u(L * R, L * L, L * R), u(L * R, L * L), u(C, C, C),
          u(C, C))
     return dk.DynaMixerOpParams(*(t.cuda() for t in p))
 
@@ -1500,9 +1515,9 @@ def dyna_params(dk, torch, L, C, H, R, seed):
 def dyna_logit_range(x, p, H, R) -> float:
     """max |generate logit| of the op at x (what the softmax sees)."""
     S, L, C = x.shape
-    w = (x.reshape(S * L, C) @ p.w_compress + p.b_compress).reshape(S, L, H, R)
+    w = (x.reshape(S * L, C) @ p.w_compress.t() + p.b_compress).reshape(S, L, H, R)
     w = w.transpose(1, 2).reshape(S * H, L * R)
-    return (w @ p.w_generate + p.b_generate).abs().max().item()
+    return (w @ p.w_generate.t() + p.b_generate).abs().max().item()
 
 
 def dyna_work(S, L, C, H, R):
@@ -1785,16 +1800,20 @@ L_CFG = os.path.join(REPO, "cfg", "avmnist", "avmnist_m2-mixer_L.yml")
 L_GEOMS = (("image", dict(N=16, D=512, T=256, C=4096), 4),
            ("audio", dict(N=64, D=512, T=256, C=4096), 4),
            ("fusion", dict(N=80, D=512, T=256, C=4096), 2))
-L_STACK_CHECK = 2  # blocks (+ the final LN) of the L stacks held to their plain versions
 # The share of bf16 elements allowed to differ from the plain version at the L
-# shapes. Single blocks: as at B. The stacks: their flips compound over more and
+# shapes. Single blocks: as at B. The stacks, at the main path's depth (4 image,
+# 4 audio, 2 fusion blocks + the final LN): their flips compound over more and
 # longer sums than at B, and a second correct implementation (the plain version
-# with float64 sums, float64_sums) already differs from the plain version in
-# 2.8-8.1% (K2f) and 27-45% (K2b) of the rounded elements (H100, PERF.md), so
-# they are held to that floor, measured each run, + L_STACK_EXCESS: the kernels
-# measured 3-10 points above it, the float32-math control 30-62 points.
+# with float64 sums, float64_sums) already differs from the plain version in a
+# share that grows with the depth, so each stack is held to that floor, measured
+# each run, + L_STACK_EXCESS. The excess sits between the readings of
+# the kernel's and the float32-math control's excess over that floor, in the
+# six cases (3 shapes x batch 32 / 512) at this depth (H100 80GB HBM3, 700 W,
+# PERF.md §6, PR 11): K2f's output, kernel -0.008 to 0.017, control 0.361 to
+# 0.583; K2b's rounded gradients, kernel -0.002 to 0.014, control 0.116 to
+# 0.330.
 L_BF16_SHARE = {"K1f": BF16_MISMATCH, "K1b": BF16_GRAD_SHARE["K1b"]}
-L_STACK_EXCESS = 0.2
+L_STACK_EXCESS = 0.05
 L_TRAIN_SIZES = "[2048, 512, 512]"  # 4 steps an epoch at the config's batch 512
 L_FLAVORS = ("plain", "stacked", "per_block")  # plain: the config as shipped
 # The L kernel artifact's served logits are held to the same artifact's plain
@@ -1888,15 +1907,15 @@ def phase_dyna_bf16_kernels(torch, dk, report):
 
 
 def phase_l_kernels(torch, mk, report):
-    """K1f, K2f (2 blocks + LN), K1b and K2b at the three L mixers' shapes,
-    batch 32 (dropout 0.5) and 512 (dropout 0), float32 (F32_ATOL, grad_err)
-    and bf16 (bf16_err, bf16_grad_check, each with its float32-math control),
-    against the plain versions on the card."""
+    """K1f, K2f and K2b (the main path's depth + LN), K1b at the three L
+    mixers' shapes, batch 32 (dropout 0.5) and 512 (dropout 0), float32
+    (F32_ATOL, grad_err) and bf16 (bf16_err, bf16_grad_check, each with its
+    float32-math control), against the plain versions on the card."""
     print("[4/16] K1f / K2f / K1b / K2b at the L geometry (N = 16, 64, 80; D 512, T 256, "
           "C 4096; tanh GELU) vs the plain versions, float32 and bf16")
     bf16 = torch.bfloat16
-    for geom_name, geom, _ in L_GEOMS:
-        blocks, s, b = rand_blocks(mk, torch, L_STACK_CHECK, seed=51, **geom)
+    for geom_name, geom, K in L_GEOMS:
+        blocks, s, b = rand_blocks(mk, torch, K, seed=51, **geom)
         flat = mk.stack_flat_params(blocks, s, b)
         for B in (32, 512):
             rate = 0.5 if B == 32 else 0.0
@@ -1931,15 +1950,15 @@ def phase_l_kernels(torch, mk, report):
                                                                   True),
                                lambda c: mk.mixer_stack_bwd_reference(x, g, flat, rate, c, True,
                                                                       True, seed=9),
-                               (True, *(BF16_ROUNDED * L_STACK_CHECK), True, True),
+                               (True, *(BF16_ROUNDED * K), True, True),
                                (False, *(tuple(i == 5 and rate == 0.0 for i in range(12))
-                                         * L_STACK_CHECK), False, False))}
+                                         * K), False, False))}
                 for name, (kernel, plain, rounded, dead) in bwd.items():
                     key = f"{name}/{tag}"
                     got, want = kernel(cd), plain(cd)
                     got, want = (got[0], *got[1]), (want[0], *want[1])
                     if dtype == "f32":
-                        report["errors"][key] = grad_err(torch, got, want, key)
+                        report["errors"][key] = grad_err(torch, got, want, key, dead)
                         continue
                     f32 = plain(torch.float32)
                     control = [round_bf16(torch, t) if r else t
@@ -2164,8 +2183,7 @@ def phase_new_route_times(torch, mk, dk, serving, Trainer, apply_overrides, load
                           np, report, l_served, dyna_bf16_served):
     """The routes this slice added, CUDA events (median of 5 runs): K1f, K2f, K1b
     and K2b at the L shapes in float32 and bf16 (5 calls a run) with their plain
-    versions and bounds; the bf16 forward's resident tile against its pipeline
-    route at the B shapes; bf16 K4f / K4b; the L served forward and train step;
+    versions and bounds; bf16 K4f / K4b; the L served forward and train step;
     the bf16 DynaMixer served forward."""
     print("[15/16] times of the new routes (CUDA events, median of 5 runs)")
     times, bounds = report["times_ms"], report["bounds_ms"]
@@ -2222,22 +2240,6 @@ def phase_new_route_times(torch, mk, dk, serving, Trainer, apply_overrides, load
                 del saved, calls
             del x, g
             torch.cuda.empty_cache()
-    print("  the bf16 forward at the B shapes: the resident tile against the pipeline route")
-    for geom_name, geom, K in MIXER_STACKS:
-        blocks, ln_s, ln_b = rand_blocks(mk, torch, K, seed=13, **geom)
-        flat = mk.stack_flat_params(blocks, ln_s, ln_b)
-        for B in (32, 512):
-            x = torch.randn(B, geom["N"], geom["D"],
-                            generator=torch.Generator().manual_seed(3)).cuda()
-            for route in ("tile", "pipeline"):
-                tag = f"{geom_name}/B{B}/{route}"
-                times[f"K1f_bf16/{tag}"] = cuda_ms(torch, lambda: mk._launch(
-                    "block", x, tuple(blocks[0]), 1, False, bf16, False, route=route))
-                times[f"K2f_bf16/{tag}"] = cuda_ms(torch, lambda: mk._launch(
-                    "stack", x, flat, K, True, bf16, False, route=route))
-            print(f"    {geom_name}/B{B}: " + ", ".join(
-                f"{n} {r} {times[f'{n}_bf16/{geom_name}/B{B}/{r}']:.4f} ms"
-                for n in ("K1f", "K2f") for r in ("tile", "pipeline")))
     H, R = DYNA_OP["H"], DYNA_OP["R"]
     p = dyna_params(dk, torch, seed=43, **DYNA_OP)
     for B in (32, 512):
@@ -2439,6 +2441,10 @@ def kernel_times(torch, mk, gk, dk) -> dict:
             times[f"K3b/{geom_name}/B{B}"] = cuda_ms(torch, lambda: gk.fused_gmlp_block_bwd(x, g, p))
     H, R = DYNA_OP["H"], DYNA_OP["R"]
     p = dyna_params(dk, torch, seed=43, **DYNA_OP)
+    try:
+        dk.fused_dynamixer_op(torch.zeros(1, DYNA_OP["L"], DYNA_OP["C"], device="cuda"), p, H, R)
+    except ValueError:  # a checkout from before the kernels read the weights output-major
+        p = dk.DynaMixerOpParams(*(t.t().contiguous() if t.dim() == 2 else t for t in p))
     for B in (32, 512):
         gen = torch.Generator().manual_seed(7)
         x = torch.randn(7 * B, DYNA_OP["L"], DYNA_OP["C"], generator=gen).cuda()

@@ -8,8 +8,8 @@ config keys and submodule names (``patch_embed``, ``block_i``, ``mix_h``,
 them leaf for leaf (``utils/weights.py``).
 
 ``DynaMixerOp`` has one path: its forward hands its three ``Linear`` layers'
-float32 weights, as they are (output-major, ``weights_out_in``), to ``fused_dynamixer_op``,
-which launches K4f (and K4b for the gradient) on a CUDA tensor and runs the
+float32 weights, as they are (output-major), to ``fused_dynamixer_op``, which
+launches K4f (and K4b for the gradient) on a CUDA tensor and runs the
 plain version on a CPU tensor, in the module's compute dtype. The JAX module
 computes the same function with flax einsums (the TPU kernel cannot lower the
 7-token grid's reshapes). In bf16 the two round at different places: flax
@@ -53,7 +53,7 @@ class DynaMixerOp(nn.Module):
         params = [t for lin in (self.compress, self.generate, self.out)
                   for t in (lin.weight, lin.bias)]
         out = fused_dynamixer_op(x.float(), params, self.num_head, self.reduced_dim,
-                                 compute_dtype=self.compute_dtype, weights_out_in=True)
+                                 compute_dtype=self.compute_dtype)
         return out.to(self.compute_dtype)
 
 

@@ -11,11 +11,10 @@
 //   gin[s, h, l*R + r] = comp[s, l, h*R + r]; logit = gin W_g + b_g (S*H, L*L),
 //   read as w[m, l] at m*L + l; P = softmax over m, the source token (axis -2);
 //   mixed[s, l, c] = sum_m P[s, h(c), m, l] x[s, m, c], h(c) = c / (C/H);
-//   y = mixed W_o + b_o.
-// The weights come input-major (the JAX layout): W_c (C, H*R), W_g (L*R, L*L),
-// W_o (C, C), or (wt) output-major as a torch Linear stores them: (H*R, C),
-// (L*L, L*R), (C, C) transposed; the gradients come back in the layout the
-// weights came in.
+//   y = mixed W_o^T + b_o.
+// The weights come output-major, as a torch Linear stores them: W_c (H*R, C),
+// W_g (L*L, L*R), W_o (C, C) with W_o[o][i] (the JAX kernel's input-major
+// matrices transposed); the gradients come back in that layout.
 //
 // What bounds it on the H100. Per sequence the op does 2*L*C*(H*R + C) +
 // 2*H*L*L*(L*R + C/H) flops; at the shipped shape (L = 7, C = 256, H = 8,
@@ -33,19 +32,20 @@
 //        waves), with W_c and W_g in shared memory; it computes comp, the
 //        logits, the softmax (the maximum over m subtracted first) and the mix
 //        there, and writes mixed (S*L, C);
-//     2. out: y = mixed W_o + b_o on the tensor cores (tc_gemm_auto, the bias in
+//     2. out: y = mixed W_o^T + b_o on the tensor cores (tc_gemm_auto, the bias in
 //        its epilogue; the 64x64 tile where the wide one would leave SMs idle).
 //   backward, 6 launches; the autograd Function saves only x, so the
 //   per-sequence intermediates are recomputed:
-//     1. d_mixed = g W_o^T (the tensor-core tile GEMM);
+//     1. d_mixed = g W_o (the tensor-core tile GEMM);
 //     2. seq: per CTA of whole sequences, W_c (and its transpose) and W_g in
 //        shared memory: recompute comp, P and mixed (written for dW_o); dP =
 //        d_mixed-by-head x^T; the softmax backward over m; d_comp = d_logit
 //        W_g^T, laid back to (S*L, H*R); dx = the mix's backward (sum_l P
 //        d_mixed) + d_comp W_c^T; the CTA's partials of dW_g and db_g;
-//     3. dW_o = mixed^T g and 4. dW_c = x^T d_comp: tensor-core tiles of the
-//        weight (128x64, and 64x16 for dW_c's H*R = 16 columns), the S*L rows
-//        split into a fixed number of slices;
+//     3. dW_o = g^T mixed and 4. dW_c = x^T d_comp (transposed to output-major
+//        as its partials are reduced): tensor-core tiles of the weight (128x64,
+//        and 64x16 for dW_c's H*R = 16 columns), the S*L rows split into a
+//        fixed number of slices;
 //     5. db_o, db_c: column sums over row slices (enough for two waves: a
 //        slice is one thread's serial sum);
 //     6. every partial reduced in a fixed order (compensated), one launch.
@@ -65,7 +65,7 @@
 // rounded where the generate product casts it; the logits, the softmax and the
 // mix in float32; mixed rounded where the output product casts it; biases
 // added in float32. The backward rounds each cotangent of a bf16 operand:
-// d_mixed = g W_o^T, d_gin = d_logit W_g^T, the mix's and the compress
+// d_mixed = g W_o, d_gin = d_logit W_g^T, the mix's and the compress
 // product's parts of dx (each, before their float32 sum), and dW_o, dW_c and
 // dW_g (after the sum over the batch; JAX rounds per batch tile, which is the
 // whole batch at its tile sizes); the bias gradients stay float32. Products
@@ -87,14 +87,13 @@ constexpr int kMaxSeqPerCta = 4;   // sequences a per-sequence CTA owns
 constexpr int kMaxColSplit = 256;  // row slices of the bias gradients' column sums
 constexpr int kRedJobs = 5;        // dW_o, dW_c, db_o, db_c, dW_g + db_g
 
-struct Weights {
-  const float* wc;  // (C, H*R), or (H*R, C) with wt
+struct Weights {  // output-major (torch Linear's layout)
+  const float* wc;  // (H*R, C)
   const float* bc;  // (H*R,)
-  const float* wg;  // (L*R, L*L), or (L*L, L*R) with wt
+  const float* wg;  // (L*L, L*R)
   const float* bg;  // (L*L,)
-  const float* wo;  // (C, C), input-major, or output-major with wt
+  const float* wo;  // (C, C)
   const float* bo;  // (C,)
-  int wt;           // the weights output-major (torch Linear's layout)
 };
 
 // the op's sizes and the shared-memory layout of a per-sequence CTA (offsets
@@ -128,21 +127,21 @@ Geo make_geo(int S, int L, int C, int H, int R, int spc, bool bwd) {
   return g;
 }
 
-// W_c, b_c, W_g and b_g into shared memory (the weights rounded to the compute
-// dtype); the backward also keeps W_c transposed (C fastest), so that dx's
-// d_comp W_c^T reads without conflicts
+// W_c, b_c, W_g and b_g into shared memory input-major (the weights rounded to
+// the compute dtype); the backward also keeps W_c output-major (C fastest), so
+// that dx's d_comp W_c^T reads without conflicts
 template <bool kBF16>
 __device__ void load_weights(float* sm, const Weights& w, const Geo& g) {
   const int HR = g.H * g.R, LR = g.L * g.R, LL = g.L * g.L;
-  for (int i = threadIdx.x; i < g.C * HR; i += kThreads) {  // source element i: (c, j)
+  for (int i = threadIdx.x; i < g.C * HR; i += kThreads) {  // source element i: (j, c)
     const float v = rd<kBF16>(__ldg(w.wc + i));
-    const int c = w.wt ? i % g.C : i / HR, j = w.wt ? i / g.C : i % HR;
+    const int c = i % g.C, j = i / g.C;
     sm[g.wc + c * HR + j] = v;
     if (g.wct >= 0) sm[g.wct + j * g.C + c] = v;
   }
   for (int i = threadIdx.x; i < HR; i += kThreads) sm[g.bc + i] = __ldg(w.bc + i);
-  for (int i = threadIdx.x; i < LR * LL; i += kThreads) {  // source element i: (k, n)
-    const int k = w.wt ? i % LR : i / LL, n = w.wt ? i / LR : i % LL;
+  for (int i = threadIdx.x; i < LR * LL; i += kThreads) {  // source element i: (n, k)
+    const int k = i % LR, n = i / LR;
     sm[g.wg + k * LL + n] = rd<kBF16>(__ldg(w.wg + i));
   }
   for (int i = threadIdx.x; i < LL; i += kThreads) sm[g.bg + i] = __ldg(w.bg + i);
@@ -302,13 +301,12 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < HR; ++j) acc2 = fmaf(dr[j], wct[j * C + c], acc2);
     dx[off + o] = rd<kBF16>(acc) + rd<kBF16>(acc2);
   }
-  // the CTA's partials: dW_g[i][n] = sum_q sum_h gin[q][h][i] d_logit[q][h][n] (at
-  // [n][i] with wt), db_g[n]
+  // the CTA's partials: dW_g[n][i] = sum_q sum_h gin[q][h][i] d_logit[q][h][n], db_g[n]
   float* mine = part + (size_t)blockIdx.x * (LR * LL + LL);
   for (int o = threadIdx.x; o < LR * LL + LL; o += kThreads) {
     float acc = 0.f;
     if (o < LR * LL) {
-      const int i = w.wt ? o % LR : o / LL, n = w.wt ? o / LR : o % LL;
+      const int i = o % LR, n = o / LR;
       for (int q = 0; q < nq; ++q)
         for (int h = 0; h < H; ++h)
           acc = fmaf(comp[(q * L + i / R) * HR + h * R + i % R], dp[(q * H + h) * LL + n], acc);
@@ -387,13 +385,13 @@ int make_plan(int S, int L, int C, int H, int R, int bf16, int device, Plan& pl)
   return 0;
 }
 
-Weights weights(const void* const* q, int wt) {
+Weights weights(const void* const* q) {
   auto f = [q](int i) { return static_cast<const float*>(q[i]); };
-  return Weights{f(0), f(1), f(2), f(3), f(4), f(5), wt};
+  return Weights{f(0), f(1), f(2), f(3), f(4), f(5)};
 }
 
 template <bool kBF16>
-int dyna_fwd(const float* x, float* y, int S, int L, int C, int H, int R, int wt, int device,
+int dyna_fwd(const float* x, float* y, int S, int L, int C, int H, int R, int device,
              const void* const* ptrs, void* workspace, void* stream) {
   if (check_args(S, L, C, H, R)) return -1;
   M2M_TRY(cudaSetDevice(device));
@@ -403,7 +401,7 @@ int dyna_fwd(const float* x, float* y, int S, int L, int C, int H, int R, int wt
   const size_t smem = (size_t)pl.fwd.total * 4;
   M2M_TRY(prepare(dyna_mix_kernel<kBF16>, smem, device));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Weights w = weights(ptrs, wt);
+  const Weights w = weights(ptrs);
   float* ws = static_cast<float*>(workspace);
   float* mixed = ws + pl.mixed;
   const float* wo = w.wo;
@@ -413,18 +411,15 @@ int dyna_fwd(const float* x, float* y, int S, int L, int C, int H, int R, int wt
   }
   dyna_mix_kernel<kBF16><<<pl.ctas_fwd, kThreads, smem, st>>>(x, w, pl.fwd, mixed);
   M2M_TRY(cudaGetLastError());
-  // y = mixed W_o + b_o (dynamixer_kernel.py:58)
+  // y = mixed W_o^T + b_o (dynamixer_kernel.py:58), W_o output-major
   constexpr int kBoth = kBF16 ? kExactA | kExactB : 0;
-  if (wt)
-    return tc_gemm_auto<kBoth, true>(View{mixed, C, 1}, View{wo, 1, C}, y, S * L, C, C, pl.sms,
-                                     st, EpiBias{w.bo});
-  return tc_gemm_auto<kBoth>(View{mixed, C, 1}, View{wo, C, 1}, y, S * L, C, C, pl.sms, st,
-                             EpiBias{w.bo});
+  return tc_gemm_auto<kBoth, true>(View{mixed, C, 1}, View{wo, 1, C}, y, S * L, C, C, pl.sms, st,
+                                   EpiBias{w.bo});
 }
 
 template <bool kBF16>
 int dyna_bwd(const float* x, const float* g, float* dx, int S, int L, int C, int H, int R,
-             int wt, int device, const void* const* ptrs, void* const* grads, void* workspace,
+             int device, const void* const* ptrs, void* const* grads, void* workspace,
              void* stream) {
   if (check_args(S, L, C, H, R)) return -1;
   M2M_TRY(cudaSetDevice(device));
@@ -434,7 +429,7 @@ int dyna_bwd(const float* x, const float* g, float* dx, int S, int L, int C, int
   const size_t smem = (size_t)pl.bwd.total * 4;
   M2M_TRY(prepare(dyna_seq_bwd_kernel<kBF16>, smem, device));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Weights w = weights(ptrs, wt);
+  const Weights w = weights(ptrs);
   float* ws = static_cast<float*>(workspace);
   float* const* gq = reinterpret_cast<float* const*>(grads);
   const int rows = S * L, HR = H * R, LL = L * L, LR = L * R;
@@ -446,22 +441,18 @@ int dyna_bwd(const float* x, const float* g, float* dx, int S, int L, int C, int
     M2M_TRY(round_copy(w.wo, ws + pl.wor, C * C, st));
     wo = ws + pl.wor;
   }
-  // 1. d_mixed = g W_o^T (dynamixer_kernel.py:58), rounded in bf16
-  M2M_TRY(tc_gemm_wide<kB>(View{g, C, 1}, wt ? View{wo, C, 1} : View{wo, 1, C}, ws + pl.dm,
+  // 1. d_mixed = g W_o (dynamixer_kernel.py:58), rounded in bf16
+  M2M_TRY(tc_gemm_wide<kB>(View{g, C, 1}, View{wo, C, 1}, ws + pl.dm,
                            rows, C, C, C, 1, st, EpiRound<kBF16>{}));
   // 2. the per-sequence backward (:44-57)
   dyna_seq_bwd_kernel<kBF16><<<pl.ctas_bwd, kThreads, smem, st>>>(
       x, ws + pl.dm, w, pl.bwd, ws + pl.mixed, ws + pl.dcomp, dx, ws + pl.p_gen, ws + pl.xr);
   M2M_TRY(cudaGetLastError());
-  // 3. dW_o = mixed^T g (with wt its transpose g^T mixed), 4. dW_c = x^T d_comp
-  // (H*R wide: the narrow tile; in bf16 x rounded; with wt transposed as its
-  // partials are reduced): slices of the rows
-  if (wt)
-    M2M_TRY(tc_gemm_wide<kB>(View{g, 1, C}, View{ws + pl.mixed, C, 1}, ws + pl.p_wo, C, C, rows,
-                             pl.wslice, pl.wsplit, st));
-  else
-    M2M_TRY(tc_gemm_wide<kA>(View{ws + pl.mixed, 1, C}, View{g, C, 1}, ws + pl.p_wo, C, C, rows,
-                             pl.wslice, pl.wsplit, st));
+  // 3. dW_o = g^T mixed (output-major), 4. dW_c = x^T d_comp (H*R wide: the
+  // narrow tile; in bf16 x rounded; transposed to output-major as its partials
+  // are reduced): slices of the rows
+  M2M_TRY(tc_gemm_wide<kB>(View{g, 1, C}, View{ws + pl.mixed, C, 1}, ws + pl.p_wo, C, C, rows,
+                           pl.wslice, pl.wsplit, st));
   M2M_TRY(tc_gemm_narrow<kA | kB>(View{kBF16 ? ws + pl.xr : x, 1, C}, View{ws + pl.dcomp, HR, 1},
                                   ws + pl.p_wc, C, HR, rows, pl.wslice, pl.wsplit, st));
   // 5. db_o, db_c: column sums over slices of the rows
@@ -475,8 +466,7 @@ int dyna_bwd(const float* x, const float* g, float* dx, int S, int L, int C, int
   // weight gradients rounded, the bias gradients not
   RedJobs<kRedJobs> rj = {};
   rj.job[0] = RedJob{ws + pl.p_wo, pl.wsplit, C * C, gq[4], C * C, nullptr, kRnd};
-  rj.job[1] = RedJob{ws + pl.p_wc, pl.wsplit, C * HR, gq[0], C * HR, nullptr, kRnd,
-                     wt ? C : 0};
+  rj.job[1] = RedJob{ws + pl.p_wc, pl.wsplit, C * HR, gq[0], C * HR, nullptr, kRnd, C};
   rj.job[2] = RedJob{ws + pl.p_col, pl.csplit, C, gq[5], C, nullptr, 0};
   rj.job[3] = RedJob{ws + pl.p_col + (size_t)pl.csplit * C, pl.csplit, HR, gq[1], HR, nullptr, 0};
   rj.job[4] = RedJob{ws + pl.p_gen, pl.ctas_bwd, LR * LL + LL, gq[2], LR * LL, gq[3], kRnd};
@@ -510,25 +500,24 @@ int m2m_dyna_row_slice(int S, int L, int C, int H, int R, int device) {
 }
 
 // K4f: y = DynaMixerOp(x), x and y (S, L, C) float32. ptrs: the 6 parameters
-// in DynaMixerOpParams order (float32, the JAX layout, or with wt the weights
-// output-major); bf16: bf16 compute; workspace: m2m_dyna_workspace_bytes(...,
-// 0, ...) bytes.
-int m2m_dyna_fwd(const float* x, float* y, int S, int L, int C, int H, int R, int bf16, int wt,
+// in DynaMixerOpParams order (float32, the weights output-major); bf16: bf16
+// compute; workspace: m2m_dyna_workspace_bytes(..., 0, ...) bytes.
+int m2m_dyna_fwd(const float* x, float* y, int S, int L, int C, int H, int R, int bf16,
                  int device, const void* const* ptrs, void* workspace, void* stream) {
-  return (bf16 ? dyna_fwd<true> : dyna_fwd<false>)(x, y, S, L, C, H, R, wt, device, ptrs,
-                                                    workspace, stream);
+  return (bf16 ? dyna_fwd<true> : dyna_fwd<false>)(x, y, S, L, C, H, R, device, ptrs, workspace,
+                                                    stream);
 }
 
 // K4b: dx and the 6 parameter gradients (float32, DynaMixerOpParams order) of
-// one DynaMixerOp at input x for output gradient g (the weight gradients in
-// the weights' layout, wt as m2m_dyna_fwd's); bf16: bf16 compute (the
-// gradients rounded where JAX's AD rounds them); workspace:
-// m2m_dyna_workspace_bytes(..., 1, ...) bytes.
+// one DynaMixerOp at input x for output gradient g (the weight gradients
+// output-major, as the weights); bf16: bf16 compute (the gradients rounded
+// where JAX's AD rounds them); workspace: m2m_dyna_workspace_bytes(..., 1, ...)
+// bytes.
 int m2m_dyna_bwd(const float* x, const float* g, float* dx, int S, int L, int C, int H, int R,
-                 int bf16, int wt, int device, const void* const* ptrs, void* const* grads,
+                 int bf16, int device, const void* const* ptrs, void* const* grads,
                  void* workspace, void* stream) {
-  return (bf16 ? dyna_bwd<true> : dyna_bwd<false>)(x, g, dx, S, L, C, H, R, wt, device, ptrs,
-                                                    grads, workspace, stream);
+  return (bf16 ? dyna_bwd<true> : dyna_bwd<false>)(x, g, dx, S, L, C, H, R, device, ptrs, grads,
+                                                    workspace, stream);
 }
 
 }  // extern "C"

@@ -51,16 +51,10 @@ struct Dropout {
   uint32_t key[kMaxBlocks * kMasks];
 };
 
-// mask value (scale or 0) of element e of mask `m` of block `k`; 1 when off.
-// kDrop = false compiles the masks out (the forward's rate-0 instantiation).
-template <bool kDrop = true>
+// mask value (scale or 0) of element e of mask `m` of block `k`; 1 when off
 __device__ __forceinline__ float keep(const Dropout& dp, int k, int m, uint32_t e) {
-  if constexpr (!kDrop) {
-    return 1.f;
-  } else {
-    if (!dp.on) return 1.f;
-    return fmix32(e * kGolden ^ dp.key[k * kMasks + m]) >= dp.thresh ? dp.scale : 0.f;
-  }
+  if (!dp.on) return 1.f;
+  return fmix32(e * kGolden ^ dp.key[k * kMasks + m]) >= dp.thresh ? dp.scale : 0.f;
 }
 
 template <bool kBF16>
@@ -71,9 +65,6 @@ __device__ __forceinline__ float rd(float v) {
     return v;
   }
 }
-
-__device__ __forceinline__ float tof(float v) { return v; }
-__device__ __forceinline__ float tof(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 constexpr float kSqrt2OverPi = 0.7978845608028654f;
 constexpr float kInvSqrt2 = 0.7071067811865476f;
@@ -156,7 +147,7 @@ __device__ void load_token_weights(float* tw, const TokenPtrs& p, int N, int T) 
 // (load_token_weights). Sample s of the tile is sample s0 + s of the batch, and
 // `blk` the block's index in the launch (both key the dropout masks). kMaxN >= N
 // sizes the per-thread token arrays (a smaller bound costs fewer registers).
-template <bool kBF16, bool kDrop = true, int kMaxN = kMaxTokens>
+template <bool kBF16, int kMaxN = kMaxTokens>
 __device__ void token_mix(const float* ys, float* xs, int nb, int N, int T, int D,
                           const float* tw, int tanh_flavor, const Dropout& dp, int blk, int s0) {
   const float* w1 = tw;
@@ -178,7 +169,7 @@ __device__ void token_mix(const float* ys, float* xs, int nb, int N, int T, int 
 #pragma unroll
       for (int n = 0; n < kMaxN; ++n)
         if (n < N) h += in[n] * w1[n * T + j];
-      h = rd<kBF16>(gelu(h + b1[j], tanh_flavor) * keep<kDrop>(dp, blk, 0, col * T + j));
+      h = rd<kBF16>(gelu(h + b1[j], tanh_flavor) * keep(dp, blk, 0, col * T + j));
 #pragma unroll
       for (int n = 0; n < kMaxN; ++n)
         if (n < N) acc[n] += h * w2[j * N + n];
@@ -187,7 +178,7 @@ __device__ void token_mix(const float* ys, float* xs, int nb, int N, int T, int 
     for (int n = 0; n < kMaxN; ++n) {
       if (n < N) {
         float* xp = xs + base + n * D;
-        const float m1 = keep<kDrop>(dp, blk, 1, col * N + n);
+        const float m1 = keep(dp, blk, 1, col * N + n);
         *xp = rd<kBF16>(*xp + rd<kBF16>((acc[n] + b2[n]) * m1));
       }
     }

@@ -1,9 +1,9 @@
 // Fused MixerBlock / mixer-stack forward kernels for Hopper (sm_90a).
 //
 // Replaces the TPU Pallas kernels of m2mixer_tpu/ops/mixer_kernel.py:
-//   m2m_mixer_fwd (float32 and bf16), mixer_block_fwd (bf16, at most 32 tokens)
+//   m2m_mixer_fwd (1 block, float32 and bf16)
 //       <- fused_mixer_block forward (_fwd_kernel over _block_math)
-//   m2m_mixer_fwd (float32 and bf16), mixer_stack_fwd (bf16, at most 32 tokens)
+//   m2m_mixer_fwd (K blocks + final LN, float32 and bf16)
 //       <- fused_mixer_stack forward (_stack_fwd_kernel over _stack_math)
 //
 // One block computes, on x (B, N, D):
@@ -47,42 +47,20 @@
 // bf16 compute runs the same pipeline with _block_math's casts (rd<true> at
 // each: the block input, the LN outputs, h, h2 and the residual stream rounded
 // to bf16; LN statistics, sums, biases and GELU float32) and products of bf16
-// operands, exact in TF32, so one mma in place of three (kExact).
-//
-// The bf16 resident tile (mixer_block_fwd, mixer_stack_fwd), at most
-// kMaxTokens tokens: one launch keeps a row tile of `tb` whole samples in
-// shared memory for the whole stack: x/x1, z and a channel-FF accumulator (R
-// x D each, R = tb * N rows). A cluster of S CTAs (1, 2 or 4, chosen at
-// launch with tb so that the grid fills the SMs in one wave) shares the tile:
-// all compute LN1, the token mix and LN2 on the same rows; CTA `rank` runs the
-// channel FF over hidden chunks rank, rank + S, ... of kChunk units: h =
-// gelu(z W3[:, c:c+kChunk] + b3) into shared memory, then its partial acc += h
-// W4[c:c+kChunk, :], so the R x C hidden activation never reaches device
-// memory. The partials meet through distributed shared memory, summed in rank
-// order. Weight chunks stream from L2 with cp.async into two buffers. Casts
-// follow _block_math exactly, as the pipeline's. Products run as float32 FMA on
-// the CUDA cores (products of bf16 values are exact in float32),
-// latency-bound per chunk, several times off the bound (PERF.md). An L sample
-// (80 x 512 float32, 160 KB) does not fit its tile, so above kMaxTokens bf16
-// takes the pipeline.
+// operands, exact in TF32, so one mma in place of three (kExact). The
+// parameters arrive in float32 at either precision; stage 0 lays out the
+// rounded W3/W4 copies the products read, as the JAX kernels cast theirs on
+// each call.
 //
 // Limits checked by the wrappers and again here: D % 4 == 0, K <= kMaxBlocks,
-// the masks' 32-bit element counts; the resident tile: N <= kMaxTokens, C even,
-// shared memory <= the opt-in limit.
+// the masks' 32-bit element counts and the products' grid.
 
-#include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "mixer_common.cuh"
 #include "tile_common.cuh"
 #include "token_ff.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -95,9 +73,9 @@ struct BlockPtrs {
   const float* b2;  // (N,)
   const float* ln2_s;
   const float* ln2_b;
-  const void* w3;   // (D, C), float or bf16
+  const float* w3;  // (D, C)
   const float* b3;  // (C,)
-  const void* w4;   // (C, D), float or bf16
+  const float* w4;  // (C, D)
   const float* b4;  // (D,)
 };
 
@@ -125,9 +103,9 @@ StackArgs pack(const void* const* ptrs, int n_blocks, int final_ln, float* saved
     b.b2 = static_cast<const float*>(q[5]);
     b.ln2_s = static_cast<const float*>(q[6]);
     b.ln2_b = static_cast<const float*>(q[7]);
-    b.w3 = q[8];
+    b.w3 = static_cast<const float*>(q[8]);
     b.b3 = static_cast<const float*>(q[9]);
-    b.w4 = q[10];
+    b.w4 = static_cast<const float*>(q[10]);
     b.b4 = static_cast<const float*>(q[11]);
   }
   if (final_ln) {
@@ -136,8 +114,6 @@ StackArgs pack(const void* const* ptrs, int n_blocks, int final_ln, float* saved
   }
   return a;
 }
-
-// ============================================ the pipeline (float32 and bf16)
 
 constexpr int kFewTokens = 8;  // the prefix's narrow token bound (the B config: N = 4, 8)
 
@@ -190,7 +166,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   layer_norm_rows<kBF16>(xs, ys, R, D, p.ln1_s, p.ln1_b);
   __syncthreads();
-  token_mix<kBF16, true, kMaxN>(ys, xs, nb, N, T, D, tw, tanh_flavor, dp, blk, s0);
+  token_mix<kBF16, kMaxN>(ys, xs, nb, N, T, D, tw, tanh_flavor, dp, blk, s0);
   __syncthreads();
   layer_norm_rows<kBF16>(xs, ys, R, D, p.ln2_s, p.ln2_b);
   __syncthreads();
@@ -259,7 +235,7 @@ struct FwdPlan {
   size_t w3p, w4r, twr, x1, z, h2, part, yt, ht, tt, ws_floats;
 };
 
-int check_f32(int B, int N, int T, int D, int C, int n_blocks) {
+int check_args(int B, int N, int T, int D, int C, int n_blocks) {
   if (B < 1 || N < 1 || T < 1 || D < 4 || D % 4 != 0 || C < 1) return -1;
   if (n_blocks < 1 || n_blocks > kMaxBlocks) return -1;
   if ((size_t)B * N * (C > D ? C : D) >= (1ull << 32) ||
@@ -349,8 +325,8 @@ int run_pipeline(const float* x, float* out, int B, int N, int T, int D, int C, 
   if (copy_w3) {
     W34Srcs src = {};
     for (int k = 0; k < n_blocks; ++k) {
-      src.w3[k] = static_cast<const float*>(a.blocks[k].w3);
-      src.w4[k] = static_cast<const float*>(a.blocks[k].w4);
+      src.w3[k] = a.blocks[k].w3;
+      src.w4[k] = a.blocks[k].w4;
     }
     const long long most = (long long)D * (Cp > C ? Cp : C);
     prep_w34_kernel<kBF16><<<dim3(ceil_div(most, kThreads), n_blocks), kThreads, 0, st>>>(
@@ -380,8 +356,8 @@ int run_pipeline(const float* x, float* out, int B, int N, int T, int D, int C, 
                                    p.ln1_b, w1, p.b1, w2, p.b2, p.ln2_s, p.ln2_b, nullptr,
                                    nullptr, B, N, T, D, pl.nc, pl.sms, tanh_flavor, a.dp, k, st));
     }
-    const float* w3 = copy_w3 ? w3p + (size_t)k * D * Cp : static_cast<const float*>(p.w3);
-    const float* w4 = kBF16 ? w4r + (size_t)k * C * D : static_cast<const float*>(p.w4);
+    const float* w3 = copy_w3 ? w3p + (size_t)k * D * Cp : p.w3;
+    const float* w4 = kBF16 ? w4r + (size_t)k * C * D : p.w4;
     M2M_TRY(tc_gemm_auto<kBoth>(View{z, D, 1}, View{w3, Cp, 1}, h2, R, Cp, D, pl.sms, st,
                                 EpiUp<kBF16>{p.b3, C, tanh_flavor, k, a.dp}));
     M2M_TRY(tc_gemm_wide<kBoth>(View{h2, Cp, 1}, View{w4, D, 1}, part, R, D, C, pl.kslice,
@@ -393,389 +369,12 @@ int run_pipeline(const float* x, float* out, int B, int N, int T, int D, int C, 
   return (int)cudaGetLastError();
 }
 
-// ============================================ bf16: the resident-tile kernel
-
-constexpr int kChunk = 64;                           // hidden units per channel-FF step
-constexpr int kRowGroups = kThreads / kChunk;        // 4 rows in flight per column
-constexpr int kRowsMax = 64;                         // rows (tb * N) one CTA may own
-constexpr int kRowsPerThread = kRowsMax / kRowGroups;
-constexpr int kMaxCluster = 4;  // CTAs that may split one row tile's hidden units C
-
-// cp.async of W3[:, c0:c0+kChunk] (D x kChunk, zero past C) into dst, in BYTES-wide
-// copies; a copy never straddles C (C is a multiple of its width)
-template <int BYTES, typename WT>
-__device__ void copy_w3(WT* dst, const WT* w3, int D, int C, int c0) {
-  constexpr int per = BYTES / sizeof(WT);
-  constexpr int units_per_row = kChunk / per;
-  for (int u = threadIdx.x; u < D * units_per_row; u += kThreads) {
-    const int d = u / units_per_row, j = (u - d * units_per_row) * per;
-    const int c = c0 + j;
-    const bool ok = c < C;
-    __pipeline_memcpy_async(dst + d * kChunk + j, ok ? w3 + (size_t)d * C + c : w3, BYTES,
-                            ok ? 0 : BYTES);
-  }
-}
-
-// cp.async of W4[c0:c0+kChunk, :] (kChunk x D, zero past C) into dst
-template <int BYTES, typename WT>
-__device__ void copy_w4(WT* dst, const WT* w4, int D, int C, int c0) {
-  constexpr int per = BYTES / sizeof(WT);
-  const int units_per_row = D / per;
-  for (int u = threadIdx.x; u < kChunk * units_per_row; u += kThreads) {
-    const int j = u / units_per_row, d = (u - j * units_per_row) * per;
-    const int c = c0 + j;
-    const bool ok = c < C;
-    __pipeline_memcpy_async(dst + j * D + d, ok ? w4 + (size_t)c * D + d : w4, BYTES,
-                            ok ? 0 : BYTES);
-  }
-}
-
-// 16-byte copies where the rows allow them (C = 3072), 4-byte ones otherwise (C = 3078)
-template <typename WT>
-__device__ void fetch_w3(WT* dst, const WT* w3, int D, int C, int c0) {
-  if ((C * sizeof(WT)) % 16 == 0)
-    copy_w3<16>(dst, w3, D, C, c0);
-  else
-    copy_w3<4>(dst, w3, D, C, c0);
-}
-
-template <typename WT>
-__device__ void fetch_w4(WT* dst, const WT* w4, int D, int C, int c0) {
-  if ((D * sizeof(WT)) % 16 == 0)
-    copy_w4<16>(dst, w4, D, C, c0);
-  else
-    copy_w4<4>(dst, w4, D, C, c0);
-}
-
-// hs (R x kChunk) = rd(gelu(zs W3chunk + b3) * m2), zero for hidden units past C; the
-// tile's rows are rows row0g.. of the batch (they key mask 2 of block `blk`)
-template <bool kBF16, bool kDrop, int RPT, typename WT>
-__device__ void channel_up(const float* zs, const WT* w3s, float* hs, int R, int D, int C, int c0,
-                           const float* __restrict__ b3, int tanh_flavor, const Dropout& dp,
-                           int blk, uint32_t row0g) {
-  const int col = threadIdx.x & (kChunk - 1), row0 = threadIdx.x / kChunk;
-  float a[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) a[i] = 0.f;
-  for (int k = 0; k < D; k += 4) {
-    const float w0 = tof(w3s[(k + 0) * kChunk + col]);
-    const float w1 = tof(w3s[(k + 1) * kChunk + col]);
-    const float w2 = tof(w3s[(k + 2) * kChunk + col]);
-    const float w3 = tof(w3s[(k + 3) * kChunk + col]);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = row0 + i * kRowGroups;
-      if (r < R) {
-        const float4 z = *reinterpret_cast<const float4*>(zs + r * D + k);
-        a[i] = fmaf(z.x, w0, a[i]);
-        a[i] = fmaf(z.y, w1, a[i]);
-        a[i] = fmaf(z.z, w2, a[i]);
-        a[i] = fmaf(z.w, w3, a[i]);
-      }
-    }
-  }
-  const int c = c0 + col;
-  const bool ok = c < C;
-  const float bias = ok ? __ldg(b3 + c) : 0.f;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = row0 + i * kRowGroups;
-    if (r < R)
-      hs[r * kChunk + col] =
-          ok ? rd<kBF16>(gelu(a[i] + bias, tanh_flavor) *
-                         keep<kDrop>(dp, blk, 2, (row0g + r) * (uint32_t)C + c))
-             : 0.f;
-  }
-}
-
-// accs (R x D) += hs (R x kChunk) W4chunk (kChunk x D)
-template <int RPT, typename WT>
-__device__ void channel_down(const float* hs, const WT* w4s, float* accs, int R, int D) {
-  const int col = threadIdx.x & (kChunk - 1), row0 = threadIdx.x / kChunk;
-  for (int d0 = 0; d0 < D; d0 += kChunk) {
-    const int d = d0 + col;
-    if (d >= D) continue;
-    float a[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = row0 + i * kRowGroups;
-      a[i] = r < R ? accs[r * D + d] : 0.f;
-    }
-    for (int k = 0; k < kChunk; k += 4) {
-      const float w0 = tof(w4s[(k + 0) * D + d]);
-      const float w1 = tof(w4s[(k + 1) * D + d]);
-      const float w2 = tof(w4s[(k + 2) * D + d]);
-      const float w3 = tof(w4s[(k + 3) * D + d]);
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int r = row0 + i * kRowGroups;
-        if (r < R) {
-          const float4 h = *reinterpret_cast<const float4*>(hs + r * kChunk + k);
-          a[i] = fmaf(h.x, w0, a[i]);
-          a[i] = fmaf(h.y, w1, a[i]);
-          a[i] = fmaf(h.z, w2, a[i]);
-          a[i] = fmaf(h.w, w3, a[i]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = row0 + i * kRowGroups;
-      if (r < R) accs[r * D + d] = a[i];
-    }
-  }
-}
-
-struct Tile {
-  float* xs;    // residual stream (R x D)
-  float* zs;    // LN output (R x D)
-  float* accs;  // channel-FF accumulator (R x D)
-  float* hs;    // hidden chunk (R x kChunk)
-  void* w3s;    // W3 chunk (D x kChunk)
-  void* w4s;    // W4 chunk (kChunk x D)
-  float* tw;    // token-FF weights (w1, b1, w2, b2)
-};
-
-// one MixerBlock on the tile held in shared memory (xs in, xs out). The S CTAs
-// of a cluster hold the same rows and compute LN1, the token mix and LN2
-// redundantly; CTA `rank` runs the channel FF over hidden chunks rank, rank + S,
-// ... into its own partial accumulator. The partials are summed through
-// distributed shared memory in rank order (deterministic), each CTA summing an
-// S-th of the tile and writing the finished residual into every CTA's xs.
-// RPT: rows per thread in the channel FF (rows of the tile / 4, a compile-time
-// bound so that no predicated-off row costs an instruction).
-template <bool kBF16, bool kDrop, int RPT>
-__device__ void block_forward(const Tile& t, const BlockPtrs& p, int R, int nb, int N, int T, int D,
-                              int C, int tanh_flavor, const Dropout& dp, int blk, int s0) {
-  using WT = typename std::conditional<kBF16, __nv_bfloat16, float>::type;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank(), S = (int)cluster.num_blocks();
-  WT* w3s = static_cast<WT*>(t.w3s);
-  WT* w4s = static_cast<WT*>(t.w4s);
-  const WT* w3 = static_cast<const WT*>(p.w3);
-  const WT* w4 = static_cast<const WT*>(p.w4);
-  const int nchunks = (C + kChunk - 1) / kChunk;
-
-  // this CTA's first weight chunks load under LN1 and the token mix
-  if (rank < nchunks) fetch_w3(w3s, w3, D, C, rank * kChunk);
-  __pipeline_commit();
-  if (rank < nchunks) fetch_w4(w4s, w4, D, C, rank * kChunk);
-  __pipeline_commit();
-
-  load_token_weights<kBF16>(t.tw, TokenPtrs{p.w1, p.b1, p.w2, p.b2}, N, T);
-  layer_norm_rows<kBF16>(t.xs, t.zs, R, D, p.ln1_s, p.ln1_b);
-  __syncthreads();
-  token_mix<kBF16, kDrop>(t.zs, t.xs, nb, N, T, D, t.tw, tanh_flavor, dp, blk, s0);
-  __syncthreads();
-  layer_norm_rows<kBF16>(t.xs, t.zs, R, D, p.ln2_s, p.ln2_b);
-  for (int e = threadIdx.x; e < R * D; e += kThreads) t.accs[e] = 0.f;
-
-  for (int ci = rank; ci < nchunks; ci += S) {
-    const int c0 = ci * kChunk;
-    const int next = ci + S;
-    __pipeline_wait_prior(1);  // this thread's part of W3 chunk ci has landed
-    __syncthreads();
-    channel_up<kBF16, kDrop, RPT, WT>(t.zs, w3s, t.hs, R, D, C, c0, p.b3, tanh_flavor, dp, blk,
-                               (uint32_t)s0 * N);
-    __syncthreads();
-    if (next < nchunks) fetch_w3(w3s, w3, D, C, next * kChunk);
-    __pipeline_commit();
-    __pipeline_wait_prior(1);  // W4 chunk ci has landed
-    __syncthreads();
-    channel_down<RPT, WT>(t.hs, w4s, t.accs, R, D);
-    __syncthreads();
-    if (next < nchunks) fetch_w4(w4s, w4, D, C, next * kChunk);
-    __pipeline_commit();
-  }
-  __pipeline_wait_prior(0);
-
-  cluster.sync();  // every partial accumulator of the cluster is complete
-  const int per = (R * D + S - 1) / S;
-  const int lo = rank * per, hi = min(R * D, lo + per);
-  for (int e = lo + threadIdx.x; e < hi; e += kThreads) {
-    float sum = 0.f;
-    for (int r = 0; r < S; ++r) sum += cluster.map_shared_rank(t.accs, r)[e];
-    const float m3 = keep<kDrop>(dp, blk, 3, (uint32_t)s0 * N * D + e);
-    const float v = rd<kBF16>(t.xs[e] + rd<kBF16>((sum + __ldg(p.b4 + e % D)) * m3));
-    for (int r = 0; r < S; ++r) cluster.map_shared_rank(t.xs, r)[e] = v;
-  }
-  cluster.sync();  // every CTA holds the block's output
-}
-
-// this CTA's share [lo, hi) of the tile's R*D elements: each CTA of a cluster
-// writes one share to device memory
-__device__ __forceinline__ void tile_share(int R, int D, int& lo, int& hi) {
-  const int rank = (int)cg::this_cluster().block_rank();
-  const int S = (int)cg::this_cluster().num_blocks();
-  const int per = (R * D + S - 1) / S;
-  lo = rank * per;
-  hi = min(R * D, lo + per);
-}
-
-__device__ __forceinline__ void save_share(const float* xs, float* dst, int R, int D) {
-  int lo, hi;
-  tile_share(R, D, lo, hi);
-  for (int e = lo + threadIdx.x; e < hi; e += kThreads) dst[e] = xs[e];
-}
-
-// kSave: the stack may save its block inputs (args.saved); the one-block kernel
-// never does, and is compiled without that code
-template <bool kBF16, bool kDrop, bool kSave, int RPT>
-__device__ void tile_forward(const float* __restrict__ x, float* __restrict__ out, int B, int N,
-                             int T, int D, int C, int tb, int n_blocks, int final_ln,
-                             int tanh_flavor, const StackArgs& args) {
-  using WT = typename std::conditional<kBF16, __nv_bfloat16, float>::type;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int rows_cap = tb * N;
-  Tile t;
-  t.xs = reinterpret_cast<float*>(smem);
-  t.zs = t.xs + rows_cap * D;
-  t.accs = t.zs + rows_cap * D;
-  t.hs = t.accs + rows_cap * D;
-  t.w3s = t.hs + rows_cap * kChunk;
-  t.w4s = static_cast<WT*>(t.w3s) + D * kChunk;
-  t.tw = reinterpret_cast<float*>(static_cast<WT*>(t.w4s) + D * kChunk);
-
-  const int s0 = (blockIdx.x / (int)cg::this_cluster().num_blocks()) * tb;
-  const int nb = min(tb, B - s0);
-  const int R = nb * N;
-  const float* xg = x + (size_t)s0 * N * D;
-  float* og = out + (size_t)s0 * N * D;
-
-  for (int e = threadIdx.x; e < R * D; e += kThreads) t.xs[e] = rd<kBF16>(xg[e]);
-  __syncthreads();
-  const size_t slot = (size_t)B * N * D;  // one saved block input
-#pragma unroll 1
-  for (int k = 0; k < n_blocks; ++k) {
-    if constexpr (kSave) {  // training: keep the block's input for the backward kernels
-      if (args.saved) save_share(t.xs, args.saved + k * slot + (size_t)s0 * N * D, R, D);
-    }
-    block_forward<kBF16, kDrop, RPT>(t, args.blocks[k], R, nb, N, T, D, C, tanh_flavor, args.dp,
-                                     k, s0);
-  }
-  if constexpr (kSave) {  // and the stack's output before its final LN
-    if (args.saved) save_share(t.xs, args.saved + n_blocks * slot + (size_t)s0 * N * D, R, D);
-  }
-  // each CTA of the cluster writes its share of the tile
-  int lo, hi;
-  tile_share(R, D, lo, hi);
-  if (final_ln) {
-    layer_norm_rows<kBF16>(t.xs, t.zs, R, D, args.lnf_s, args.lnf_b);
-    __syncthreads();
-    for (int e = lo + threadIdx.x; e < hi; e += kThreads) og[e] = t.zs[e];
-  } else {
-    for (int e = lo + threadIdx.x; e < hi; e += kThreads) og[e] = t.xs[e];
-  }
-}
-
-// K1f in bf16: one MixerBlock (kDrop: with dropout masks; without, none are computed)
-template <bool kBF16, bool kDrop, int RPT>
-__global__ void __launch_bounds__(kThreads, 1)
-    mixer_block_fwd(const float* __restrict__ x, float* __restrict__ out, int B, int N, int T, int D,
-                    int C, int tb, int tanh_flavor, const __grid_constant__ StackArgs args) {
-  tile_forward<kBF16, kDrop, false, RPT>(x, out, B, N, T, D, C, tb, 1, 0, tanh_flavor, args);
-}
-
-// K2f in bf16: K MixerBlocks (+ final LN) with the activation tile resident in shared memory
-template <bool kBF16, bool kDrop, int RPT>
-__global__ void __launch_bounds__(kThreads, 1)
-    mixer_stack_fwd(const float* __restrict__ x, float* __restrict__ out, int B, int N, int T, int D,
-                    int C, int tb, int n_blocks, int final_ln, int tanh_flavor,
-                    const __grid_constant__ StackArgs args) {
-  tile_forward<kBF16, kDrop, true, RPT>(x, out, B, N, T, D, C, tb, n_blocks, final_ln,
-                                        tanh_flavor, args);
-}
-
-struct Launch {
-  const float* x;
-  float* out;
-  int B, N, T, D, C, tb, cluster, n_blocks, final_ln, tanh_flavor;
-  size_t smem;
-  cudaStream_t stream;
-};
-
-size_t smem_bytes(int tb, int N, int D, int T, int bf16) {
-  const size_t rows = (size_t)tb * N;
-  const size_t wbytes = bf16 ? 2 : 4;
-  const size_t token = 2 * (size_t)N * T + T + N;
-  return rows * D * 4 * 3 + rows * kChunk * 4 + 2 * (size_t)D * kChunk * wbytes + token * 4;
-}
-
-int check_args(int B, int N, int T, int D, int C, int tb, int cluster, int n_blocks) {
-  if (B < 1 || N < 1 || N > kMaxTokens || T < 1 || D < 4 || D % 4 != 0 || C < 1) return 1;
-  if (cluster != 1 && cluster != 2 && cluster != kMaxCluster) return 1;
-  if (C % 2 != 0) return 1;  // bf16 weight rows of whole 4-byte copies
-  if (tb < 1 || tb * N > kRowsMax) return 1;
-  if (n_blocks < 1 || n_blocks > kMaxBlocks) return 1;
-  return 0;
-}
-
-template <bool kBF16, bool kDrop, int RPT>
-cudaError_t launch(const Launch& l, const StackArgs& args, bool stack) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((l.B + l.tb - 1) / l.tb * l.cluster);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = l.smem;
-  cfg.stream = l.stream;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = l.cluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  cudaError_t err;
-  if (stack) {
-    err = prepare(mixer_stack_fwd<kBF16, kDrop, RPT>, l.smem);
-    if (err != cudaSuccess) return err;
-    err = cudaLaunchKernelEx(&cfg, mixer_stack_fwd<kBF16, kDrop, RPT>, l.x, l.out, l.B, l.N, l.T, l.D,
-                             l.C, l.tb, l.n_blocks, l.final_ln, l.tanh_flavor, args);
-  } else {
-    err = prepare(mixer_block_fwd<kBF16, kDrop, RPT>, l.smem);
-    if (err != cudaSuccess) return err;
-    err = cudaLaunchKernelEx(&cfg, mixer_block_fwd<kBF16, kDrop, RPT>, l.x, l.out, l.B, l.N, l.T, l.D,
-                             l.C, l.tb, l.tanh_flavor, args);
-  }
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-// rows per thread = ceil(tile rows / 4), rounded up to a power of two
-template <bool kBF16, bool kDrop>
-cudaError_t dispatch(const Launch& l, const StackArgs& args, bool stack) {
-  const int rpt = (l.tb * l.N + kRowGroups - 1) / kRowGroups;
-  if (rpt <= 1) return launch<kBF16, kDrop, 1>(l, args, stack);
-  if (rpt <= 2) return launch<kBF16, kDrop, 2>(l, args, stack);
-  if (rpt <= 4) return launch<kBF16, kDrop, 4>(l, args, stack);
-  if (rpt <= 8) return launch<kBF16, kDrop, 8>(l, args, stack);
-  return launch<kBF16, kDrop, kRowsPerThread>(l, args, stack);
-}
-
-// the bf16 route: kBF16 is instantiated true only (float32 runs run_f32)
-int run_bf16(const Launch& l, int device, const void* const* ptrs, bool stack, float* saved,
-             const Dropout& dp) {
-  if (check_args(l.B, l.N, l.T, l.D, l.C, l.tb, l.cluster, l.n_blocks)) return -1;
-  if ((size_t)l.B * l.N * (l.C > l.D ? l.C : l.D) >= (1ull << 32) ||
-      (size_t)l.B * l.D * (l.T > l.N ? l.T : l.N) >= (1ull << 32))
-    return -1;  // the dropout masks count their elements in 32 bits
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  const StackArgs args = pack(ptrs, l.n_blocks, l.final_ln, saved, dp);
-  return dp.on ? dispatch<true, true>(l, args, stack) : dispatch<true, false>(l, args, stack);
-}
-
 }  // namespace
 
 extern "C" {
 
-// Shared memory one CTA of the bf16 kernel needs for `tb` samples per CTA, its
-// weight chunks `bf16 ? 2 : 4` bytes an element (the wrapper sizes tb with it).
-size_t m2m_mixer_smem_bytes(int tb, int N, int D, int T, int bf16) {
-  return smem_bytes(tb, N, D, T, bf16);
-}
-
 const char* m2m_error_string(int code) {
-  if (code == -1) return "invalid shape or tile arguments for the mixer kernel";
+  if (code == -1) return "invalid shape arguments for the mixer kernel";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
@@ -784,7 +383,7 @@ const char* m2m_error_string(int code) {
 // in registers, -1 for shapes the kernels do not take.
 int m2m_mixer_fwd_token_ff(int B, int N, int T, int D, int C, int device) {
   FwdPlan pl;
-  if (check_f32(B, N, T, D, C, 1) || make_fwd_plan(B, N, T, D, C, 1, 0, device, pl)) return -1;
+  if (check_args(B, N, T, D, C, 1) || make_fwd_plan(B, N, T, D, C, 1, 0, device, pl)) return -1;
   return !pl.reg;
 }
 
@@ -793,7 +392,7 @@ int m2m_mixer_fwd_token_ff(int B, int N, int T, int D, int C, int device) {
 size_t m2m_mixer_fwd_workspace_bytes(int B, int N, int T, int D, int C, int n_blocks, int bf16,
                                      int device) {
   FwdPlan pl;
-  if (check_f32(B, N, T, D, C, n_blocks) ||
+  if (check_args(B, N, T, D, C, n_blocks) ||
       make_fwd_plan(B, N, T, D, C, n_blocks, bf16, device, pl))
     return 0;
   return pl.ws_floats * 4;
@@ -813,34 +412,13 @@ int m2m_mixer_fwd(const float* x, float* out, float* saved, int B, int N, int T,
                   int n_blocks, int final_ln, int tanh_flavor, const unsigned* keys,
                   unsigned thresh, float scale, int bf16, int device, const void* const* ptrs,
                   void* workspace, void* stream) {
-  if (check_f32(B, N, T, D, C, n_blocks)) return -1;
+  if (check_args(B, N, T, D, C, n_blocks)) return -1;
   M2M_TRY(cudaSetDevice(device));
   const StackArgs a = pack(ptrs, n_blocks, final_ln, saved,
                            make_dropout(keys, n_blocks, thresh, scale));
   return (bf16 ? run_pipeline<true> : run_pipeline<false>)(
       x, out, B, N, T, D, C, n_blocks, final_ln, tanh_flavor, a, static_cast<float*>(workspace),
       device, static_cast<cudaStream_t>(stream));
-}
-
-// K1f in bf16: tb samples per row tile, each tile on a cluster of `cluster` CTAs
-// (1, 2 or 4); ptrs: the 12 parameters of the block (w3 and w4 in bf16);
-// keys/thresh/scale as m2m_mixer_fwd's.
-int m2m_mixer_block_fwd(const float* x, float* out, int B, int N, int T, int D, int C, int tb,
-                        int cluster, int tanh_flavor, const unsigned* keys, unsigned thresh,
-                        float scale, int device, const void* const* ptrs, void* stream) {
-  const Launch l{x, out, B, N, T, D, C, tb, cluster, 1, 0, tanh_flavor,
-                 smem_bytes(tb, N, D, T, 1), static_cast<cudaStream_t>(stream)};
-  return run_bf16(l, device, ptrs, false, nullptr, make_dropout(keys, 1, thresh, scale));
-}
-
-// K2f in bf16: ptrs and saved as m2m_mixer_fwd's, w3 and w4 in bf16.
-int m2m_mixer_stack_fwd(const float* x, float* out, int B, int N, int T, int D, int C, int tb,
-                        int cluster, int n_blocks, int final_ln, int tanh_flavor,
-                        const unsigned* keys, unsigned thresh, float scale, float* saved,
-                        int device, const void* const* ptrs, void* stream) {
-  const Launch l{x, out, B, N, T, D, C, tb, cluster, n_blocks, final_ln, tanh_flavor,
-                 smem_bytes(tb, N, D, T, 1), static_cast<cudaStream_t>(stream)};
-  return run_bf16(l, device, ptrs, true, saved, make_dropout(keys, n_blocks, thresh, scale));
 }
 
 }  // extern "C"

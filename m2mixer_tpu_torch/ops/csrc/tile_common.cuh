@@ -37,8 +37,9 @@
 // The bf16 kernels (the mixer's pipelines, the DynaMixerOp's) run their products
 // on this tile too: an operand that holds bf16 values is exact in TF32, so its
 // small half is zero and the products with it go (kExact): two of the three
-// remain where one operand is bf16 (2xTF32), one where both are. Their operands
-// stay float32 in memory.
+// remain where one operand is bf16 (2xTF32), one where both are (1xTF32, each
+// mma's sum added to the accumulator in float32, see mma_3xtf32). Their
+// operands stay float32 in memory.
 
 #pragma once
 
@@ -96,15 +97,26 @@ constexpr int kExactA = 1, kExactB = 2;
 
 // c += a b in 3xTF32: the small cross terms first (those of a non-exact
 // operand), then the big one. Both operands inexact: 3 mma; one exact
-// (2xTF32): 2; both: 1.
+// (2xTF32): 2; both: 1, into a zeroed accumulator that is then added to c in
+// float32: the tensor core aligns its products to the accumulator's exponent
+// and truncates, which against a running sum far above each product drops
+// their low bits toward zero, where one float32 add per output rounds to
+// nearest.
 template <int kExact = 0>
 __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a_big)[4],
                                            const uint32_t (&a_small)[4],
                                            const uint32_t (&b_big)[2],
                                            const uint32_t (&b_small)[2]) {
-  if constexpr (!(kExact & kExactA)) mma_tf32(c, a_small, b_big);
-  if constexpr (!(kExact & kExactB)) mma_tf32(c, a_big, b_small);
-  mma_tf32(c, a_big, b_big);
+  if constexpr (kExact == (kExactA | kExactB)) {
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_tf32(t, a_big, b_big);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[i] += t[i];
+  } else {
+    if constexpr (!(kExact & kExactA)) mma_tf32(c, a_small, b_big);
+    if constexpr (!(kExact & kExactB)) mma_tf32(c, a_big, b_small);
+    mma_tf32(c, a_big, b_big);
+  }
 }
 
 // Fragments of mma.m16n8k8 (lane = 4 g + t). A (16x8): a[j] is element

@@ -1,13 +1,11 @@
 """Fused DynaMixerOp: CUDA kernels, plain version, gradient.
 
-Counterpart of ``m2mixer_tpu/ops/dynamixer_kernel.py`` with the same public
-layout: ``x (S, L, C)`` float32 in and out (S sequences of L tokens), and the
-parameters input-major as the JAX kernel takes them: ``w_compress (C, H*R)``,
-``w_generate (L*R, L*L)``, ``w_out (C, C)``; or, with ``weights_out_in``,
-the three weights output-major as the port's ``Linear`` layers store them
-(``(H*R, C)``, ``(L*L, L*R)``, ``(C, C)`` transposed), which the kernels read
-as they are (no transposed copy a call), their gradients returned in the
-same layout.
+Counterpart of ``m2mixer_tpu/ops/dynamixer_kernel.py``: ``x (S, L, C)``
+float32 in and out (S sequences of L tokens). The three weights are
+output-major, as the port's ``Linear`` layers store them and the kernels
+read them: ``w_compress (H*R, C)``, ``w_generate (L*L, L*R)``, ``w_out (C,
+C)``, the JAX kernel's input-major matrices transposed; their gradients come
+back in the same layout.
 
 - ``dynamixer_op_reference`` is the plain PyTorch version of ``_op_math``,
   step for step: compress ``C -> H*R``; the compressed features ``(S, L, H,
@@ -54,11 +52,11 @@ _MAX_CHANNELS = 1024  # kMaxC in csrc/dynamixer.cu
 
 
 class DynaMixerOpParams(NamedTuple):
-    w_compress: torch.Tensor  # (C, H*R)
+    w_compress: torch.Tensor  # (H*R, C)
     b_compress: torch.Tensor  # (H*R,)
-    w_generate: torch.Tensor  # (L*R, L*L)
+    w_generate: torch.Tensor  # (L*L, L*R)
     b_generate: torch.Tensor  # (L*L,)
-    w_out: torch.Tensor  # (C, C)
+    w_out: torch.Tensor  # (C, C), output-major
     b_out: torch.Tensor  # (C,)
 
 
@@ -67,8 +65,8 @@ def _op_math(x, p: DynaMixerOpParams, num_head: int, reduced_dim: int, compute_d
     S, L, C = x.shape
     H, R = num_head, reduced_dim
 
-    def mm(a, w):  # operands in the compute dtype, float32 sums
-        return torch.matmul(a.to(cd).float(), w.to(cd).float())
+    def mm(a, w):  # a @ w.T, operands in the compute dtype, float32 sums
+        return torch.matmul(a.to(cd).float(), w.to(cd).float().t())
 
     w = mm(x.reshape(S * L, C), p.w_compress) + p.b_compress  # (S*L, H*R)
     w = w.reshape(S, L, H, R).transpose(1, 2).reshape(S * H, L * R)
@@ -99,31 +97,22 @@ def _check(x, num_head: int, reduced_dim: int, compute_dtype) -> None:
                          f"(reduced_dim {reduced_dim})")
 
 
-def _input_major(p: DynaMixerOpParams, weights_out_in: bool) -> DynaMixerOpParams:
-    if not weights_out_in:
-        return p
-    return p._replace(w_compress=p.w_compress.t(), w_generate=p.w_generate.t(),
-                      w_out=p.w_out.t())
-
-
 def dynamixer_op_reference(x, params: DynaMixerOpParams, num_head: int, reduced_dim: int = 2,
-                           compute_dtype=torch.float32, weights_out_in: bool = False):
+                           compute_dtype=torch.float32):
     """Plain PyTorch version of one fused DynaMixerOp (``_op_math``, cast for
     cast in bf16 compute)."""
-    p = _input_major(DynaMixerOpParams(*params), weights_out_in)
-    return _op_math(x, p, num_head, reduced_dim, compute_dtype)
+    return _op_math(x, DynaMixerOpParams(*params), num_head, reduced_dim, compute_dtype)
 
 
 def dynamixer_op_bwd_reference(x, g, params, num_head: int, reduced_dim: int = 2,
-                               compute_dtype=torch.float32, weights_out_in: bool = False):
+                               compute_dtype=torch.float32):
     """Plain version of K4b: autograd of ``dynamixer_op_reference``."""
     return _autograd_of(lambda xx, pp: dynamixer_op_reference(
-        xx, DynaMixerOpParams(*pp), num_head, reduced_dim, compute_dtype, weights_out_in),
-        x, g, tuple(params))
+        xx, DynaMixerOpParams(*pp), num_head, reduced_dim, compute_dtype), x, g, tuple(params))
 
 
 # ------------------------------------------------------------------ kernels
-def _check_kernel_args(x, params, num_head: int, reduced_dim: int, wt: bool) -> None:
+def _check_kernel_args(x, params, num_head: int, reduced_dim: int) -> None:
     """Check x and the parameters for the kernels: device, dtype, shape,
     contiguity and the kernels' limits. Raises on anything else."""
     S, L, C = x.shape
@@ -135,8 +124,7 @@ def _check_kernel_args(x, params, num_head: int, reduced_dim: int, wt: bool) -> 
         raise ValueError(f"the CUDA DynaMixerOp kernels take L <= {_MAX_TOKENS} and "
                          f"C <= {_MAX_CHANNELS}, got L={L} C={C}")
     HR, LR, LL = num_head * reduced_dim, L * reduced_dim, L * L
-    expect = [(HR, C) if wt else (C, HR), (HR,), (LL, LR) if wt else (LR, LL), (LL,), (C, C),
-              (C,)]
+    expect = [(HR, C), (HR,), (LL, LR), (LL,), (C, C), (C,)]
     for name, p, shape in zip(DynaMixerOpParams._fields, params, expect):
         if p.device != x.device or p.dtype != torch.float32:
             raise ValueError(f"parameter {name} is {p.dtype} on {p.device}, x float32 on "
@@ -147,14 +135,13 @@ def _check_kernel_args(x, params, num_head: int, reduced_dim: int, wt: bool) -> 
             raise ValueError(f"parameter {name} must be contiguous")
 
 
-def _launch(x, params, num_head: int, reduced_dim: int, bf16: bool, wt: bool, g=None):
+def _launch(x, params, num_head: int, reduced_dim: int, bf16: bool, g=None):
     """K4f (``g`` None): the op's output; K4b: (dx, the 6 float32 parameter
-    gradients); ``bf16``: bf16 compute (``csrc/dynamixer.cu``'s casts);
-    ``wt``: the weights output-major."""
+    gradients); ``bf16``: bf16 compute (``csrc/dynamixer.cu``'s casts)."""
     from ._build import check, load_library
 
     lib = load_library()
-    _check_kernel_args(x, params, num_head, reduced_dim, wt)
+    _check_kernel_args(x, params, num_head, reduced_dim)
     S, L, C = x.shape
     dev = _device_index(x)
     backward = g is not None
@@ -168,8 +155,8 @@ def _launch(x, params, num_head: int, reduced_dim: int, bf16: bool, wt: bool, g=
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if not backward:
         out = torch.empty_like(x)
-        code = lib.m2m_dyna_fwd(x.data_ptr(), out.data_ptr(), *dims, int(bf16), int(wt), dev,
-                                ptrs, workspace.data_ptr(), stream)
+        code = lib.m2m_dyna_fwd(x.data_ptr(), out.data_ptr(), *dims, int(bf16), dev, ptrs,
+                                workspace.data_ptr(), stream)
         check(lib, code, "DynaMixerOp forward kernel launch")
         return out
     if g.shape != x.shape or g.device != x.device or g.dtype != torch.float32:
@@ -179,17 +166,17 @@ def _launch(x, params, num_head: int, reduced_dim: int, bf16: bool, wt: bool, g=
     dx = torch.empty_like(x)
     grads = [torch.empty(p.shape, dtype=torch.float32, device=x.device) for p in params]
     gptrs = (ctypes.c_void_p * len(grads))(*[q.data_ptr() for q in grads])
-    code = lib.m2m_dyna_bwd(x.data_ptr(), g.data_ptr(), dx.data_ptr(), *dims, int(bf16), int(wt),
-                            dev, ptrs, gptrs, workspace.data_ptr(), stream)
+    code = lib.m2m_dyna_bwd(x.data_ptr(), g.data_ptr(), dx.data_ptr(), *dims, int(bf16), dev,
+                            ptrs, gptrs, workspace.data_ptr(), stream)
     check(lib, code, "DynaMixerOp backward kernel launch")
     return dx, tuple(grads)
 
 
-def _forward(x, params, num_head, reduced_dim, compute_dtype, wt):
+def _forward(x, params, num_head, reduced_dim, compute_dtype):
     if not _route(x):
-        return dynamixer_op_reference(x, params, num_head, reduced_dim, compute_dtype, wt)
+        return dynamixer_op_reference(x, params, num_head, reduced_dim, compute_dtype)
     bf16 = _check_dtype(compute_dtype)
-    out = _launch(x, params, num_head, reduced_dim, bf16, wt)
+    out = _launch(x, params, num_head, reduced_dim, bf16)
     fused_dynamixer_op.launches += 1
     fused_dynamixer_op.bf16_launches += int(bf16)
     return out
@@ -200,29 +187,29 @@ class _DynaFn(torch.autograd.Function):
     saves only x and the parameters, as the JAX kernel's backward recomputes."""
 
     @staticmethod
-    def forward(ctx, x, num_head, reduced_dim, compute_dtype, wt, *params):
-        ctx.cfg = (num_head, reduced_dim, compute_dtype, wt)
+    def forward(ctx, x, num_head, reduced_dim, compute_dtype, *params):
+        ctx.cfg = (num_head, reduced_dim, compute_dtype)
         ctx.save_for_backward(x, *params)
-        return _forward(x, params, num_head, reduced_dim, compute_dtype, wt)
+        return _forward(x, params, num_head, reduced_dim, compute_dtype)
 
     @staticmethod
     def backward(ctx, g):
         x, *params = ctx.saved_tensors
         dx, grads = fused_dynamixer_op_bwd(x, g, params, *ctx.cfg)
-        return (dx, None, None, None, None, *grads)
+        return (dx, None, None, None, *grads)
 
 
 def fused_dynamixer_op(x, params: DynaMixerOpParams, num_head: int, reduced_dim: int = 2,
-                       compute_dtype=torch.float32, weights_out_in: bool = False):
+                       compute_dtype=torch.float32):
     """One fused DynaMixerOp, ``x (S, L, C) -> (S, L, C)`` (float32 in and out,
-    float32 or bf16 compute; ``weights_out_in``: the module docstring). When
-    ``x`` or a parameter requires a gradient, the call is differentiable and
-    its backward is ``fused_dynamixer_op_bwd``."""
+    float32 or bf16 compute, the weights output-major). When ``x`` or a
+    parameter requires a gradient, the call is differentiable and its backward
+    is ``fused_dynamixer_op_bwd``."""
     _check(x, num_head, reduced_dim, compute_dtype)
     params = tuple(params)
     if _needs_grad(x, params):
-        return _DynaFn.apply(x, num_head, reduced_dim, compute_dtype, weights_out_in, *params)
-    return _forward(x, params, num_head, reduced_dim, compute_dtype, weights_out_in)
+        return _DynaFn.apply(x, num_head, reduced_dim, compute_dtype, *params)
+    return _forward(x, params, num_head, reduced_dim, compute_dtype)
 
 
 fused_dynamixer_op.launches = 0
@@ -230,17 +217,16 @@ fused_dynamixer_op.bf16_launches = 0
 
 
 def fused_dynamixer_op_bwd(x, g, params, num_head: int, reduced_dim: int = 2,
-                           compute_dtype=torch.float32, weights_out_in: bool = False):
+                           compute_dtype=torch.float32):
     """K4b: ``(dx, 6 parameter gradients)`` of one fused DynaMixerOp at input
     ``x`` for output gradient ``g``, float32 (in bf16 compute rounded where
-    JAX's AD of ``_op_math`` rounds them), the weights' in their layout."""
+    JAX's AD of ``_op_math`` rounds them), the weights' output-major."""
     _check(x, num_head, reduced_dim, compute_dtype)
     params = tuple(params)
     if not _route(x):
-        return dynamixer_op_bwd_reference(x, g, params, num_head, reduced_dim, compute_dtype,
-                                          weights_out_in)
+        return dynamixer_op_bwd_reference(x, g, params, num_head, reduced_dim, compute_dtype)
     bf16 = _check_dtype(compute_dtype)
-    out = _launch(x, params, num_head, reduced_dim, bf16, weights_out_in, g=g)
+    out = _launch(x, params, num_head, reduced_dim, bf16, g=g)
     fused_dynamixer_op_bwd.launches += 1
     fused_dynamixer_op_bwd.bf16_launches += int(bf16)
     return out

@@ -21,13 +21,10 @@ layout: ``x (B, N, D)`` float32 in and out, ``w1 (N, T)``, ``w2 (T, N)``,
   ``token_ff_launches``). A CPU tensor gets
   the plain version (the backward: autograd of it); a CUDA tensor gets the
   kernel or an error, never the plain version.
-- Parameters may be float32 at any compute dtype (the JAX modules' layout):
-  in bf16 compute the kernels read w3/w4 rounded to bf16 (the resident-tile
-  forward from a bf16 copy the wrapper makes on each call, the pipelines
-  rounding them as they lay them out), as the JAX kernels cast theirs on
-  each call, and every
-  gradient comes back in float32, rounded where JAX's AD rounds it
-  (``csrc/mixer_bwd.cu``).
+- Parameters are float32 at any compute dtype (the JAX modules' layout): in
+  bf16 compute the kernels read w3/w4 rounded to bf16 as they lay them out,
+  as the JAX kernels cast theirs on each call, and every gradient comes back
+  in float32, rounded where JAX's AD rounds it (``csrc/mixer_bwd.cu``).
 - ``fused_mixer_stack_grouped`` splits K blocks into ceil(K/G) stack
   launches with the JAX package's ``group_size`` semantics and
   ``seed + 7919*g`` seed folding.
@@ -67,7 +64,6 @@ __all__ = [
 ]
 
 _N_BLOCK_PARAMS = 12
-_ROWS_MAX = 64  # kRowsMax in csrc/mixer_fwd.cu (the bf16 resident tile)
 _REG_TOKENS = 32  # kMaxTokens: at most this many tokens, the token FF runs in registers
 _MAX_BLOCKS = 32  # kMaxBlocks
 _MASKS = 4  # kMasks: dropout masks per block
@@ -285,35 +281,6 @@ def _check_compute_dtype(compute_dtype) -> bool:
                      "float32 or bfloat16")
 
 
-@functools.lru_cache(maxsize=None)
-def _device_limits(index: int):
-    """(SM count, opt-in shared memory per CTA) of CUDA device ``index``."""
-    props = torch.cuda.get_device_properties(index)
-    return (props.multi_processor_count,
-            getattr(props, "shared_memory_per_block_optin", 227 * 1024))
-
-
-def _tile_plan(lib, b: int, n: int, d: int, t: int, bf16: bool, sms: int, limit: int):
-    """(samples per row tile, CTAs per cluster) of the bf16 route's resident
-    kernel on a card of ``sms`` SMs offering ``limit`` bytes of shared memory
-    per CTA. Tiles of two samples, grown (up to 64 rows) until the tiles fit
-    on the SMs in one wave; then the largest cluster of 1, 2 or 4 CTAs that
-    still fits splits each tile's hidden units. The tile shrinks when shared
-    memory demands it."""
-    tb = 2
-    while tb * 2 * n <= _ROWS_MAX and -(-b // tb) > sms:
-        tb *= 2
-    tb = min(tb, max(1, _ROWS_MAX // n))
-    while tb > 1 and lib.m2m_mixer_smem_bytes(tb, n, d, t, int(bf16)) > limit:
-        tb -= 1
-    if lib.m2m_mixer_smem_bytes(tb, n, d, t, int(bf16)) > limit:
-        raise ValueError(f"the CUDA mixer kernel needs more shared memory than the card "
-                         f"offers at hidden_dim {d}, {n} tokens, token_dim {t}")
-    tiles = -(-b // tb)
-    cluster = next((s for s in (4, 2) if tiles * s <= sms), 1)
-    return tb, cluster
-
-
 def _fwd_workspace_bytes(lib, b: int, n: int, t: int, d: int, c: int, n_blocks: int,
                          bf16: bool, dev: int) -> int:
     """Bytes of device workspace the pipeline route (``m2m_mixer_fwd``)
@@ -327,29 +294,22 @@ def _fwd_workspace_bytes(lib, b: int, n: int, t: int, d: int, c: int, n_blocks: 
     return nbytes
 
 
-def _kernel_args(x, flat, n_blocks: int, bf16: bool):
-    """Validate shapes and devices; return (T, C, kernel-ready params).
-    ``bf16``: the resident tile's weight dtype (w3/w4 handed over as bf16
-    copies); the pipeline routes take every parameter in float32."""
+def _kernel_args(x, flat, n_blocks: int):
+    """Validate shapes and devices; return (T, C, kernel-ready params, every
+    one float32: in bf16 compute the kernels round them where JAX casts)."""
     if x.dtype != torch.float32 or x.dim() != 3:
         raise ValueError(f"x must be float32 (B, N, D), got {x.dtype} {tuple(x.shape)}")
     B, N, D = x.shape
     T, C = flat[2].shape[1], flat[8].shape[1]
     if D % 4:
         raise ValueError(f"the CUDA mixer kernel needs hidden_dim % 4 == 0, got {D}")
-    if bf16 and C % 2:
-        raise ValueError(f"the bf16 CUDA mixer kernel needs an even channel_dim, got {C}")
     if not 1 <= n_blocks <= _MAX_BLOCKS:
         raise ValueError(f"the CUDA stack kernel runs 1..{_MAX_BLOCKS} blocks, got {n_blocks}")
-    wdt = torch.bfloat16 if bf16 else torch.float32
     out = []
     for i, p in enumerate(flat):
         if p.device != x.device:
             raise ValueError(f"parameter {i} is on {p.device}, x on {x.device}")
-        # w3/w4 enter in the kernel's weight dtype (a bf16 copy in bf16
-        # compute); everything else is float32 and rounded inside the kernel
-        big = i < n_blocks * _N_BLOCK_PARAMS and i % _N_BLOCK_PARAMS in (8, 10)
-        q = p.to(wdt if big else torch.float32).contiguous()
+        q = p.float().contiguous()
         if q.data_ptr() % 16:
             q = q.clone()
         out.append(q)
@@ -378,28 +338,10 @@ def _device_index(x) -> int:
     return x.device.index if x.device.index is not None else torch.cuda.current_device()
 
 
-def _fwd_route(lib, bf16: bool, n: int, d: int, t: int, dev: int, route=None) -> str:
-    """The forward's route: "pipeline" (``m2m_mixer_fwd``: launches through a
-    workspace, products on the tensor cores; float32, and bf16 with JAX's
-    casts) or "tile" (the bf16 resident-tile kernel, which holds whole
-    samples in shared memory: at most ``_REG_TOKENS`` tokens, and one sample's
-    tile must fit the card's shared memory, which the L config's D = 512
-    does not). bf16 takes the tile where it fits unless ``route`` names one."""
-    fits = bf16 and n <= _REG_TOKENS and \
-        lib.m2m_mixer_smem_bytes(1, n, d, t, 1) <= _device_limits(dev)[1]
-    if route is None:
-        route = "tile" if fits else "pipeline"
-    if route not in ("tile", "pipeline") or (route == "tile" and not fits):
-        raise ValueError(f"no mixer forward route {route!r} for {'bf16' if bf16 else 'float32'} "
-                         f"compute at {n} tokens, hidden_dim {d}, token_dim {t}")
-    return route
-
-
 def _launch(entry: str, x, flat, n_blocks: int, final_ln: bool, compute_dtype,
-            approximate_gelu: bool, seed=None, rate: float = 0.0, saved=None, route=None):
-    """The pipeline route (``m2m_mixer_fwd``, float32 or bf16 compute) or the
-    bf16 resident-tile kernel of ``entry`` ("block" or "stack"); ``route``
-    as ``_fwd_route`` takes it."""
+            approximate_gelu: bool, seed=None, rate: float = 0.0, saved=None):
+    """K1f (``entry`` "block") or K2f ("stack"): ``m2m_mixer_fwd``, float32
+    or bf16 compute."""
     from ._build import check, load_library
 
     lib = load_library()
@@ -407,30 +349,17 @@ def _launch(entry: str, x, flat, n_blocks: int, final_ln: bool, compute_dtype,
     x = x.contiguous()
     B, N, D = x.shape
     dev = _device_index(x)
-    tile = _fwd_route(lib, bf16, N, D, flat[2].shape[1], dev, route) == "tile"
-    T, C, params = _kernel_args(x, flat, n_blocks, tile)
+    T, C, params = _kernel_args(x, flat, n_blocks)
     out = torch.empty_like(x)
     ptrs = (ctypes.c_void_p * len(params))(*[p.data_ptr() for p in params])
     keys, thresh, scale = _dropout_args(seed, rate, n_blocks)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     saved_ptr = None if saved is None else saved.data_ptr()
-    if not tile:
-        nbytes = _fwd_workspace_bytes(lib, B, N, T, D, C, n_blocks, bf16, dev)
-        workspace = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
-        code = lib.m2m_mixer_fwd(x.data_ptr(), out.data_ptr(), saved_ptr, B, N, T, D, C,
-                                 n_blocks, int(final_ln), int(approximate_gelu), keys, thresh,
-                                 scale, int(bf16), dev, ptrs, workspace.data_ptr(), stream)
-        check(lib, code, f"mixer {entry} kernel launch")
-        return out
-    tb, cluster = _tile_plan(lib, B, N, D, T, bf16, *_device_limits(dev))
-    if entry == "block":
-        code = lib.m2m_mixer_block_fwd(x.data_ptr(), out.data_ptr(), B, N, T, D, C, tb,
-                                       cluster, int(approximate_gelu), keys, thresh, scale, dev,
-                                       ptrs, stream)
-    else:
-        code = lib.m2m_mixer_stack_fwd(x.data_ptr(), out.data_ptr(), B, N, T, D, C, tb,
-                                       cluster, n_blocks, int(final_ln), int(approximate_gelu),
-                                       keys, thresh, scale, saved_ptr, dev, ptrs, stream)
+    nbytes = _fwd_workspace_bytes(lib, B, N, T, D, C, n_blocks, bf16, dev)
+    workspace = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    code = lib.m2m_mixer_fwd(x.data_ptr(), out.data_ptr(), saved_ptr, B, N, T, D, C, n_blocks,
+                             int(final_ln), int(approximate_gelu), keys, thresh, scale, int(bf16),
+                             dev, ptrs, workspace.data_ptr(), stream)
     check(lib, code, f"mixer {entry} kernel launch")
     return out
 
@@ -447,7 +376,7 @@ def _launch_bwd(saved, g, flat, n_blocks: int, final_ln: bool, compute_dtype,
     g = g.float().contiguous()
     # float32 parameters in either dtype: in bf16 the kernel rounds w3/w4 as it
     # lays them out, the copies the JAX kernels read
-    T, C, params = _kernel_args(g, flat, n_blocks, False)
+    T, C, params = _kernel_args(g, flat, n_blocks)
     B, N, D = g.shape
     saved = saved.contiguous()
     if saved.dtype != torch.float32 or saved.device != g.device or \
@@ -473,25 +402,21 @@ def _launch_bwd(saved, g, flat, n_blocks: int, final_ln: bool, compute_dtype,
     return dx, tuple(grads)
 
 
-def _token_ff(entry: str, x, flat, compute_dtype) -> int:
+def _token_ff(entry: str, x, flat) -> int:
     """1 if the kernel just launched for ``x`` ran its token FF as products
     (``csrc/token_ff.cuh``: above 32 tokens, or where a sample does not fit
     the register route's tiles), else 0; ``entry``: "fwd" or "bwd"."""
     B, N, D = x.shape
-    return _token_ff_route(entry, B, N, flat[2].shape[1], D, flat[8].shape[1],
-                           compute_dtype == torch.bfloat16, _device_index(x))
+    return _token_ff_route(entry, B, N, flat[2].shape[1], D, flat[8].shape[1], _device_index(x))
 
 
 @functools.lru_cache(maxsize=None)
-def _token_ff_route(entry: str, B: int, N: int, T: int, D: int, C: int, bf16: bool,
-                    dev: int) -> int:
+def _token_ff_route(entry: str, B: int, N: int, T: int, D: int, C: int, dev: int) -> int:
     """``_token_ff`` for one shape (asked of the library once; a launch at
     batch 32 costs tens of µs on the host)."""
     from ._build import load_library
 
     lib = load_library()
-    if entry == "fwd" and _fwd_route(lib, bf16, N, D, T, dev) == "tile":
-        return 0
     query = lib.m2m_mixer_fwd_token_ff if entry == "fwd" else lib.m2m_mixer_bwd_token_ff
     return int(query(B, N, T, D, C, dev) == 1)
 
@@ -548,7 +473,7 @@ def _block_forward(x, params, seed, rate, compute_dtype, approximate_gelu):
     out = _launch("block", x, tuple(params), 1, False, compute_dtype, approximate_gelu, seed,
                   rate)
     fused_mixer_block.launches += 1
-    fused_mixer_block.token_ff_launches += _token_ff("fwd", x, params, compute_dtype)
+    fused_mixer_block.token_ff_launches += _token_ff("fwd", x, params)
     return out
 
 
@@ -562,7 +487,7 @@ def _stack_forward(x, flat, seed, rate, compute_dtype, final_ln, approximate_gel
     out = _launch("stack", x, flat, n, final_ln, compute_dtype, approximate_gelu, seed, rate,
                   saved)
     fused_mixer_stack.launches += 1
-    fused_mixer_stack.token_ff_launches += _token_ff("fwd", x, flat, compute_dtype)
+    fused_mixer_stack.token_ff_launches += _token_ff("fwd", x, flat)
     return out, saved
 
 
@@ -634,7 +559,7 @@ def fused_mixer_block_bwd(x, g, params, seed=None, dropout_rate: float = 0.0,
                       rate)
     fused_mixer_block_bwd.launches += 1
     fused_mixer_block_bwd.bf16_launches += int(compute_dtype == torch.bfloat16)
-    fused_mixer_block_bwd.token_ff_launches += _token_ff("bwd", x, params, compute_dtype)
+    fused_mixer_block_bwd.token_ff_launches += _token_ff("bwd", x, params)
     return out
 
 
@@ -685,7 +610,7 @@ def fused_mixer_stack_bwd(x, g, flat_params, seed=None, dropout_rate: float = 0.
                       approximate_gelu, seed, rate)
     fused_mixer_stack_bwd.launches += 1
     fused_mixer_stack_bwd.bf16_launches += int(compute_dtype == torch.bfloat16)
-    fused_mixer_stack_bwd.token_ff_launches += _token_ff("bwd", x, flat, compute_dtype)
+    fused_mixer_stack_bwd.token_ff_launches += _token_ff("bwd", x, flat)
     return out
 
 

@@ -91,13 +91,13 @@ def test_stack_kernel_matches_plain(cuda, shape, dtype, group_size):
 
 def test_unsupported_shapes_raise_on_cuda(cuda):
     """No token cap (40 tokens launch); a hidden_dim that is no multiple of 4
-    raises, as does the resident tile's route above 32 tokens."""
-    blocks, _, _ = blocks_on(cuda, 1, N=40, D=32, T=8, C=64)
+    raises, as does a stack of more than 32 blocks."""
+    blocks, s, b = blocks_on(cuda, 1, N=40, D=32, T=8, C=64)
     x = torch.randn(2, 40, 32, device=cuda)
     assert_close(mk.fused_mixer_block(x, blocks[0]), mk.mixer_block_reference(x, blocks[0]),
                  False)
-    with pytest.raises(ValueError, match="no mixer forward route"):
-        mk._launch("block", x, tuple(blocks[0]), 1, False, torch.bfloat16, False, route="tile")
+    with pytest.raises(ValueError, match="runs 1..32 blocks"):
+        mk.fused_mixer_stack(x, mk.stack_flat_params(blocks * 33, s, b))
     odd, _, _ = blocks_on(cuda, 1, N=4, D=30, T=8, C=64)
     with pytest.raises(ValueError, match="hidden_dim % 4"):
         mk.fused_mixer_block(torch.randn(2, 4, 30, device=cuda), odd[0])
@@ -299,11 +299,13 @@ def test_forward_workspace_matches_the_mirror(cuda):
     """m2m_mixer_fwd_workspace_bytes against tests/test_torch_mixer_fwd_plan.py's
     Python mirror of its plan, on this card's SM count."""
     from m2mixer_tpu_torch.ops._build import load_library
-    from test_torch_mixer_fwd_plan import PLANS, fwd_workspace_floats
+    from test_torch_mixer_fwd_plan import B_BF16_PLANS, PLANS, fwd_workspace_floats
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     lib = load_library()
-    for shape, _, _ in PLANS.values():
+    shapes = [shape for shape, _, _ in PLANS.values()] + [
+        (b, n, 32, 128, 3072 if n == 4 else 3078, 1) for n, b in B_BF16_PLANS]
+    for shape in shapes:
         for bf16 in (0, 1):
             assert lib.m2m_mixer_fwd_workspace_bytes(*shape, bf16, 0) == \
                 4 * fwd_workspace_floats(*shape, bf16, sms=sms), (shape, bf16)
@@ -626,11 +628,12 @@ DYNA_SHAPES = {"small": dict(S=5, L=4, C=16, H=4, R=3),
 
 
 def dyna_params_on(device, L, C, H, R, seed=0):
-    """One DynaMixerOp's parameters (JAX layout) at the Linear layers' init
-    scales, U(+-1/sqrt(fan_in))."""
+    """One DynaMixerOp's parameters at the Linear layers' init scales,
+    U(+-1/sqrt(fan_in)), the weights output-major (the Linear layout the
+    kernels read)."""
     g = torch.Generator().manual_seed(seed)
     u = lambda fan, *shape: (torch.rand(*shape, generator=g) * 2 - 1) / fan ** 0.5
-    p = (u(C, C, H * R), u(C, H * R), u(L * R, L * R, L * L), u(L * R, L * L), u(C, C, C),
+    p = (u(C, H * R, C), u(C, H * R), u(L * R, L * L, L * R), u(L * R, L * L), u(C, C, C),
          u(C, C))
     return dk.DynaMixerOpParams(*(t.to(device) for t in p))
 
@@ -809,45 +812,22 @@ def test_bf16_token_pipeline_backward_matches_plain(cuda, shape, rate):
 
 
 @pytest.mark.parametrize("shape", sorted(SHAPES))
-def test_bf16_pipeline_route_below_the_cap(cuda, shape):
-    """The bf16 forward's pipeline route, which serves above 32 tokens, also
-    at the B shapes (where the resident tile serves by default): K1f and K2f
-    (3 blocks + LN) against the plain bf16 versions, and against the tile."""
+def test_bf16_forward_at_the_b_shapes(cuda, shape):
+    """The bf16 forward (one route at either precision) at the B shapes: K1f
+    and K2f (3 blocks + LN) against the plain bf16 versions, the token FF in
+    registers, two runs bit-identical."""
     geom = SHAPES[shape]
     blocks, s, b = blocks_on(cuda, 3, **geom)
     x = torch.randn(37, geom["N"], geom["D"], device=cuda)
     flat = mk.stack_flat_params(blocks, s, b)
     bf16 = torch.bfloat16
-    for entry, params, n, ln, want in (
-            ("block", tuple(blocks[0]), 1, False, mk.mixer_block_reference(x, blocks[0],
-                                                                           compute_dtype=bf16)),
-            ("stack", flat, 3, True, mk.mixer_stack_reference(x, flat, bf16))):
-        got = mk._launch(entry, x, params, n, ln, bf16, False, route="pipeline")
+    before = (mk.fused_mixer_block.token_ff_launches, mk.fused_mixer_stack.token_ff_launches)
+    for run, want in ((lambda: mk.fused_mixer_block(x, blocks[0], compute_dtype=bf16),
+                       mk.mixer_block_reference(x, blocks[0], compute_dtype=bf16)),
+                      (lambda: mk.fused_mixer_stack(x, flat, compute_dtype=bf16),
+                       mk.mixer_stack_reference(x, flat, bf16))):
+        got = run()
         assert_close(got, want, True)
-        tile = mk._launch(entry, x, params, n, ln, bf16, False, route="tile")
-        assert_close(got, tile, True)
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", sorted(DYNA_SHAPES))
-def test_dynamixer_kernels_read_output_major_weights(cuda, shape, dtype):
-    """K4f / K4b with the weights output-major (``weights_out_in``, what
-    DynaMixerOp hands over) against the plain version in the same layout:
-    1e-4 x max(1, max|plain|) in float32; bf16 as its test above."""
-    geom = DYNA_SHAPES[shape]
-    S, L, C, H, R = (geom[k] for k in "SLCHR")
-    p = [t.t().contiguous() if t.dim() == 2 else t for t in dyna_params_on(cuda, L, C, H, R)]
-    x = torch.randn(S, L, C, device=cuda)
-    g = torch.randn_like(x)
-    got = dk.fused_dynamixer_op(x, p, H, R, compute_dtype=dtype, weights_out_in=True)
-    want = dk.dynamixer_op_reference(x, p, H, R, dtype, weights_out_in=True)
-    dx, grads = dk.fused_dynamixer_op_bwd(x, g, p, H, R, dtype, weights_out_in=True)
-    want_dx, want_g = dk.dynamixer_op_bwd_reference(x, g, p, H, R, dtype, weights_out_in=True)
-    if dtype == torch.float32:
-        rel_close(got, want)
-        for a, b in zip((dx, *grads), (want_dx, *want_g)):
-            rel_close(a, b)
-    else:
-        tol = DYNA_BF16_FWD * max(1.0, want.abs().max().item())
-        assert (got - want).abs().max().item() <= tol
-        bf16_grads_close((dx, *grads), (want_dx, *want_g), DYNA_ROUNDED, 0.10)
+        assert torch.equal(got, run())
+    assert (mk.fused_mixer_block.token_ff_launches,
+            mk.fused_mixer_stack.token_ff_launches) == before

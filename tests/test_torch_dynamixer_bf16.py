@@ -44,7 +44,7 @@ from m2mixer_tpu_torch.modules import dynamixer as tdm
 from m2mixer_tpu_torch.ops import dynamixer_kernel as td
 from m2mixer_tpu_torch.training.trainer import Trainer
 from m2mixer_tpu_torch.utils.weights import from_jax_params
-from test_torch_dynamixer_kernel import case
+from test_torch_dynamixer_kernel import case, transposed
 from test_torch_dynamixer_training import CFG, batches
 
 BF16 = torch.bfloat16
@@ -64,11 +64,13 @@ def rel_err(got, want):
 
 
 def port_op(x, g, params, H, R, cd):
+    """The port's op on JAX-layout ``params`` (handed over output-major), its
+    weight gradients transposed back to the JAX layout."""
     xt = torch.from_numpy(x).requires_grad_()
-    pt = [torch.from_numpy(a).requires_grad_() for a in params]
+    pt = [torch.from_numpy(a).requires_grad_() for a in transposed(params)]
     out = td.fused_dynamixer_op(xt, td.DynaMixerOpParams(*pt), H, R, compute_dtype=cd)
     (out * torch.from_numpy(g)).sum().backward()
-    return out.detach().numpy(), [xt.grad.numpy()] + [p.grad.numpy() for p in pt]
+    return out.detach().numpy(), [xt.grad.numpy()] + transposed([p.grad.numpy() for p in pt])
 
 
 def differing(got, want):

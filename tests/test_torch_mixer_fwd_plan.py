@@ -33,7 +33,7 @@ def fill_slices(depth: int, tiles: int, sms: int):
 
 def fwd_workspace_floats(B, N, T, D, C, n_blocks, bf16=0, sms=SMS):
     """make_fwd_plan's workspace in floats, or 0 for shapes the kernels do
-    not take (check_f32): W3 copies (D x Cp a block) where C % 4 or in bf16,
+    not take (check_args): W3 copies (D x Cp a block) where C % 4 or in bf16,
     W4 copies (C x D a block) in bf16, x1, z, h2 (rows x Cp), the down
     product's slices of C (ksplit x rows x D) and, where the token FF runs as
     products (above REG_TOKENS tokens, or where one sample's rows do not fit
@@ -78,8 +78,7 @@ PLANS = {
     "l_fusion_B32": ((32, 80, 256, 512, 4096, 1), 1, 84_934_656),
     "l_fusion_x2_B512": ((512, 80, 256, 512, 4096, 2), 1, 1_358_954_496),
 }
-# the same shapes in bf16 compute (the pipeline route: above 32 tokens, or
-# where the resident tile is not taken)
+# the same shapes in bf16 compute (one forward route at either precision)
 BF16_PLANS = {"encoder_B512": 38_797_312, "fusion_x2_B512": 69_351_424,
               "l_audio_x4_B512": 1_208_090_624, "l_fusion_x2_B512": 1_392_672_768}
 
@@ -96,6 +95,28 @@ def test_workspace_matches_the_plan(case):
 def test_bf16_workspace_matches_the_plan(case):
     (B, N, T, D, C, K), _, _ = PLANS[case]
     assert mk._fwd_workspace_bytes(MirrorLib, B, N, T, D, C, K, True, 0) == BF16_PLANS[case]
+
+
+# The bf16 forward at the B config's encoder (N = 4, C = 3072) and fusion
+# (N = 8, C = 3078) shapes, one block, D 128, T 32: (N, B) -> (down-product
+# slices, workspace bytes) on 132 SMs
+B_BF16_PLANS = {(4, 1): (32, 3_264_512), (4, 32): (32, 6_946_816), (4, 128): (32, 18_350_080),
+                (4, 512): (8, 38_797_312), (4, 4096): (1, 229_638_144),
+                (8, 32): (25, 9_845_760), (8, 512): (4, 66_198_528),
+                (8, 4096): (1, 457_186_304)}
+
+
+@pytest.mark.parametrize("n,b", sorted(B_BF16_PLANS))
+def test_bf16_forward_plan_at_the_b_shapes(n, b):
+    """The pipeline with the token FF in registers: bf16's workspace is
+    float32's plus the rounded W3 (D x Cp, where float32 reads W3 as it is)
+    and W4 (C x D) copies, and no token-pipeline buffers."""
+    D, T, C = 128, 32, 3072 if n == 4 else 3078
+    ksplit, nbytes = B_BF16_PLANS[(n, b)]
+    assert fill_slices(C, cdiv(b * n, TC_BM) * cdiv(D, TC_BN), SMS)[1] == ksplit
+    assert mk._fwd_workspace_bytes(MirrorLib, b, n, T, D, C, 1, True, 0) == nbytes
+    f32 = mk._fwd_workspace_bytes(MirrorLib, b, n, T, D, C, 1, False, 0)
+    assert nbytes - f32 == 4 * (C * D + (D * C if C % 4 == 0 else 0))
 
 
 def test_only_an_unaligned_channel_width_pads_w3():

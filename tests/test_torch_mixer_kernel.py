@@ -208,26 +208,6 @@ def test_castable_rule_matches_jax(shape):
     assert tk._castable(torch.from_numpy(a)) == jk._castable(jnp.asarray(a))
 
 
-@pytest.mark.parametrize("n,b,plan", [(4, 1, (2, 4)), (4, 32, (2, 4)), (4, 128, (2, 2)),
-                                      (4, 512, (4, 1)), (4, 4096, (16, 1)), (8, 32, (2, 4)),
-                                      (8, 512, (4, 1)), (8, 4096, (8, 1))])
-def test_launch_plan(n, b, plan):
-    """The bf16 route's resident kernel (the float32 route has a plan of its
-    own, tests/test_torch_mixer_fwd_plan.py): tiles of two samples grown
-    until they fit the SMs in one wave, then the largest cluster of up to 4
-    that still fits (132 SMs and 227 KiB of shared memory per CTA, as an
-    H100 SXM)."""
-
-    class Lib:
-        @staticmethod
-        def m2m_mixer_smem_bytes(tb, n, d, t, bf16):  # csrc/mixer_fwd.cu::smem_bytes
-            rows = tb * n
-            return rows * d * 12 + rows * 64 * 4 + 2 * d * 64 * (2 if bf16 else 4) + \
-                (2 * n * t + t + n) * 4
-
-    assert tk._tile_plan(Lib, b, n, 128, 32, True, 132, 232448) == plan
-
-
 def test_bf16_kernel_modules_store_channel_weights_narrow(monkeypatch):
     """The JAX layout: a bf16 kernel-backed mixer keeps all twelve parameters
     of every block in float32 (as ``m2mixer_tpu/modules/pallas_blocks.py``

@@ -19,6 +19,16 @@ JAX package's own tests run them) at N = 33 and 40, narrow widths:
   equals the block math with ``block_masks``' four masks bit for bit, and a
   hidden unit of the token FF that mask 0 drops in every column gives its
   row of W2 and its b1 exactly zero gradient.
+
+And the bf16 kernel math where the residual stream is large: on trained L
+weights it reaches |x| ~ 200 (a bf16 ulp of 1), and the kernel artifact's
+served logits part from the float32 network's faster than the plain bf16
+modules' do (``ROADMAP.md`` §3). Four blocks at 80 tokens with |x| above 200
+run through the port's plain bf16 version (what the kernels are held to on
+the card) and through JAX's ``_block_math`` (XLA keeping no excess
+precision, in a subprocess): the two agree (DRIFT_AGREE) and both depart
+from float32 by the same amount, block after block, so the drift is the
+cast scheme's and not the port's.
 """
 
 import numpy as np
@@ -28,7 +38,7 @@ import torch
 from m2mixer_tpu.ops import mixer_kernel as jk
 from m2mixer_tpu_torch.ops import mixer_kernel as tk
 from test_torch_mixer_grad import assert_grads_close, jax_grads, torch_grads
-from test_torch_mixer_kernel import assert_close, make_case, run_both
+from test_torch_mixer_kernel import assert_close, make_case, run_both, torch_blocks
 
 GEOMS = {"n33": dict(N=33, D=8, T=12, C=16), "n40": dict(N=40, D=16, T=12, C=16)}
 
@@ -78,3 +88,61 @@ def test_dropout_above_32_tokens_follows_the_mask_hash():
     assert 0 < int(dead.sum()) < T
     assert torch.all(tb[0].w2.grad[dead] == 0) and torch.all(tb[0].b1.grad[dead] == 0)
     assert torch.all(tb[0].w2.grad[~dead].abs().sum(dim=1) > 0)
+
+
+_JAX_BLOCK_CHAIN = """
+import sys
+import numpy as np
+import jax
+import jax.numpy as jnp
+jax.config.update("jax_platforms", "cpu")
+from m2mixer_tpu.ops import mixer_kernel as jk
+z = dict(np.load(sys.argv[1]))
+blocks = [jk.MixerBlockParams(*(jnp.asarray(z[f"p{i}_{j}"]) for j in range(12)))
+          for i in range(int(z["k"]))]
+out = {}
+for name, cd in (("f32", jnp.float32), ("bf16", jnp.bfloat16)):
+    step = jax.jit(lambda x, p: jk._block_math(x, p, None, cd))
+    y = jnp.asarray(z["x"])
+    for k, p in enumerate(blocks):
+        y = step(y, p)
+        out[f"{name}/{k}"] = np.asarray(y)
+np.savez(sys.argv[2], **out)
+"""
+DRIFT_AGREE = 0.1  # port-vs-JAX bf16 distance, and drift difference, as shares of JAX's drift
+
+
+def test_bf16_kernel_math_drifts_from_float32_as_jax_does(tmp_path):
+    import os
+    import subprocess
+    import sys
+
+    N, D, T, C, K = 80, 64, 32, 128, 4
+    x, blocks, _ = make_case(7, 2, K, N=N, D=D, T=T, C=C)
+    rng = np.random.RandomState(8)
+    x = (20 * x + 200 * (rng.rand(1, 1, D) > 0.9) * np.sign(rng.randn(1, 1, D))).astype(
+        np.float32)  # a tenth of the channels carry a large residual, as trained L weights do
+    assert np.abs(x).max() >= 200
+    arrays = {"x": x, "k": np.int64(K)}
+    arrays.update({f"p{i}_{j}": a for i, blk in enumerate(blocks) for j, a in enumerate(blk)})
+    np.savez(tmp_path / "in.npz", **arrays)
+    env = dict(os.environ, XLA_FLAGS="--xla_allow_excess_precision=false", JAX_PLATFORMS="cpu")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", _JAX_BLOCK_CHAIN, str(tmp_path / "in.npz"),
+                    str(tmp_path / "out.npz")], check=True, env=env, cwd=repo, timeout=300)
+    rel = lambda a, b: float(np.abs(a - b).max() / max(1.0, float(np.abs(b).max())))
+    drifts = []
+    with np.load(tmp_path / "out.npz") as z:
+        y32 = ybf = torch.from_numpy(x)
+        for k, p in enumerate(torch_blocks(blocks)):
+            y32 = tk.mixer_block_reference(y32, p)
+            ybf = tk.mixer_block_reference(ybf, p, compute_dtype=torch.bfloat16)
+            j32, jbf = z[f"f32/{k}"], z[f"bf16/{k}"]
+            assert np.abs(j32).max() >= 200 and rel(y32.numpy(), j32) <= 1e-5
+            port, jax_ = rel(ybf.numpy(), y32.numpy()), rel(jbf, j32)
+            assert rel(ybf.numpy(), jbf) <= DRIFT_AGREE * jax_, (k, rel(ybf.numpy(), jbf), jax_)
+            assert abs(port - jax_) <= DRIFT_AGREE * jax_, (k, port, jax_)
+            drifts.append(jax_)
+    # a bf16 ulp at 256 is 2 (0.8% of the stream): the drift grows block by block
+    assert drifts[0] > 1e-3 and drifts[-1] > drifts[0], drifts
+
