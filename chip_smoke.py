@@ -48,7 +48,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and the 10 parameter gradients. At dropout 0.5 the kernels and the plain
    version apply the same masks (so the forward's and the backward's
    agree), each of the three keeps 0.5 +- 0.01; two backward runs give
-   bit-identical gradients;
+   bit-identical gradients. Then the same shapes in bf16 compute (float32
+   parameters, rounded where JAX's ``_block_math`` casts them), erf, dropout
+   0 and 0.1: the output by the bf16 check below, dx and the 10 gradients by
+   the bf16 gradient check (all but b_in, sgu_b and b_out rounded; the plain
+   bf16 version on the CPU beside at batch 32), each with its float32-math
+   control; two backward runs bit-identical;
 6. K4f / K4b, the DynaMixerOp kernels, against the plain version and its
    autograd at the DynaMixer config's op (L=7, C=256, H=8, R=2; S = 7 x 32
    and 7 x 512 sequences; the weights output-major, as ``DynaMixerOp``
@@ -105,7 +110,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    with the plain modules and once with the kernel blocks: losses finite,
    train loss falling, val and test accuracy at least 0.5; K3f and K3b launched in
    the kernel run (counters zeroed just before, read just after) and no
-   gMLP kernel in the plain one;
+   gMLP kernel in the plain one. Then the same config at
+   ``model.precision=bf16``: step 1 through the kernel blocks (dropout 0,
+   stochastic depth pinned off) on the card against the CPU at batch 32,
+   the losses and every gradient within 2e-2 x max(1, max|CPU|); 2-epoch
+   runs with the plain bf16 modules and with the kernel blocks (bf16 K3f/K3b
+   counted in ``bf16_launches``), the kernel run's val and test accuracy at
+   least 0.5, or, where the plain bf16 run misses 0.5 too, at least the plain
+   run's - 0.1; the plain run's weights through ``serving export --pallas``
+   (bf16 K3f, counter zeroed just before, read just after), requests of 1,
+   7, 32 and 100 samples on the card against the same artifact on the CPU
+   within 2e-2 x max(1, max|CPU|);
 12. training the DynaMixer config: step 1 at ``model.dropout=0.0`` on the card
     against the same step on the CPU with the same weights and batch (the
     loss and the branch losses within 1e-5 relative, every gradient within
@@ -154,7 +169,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     32 and 512 (with their plain versions, their float32 and 3xTF32 bounds,
     and the profiler's breakdown of one call of each at both shapes, batch
     512), the served forward and the train step at batch 32 and 512, plain
-    modules and kernel blocks;
+    modules and kernel blocks; then the same in bf16 compute (bf16 K3f / K3b
+    with their plain bf16 versions, their bound at the dense bf16 peak and at
+    the rate their products run, 1xTF32 forward and 2xTF32 backward; the bf16
+    served forward and train step, plain modules and kernel blocks);
 15. DynaMixer times: K4f and K4b alone at batch 32 and 512 (S = 224 and 3584)
     with their plain versions, float32 and 3xTF32 bounds and the profiler's
     breakdown of one K4f and one K4b call at batch 512, the served forward
@@ -173,8 +191,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     shape, batch 512); bf16 K4f and K4b; the L served forward
     and train step (plain, stacked, per-block) and the bf16 DynaMixer
     served forward, batch 32 and 512;
-16. one JSON line naming every ported kernel (the bf16 K4f/K4b and the
-    token-pipeline K1f/K2f/K1b/K2b at the L fusion shape among them), the
+16. one JSON line naming every ported kernel (the bf16 K4f/K4b, the bf16
+    K3f/K3b and the token-pipeline K1f/K2f/K1b/K2b at the L fusion shape
+    among them), the
     card's name and power limit, and the result line ``{"ok": true,
     "device": {...}}``.
 
@@ -1500,6 +1519,256 @@ def phase_gmlp_times(torch, gk, serving, Trainer, apply_overrides, load_cfg, syn
     print(f"  peak memory of the train steps (GiB): {report['gmlp_train_step_peak_gib']}")
 
 
+# ------------------------------------------------------------ the bf16 gMLP
+# which of dx and a gMLP block's 10 gradients bf16 compute rounds to bf16 (the
+# transposes of its casts): all but b_in, sgu_b and b_out, which add in float32
+GMLP_ROUNDED = (True, True, True, True, False, True, True, True, False, True, False)
+GMLP_BF16_RATES = (0.0, 0.1)
+GMLP_BF16_REQUESTS = (1, 7, 32, 100)  # the same artifact on the CPU: 75 blocks a sample
+
+
+def gmlp_bf16_counters(gk):
+    return {"K3f_bf16": gk.fused_gmlp_block.bf16_launches,
+            "K3b_bf16": gk.fused_gmlp_block_bwd.bf16_launches}
+
+
+def gmlp_bf16_zero(gk):
+    gk.fused_gmlp_block.bf16_launches = gk.fused_gmlp_block_bwd.bf16_launches = 0
+
+
+def phase_gmlp_bf16_kernels(torch, gk, report):
+    """bf16 K3f against the plain bf16 version (bf16_err) and bf16 K3b against
+    its autograd (bf16_grad_check, at most 10% of the rounded elements
+    differing) at the config's shapes, batch 32 and 512, dropout 0 and 0.1,
+    each with its float32-math control; the plain bf16 version on the CPU as
+    the second implementation at batch 32; two backward runs bit-identical."""
+    print("[5/16] K3f / K3b in bf16 compute vs the plain bf16 version and its autograd "
+          "(float32 parameters, rounded where _block_math casts them)")
+    bf16 = torch.bfloat16
+    for geom_name, geom in (("encoder", GMLP_ENC), ("fusion", GMLP_FUSION)):
+        p = gmlp_params(gk, torch, seed=35, **geom)
+        for B in (32, 512):
+            gen = torch.Generator().manual_seed(B + geom["N"] + 1)
+            x = torch.randn(B, geom["N"], geom["D"], generator=gen).cuda()
+            g = torch.randn(B, geom["N"], geom["D"], generator=gen).cuda()
+            for rate in GMLP_BF16_RATES:
+                tag = f"{geom_name}/B{B}/rate{rate}"
+                got = gk.fused_gmlp_block(x, p, seed=9, dropout_rate=rate, compute_dtype=bf16)
+                want = gk.gmlp_block_reference(x, p, rate, seed=9, compute_dtype=bf16)
+                control = round_bf16(torch, gk.gmlp_block_reference(x, p, rate, seed=9))
+                report["errors"][f"K3f_bf16/{tag}"] = bf16_err(torch, got, want, control,
+                                                               f"K3f_bf16/{tag}", report)
+                run = lambda: gk.fused_gmlp_block_bwd(x, g, p, seed=9, dropout_rate=rate,
+                                                      compute_dtype=bf16)
+                dx, grads = run()
+                wdx, wgrads = gk.gmlp_block_bwd_reference(x, g, p, rate, seed=9,
+                                                          compute_dtype=bf16)
+                fdx, fgrads = gk.gmlp_block_bwd_reference(x, g, p, rate, seed=9)
+                control = [round_bf16(torch, t) if r else t
+                           for t, r in zip((fdx, *fgrads), GMLP_ROUNDED)]
+                cpu = None
+                if B == 32:
+                    c = gk.gmlp_block_bwd_reference(x.cpu(), g.cpu(), [t.cpu() for t in p], rate,
+                                                    seed=9, compute_dtype=bf16)
+                    cpu = (c[0], *c[1])
+                report["errors"][f"K3b_bf16/{tag}"] = bf16_grad_check(
+                    torch, (dx, *grads), (wdx, *wgrads), control, cpu, GMLP_ROUNDED,
+                    BF16_GRAD_SHARE["K1b"], f"K3b_bf16/{tag}", report)
+                dx2, grads2 = run()
+                if not all(torch.equal(a, b) for a, b in zip((dx, *grads), (dx2, *grads2))):
+                    raise AssertionError(f"K3b_bf16/{tag}: two backward runs differ")
+
+
+def gmlp_bf16_args(tmp, name, kernel):
+    return [*gmlp_train_args(tmp, name, kernel), "model.precision=bf16"]
+
+
+def phase_gmlp_bf16_training(torch, gk, serving, run, apply_overrides, load_cfg, synthetic, np,
+                             report, tmp):
+    """The gMLP config at ``model.precision=bf16``, full width and depth: step 1
+    through the kernel blocks (dropout 0, stochastic depth pinned off) on the
+    card against the CPU at the config's batch 32; 2-epoch runs with the plain
+    bf16 modules and with the kernel blocks (bf16 K3f/K3b); the plain run's
+    weights through ``serving export --pallas`` (bf16 K3f), the card's artifact
+    against the same artifact on the CPU. Returns the plain and the kernel
+    artifact (for the times)."""
+    print("[11/16] the gMLP config in bf16 (model.precision=bf16) through PallasVisiongMLP / "
+          "PallasFusiongMLP: step 1 on the card against the CPU, 2-epoch runs, export --pallas")
+    cfg = load_cfg(GMLP_CFG)
+    apply_overrides(cfg, ["model.precision=bf16", "model.dropout=0.0", *GMLP_NO_DEPTH_DROP,
+                          *GMLP_KERNEL_BLOCKS], warn=False)
+    task = serving._build_task(cfg, device="cuda")
+    cpu = serving._build_task(cfg, device="cpu")
+    cpu.network.load_state_dict(task.network.state_dict())
+    batch = synthetic(32, seed=3, learnable=True)
+    gmlp_bf16_zero(gk)
+    g_losses, g_grads = train_step_one(torch, task, {k: torch.from_numpy(v).cuda()
+                                                     for k, v in batch.items()})
+    launched = gmlp_bf16_counters(gk)
+    c_losses, c_grads = train_step_one(torch, cpu, {k: torch.from_numpy(v)
+                                                    for k, v in batch.items()})
+    if not all(launched.values()):
+        raise AssertionError(f"gMLP bf16 step 1 did not launch bf16 K3f and K3b: {launched}")
+    key = "gMLP bf16 step 1: loss, branch losses"
+    report["errors"][key] = rel_err(torch, torch.stack(g_losses).cpu(), torch.stack(c_losses),
+                                    key, BF16_REL)
+    names = sorted(g_grads)
+    key = f"gMLP bf16 step 1: {len(names)} parameter gradients"
+    report["errors"][key] = rel_err(torch, [g_grads[n].cpu() for n in names],
+                                    [c_grads[n] for n in names], key, BF16_REL)
+    if not all(p.dtype == torch.float32 for p in task.network.parameters()):
+        raise AssertionError("the bf16 gMLP kernel blocks hold parameters that are not float32")
+    del task, cpu, g_grads, c_grads
+    torch.cuda.empty_cache()
+
+    runs = report["gmlp_bf16_training_runs"] = {}
+    for flavor in ("plain", "kernel"):
+        runs[flavor] = train_run(
+            run, np, gmlp_bf16_args(tmp, f"gmlp_bf16_{flavor}", flavor == "kernel"),
+            lambda: gmlp_bf16_zero(gk), lambda: gmlp_bf16_counters(gk), f"gMLP bf16 {flavor}",
+            0.0)
+        torch.cuda.empty_cache()
+    if any(runs["plain"]["launches"].values()):
+        raise AssertionError("the plain bf16 gMLP run launched a gMLP kernel")
+    for name, count in runs["kernel"]["launches"].items():
+        if count <= 0:
+            raise AssertionError(f"{name} was never launched on the bf16 gMLP training path")
+    # the float32 runs' gate; where the plain bf16 modules miss it on this card
+    # too, the kernel run is held to the plain bf16 run's accuracy - 0.1
+    acc = {f: min(r["val_acc"][-1], r["test_acc"]) for f, r in runs.items()}
+    gate = GMLP_MIN_ACC if acc["plain"] >= GMLP_MIN_ACC else acc["plain"] - 0.1
+    print(f"  accuracy (min of last val, test): plain bf16 {acc['plain']:.4f}, kernel blocks "
+          f"{acc['kernel']:.4f} (gate {gate:.4f})")
+    report["gmlp_bf16_acc_gate"] = gate
+    if not acc["kernel"] >= gate:
+        raise AssertionError(f"the bf16 gMLP kernel run's accuracy {acc['kernel']} < {gate}")
+    report["gmlp_bf16_training_launches"] = runs["kernel"]["launches"]
+
+    print("[11/16] serving the trained bf16 gMLP weights (the plain run's) through serving "
+          "export --pallas (bf16 K3f) against the same artifact on the CPU")
+    log_root = os.path.join(tmp, "gmlp_bf16_plain")
+    weights = os.path.join(log_root, sorted(os.listdir(log_root))[-1], "checkpoints",
+                           "best.npz")
+    plain_dir, kernel_dir = os.path.join(tmp, "gmlp_bf16_art"), os.path.join(tmp, "gmlp_bf16_k")
+    serving.main(["export", "-c", GMLP_CFG, "-p", weights, "-o", plain_dir,
+                  "model.precision=bf16"])
+    serving.main(["export", "-c", GMLP_CFG, "-p", weights, "-o", kernel_dir, "--pallas",
+                  "model.precision=bf16"])
+    plain, model = serving.load_serving(plain_dir), serving.load_serving(kernel_dir)
+    on_cpu = serving.load_serving(kernel_dir, device="cpu")
+    if model.meta["block_flavor"] != "kernel" or \
+            model.meta["config"]["model"]["precision"] != "bf16":
+        raise AssertionError("the bf16 gMLP artifact is not a bf16 kernel artifact")
+    rng = np.random.RandomState(2)
+    requests = {n: {"image": rng.rand(n, 1, 28, 28).astype(np.float32),
+                    "audio": rng.rand(n, 1, 112, 112).astype(np.float32)}
+                for n in GMLP_BF16_REQUESTS}
+    gmlp_bf16_zero(gk)
+    answers = {n: model.predict(f) for n, f in requests.items()}
+    launched = gmlp_bf16_counters(gk)["K3f_bf16"]
+    print(f"  main-path launches: bf16 K3f {launched}")
+    if launched <= 0:
+        raise AssertionError("bf16 K3f was never launched serving the bf16 gMLP")
+    rel = lambda a, b: float(np.abs(a - b).max() / max(1.0, float(np.abs(b).max())))
+    worst = to_plain = 0.0
+    for n, got in answers.items():
+        want, bf = on_cpu.predict(requests[n]), plain.predict(requests[n])
+        for gl, wl, bl in [(got["logits"], want["logits"], bf["logits"])] + list(
+                zip(got["branch_logits"], want["branch_logits"], bf["branch_logits"])):
+            if gl.shape != wl.shape or not np.isfinite(gl).all():
+                raise AssertionError(f"bf16 gMLP request of {n}: bad output {gl.shape}")
+            worst, to_plain = max(worst, rel(gl, wl)), max(to_plain, rel(gl, bl))
+    print(f"  requests of {list(GMLP_BF16_REQUESTS)}: worst |err| / max(1, max|CPU|) "
+          f"{worst:.3e} (tol {BF16_REL}); to the plain bf16 artifact {to_plain:.3e}")
+    if not worst <= BF16_REL:
+        raise AssertionError(f"bf16 gMLP served logits differ from the CPU's by {worst}")
+    report["gmlp_bf16_served_rel_err"] = worst
+    report["gmlp_bf16_served_to_plain"] = to_plain
+    report["gmlp_bf16_serving_launches"] = launched
+    return {"plain": plain, "kernel": model}
+
+
+def phase_gmlp_bf16_times(torch, gk, serving, Trainer, apply_overrides, load_cfg, synthetic, np,
+                          served, report):
+    """bf16 K3f / K3b alone with their plain versions and bounds (the dense
+    bf16 peak; the tensor-core rate their products run at: 1xTF32 forward,
+    2xTF32 backward), the profiler's breakdown of one call of each at batch
+    512; the bf16 served forward and train step, plain modules against the
+    kernel blocks, batch 32 and 512."""
+    print("[14/16] bf16 gMLP times (CUDA events, median of 5 runs)")
+    times, bounds = report["times_ms"], report["bounds_ms"]
+    tc = report.setdefault("bounds_tc_ms", {})
+    bf16 = torch.bfloat16
+    for geom_name, geom in (("encoder", GMLP_ENC), ("fusion", GMLP_FUSION)):
+        p = gmlp_params(gk, torch, seed=37, **geom)
+        for B in (32, 512):
+            tag = f"{geom_name}/B{B}"
+            gen = torch.Generator().manual_seed(6)
+            x = torch.randn(B, geom["N"], geom["D"], generator=gen).cuda()
+            g = torch.randn(B, geom["N"], geom["D"], generator=gen).cuda()
+            calls = {
+                "K3f_bf16": lambda: gk.fused_gmlp_block(x, p, compute_dtype=bf16),
+                "K3f_bf16_plain": lambda: gk.gmlp_block_reference(x, p, compute_dtype=bf16),
+                "K3b_bf16": lambda: gk.fused_gmlp_block_bwd(x, g, p, compute_dtype=bf16),
+                "K3b_bf16_plain": lambda: gk.gmlp_block_bwd_reference(x, g, p,
+                                                                      compute_dtype=bf16)}
+            for name, fn in calls.items():
+                times[f"{name}/{tag}"] = cuda_ms(torch, fn)
+            if B == 512:
+                bd = report.setdefault("breakdown_us", {})
+                for name in ("K3f_bf16", "K3b_bf16"):
+                    bd[f"{name}/{tag}"] = kernel_breakdown(torch, calls[name], f"{name} {tag}")
+            flops, pbytes = gmlp_work(B, **geom)
+            act = B * geom["N"] * geom["D"] * 4
+            # the weights read in bf16 (the kernels read float32 and round them)
+            wbytes = pbytes // 2
+            bounds[f"K3f_bf16/{tag}"] = bound(flops, wbytes + 2 * act, "bf16")
+            bounds[f"K3b_bf16/{tag}"] = bound(2 * flops, wbytes + pbytes + 3 * act, "bf16")
+            tc[f"K3f_bf16/{tag}"] = flops / 495e12 * 1e3
+            tc[f"K3b_bf16/{tag}"] = 2 * flops / TC_2XTF32 * 1e3
+            print(f"  {tag}: " + "; ".join(
+                f"{n} {times[f'{n}/{tag}']:.4f} ms (plain {times[f'{n}_plain/{tag}']:.4f}, bound "
+                f"{bounds[f'{n}/{tag}'][0]:.4f}, tensor-core bound {tc[f'{n}/{tag}']:.4f})"
+                for n in ("K3f_bf16", "K3b_bf16")))
+            del calls
+    rng = np.random.RandomState(3)
+    for B in (32, 512):
+        feats = {"image": torch.from_numpy(rng.rand(B, 1, 28, 28).astype(np.float32)).cuda(),
+                 "audio": torch.from_numpy(rng.rand(B, 1, 112, 112).astype(np.float32)).cuda()}
+        for k, m in served.items():
+            times[f"gmlp_bf16_served/{k}/B{B}"] = cuda_ms(torch, lambda: m.forward_device(feats),
+                                                          iters=5)
+        print(f"  bf16 served forward B={B}: " + ", ".join(
+            f"{k} {times[f'gmlp_bf16_served/{k}/B{B}']:.4f} ms" for k in served))
+    gmlp_bf16_zero(gk)
+    served["kernel"].forward_device(feats)
+    report["gmlp_bf16_launches_per_forward"] = gk.fused_gmlp_block.bf16_launches
+    data = synthetic(512, seed=4, learnable=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gmlp_bf16_steps_") as tmp:
+        for flavor in ("plain", "kernel"):
+            cfg = load_cfg(GMLP_CFG)
+            apply_overrides(cfg, ["model.precision=bf16",
+                                  *(GMLP_KERNEL_BLOCKS if flavor == "kernel" else [])],
+                            warn=False)
+            task = serving._build_task(cfg, device="cuda")
+            trainer = Trainer(cfg.train, name=f"gmlp_bf16_steps_{flavor}", work_dir=tmp)
+            trainer.setup(task)
+            ctx = task.make_ctx(0, "train")
+            for B in (32, 512):
+                batch = {k: torch.from_numpy(v[:B]).cuda() for k, v in data.items()}
+                torch.cuda.reset_peak_memory_stats()
+                times[f"gmlp_bf16_train_step/{flavor}/B{B}"] = cuda_ms(
+                    torch, lambda: trainer.train_step(task, batch, ctx), iters=3)
+                report.setdefault("gmlp_bf16_train_step_peak_gib", {})[f"{flavor}/B{B}"] = \
+                    torch.cuda.max_memory_allocated() / 2**30
+            trainer.logger.close()
+            del task, trainer
+            torch.cuda.empty_cache()
+    print("  bf16 train step (the config otherwise unchanged: dropout 0, stochastic depth on): "
+          + ", ".join(f"{k.split('/', 1)[1]} {v:.4f} ms" for k, v in times.items()
+                      if k.startswith("gmlp_bf16_train_step/")))
+
+
 # ----------------------------------------------------------------- DynaMixer
 def dyna_params(dk, torch, L, C, H, R, seed):
     """One DynaMixerOp's parameters at the Linear layers' init scales,
@@ -2538,6 +2807,7 @@ def main() -> int:
     phase_bf16_backward(torch, mk, report)
     phase_l_kernels(torch, mk, report)
     phase_gmlp_kernels(torch, gk, report)
+    phase_gmlp_bf16_kernels(torch, gk, report)
     phase_dyna_kernels(torch, dk, report)
     phase_dyna_bf16_kernels(torch, dk, report)
     phase_error_rows(torch, mk, gk, dk, _build.load_library(), report)
@@ -2556,6 +2826,10 @@ def main() -> int:
                                 synthetic_avmnist_arrays, np, report, l_tmp.name)
     phase_gmlp_training(torch, gk, serving, run, apply_cli_overrides, load_cfg,
                         synthetic_avmnist_arrays, np, report)
+    gmlp_bf16_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_gmlp_bf16_")
+    gmlp_bf16_served = phase_gmlp_bf16_training(torch, gk, serving, run, apply_cli_overrides,
+                                                load_cfg, synthetic_avmnist_arrays, np, report,
+                                                gmlp_bf16_tmp.name)
     phase_dyna_training(torch, dk, serving, run, apply_cli_overrides, load_cfg,
                         synthetic_avmnist_arrays, np, report)
     dyna_bf16_served = phase_dyna_bf16(torch, dk, serving, run, np, report)
@@ -2564,6 +2838,9 @@ def main() -> int:
                       synthetic_avmnist_arrays, report)
     phase_gmlp_times(torch, gk, serving, Trainer, apply_cli_overrides, load_cfg,
                      synthetic_avmnist_arrays, np, gmlp_served, report)
+    phase_gmlp_bf16_times(torch, gk, serving, Trainer, apply_cli_overrides, load_cfg,
+                          synthetic_avmnist_arrays, np, gmlp_bf16_served, report)
+    gmlp_bf16_tmp.cleanup()
     phase_dyna_times(torch, dk, serving, Trainer, load_cfg, synthetic_avmnist_arrays, np,
                      dyna_served, report)
     phase_bf16_times(torch, mk, serving, Trainer, apply_cli_overrides, load_cfg,
@@ -2721,6 +2998,25 @@ def main() -> int:
          "max_abs_err": report["errors"]["K2b/L/fusion/B512/bf16"],
          "ms": t[f"K2b/{lf}"], "plain_ms": t[f"K2b_plain/{lf}"],
          "bound_ms": bd[f"K2b/{lf}"][0], "bound_by": bd[f"K2b/{lf}"][1], "library_ms": None},
+    ]
+    gf, gb = "K3f_bf16/encoder/B512", "K3b_bf16/encoder/B512"
+    kernels += [
+        {"name": "gmlp_fwd bf16 (K3f, one gMLP block in bf16 compute, B=512 N=49 D=128 F=768, "
+                 "products in 1xTF32)",
+         "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/gmlp.cu",
+         "replaces": "m2mixer_tpu/ops/gmlp_kernel.py:134",
+         "launches": report["gmlp_bf16_serving_launches"],
+         "max_abs_err": report["errors"][f"{gf}/rate0.0"],
+         "ms": t[gf], "plain_ms": t["K3f_bf16_plain/encoder/B512"],
+         "bound_ms": bd[gf][0], "bound_by": bd[gf][1], "library_ms": None},
+        {"name": "gmlp_bwd bf16 (K3b, one gMLP block backward in bf16 compute, B=512 N=49 "
+                 "D=128 F=768, products in 2x/1xTF32)",
+         "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/gmlp.cu",
+         "replaces": "m2mixer_tpu/ops/gmlp_kernel.py:167",
+         "launches": report["gmlp_bf16_training_launches"]["K3b_bf16"],
+         "max_abs_err": report["errors"][f"{gb}/rate0.0"],
+         "ms": t[gb], "plain_ms": t["K3b_bf16_plain/encoder/B512"],
+         "bound_ms": bd[gb][0], "bound_by": bd[gb][1], "library_ms": None},
     ]
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -12,16 +12,21 @@ version on CPU tensors):
   ceil(K/G) launches with ``stack_group_size=G``;
 - ``PallasVisiongMLP`` / ``PallasFusiongMLP``: ``VisiongMLP`` / ``FusiongMLP``
   whose GatingMlpBlocks are ``PallasGatingMlpBlock``s, one K3f launch each
-  (``ops/gmlp_kernel.py``, float32 only); stochastic depth stays outside the
-  kernel, and a dropped block launches nothing. Their blocks sit under
+  (``ops/gmlp_kernel.py``; at ``model.precision: bf16`` the bf16 K3f/K3b,
+  which follow the cast points of JAX's ``_block_math``: x, LN1's output and
+  every product operand rounded to bf16, mask 0, the GELU and LN(v) in
+  float32, the gate and the residual bf16 operations, the output widened to
+  float32); stochastic depth stays outside the kernel, and a dropped block
+  launches nothing. Their blocks sit under
   ``gmlp.blocks.j`` as the plain modules' do (JAX's kernel tree has
   ``block_j`` directly; ``utils/weights.py`` maps the two).
 
 Parameters keep the JAX kernels' layout and names (``w1 (N, T)``,
 ``b{i}_w3 (D, C)``, ...), so the JAX trees map onto them without a transpose.
 They are float32 at any compute dtype, as the JAX modules' are: in bf16 the
-kernels read w3/w4 rounded to bf16 on each call and the gradients
-come back in float32, so Adam updates float32 master weights. The mixer
+kernels read the weights rounded to bf16 on each call (the mixer's w3/w4, the
+gMLP block's w_in, sgu_w and w_out) and the gradients come back in float32, so
+Adam updates float32 master weights. The mixer
 blocks take any token count, as the JAX kernels do (above 32 tokens the
 CUDA kernels run their token FF as products on the tensor cores). In training mode
 every kernel call draws a fresh dropout seed from the module's

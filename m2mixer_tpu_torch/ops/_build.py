@@ -126,15 +126,17 @@ def _declare(lib):
     lib.m2m_mixer_token_row_slice.restype = c_int
     lib.m2m_mixer_row_slice.argtypes = [c_int] * 6
     lib.m2m_mixer_row_slice.restype = c_int
-    lib.m2m_gmlp_workspace_bytes.argtypes = [c_int] * 6
+    lib.m2m_gmlp_workspace_bytes.argtypes = [c_int] * 7
     lib.m2m_gmlp_workspace_bytes.restype = c_size_t
     lib.m2m_gmlp_row_slice.argtypes = [c_int] * 5
     lib.m2m_gmlp_row_slice.restype = c_int
     lib.m2m_tc_tile_rows.argtypes = [c_int] * 4
     lib.m2m_tc_tile_rows.restype = c_int
-    lib.m2m_gmlp_fwd.argtypes = [c_void_p] * 2 + [c_int] * 5 + dropout + [c_int] + [c_void_p] * 3
+    lib.m2m_gmlp_fwd.argtypes = ([c_void_p] * 2 + [c_int] * 5 + dropout + [c_int] * 2
+                                 + [c_void_p] * 3)
     lib.m2m_gmlp_fwd.restype = c_int
-    lib.m2m_gmlp_bwd.argtypes = [c_void_p] * 3 + [c_int] * 5 + dropout + [c_int] + [c_void_p] * 4
+    lib.m2m_gmlp_bwd.argtypes = ([c_void_p] * 3 + [c_int] * 5 + dropout + [c_int] * 2
+                                 + [c_void_p] * 4)
     lib.m2m_gmlp_bwd.restype = c_int
     lib.m2m_dyna_workspace_bytes.argtypes = [c_int] * 8
     lib.m2m_dyna_workspace_bytes.restype = c_size_t

@@ -1,4 +1,5 @@
-// Fused gMLP block forward (K3f) and backward (K3b) kernels for Hopper (sm_90a), float32.
+// Fused gMLP block forward (K3f) and backward (K3b) kernels for Hopper (sm_90a), float32
+// and bf16 compute.
 //
 // Replaces the TPU Pallas kernels of m2mixer_tpu/ops/gmlp_kernel.py:
 //   m2m_gmlp_fwd  <- fused_gmlp_block's forward (_fwd_call: _fwd_kernel over _block_math)
@@ -14,13 +15,44 @@
 // those JAX layouts, so the forward, the backward and the plain PyTorch version
 // (ops/gmlp_kernel.py) agree element by element. Stochastic depth stays outside.
 //
+// bf16 compute (compute_dtype=bfloat16) follows the casts of JAX's _block_math
+// (the parameters arrive in float32 and are rounded where it casts them; x
+// and y stay float32 in memory): x rounded; LN1's statistics in float32 of the
+// rounded x, its scale, bias and output rounded; W_in, sgu_w and W_out rounded
+// (round_copy for the two GEMMs' weights, sgu_setup for sgu_w), b_in, sgu_b and
+// b_out added in float32; mask 0, the GELU and LN(v) in float32, LN(v)'s scale
+// and bias read rounded and its output v' rounded as the token projection's
+// operand; gated = bf16(u) * bf16(t') a bf16 product; y = bf16(x) + bf16(out) a
+// bf16 sum. Every product then has two bf16 operands and runs as 1xTF32 (each
+// mma into a zeroed accumulator added to the running sum in float32,
+// tile_common.cuh). The backward computes what JAX's AD of that _block_math
+// computes: each cast of the forward becomes a rounding of a cotangent to bf16
+// (jax.make_jaxpr of the VJP lists them):
+//   - g, the output's cotangent (the output is bf16 widened to float32), so
+//     dout = bf16(g) m2 and the residual's cotangent is bf16(g);
+//   - the cotangents of the products' bf16 operands: dgated = bf16(dout
+//     W_out^T), dv' = bf16(dt sgu_w^T) and dxn = bf16(dpre W_in^T), and the
+//     weight gradients dW_out, d sgu_w and dW_in;
+//   - both sides of the bf16 gate: du = bf16(dgated bf16(t')), dt' =
+//     bf16(dgated bf16(u));
+//   - LN1: its input gradient (the LN reads its bf16 input in float32), its
+//     scale read rounded, and the bf16 sum of that gradient with bf16(g);
+//   - the LN scale and bias gradients of both LNs (the forward reads them as
+//     bf16); LN(v)'s backward itself runs in float32 with its scale rounded.
+// The bias gradients (b_in, sgu_b, b_out) are not rounded, nor are the float32
+// cotangents dout, dt and dpre. JAX rounds each weight gradient per grid tile
+// and sums the tiles; these kernels round once, after their own sum over the
+// whole batch. The products of the backward with one bf16 operand (dgated, dv',
+// dxn and the three weight gradients) run as 2xTF32, the recomputed forward's
+// (pm, t) as 1xTF32.
+//
 // Design. The TPU kernel keeps a batch tile's (tile_b*N, F) intermediates in
 // VMEM. The spatial gating unit couples a sample's N tokens (the token
 // projection) and a token's F/2 v-channels (LN(v)), and one sample's float32
 // (N, F) intermediate is 304 KB at N = 99, above the 227 KB of shared memory a
 // CTA may use. So the block is a short pipeline of kernels through device
 // memory, each parallel over what it owns:
-//   forward, 5 launches:
+//   forward, 5 launches (bf16: 2 more first, the rounded copies of W_in and W_out):
 //     1. rows: xn = LN(x), a warp per row;
 //     2. in:   h = gelu((xn W_in + b_in) m0), bias, mask 0 and the GELU in the
 //              tensor-core tile's epilogue;
@@ -30,8 +62,9 @@
 //              gated = u t' element by element;
 //     5. out:  y = x + (gated W_out + b_out) m2, the residual, bias and mask 2
 //              in the tensor-core tile's epilogue.
-//   backward, 12 launches; it recomputes the forward from x (the autograd
-//   Function saves only x), and follows the chain of jax.vjp(_block_math):
+//   backward, 12 launches (bf16: 14, as the forward); it recomputes the
+//   forward from x (the autograd Function saves only x), and follows the chain
+//   of jax.vjp(_block_math):
 //     1. rows: xn = LN(x) again; dout = g m2 (mask 2 before the F/2 -> D product);
 //     2. in:   pm = (xn W_in + b_in) m0, the masked pre-activation;
 //     3. dgated = dout W_out^T;
@@ -59,7 +92,8 @@
 // few MB of parameters and activations, the backward twice that plus the
 // recomputed forward: operations bound both. Both run their products on the
 // tensor cores in 3xTF32 (tile_common.cuh says why that split and why
-// mma.sync rather than wgmma): the forward's two GEMMs (steps 2 and 5) and the
+// mma.sync rather than wgmma; bf16 compute drops the products with a bf16
+// operand's zero small half): the forward's two GEMMs (steps 2 and 5) and the
 // backward's five (steps 2, 3, 6, 7, 8) on tc_gemm, the forward's by the tile
 // rule of tc_gemm_auto (the 64x64 tile where the wide one would leave SMs
 // idle, at batch 32). The two SGU kernels share their staging, LN(v) and token
@@ -95,7 +129,9 @@ struct SguParams {
   const float* b;  // (N,)
 };
 
-// xn = LN(x) s + b, a warp per row; with g, also dout = g m2
+// xn = LN(x) s + b, a warp per row; with g, also dout = g m2. kBF16: x, s, b,
+// xn and g rounded to bf16 (the statistics of the rounded x in float32)
+template <bool kBF16>
 __global__ void __launch_bounds__(kThreads)
     ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ s,
                    const float* __restrict__ b, float* __restrict__ xn,
@@ -106,11 +142,12 @@ __global__ void __launch_bounds__(kThreads)
   if (r >= R) return;  // whole warps leave together
   const float* xr = x + (size_t)r * D;
   float mean, inv;
-  row_stats(xr, D, mean, inv);
+  row_stats<kBF16>(xr, D, mean, inv);
   for (int d = lane; d < D; d += 32) {
     const size_t e = (size_t)r * D + d;
-    xn[e] = (xr[d] - mean) * inv * __ldg(s + d) + __ldg(b + d);
-    if (g) dout[e] = g[e] * keep(dp, 0, kMaskOut, (uint32_t)e);
+    xn[e] = rd<kBF16>((rd<kBF16>(xr[d]) - mean) * inv * rd<kBF16>(__ldg(s + d)) +
+                      rd<kBF16>(__ldg(b + d)));
+    if (g) dout[e] = rd<kBF16>(g[e]) * keep(dp, 0, kMaskOut, (uint32_t)e);
   }
 }
 
@@ -147,15 +184,16 @@ __host__ __device__ inline SguLayout sgu_layout(int N, bool bwd) {
   return s;
 }
 
-// sgu_w (zero-padded to nm x ldw), sgu_b and sample b's LN(v) mean and 1/std
-// (vstats_kernel's stats[r] and stats[R + r]) into shared memory
-template <int kT>
+// sgu_w (zero-padded to nm x ldw; kBF16: rounded to bf16), sgu_b and sample
+// b's LN(v) mean and 1/std (vstats_kernel's stats[r] and stats[R + r]) into
+// shared memory
+template <int kT, bool kBF16>
 __device__ void sgu_setup(float* sm, const SguLayout& L, const SguParams& p,
                           const float* __restrict__ vstats, int N, int R, int b) {
   float* ws = sm + L.w;
   for (int i = threadIdx.x; i < L.nm * L.ldw; i += kT) {
     const int m = i / L.ldw, n = i - m * L.ldw;
-    ws[i] = m < N && n < N ? __ldg(p.w + m * N + n) : 0.f;
+    ws[i] = m < N && n < N ? rd<kBF16>(__ldg(p.w + m * N + n)) : 0.f;
   }
   for (int i = threadIdx.x; i < L.nm; i += kT) {
     sm[L.sb + i] = i < N ? __ldg(p.b + i) : 0.f;
@@ -188,8 +226,10 @@ __device__ __forceinline__ void sgu_stage(float* dst, const float* src, long lon
 
 // v' = LN(v) of the chunk at c0, in place in vn, zero beyond N tokens and
 // F/2 channels; vn holds v (kFromPre = false) or the pre-activation whose
-// GELU v is
-template <int kT, bool kFromPre>
+// GELU v is. kBF16: the LN's scale and bias read rounded to bf16, and v'
+// rounded to bf16 (the token projection's operand; LN(v) itself is float32,
+// but no other step reads it)
+template <int kT, bool kFromPre, bool kBF16>
 __device__ void sgu_normalize(float* sm, const SguLayout& L, const SguParams& p, int N, int H,
                               int c0, int tanh_flavor) {
   float* vn = sm + L.vn;
@@ -199,15 +239,18 @@ __device__ void sgu_normalize(float* sm, const SguLayout& L, const SguParams& p,
     const int m = i / kChunk, cc = i % kChunk, c = c0 + cc;
     float* v = vn + m * L.ldc + cc;
     const float a = kFromPre ? gelu(*v, tanh_flavor) : *v;
-    *v = m < N && c < H ? (a - mean[m]) * inv[m] * __ldg(p.ln_s + c) + __ldg(p.ln_b + c) : 0.f;
+    *v = m < N && c < H ? rd<kBF16>((a - mean[m]) * inv[m] * rd<kBF16>(__ldg(p.ln_s + c)) +
+                                    rd<kBF16>(__ldg(p.ln_b + c)))
+                        : 0.f;
   }
 }
 
 // the token projection of the chunk, t(n, cc) = sum over m of sgu_w[m, n]
-// v'(m, cc), 3xTF32 mma.sync from shared memory, into dt. The warps stand 4 x
-// kWC: warp (wm, wc) owns the token tiles wm + 4i (m16, kMT of them in all)
-// and the kCB v-channel blocks kCB wc + j (8 wide).
-template <int kMT, int kWC>
+// v'(m, cc), 3xTF32 mma.sync from shared memory, into dt (kExact: both
+// operands hold bf16 values, 1xTF32). The warps stand 4 x kWC: warp (wm, wc)
+// owns the token tiles wm + 4i (m16, kMT of them in all) and the kCB
+// v-channel blocks kCB wc + j (8 wide).
+template <int kMT, int kWC, int kExact>
 __device__ void sgu_token_proj(float* sm, const SguLayout& L) {
   constexpr int kMI = kMT / 4, kCB = kChunk / 8 / kWC;
   const float* ws = sm + L.w;
@@ -227,7 +270,7 @@ __device__ void sgu_token_proj(float* sm, const SguLayout& L) {
         uint32_t ab[4], as[4];  // A(n, m) = sgu_w[m, n]
         frag_a(ws + k * L.ldw + 16 * tile, 1, L.ldw, ab, as);
 #pragma unroll
-        for (int j = 0; j < kCB; ++j) mma_3xtf32(acc[i][j], ab, as, bb[j], bs[j]);
+        for (int j = 0; j < kCB; ++j) mma_3xtf32<kExact>(acc[i][j], ab, as, bb[j], bs[j]);
       }
     }
   }
@@ -280,8 +323,9 @@ __global__ void __launch_bounds__(kThreads)
 // there). A chunk's v and u columns of h reach shared memory by cp.async, the
 // u columns while the token projection runs; the gate then runs element by
 // element on t in shared memory, neighbouring threads on neighbouring
-// channels (coalesced stores).
-template <int kMT, int kWC>
+// channels (coalesced stores). kBF16: the token projection on bf16 operands
+// (1xTF32), the gate a bf16 product of u and t' rounded to bf16.
+template <int kMT, int kWC, bool kBF16>
 __global__ void __launch_bounds__(128 * kWC)
     sgu_fwd_kernel(const float* __restrict__ h, const float* __restrict__ vstats,
                    float* __restrict__ gated, SguParams p, int N, int F,
@@ -295,7 +339,7 @@ __global__ void __launch_bounds__(128 * kWC)
   const float* sb = sm + L.sb;
   const float* hb = h + (size_t)b * N * F;
   const bool vec = F % 8 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0;
-  sgu_setup<kT>(sm, L, p, vstats, N, R, b);
+  sgu_setup<kT, kBF16>(sm, L, p, vstats, N, R, b);
   for (int c0 = blockIdx.x * kChunk; c0 < H; c0 += gridDim.x * kChunk) {
     sgu_stage<kT>(sm + L.vn, hb + H + c0, F, N, L.nm, H - c0, L.ldc, vec);
     cp_async_commit();
@@ -303,9 +347,9 @@ __global__ void __launch_bounds__(128 * kWC)
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    sgu_normalize<kT, false>(sm, L, p, N, H, c0, 0);
+    sgu_normalize<kT, false, kBF16>(sm, L, p, N, H, c0, 0);
     __syncthreads();
-    sgu_token_proj<kMT, kWC>(sm, L);
+    sgu_token_proj<kMT, kWC, kBF16 ? (kExactA | kExactB) : 0>(sm, L);
     cp_async_wait<0>();
     __syncthreads();  // t and the u columns in shared memory
     for (int q = threadIdx.x; q < N * kChunk; q += kT) {
@@ -313,7 +357,8 @@ __global__ void __launch_bounds__(128 * kWC)
       if (c < H) {
         const float m1 = keep(dp, 0, kMaskSgu, ((uint32_t)b * H + c) * N + n);
         const int at = n * L.ldc + cc;
-        gated[((size_t)b * N + n) * H + c] = us[at] * ((dts[at] + sb[n]) * m1);
+        gated[((size_t)b * N + n) * H + c] =
+            rd<kBF16>(rd<kBF16>(us[at]) * rd<kBF16>((dts[at] + sb[n]) * m1));
       }
     }
     __syncthreads();
@@ -330,7 +375,11 @@ __global__ void __launch_bounds__(128 * kWC)
 // column tiles wc + kWC j (8 wide), so a fragment it loads serves several
 // products. The CTA's partials of d sgu_w (N x N, in registers across the
 // chunks) and d sgu_b (N) go to part[blockIdx.y * gridDim.x + blockIdx.x].
-template <int kMT, int kWC>
+// kBF16: v' and sgu_w rounded to bf16 (the token projection in 1xTF32, the two
+// products with one of them in 2xTF32), the gate's bf16 product recomputed and
+// its two cotangents rounded (du = bf16(dgated t'), dt' = bf16(dgated u)), and
+// dv' rounded (the cotangent of the token projection's bf16 operand).
+template <int kMT, int kWC, bool kBF16>
 __global__ void __launch_bounds__(128 * kWC, 1)
     sgu_bwd_kernel(const float* __restrict__ pm, const float* __restrict__ dg,
                    const float* __restrict__ vstats, float* __restrict__ gated,
@@ -354,8 +403,9 @@ __global__ void __launch_bounds__(128 * kWC, 1)
   const float* gb = dg + (size_t)b * N * H;
   const bool vec = F % 8 == 0 && reinterpret_cast<uintptr_t>(pm) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(dg) % 16 == 0;
-  sgu_setup<kT>(sm, L, p, vstats, N, R, b);
+  sgu_setup<kT, kBF16>(sm, L, p, vstats, N, R, b);
   for (int i = threadIdx.x; i < L.nm; i += kT) dbs[i] = 0.f;
+  constexpr int kX1 = kBF16 ? kExactA : 0;  // A (sgu_w or v') holds bf16 values
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int mt = L.nm / 16, wm = warp & 3, wc = warp >> 2;
   float dw[kMI][kNT][4] = {};
@@ -367,10 +417,10 @@ __global__ void __launch_bounds__(128 * kWC, 1)
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    sgu_normalize<kT, true>(sm, L, p, N, H, c0, tanh_flavor);
+    sgu_normalize<kT, true, kBF16>(sm, L, p, N, H, c0, tanh_flavor);
     __syncthreads();
     // the token projection, recomputed, to dts
-    sgu_token_proj<kMT, kWC>(sm, L);
+    sgu_token_proj<kMT, kWC, kBF16 ? (kExactA | kExactB) : 0>(sm, L);
     cp_async_wait<0>();
     __syncthreads();  // t, and the u and dgated columns, in shared memory
     // the gate, element by element (token n, v-channel c; neighbouring threads
@@ -386,12 +436,13 @@ __global__ void __launch_bounds__(128 * kWC, 1)
         const float pu = us[n * L.ldc + cc];
         const float u = gelu(pu, tanh_flavor);
         const float d = gs[n * L.ldc + cc];
-        gated[r * H + c] = u * tm;
+        gated[r * H + c] = rd<kBF16>(rd<kBF16>(u) * rd<kBF16>(tm));
         // the gate (gmlp_kernel.py:75): du = dgated t'; then the GELU at the
         // masked pre-activation (:65) and mask 0 (:63-64)
         const size_t el = r * F + c;
-        dpre[el] = d * tm * gelu_grad(pu, tanh_flavor) * keep(dp, 0, kMaskIn, (uint32_t)el);
-        dtv = d * u * m1;  // dt' = dgated u, then mask 1 (:72-73)
+        dpre[el] = rd<kBF16>(d * rd<kBF16>(tm)) * gelu_grad(pu, tanh_flavor) *
+                   keep(dp, 0, kMaskIn, (uint32_t)el);
+        dtv = rd<kBF16>(d * rd<kBF16>(u)) * m1;  // dt' = dgated u, then mask 1 (:72-73)
       }
       *tq = dtv;
     }
@@ -410,7 +461,7 @@ __global__ void __launch_bounds__(128 * kWC, 1)
           uint32_t ab[4], as[4];  // A(m, n) = sgu_w[m, n]
           frag_a(ws + 16 * tile * L.ldw + k, L.ldw, 1, ab, as);
 #pragma unroll
-          for (int j = 0; j < kCB; ++j) mma_3xtf32(dv[i][j], ab, as, bb[j], bs[j]);
+          for (int j = 0; j < kCB; ++j) mma_3xtf32<kX1>(dv[i][j], ab, as, bb[j], bs[j]);
         }
       }
     }
@@ -429,11 +480,12 @@ __global__ void __launch_bounds__(128 * kWC, 1)
           frag_a(vn + 16 * tile * L.ldc + k, L.ldc, 1, ab, as);
 #pragma unroll
           for (int j = 0; j < kNT; ++j)
-            if (8 * (wc + kWC * j) < L.np) mma_3xtf32(dw[i][j], ab, as, bb[j], bs[j]);
+            if (8 * (wc + kWC * j) < L.np) mma_3xtf32<kX1>(dw[i][j], ab, as, bb[j], bs[j]);
         }
       }
     }
-    // dv' to shared memory (over the u columns, read by the gate only)
+    // dv' to shared memory (over the u columns, read by the gate only); kBF16:
+    // rounded to bf16
 #pragma unroll
     for (int i = 0; i < kMI; ++i) {
       const int tile = wm + 4 * i;
@@ -443,7 +495,7 @@ __global__ void __launch_bounds__(128 * kWC, 1)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             us[(16 * tile + g + 8 * (e >> 1)) * L.ldc + 8 * (kCB * wc + j) + 2 * t + (e & 1)] =
-                dv[i][j][e];
+                rd<kBF16>(dv[i][j][e]);
       }
     }
     // d sgu_b(n) += sum over the chunk of dt(n, cc)
@@ -476,7 +528,9 @@ __global__ void __launch_bounds__(128 * kWC, 1)
 // backward step 5 on kRowTile rows: dpre's v half holds dv' (sgu_bwd_kernel);
 // the LN(v) backward (gmlp_kernel.py:68) turns it into dv, then gelu'(pm) and
 // mask 0 into d pre, in place. The tile's partials of d sgu_ln_scale and
-// d sgu_ln_bias (2 x F/2) go to part[blockIdx.x].
+// d sgu_ln_bias (2 x F/2) go to part[blockIdx.x]. kBF16: the scale read
+// rounded to bf16, as the forward reads it (the LN runs in float32).
+template <bool kBF16>
 __global__ void __launch_bounds__(kThreads)
     vln_bwd_kernel(const float* __restrict__ pm, float* __restrict__ dpre,
                    const float* __restrict__ s, float* __restrict__ part, int R, int F,
@@ -507,14 +561,14 @@ __global__ void __launch_bounds__(kThreads)
     float su = 0.f, sux = 0.f;
     for (int c = lane; c < H; c += 32) {
       x[c] = (x[c] - mu) * iv;
-      const float u = a[c] * __ldg(s + c);
+      const float u = a[c] * rd<kBF16>(__ldg(s + c));
       su += u;
       sux += u * x[c];
     }
     su = warp_sum(su) / H;
     sux = warp_sum(sux) / H;
     for (int c = lane; c < H; c += 32) {
-      const float dv = iv * (a[c] * __ldg(s + c) - su - x[c] * sux);
+      const float dv = iv * (a[c] * rd<kBF16>(__ldg(s + c)) - su - x[c] * sux);
       dpre[row + c] = dv * gelu_grad(pm[row + c], tanh_flavor) *
                       keep(dp, 0, kMaskIn, (uint32_t)(row + c));
     }
@@ -540,8 +594,9 @@ struct Plan {
   int tiles;            // row tiles of the LN backward kernels
   bool wide_sgu;        // the SGU kernels on 16 warps (8 m16 token tiles), else 8 (4)
   size_t sgu_fwd_smem, sgu_bwd_smem, vln_smem, ln_smem;
-  // workspace offsets (floats)
-  size_t xn, act, gated, vstats, dout, dg, dpre, dxnp, p_ln, p_vln, p_sgu, p_win, p_wout, p_col;
+  // workspace offsets (floats); w_in_r, w_out_r: bf16 compute's rounded weights
+  size_t xn, act, gated, vstats, w_in_r, w_out_r, dout, dg, dpre, dxnp, p_ln, p_vln, p_sgu, p_win,
+      p_wout, p_col;
   size_t fwd_floats, bwd_floats;
 };
 
@@ -552,7 +607,7 @@ int check_args(int B, int N, int D, int F) {
   return 0;
 }
 
-int make_plan(int B, int N, int D, int F, int device, Plan& pl) {
+int make_plan(int B, int N, int D, int F, bool bf16, int device, Plan& pl) {
   DeviceInfo dev;
   const cudaError_t err = device_info(device, dev);
   if (err != cudaSuccess) return err;
@@ -582,6 +637,9 @@ int make_plan(int B, int N, int D, int F, int device, Plan& pl) {
   pl.act = o, o += rows * F;
   pl.gated = o, o += rows * H;
   pl.vstats = o, o += 2 * rows;
+  o = (o + 3) / 4 * 4;  // 16-byte copies of the rounded weights
+  pl.w_in_r = o, o += bf16 ? (size_t)D * F : 0;
+  pl.w_out_r = o, o += bf16 ? (size_t)H * D : 0;
   pl.fwd_floats = o;
   pl.dout = o, o += rows * D;
   pl.dg = o, o += rows * H;
@@ -602,15 +660,152 @@ SguParams sgu_params(const void* const* q) {
                    static_cast<const float*>(q[6]), static_cast<const float*>(q[7])};
 }
 
+
+// K3f (see m2m_gmlp_fwd); kBF16: bf16 compute
+template <bool kBF16>
+int gmlp_fwd(const float* x, float* y, int B, int N, int D, int F, int tanh_flavor,
+             const unsigned* keys, unsigned thresh, float scale, int device,
+             const void* const* ptrs, void* workspace, void* stream) {
+  if (check_args(B, N, D, F)) return -1;
+  M2M_TRY(cudaSetDevice(device));
+  Plan pl;
+  const int code = make_plan(B, N, D, F, kBF16, device, pl);
+  if (code) return code;
+  // m16 token tiles: 8 on 16 warps, else 4 on 8 warps
+  auto sgu_fwd = pl.wide_sgu ? sgu_fwd_kernel<8, 4, kBF16> : sgu_fwd_kernel<4, 2, kBF16>;
+  M2M_TRY(prepare(sgu_fwd, pl.sgu_fwd_smem, device));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Dropout dp = make_dropout(keys, 1, thresh, scale);
+  float* ws = static_cast<float*>(workspace);
+  const int R = B * N, H = F / 2;
+  auto q = [ptrs](int i) { return static_cast<const float*>(ptrs[i]); };
+  constexpr int kX2 = kBF16 ? (kExactA | kExactB) : 0;  // both operands bf16: 1xTF32
+  const float* w_in = q(2);
+  const float* w_out = q(8);
+  if (kBF16) {  // the weights rounded where _block_math casts them
+    M2M_TRY(round_copy(w_in, ws + pl.w_in_r, D * F, st));
+    M2M_TRY(round_copy(w_out, ws + pl.w_out_r, H * D, st));
+    w_in = ws + pl.w_in_r;
+    w_out = ws + pl.w_out_r;
+  }
+  // 1. xn = LN(x)
+  ln_rows_kernel<kBF16><<<ceil_div(R, kThreads / 32), kThreads, 0, st>>>(
+      x, q(0), q(1), ws + pl.xn, nullptr, nullptr, R, D, dp);
+  M2M_TRY(cudaGetLastError());
+  // 2. h = gelu((xn W_in + b_in) m0) (gmlp_kernel.py:62-65)
+  M2M_TRY(tc_gemm_auto<kX2>(View{ws + pl.xn, D, 1}, View{w_in, F, 1}, ws + pl.act, R, F, D,
+                            pl.sms, st,
+                            EpiBiasMaskGelu{EpiBiasMask{q(3), kMaskIn, F, dp}, tanh_flavor}));
+  // 3. LN(v)'s statistics (:68)
+  vstats_kernel<false><<<ceil_div(R, kThreads / 32), kThreads, 0, st>>>(ws + pl.act,
+                                                                        ws + pl.vstats, R, F, 0);
+  M2M_TRY(cudaGetLastError());
+  // 4. gated = u (LN(v) sgu_w + sgu_b) m1 (:67-75)
+  sgu_fwd<<<dim3(pl.nsplit, B), pl.wide_sgu ? 512 : 256, pl.sgu_fwd_smem, st>>>(
+      ws + pl.act, ws + pl.vstats, ws + pl.gated, sgu_params(ptrs), N, F, dp);
+  M2M_TRY(cudaGetLastError());
+  // 5. y = x + (gated W_out + b_out) m2 (:77-80)
+  return tc_gemm_auto<kX2>(View{ws + pl.gated, H, 1}, View{w_out, D, 1}, y, R, D, H, pl.sms, st,
+                           EpiResidual<kBF16>{EpiBiasMask{q(9), kMaskOut, D, dp}, x});
+}
+
+// K3b (see m2m_gmlp_bwd); kBF16: bf16 compute
+template <bool kBF16>
+int gmlp_bwd(const float* x, const float* g, float* dx, int B, int N, int D, int F,
+             int tanh_flavor, const unsigned* keys, unsigned thresh, float scale, int device,
+             const void* const* ptrs, void* const* grads, void* workspace, void* stream) {
+  if (check_args(B, N, D, F)) return -1;
+  M2M_TRY(cudaSetDevice(device));
+  Plan pl;
+  const int code = make_plan(B, N, D, F, kBF16, device, pl);
+  if (code) return code;
+  auto sgu_bwd = pl.wide_sgu ? sgu_bwd_kernel<8, 4, kBF16> : sgu_bwd_kernel<4, 2, kBF16>;
+  M2M_TRY(prepare(sgu_bwd, pl.sgu_bwd_smem, device));
+  M2M_TRY(prepare(vln_bwd_kernel<kBF16>, pl.vln_smem, device));
+  M2M_TRY(prepare(ln_bwd_kernel<kBF16>, pl.ln_smem, device));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Dropout dp = make_dropout(keys, 1, thresh, scale);
+  float* ws = static_cast<float*>(workspace);
+  const int R = B * N, H = F / 2;
+  auto q = [ptrs](int i) { return static_cast<const float*>(ptrs[i]); };
+  // the operands that hold bf16 values: both (1xTF32), A or B (2xTF32)
+  constexpr int kX2 = kBF16 ? (kExactA | kExactB) : 0;
+  constexpr int kXA = kBF16 ? kExactA : 0, kXB = kBF16 ? kExactB : 0;
+  const float* w_in = q(2);
+  const float* w_out = q(8);
+  if (kBF16) {
+    M2M_TRY(round_copy(w_in, ws + pl.w_in_r, D * F, st));
+    M2M_TRY(round_copy(w_out, ws + pl.w_out_r, H * D, st));
+    w_in = ws + pl.w_in_r;
+    w_out = ws + pl.w_out_r;
+  }
+  float* const* gq = reinterpret_cast<float* const*>(grads);
+  // xn = LN(x), dout = g m2; then pm = (xn W_in + b_in) m0 on the tensor cores
+  ln_rows_kernel<kBF16><<<ceil_div(R, kThreads / 32), kThreads, 0, st>>>(
+      x, q(0), q(1), ws + pl.xn, g, ws + pl.dout, R, D, dp);
+  M2M_TRY(cudaGetLastError());
+  M2M_TRY(tc_gemm_wide<kX2>(View{ws + pl.xn, D, 1}, View{w_in, F, 1}, ws + pl.act, R, F, D, D, 1,
+                            st, EpiBiasMask{q(3), kMaskIn, F, dp}));
+  // dgated = dout W_out^T (gmlp_kernel.py:77), rounded in bf16 (gated's cotangent)
+  M2M_TRY(tc_gemm_wide<kXB>(View{ws + pl.dout, D, 1}, View{w_out, 1, D}, ws + pl.dg, R, H, D, D,
+                            1, st, EpiRound<kBF16>{}));
+  vstats_kernel<true><<<ceil_div(R, kThreads / 32), kThreads, 0, st>>>(ws + pl.act,
+                                                                       ws + pl.vstats, R, F,
+                                                                       tanh_flavor);
+  M2M_TRY(cudaGetLastError());
+  sgu_bwd<<<dim3(pl.nsplit, B), pl.wide_sgu ? 512 : 256, pl.sgu_bwd_smem, st>>>(
+      ws + pl.act, ws + pl.dg, ws + pl.vstats, ws + pl.gated, ws + pl.dpre, ws + pl.p_sgu,
+      sgu_params(ptrs), N, F, tanh_flavor, dp);
+  M2M_TRY(cudaGetLastError());
+  vln_bwd_kernel<kBF16><<<pl.tiles, kThreads, pl.vln_smem, st>>>(
+      ws + pl.act, ws + pl.dpre, q(4), ws + pl.p_vln, R, F, tanh_flavor, dp);
+  M2M_TRY(cudaGetLastError());
+  // dxn = dpre W_in^T (:62), slices of F (summed, and in bf16 rounded, by ln_bwd_kernel)
+  M2M_TRY(tc_gemm_wide<kXB>(View{ws + pl.dpre, F, 1}, View{w_in, 1, F}, ws + pl.dxnp, R, D, F,
+                            pl.xslice, pl.xsplit, st));
+  // dW_in = xn^T dpre, dW_out = gated^T dout: slices of the rows
+  M2M_TRY(tc_gemm_wide<kXA>(View{ws + pl.xn, 1, D}, View{ws + pl.dpre, F, 1}, ws + pl.p_win, D, F,
+                            R, pl.wslice, pl.wsplit, st));
+  M2M_TRY(tc_gemm_wide<kXA>(View{ws + pl.gated, 1, H}, View{ws + pl.dout, D, 1}, ws + pl.p_wout,
+                            H, D, R, pl.wslice, pl.wsplit, st));
+  ColJobs<2> cj = {};
+  cj.job[0] = ColJob{ws + pl.dpre, F, F, ws + pl.p_col};
+  cj.job[1] = ColJob{ws + pl.dout, D, D, ws + pl.p_col + (size_t)pl.wsplit * F};
+  col_slices_kernel<2><<<dim3(ceil_div(F > D ? F : D, kThreads), pl.wsplit, 2), kThreads, 0, st>>>(
+      cj, R, pl.wslice);
+  M2M_TRY(cudaGetLastError());
+  // the LN backward over D plus the residual g (:61, :80), dxn's slices in order
+  ln_bwd_kernel<kBF16><<<pl.tiles, kThreads, pl.ln_smem, st>>>(
+      x, ws + pl.dxnp, pl.xsplit, g, q(0), dx, ws + pl.p_ln, R, D, kRowTile);
+  M2M_TRY(cudaGetLastError());
+  // in bf16 every gradient but the biases' is rounded once its sum is complete
+  constexpr int kBoth = kBF16 ? (kRnd0 | kRnd1) : 0, kFirst = kBF16 ? kRnd0 : 0;
+  const int NN = N * N;
+  RedJobs<kRedJobs> rj = {};
+  rj.job[0] = RedJob{ws + pl.p_ln, pl.tiles, 2 * D, gq[0], D, gq[1], kBoth};
+  rj.job[1] = RedJob{ws + pl.p_vln, pl.tiles, 2 * H, gq[4], H, gq[5], kBoth};
+  rj.job[2] = RedJob{ws + pl.p_sgu, B * pl.nsplit, NN + N, gq[6], NN, gq[7], kFirst};
+  rj.job[3] = RedJob{ws + pl.p_win, pl.wsplit, D * F, gq[2], D * F, nullptr, kFirst};
+  rj.job[4] = RedJob{ws + pl.p_wout, pl.wsplit, H * D, gq[8], H * D, nullptr, kFirst};
+  rj.job[5] = RedJob{ws + pl.p_col, pl.wsplit, F, gq[3], F, nullptr};
+  rj.job[6] = RedJob{ws + pl.p_col + (size_t)pl.wsplit * F, pl.wsplit, D, gq[9], D, nullptr};
+  // the grid covers the longest job: dW_in, or d sgu_w + d sgu_b where N^2 + N > D*F
+  int longest = 0;
+  for (const RedJob& j : rj.job) longest = j.P > longest ? j.P : longest;
+  reduce_jobs_kernel<kRedJobs><<<dim3(ceil_div(longest, kThreads), kRedJobs), kThreads, 0, st>>>(rj);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Workspace bytes of the gMLP forward (backward = 0) or backward (the wrapper
-// allocates it); 0 for shapes the kernels do not take.
-size_t m2m_gmlp_workspace_bytes(int B, int N, int D, int F, int backward, int device) {
+// Workspace bytes of the gMLP forward (backward = 0) or backward in float32 or
+// (bf16 = 1) bf16 compute (the wrapper allocates it); 0 for shapes the kernels
+// do not take.
+size_t m2m_gmlp_workspace_bytes(int B, int N, int D, int F, int backward, int bf16, int device) {
   Plan pl;
-  if (check_args(B, N, D, F) || make_plan(B, N, D, F, device, pl)) return 0;
+  if (check_args(B, N, D, F) || make_plan(B, N, D, F, bf16 != 0, device, pl)) return 0;
   return (backward ? pl.bwd_floats : pl.fwd_floats) * 4;
 }
 
@@ -618,7 +813,7 @@ size_t m2m_gmlp_workspace_bytes(int B, int N, int D, int F, int backward, int de
 // for shapes the kernels do not take: what the 3xTF32 error is measured against.
 int m2m_gmlp_row_slice(int B, int N, int D, int F, int device) {
   Plan pl;
-  if (check_args(B, N, D, F) || make_plan(B, N, D, F, device, pl)) return 0;
+  if (check_args(B, N, D, F) || make_plan(B, N, D, F, false, device, pl)) return 0;
   return pl.wslice;
 }
 
@@ -632,121 +827,32 @@ int m2m_tc_tile_rows(int M, int N, int ksplit, int device) {
 
 // K3f: y = GatingMlpBlock(x), x and y (B, N, D) float32. ptrs: the 10
 // parameters in GmlpBlockParams order (float32, JAX layout); keys/thresh/scale:
-// dropout (4 stream keys of block 0, or keys == nullptr for none); workspace:
-// m2m_gmlp_workspace_bytes(..., 0, ...) bytes.
+// dropout (4 stream keys of block 0, or keys == nullptr for none); bf16: bf16
+// compute (the casts at the top of the file); workspace:
+// m2m_gmlp_workspace_bytes(..., 0, bf16, ...) bytes.
 int m2m_gmlp_fwd(const float* x, float* y, int B, int N, int D, int F, int tanh_flavor,
-                 const unsigned* keys, unsigned thresh, float scale, int device,
+                 const unsigned* keys, unsigned thresh, float scale, int bf16, int device,
                  const void* const* ptrs, void* workspace, void* stream) {
-  if (check_args(B, N, D, F)) return -1;
-  M2M_TRY(cudaSetDevice(device));
-  Plan pl;
-  const int code = make_plan(B, N, D, F, device, pl);
-  if (code) return code;
-  // m16 token tiles: 8 on 16 warps, else 4 on 8 warps
-  auto sgu_fwd = pl.wide_sgu ? sgu_fwd_kernel<8, 4> : sgu_fwd_kernel<4, 2>;
-  M2M_TRY(prepare(sgu_fwd, pl.sgu_fwd_smem, device));
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout dp = make_dropout(keys, 1, thresh, scale);
-  float* ws = static_cast<float*>(workspace);
-  const int R = B * N, H = F / 2;
-  auto q = [ptrs](int i) { return static_cast<const float*>(ptrs[i]); };
-  // 1. xn = LN(x)
-  ln_rows_kernel<<<ceil_div(R, kThreads / 32), kThreads, 0, st>>>(x, q(0), q(1), ws + pl.xn,
-                                                                  nullptr, nullptr, R, D, dp);
-  M2M_TRY(cudaGetLastError());
-  // 2. h = gelu((xn W_in + b_in) m0) (gmlp_kernel.py:62-65)
-  M2M_TRY(tc_gemm_auto(View{ws + pl.xn, D, 1}, View{q(2), F, 1}, ws + pl.act, R, F, D, pl.sms,
-                       st, EpiBiasMaskGelu{EpiBiasMask{q(3), kMaskIn, F, dp}, tanh_flavor}));
-  // 3. LN(v)'s statistics (:68)
-  vstats_kernel<false><<<ceil_div(R, kThreads / 32), kThreads, 0, st>>>(ws + pl.act,
-                                                                        ws + pl.vstats, R, F, 0);
-  M2M_TRY(cudaGetLastError());
-  // 4. gated = u (LN(v) sgu_w + sgu_b) m1 (:67-75)
-  sgu_fwd<<<dim3(pl.nsplit, B), pl.wide_sgu ? 512 : 256, pl.sgu_fwd_smem, st>>>(
-      ws + pl.act, ws + pl.vstats, ws + pl.gated, sgu_params(ptrs), N, F, dp);
-  M2M_TRY(cudaGetLastError());
-  // 5. y = x + (gated W_out + b_out) m2 (:77-80)
-  return tc_gemm_auto(View{ws + pl.gated, H, 1}, View{q(8), D, 1}, y, R, D, H, pl.sms, st,
-                      EpiResidual{EpiBiasMask{q(9), kMaskOut, D, dp}, x});
+  if (bf16)
+    return gmlp_fwd<true>(x, y, B, N, D, F, tanh_flavor, keys, thresh, scale, device, ptrs,
+                          workspace, stream);
+  return gmlp_fwd<false>(x, y, B, N, D, F, tanh_flavor, keys, thresh, scale, device, ptrs,
+                         workspace, stream);
 }
 
 // K3b: dx and the 10 parameter gradients (float32, GmlpBlockParams order) of
 // one GatingMlpBlock at input x for output gradient g, the forward's masks
-// regenerated from the same keys; workspace: m2m_gmlp_workspace_bytes(..., 1, ...).
+// regenerated from the same keys; bf16: bf16 compute; workspace:
+// m2m_gmlp_workspace_bytes(..., 1, bf16, ...).
 int m2m_gmlp_bwd(const float* x, const float* g, float* dx, int B, int N, int D, int F,
-                 int tanh_flavor, const unsigned* keys, unsigned thresh, float scale, int device,
-                 const void* const* ptrs, void* const* grads, void* workspace, void* stream) {
-  if (check_args(B, N, D, F)) return -1;
-  M2M_TRY(cudaSetDevice(device));
-  Plan pl;
-  const int code = make_plan(B, N, D, F, device, pl);
-  if (code) return code;
-  auto sgu_bwd = pl.wide_sgu ? sgu_bwd_kernel<8, 4> : sgu_bwd_kernel<4, 2>;
-  M2M_TRY(prepare(sgu_bwd, pl.sgu_bwd_smem, device));
-  M2M_TRY(prepare(vln_bwd_kernel, pl.vln_smem, device));
-  M2M_TRY(prepare(ln_bwd_kernel<false>, pl.ln_smem, device));
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout dp = make_dropout(keys, 1, thresh, scale);
-  float* ws = static_cast<float*>(workspace);
-  const int R = B * N, H = F / 2;
-  const float* w_in = static_cast<const float*>(ptrs[2]);
-  const float* w_out = static_cast<const float*>(ptrs[8]);
-  float* const* gq = reinterpret_cast<float* const*>(grads);
-  // xn = LN(x), dout = g m2; then pm = (xn W_in + b_in) m0 on the tensor cores
-  ln_rows_kernel<<<ceil_div(R, kThreads / 32), kThreads, 0, st>>>(
-      x, static_cast<const float*>(ptrs[0]), static_cast<const float*>(ptrs[1]), ws + pl.xn, g,
-      ws + pl.dout, R, D, dp);
-  M2M_TRY(cudaGetLastError());
-  M2M_TRY(tc_gemm_wide(View{ws + pl.xn, D, 1}, View{w_in, F, 1}, ws + pl.act, R, F, D, D, 1, st,
-                       EpiBiasMask{static_cast<const float*>(ptrs[3]), kMaskIn, F, dp}));
-  // dgated = dout W_out^T (gmlp_kernel.py:77)
-  M2M_TRY(tc_gemm_wide(View{ws + pl.dout, D, 1}, View{w_out, 1, D}, ws + pl.dg, R, H, D, D, 1,
-                       st));
-  vstats_kernel<true><<<ceil_div(R, kThreads / 32), kThreads, 0, st>>>(ws + pl.act,
-                                                                       ws + pl.vstats, R, F,
-                                                                       tanh_flavor);
-  M2M_TRY(cudaGetLastError());
-  sgu_bwd<<<dim3(pl.nsplit, B), pl.wide_sgu ? 512 : 256, pl.sgu_bwd_smem, st>>>(
-      ws + pl.act, ws + pl.dg, ws + pl.vstats, ws + pl.gated, ws + pl.dpre, ws + pl.p_sgu,
-      sgu_params(ptrs), N, F, tanh_flavor, dp);
-  M2M_TRY(cudaGetLastError());
-  vln_bwd_kernel<<<pl.tiles, kThreads, pl.vln_smem, st>>>(
-      ws + pl.act, ws + pl.dpre, static_cast<const float*>(ptrs[4]), ws + pl.p_vln, R, F,
-      tanh_flavor, dp);
-  M2M_TRY(cudaGetLastError());
-  // dxn = dpre W_in^T (:62), slices of F
-  M2M_TRY(tc_gemm_wide(View{ws + pl.dpre, F, 1}, View{w_in, 1, F}, ws + pl.dxnp, R, D, F,
-                       pl.xslice, pl.xsplit, st));
-  // dW_in = xn^T dpre, dW_out = gated^T dout: slices of the rows
-  M2M_TRY(tc_gemm_wide(View{ws + pl.xn, 1, D}, View{ws + pl.dpre, F, 1}, ws + pl.p_win, D, F, R,
-                       pl.wslice, pl.wsplit, st));
-  M2M_TRY(tc_gemm_wide(View{ws + pl.gated, 1, H}, View{ws + pl.dout, D, 1}, ws + pl.p_wout, H, D,
-                       R, pl.wslice, pl.wsplit, st));
-  ColJobs<2> cj = {};
-  cj.job[0] = ColJob{ws + pl.dpre, F, F, ws + pl.p_col};
-  cj.job[1] = ColJob{ws + pl.dout, D, D, ws + pl.p_col + (size_t)pl.wsplit * F};
-  col_slices_kernel<2><<<dim3(ceil_div(F > D ? F : D, kThreads), pl.wsplit, 2), kThreads, 0, st>>>(
-      cj, R, pl.wslice);
-  M2M_TRY(cudaGetLastError());
-  // the LN backward over D plus the residual g (:61, :80), dxn's slices in order
-  ln_bwd_kernel<false><<<pl.tiles, kThreads, pl.ln_smem, st>>>(
-      x, ws + pl.dxnp, pl.xsplit, g, static_cast<const float*>(ptrs[0]), dx, ws + pl.p_ln, R, D,
-      kRowTile);
-  M2M_TRY(cudaGetLastError());
-  const int NN = N * N;
-  RedJobs<kRedJobs> rj = {};
-  rj.job[0] = RedJob{ws + pl.p_ln, pl.tiles, 2 * D, gq[0], D, gq[1]};
-  rj.job[1] = RedJob{ws + pl.p_vln, pl.tiles, 2 * H, gq[4], H, gq[5]};
-  rj.job[2] = RedJob{ws + pl.p_sgu, B * pl.nsplit, NN + N, gq[6], NN, gq[7]};
-  rj.job[3] = RedJob{ws + pl.p_win, pl.wsplit, D * F, gq[2], D * F, nullptr};
-  rj.job[4] = RedJob{ws + pl.p_wout, pl.wsplit, H * D, gq[8], H * D, nullptr};
-  rj.job[5] = RedJob{ws + pl.p_col, pl.wsplit, F, gq[3], F, nullptr};
-  rj.job[6] = RedJob{ws + pl.p_col + (size_t)pl.wsplit * F, pl.wsplit, D, gq[9], D, nullptr};
-  // the grid covers the longest job: dW_in, or d sgu_w + d sgu_b where N^2 + N > D*F
-  int longest = 0;
-  for (const RedJob& j : rj.job) longest = j.P > longest ? j.P : longest;
-  reduce_jobs_kernel<kRedJobs><<<dim3(ceil_div(longest, kThreads), kRedJobs), kThreads, 0, st>>>(rj);
-  return (int)cudaGetLastError();
+                 int tanh_flavor, const unsigned* keys, unsigned thresh, float scale, int bf16,
+                 int device, const void* const* ptrs, void* const* grads, void* workspace,
+                 void* stream) {
+  if (bf16)
+    return gmlp_bwd<true>(x, g, dx, B, N, D, F, tanh_flavor, keys, thresh, scale, device, ptrs,
+                          grads, workspace, stream);
+  return gmlp_bwd<false>(x, g, dx, B, N, D, F, tanh_flavor, keys, thresh, scale, device, ptrs,
+                         grads, workspace, stream);
 }
 
 }  // extern "C"

@@ -91,15 +91,17 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// mean and 1/sqrt(var + eps) of one row, by one warp (float32 statistics)
+// mean and 1/sqrt(var + eps) of one row, by one warp (float32 statistics;
+// kBF16: of the row's values rounded to bf16)
+template <bool kBF16 = false>
 __device__ __forceinline__ void row_stats(const float* xr, int D, float& mean, float& inv) {
   const int lane = threadIdx.x & 31;
   float sum = 0.f;
-  for (int d = lane; d < D; d += 32) sum += xr[d];
+  for (int d = lane; d < D; d += 32) sum += rd<kBF16>(xr[d]);
   mean = warp_sum(sum) / D;
   float sq = 0.f;
   for (int d = lane; d < D; d += 32) {
-    const float t = xr[d] - mean;
+    const float t = rd<kBF16>(xr[d]) - mean;
     sq += t * t;
   }
   inv = rsqrtf(warp_sum(sq) / D + 1e-5f);

@@ -34,12 +34,12 @@
 // product. The forwards' weights (W_in, W_out, W_o) are small enough to be laid
 // K-major once per call, which would lift that obstacle for their products;
 // that is left to the work on the tile's own rate (ROADMAP.md).
-// The bf16 kernels (the mixer's pipelines, the DynaMixerOp's) run their products
-// on this tile too: an operand that holds bf16 values is exact in TF32, so its
-// small half is zero and the products with it go (kExact): two of the three
-// remain where one operand is bf16 (2xTF32), one where both are (1xTF32, each
-// mma's sum added to the accumulator in float32, see mma_3xtf32). Their
-// operands stay float32 in memory.
+// The bf16 kernels (the mixer's pipelines, the gMLP block's, the DynaMixerOp's)
+// run their products on this tile too: an operand that holds bf16 values is
+// exact in TF32, so its small half is zero and the products with it go
+// (kExact): two of the three remain where one operand is bf16 (2xTF32), one
+// where both are (1xTF32, each mma's sum added to the accumulator in float32,
+// see mma_3xtf32). Their operands stay float32 in memory.
 
 #pragma once
 
@@ -314,12 +314,15 @@ struct EpiBiasMaskGelu {
     return gelu(pre(r, c, v), tanh_flavor);
   }
 };
-// res[r * ld + c] + EpiBiasMask's value (a residual branch's output)
+// res[r * ld + c] + EpiBiasMask's value (a residual branch's output); kBF16: a
+// bf16 addition of the two rounded to bf16
+template <bool kBF16 = false>
 struct EpiResidual {
   EpiBiasMask branch;
   const float* res;
   __device__ __forceinline__ float operator()(int r, int c, float v) const {
-    return __ldg(res + (size_t)r * branch.ld + c) + branch(r, c, v);
+    return rd<kBF16>(rd<kBF16>(__ldg(res + (size_t)r * branch.ld + c)) +
+                     rd<kBF16>(branch(r, c, v)));
   }
 };
 

@@ -607,13 +607,71 @@ def test_gmlp_block_module_trains_on_cuda(cuda):
 
 
 def test_gmlp_kernels_raise_on_cuda(cuda):
+    """What the kernels do not take raises: a compute dtype other than float32
+    and bf16 (bf16 launches, counted apart), more than 128 tokens."""
     p = gmlp_params_on(cuda, **GMLP_SHAPES["small"])
     x = torch.randn(2, 6, 16, device=cuda)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        gk.fused_gmlp_block(x, p, compute_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        gk.fused_gmlp_block(x, p, compute_dtype=torch.float16)
+    before = gk.fused_gmlp_block.bf16_launches
+    gk.fused_gmlp_block(x, p, compute_dtype=torch.bfloat16)
+    assert gk.fused_gmlp_block.bf16_launches == before + 1
     big = gmlp_params_on(cuda, N=129, D=16, F=32)
     with pytest.raises(ValueError, match="at most 128 tokens"):
         gk.fused_gmlp_block(torch.randn(2, 129, 16, device=cuda), big)
+
+
+# the gMLP block in bf16 compute: which of dx and the 10 gradients a bf16 cast
+# rounds (all but b_in, sgu_b and b_out, which add in float32)
+GMLP_ROUNDED = (True, True, True, True, False, True, True, True, False, True, False)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("approx", [False, True], ids=["erf", "tanh"])
+@pytest.mark.parametrize("shape", sorted(GMLP_SHAPES) + sorted(GMLP_TC_SHAPES))
+def test_gmlp_bf16_kernels_match_plain(cuda, shape, approx, rate):
+    """bf16 K3f against the plain bf16 version (assert_close's bf16 check)
+    and bf16 K3b against its autograd (bf16_grads_close, at most 10% of the
+    rounded elements differing), float32 parameters rounded where JAX casts
+    them; bf16 launches counted apart; two backward runs bit-identical."""
+    geom = dict(GMLP_SHAPES.get(shape) or GMLP_TC_SHAPES[shape])
+    B = geom.pop("B", 33)
+    p = gmlp_params_on(cuda, seed=4, **geom)
+    x = torch.randn(B, geom["N"], geom["D"], device=cuda)
+    g = torch.randn_like(x)
+    bf16 = torch.bfloat16
+    before = (gk.fused_gmlp_block.bf16_launches, gk.fused_gmlp_block_bwd.bf16_launches)
+    out = gk.fused_gmlp_block(x, p, seed=5, dropout_rate=rate, compute_dtype=bf16,
+                              approximate_gelu=approx)
+    assert_close(out, gk.gmlp_block_reference(x, p, rate, approx, seed=5, compute_dtype=bf16),
+                 True)
+    run = lambda: gk.fused_gmlp_block_bwd(x, g, p, seed=5, dropout_rate=rate,
+                                          compute_dtype=bf16, approximate_gelu=approx)
+    dx, grads = run()
+    assert (gk.fused_gmlp_block.bf16_launches, gk.fused_gmlp_block_bwd.bf16_launches) == \
+        (before[0] + 1, before[1] + 1)
+    want_dx, want = gk.gmlp_block_bwd_reference(x, g, p, rate, approx, seed=5,
+                                                 compute_dtype=bf16)
+    bf16_grads_close((dx, *grads), (want_dx, *want), GMLP_ROUNDED, 0.10)
+    dx2, grads2 = run()
+    assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+
+
+def test_gmlp_bf16_block_module_trains_on_cuda(cuda):
+    """A bf16 PallasGatingMlpBlock keeps float32 parameters on the card and
+    gets a non-zero float32 gradient for each, through bf16 K3f and K3b."""
+    from m2mixer_tpu_torch.modules import pallas_blocks as pb
+
+    m = pb.PallasGatingMlpBlock(32, 64, 7, dtype=torch.bfloat16,
+                                generator=torch.Generator().manual_seed(0))
+    m = m.to(cuda).train()
+    before = (gk.fused_gmlp_block.bf16_launches, gk.fused_gmlp_block_bwd.bf16_launches)
+    m(torch.randn(5, 7, 32, device=cuda)).square().sum().backward()
+    assert (gk.fused_gmlp_block.bf16_launches, gk.fused_gmlp_block_bwd.bf16_launches) == \
+        (before[0] + 1, before[1] + 1)
+    for name, prm in m.named_parameters():
+        assert prm.dtype == torch.float32 and prm.grad.dtype == torch.float32, name
+        assert prm.grad.abs().sum().item() > 0, name
 
 
 # ----------------------------------------------------------------- DynaMixer

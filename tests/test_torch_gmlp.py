@@ -12,7 +12,8 @@
   interpret mode is held to the port's block in
   ``tests/test_torch_gmlp_kernel.py``), and ``serving export --pallas``
   against the plain artifact;
-- stochastic depth and the float32-only kernel blocks.
+- stochastic depth, and the kernel blocks at bf16 on the CPU route
+  (``tests/test_torch_gmlp_bf16.py`` holds the bf16 numbers to JAX's).
 
 Tolerances are relative to the reference's magnitude, ``TOL x max(1,
 max|JAX|)``: the token projection starts at bias 1, so activations grow
@@ -293,12 +294,31 @@ def test_depth_draws_keep_the_survival_share_on_their_own_stream():
     assert torch.equal(task.dropout_rng.host.get_state(), seeds)
 
 
-def test_bf16_kernel_blocks_raise_on_the_cpu_route():
+def test_bf16_kernel_blocks_raise_on_the_cpu_route(monkeypatch):
+    """At ``model.precision: bf16`` the kernel block types no longer raise on
+    the CPU route: every block calls ``fused_gmlp_block`` in bf16 compute on
+    float32 parameters, the network answers with finite logits, and its
+    parameters get float32 gradients (tests/test_torch_gmlp_bf16.py holds
+    the numbers to JAX's)."""
     cfg = cut_depth(load(GMLP_CFG))
     cfg.model.precision = "bf16"
     for key in ("image", "audio"):
         cfg.model.modalities[key].block_type = "PallasVisiongMLP"
     cfg.model.modalities.multimodal.block_type = "PallasFusiongMLP"
     task = _build_task(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        task.network(**task.network_inputs({k: torch.from_numpy(v) for k, v in batch(1).items()}))
+    dtypes = []
+    real = tpb.fused_gmlp_block
+
+    def spy(x, params, seed, rate, compute_dtype, approx):
+        dtypes.append((compute_dtype, {p.dtype for p in params}))
+        return real(x, params, seed, rate, compute_dtype, approx)
+
+    monkeypatch.setattr(tpb, "fused_gmlp_block", spy)
+    out = task.network(**task.network_inputs({k: torch.from_numpy(v) for k, v in batch(2).items()}))
+    assert dtypes == [(torch.bfloat16, {torch.float32})] * 3
+    logits = [out["logits"], *out["branch_logits"]]
+    assert all(torch.isfinite(t.float()).all() for t in logits)
+    sum(t.float().sum() for t in logits).backward()
+    for name, prm in task.network.named_parameters():
+        assert prm.dtype == torch.float32 and prm.grad is not None, name
+        assert prm.grad.dtype == torch.float32, name

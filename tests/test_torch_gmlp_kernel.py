@@ -153,9 +153,24 @@ def test_forward_with_dropout_is_the_masked_plain_math():
 
 
 def test_bf16_raises_on_the_cpu_route():
+    """bf16 compute no longer raises on the CPU route: the forward and the
+    backward are the plain bf16 version and its autograd (the output on the
+    bf16 grid, apart from the float32 one; the gradients float32); a compute
+    dtype the kernels do not take still raises."""
     x, g, params = case(4, **SHAPES["narrow"])
     xt, p = torch.from_numpy(x), tg.GmlpBlockParams(*map(torch.from_numpy, params))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tg.fused_gmlp_block(xt, p, compute_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tg.fused_gmlp_block_bwd(xt, torch.from_numpy(g), p, compute_dtype=torch.bfloat16)
+    bf16 = torch.bfloat16
+    out = tg.fused_gmlp_block(xt, p, compute_dtype=bf16)
+    assert out.dtype == torch.float32
+    assert torch.equal(out, tg.gmlp_block_reference(xt, p, compute_dtype=bf16))
+    assert torch.equal(out, out.to(bf16).float())
+    assert not torch.equal(out, tg.fused_gmlp_block(xt, p))
+    gt = torch.from_numpy(g)
+    dx, grads = tg.fused_gmlp_block_bwd(xt, gt, p, compute_dtype=bf16)
+    want_dx, want = tg.gmlp_block_bwd_reference(xt, gt, p, compute_dtype=bf16)
+    assert torch.equal(dx, want_dx) and all(torch.equal(a, b) for a, b in zip(grads, want))
+    assert all(t.dtype == torch.float32 for t in (dx, *grads))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tg.fused_gmlp_block(xt, p, compute_dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tg.fused_gmlp_block_bwd(xt, gt, p, compute_dtype=torch.float16)
