@@ -7,7 +7,9 @@
 With no arguments it runs every phase below. ``--kernel-times`` only builds
 and prints the times of all eight kernels: K1f, K2f, K1b and K2b (the
 encoder and fusion stacks), K3f and K3b (encoder and fusion shape), K4f and
-K4b at batch 32 and 512; the device time of each launch of one K1f call at
+K4b at batch 32 and 512, and bf16 K1b and K2b at the L fusion shape at batch
+512 (each launch of one call in launch order, and K1b's five channel
+products summed); the device time of each launch of one K1f call at
 each shape at batch 512 and of one K1b call at each shape and batch; the
 host time to enqueue one K1b call; and the B config's served forward and
 train step at batch 32 and 512 (plain modules and both kernel block types),
@@ -68,7 +70,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    shapes at batch 512 (the token weight gradients sum B*D = 262144 rows),
    against autograd of their plain versions on the card, each tensor's error
    relative to max(1, max|plain|) beside the rows of the slices the plan
-   sums the weight gradients over;
+   sums the weight gradients over; and the bf16 wgmma engine's five channel
+   products alone (``m2m_wg_product``, K1b's layouts, da3 as three bf16
+   planes) at the L fusion shape, batch 512, each against the float64
+   product of the same values, relative to its largest magnitude;
 7. serving: export the B config (``cfg/avmnist/avmnist_m2-mixer_B.yml``, full
    width and depth, seeded weights) through ``serving export --pallas`` (one
    stack kernel per mixer), and through ``to_torch_kernel_serving(...,
@@ -183,12 +188,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     product that the port never calls, and K1b's also as one bf16
     ``torch.matmul``; then the bf16 K1b and K2b alone at the encoder and
     fusion shapes at batch 32 and 512 with their plain versions, their
-    bound at the dense bf16 peak and at the 2xTF32 rate, and the B_turbo
+    bound at the dense bf16 peak and their design bound (the wgmma engine's
+    nine bf16 passes and the token FF's products at their rate), each K2b
+    call's launches checked to run the channel products on the engine (three
+    ``wg_gemm_kernel`` launches a block, ``tc_gemm_kernel`` only for the
+    token FF), and the B_turbo
     served forward and train step at batch 32 and 512 on paths (a) and (b);
     then the routes this slice added: K1f, K2f, K1b and K2b at the three L
     shapes, batch 32 and 512, float32 and bf16, with their plain versions,
-    bounds and tensor-core bounds (and the profiler's breakdown at the fusion
-    shape, batch 512); bf16 K4f and K4b; the L served forward
+    bounds and tensor-core bounds (bf16 K1b/K2b: the design bound), the
+    profiler's breakdown at the fusion shape, batch 512, and at batch 512 in
+    bf16 the engine check of K2b's launches and the device time of bf16 K1b's
+    five channel products; bf16 K4f and K4b; the L served forward
     and train step (plain, stacked, per-block) and the bf16 DynaMixer
     served forward, batch 32 and 512;
 16. one JSON line naming every ported kernel (the bf16 K4f/K4b, the bf16
@@ -407,9 +418,8 @@ def kernel_breakdown(torch, fn, what, calls: int = 10) -> dict:
         torch.cuda.synchronize()
     totals = {}
     for e in prof.key_averages():
-        if e.device_time_total > 0:  # kernels: "(anonymous namespace)::f<...>(args)" -> "f<...>"
-            name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
-            name = name.removeprefix("void ")
+        if e.device_time_total > 0:
+            name = kernel_name(e.key)
             us, n = totals.get(name, (0.0, 0))
             totals[name] = (us + e.device_time_total, n + e.count)
     rows = {}
@@ -421,6 +431,74 @@ def kernel_breakdown(torch, fn, what, calls: int = 10) -> dict:
         for name, (us, n) in sorted(rows.items(), key=lambda kv: -kv[1][0]):
             print(f"    {us:9.1f} us  x{n:g}  {name}")
     return rows
+
+
+def kernel_name(key: str) -> str:
+    """A profiler kernel key, "void (anonymous namespace)::f<...>(args)" -> "f<...>"."""
+    return key.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+
+
+def launch_sequence(torch, fn, calls: int = 3) -> list:
+    """[[kernel, device us], ...] of one call of ``fn`` in launch order
+    (``torch.profiler``'s kernel events): the last of ``calls`` calls after a
+    warm-up, since the trace can lose the window's first event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    per_call = round(len(events) / calls)
+    return [[kernel_name(e.name), e.time_range.elapsed_us()] for e in events[-per_call:]]
+
+
+def channel_products(seq) -> list:
+    """The channel FF's five products among one bf16 K1b call's launches (in
+    order): the wgmma engine's (``wg_gemm_kernel``: a3 and dh2 in one launch,
+    dz, dW3 with dW4^T), or, on a tree from before the engine, the tc_gemm
+    launches of a3 and dh2 (named by their epilogues), the one after them (dz)
+    and the last two (dW3, dW4)."""
+    wg = [row for row in seq if row[0].startswith("wg_gemm_kernel")]
+    if wg:
+        return wg
+    tc = [row for row in seq if row[0].startswith("tc_gemm_kernel")]
+    i = next(k for k, row in enumerate(tc) if "EpiChannelBwd" in row[0])
+    return [tc[k] for k in (i - 1, i, i + 1, len(tc) - 2, len(tc) - 1)]
+
+
+def check_engine_route(seq, what: str, blocks: int = 1) -> None:
+    """A bf16 K1b/K2b call ran its channel products on the wgmma engine: three
+    ``wg_gemm_kernel`` launches a block, and ``tc_gemm_kernel`` only for the
+    token FF's products (six a block on the token pipeline, none on the
+    register route)."""
+    names = [name for name, _ in seq]
+    wg = sum(n.startswith("wg_gemm_kernel") for n in names)
+    tc = sum(n.startswith("tc_gemm_kernel") for n in names)
+    token = any(n.startswith("tok_in_kernel") for n in names)
+    if wg != 3 * blocks or tc != (6 * blocks if token else 0):
+        raise AssertionError(f"{what}: {wg} wgmma-engine and {tc} tc_gemm launches for "
+                             f"{blocks} block(s) ({'token pipeline' if token else 'registers'})")
+    print(f"  {what}: channel products on the wgmma engine ({wg} launches; tc_gemm {tc}, the "
+          "token FF's)")
+
+
+def bf16_bwd_design_ms(B, N, D, T, C, token_products: bool) -> float:
+    """The bf16 K1b design's pass-count bound (ms) of one block: the channel
+    FF's nine bf16 passes on the wgmma engine (a3, dh2 and dW4 once, dz and dW3
+    three times, 2*B*N*D*C flops each) at the dense bf16 peak, and the token
+    FF's six products (2*B*D*N*T each) at the rate they run: on the token
+    pipeline four in 2xTF32 and the recomputed two in 1xTF32, on the register
+    route on the float32 CUDA cores."""
+    chan = 9 * 2 * B * N * D * C / PEAK["bf16"]
+    tok = 2 * B * D * N * T
+    tok_s = 4 * tok / TC_2XTF32 + 2 * tok / (2 * TC_2XTF32) if token_products \
+        else 6 * tok / PEAK["f32"]
+    return (chan + tok_s) * 1e3
 
 
 def device_busy_ms(torch, fn, calls: int = 3) -> float:
@@ -1229,7 +1307,7 @@ def phase_bf16_times(torch, mk, serving, Trainer, apply_overrides, load_cfg, syn
                      report, served):
     print("[13/16] bf16 K1b / K2b times (CUDA events, median of 5 runs of 20 calls), "
           "B_turbo served forward and train step")
-    times, tc = report["times_ms"], report.setdefault("bounds_2xtf32_ms", {})
+    times, design = report["times_ms"], report.setdefault("bounds_design_ms", {})
     for geom_name, geom, K in MIXER_STACKS:
         for B in (32, 512):
             tag = f"{geom_name}/B{B}"
@@ -1237,6 +1315,7 @@ def phase_bf16_times(torch, mk, serving, Trainer, apply_overrides, load_cfg, syn
                      if "bf16" in k}
             for name, fn in calls.items():
                 times[f"{name}/{tag}"] = cuda_ms(torch, fn)
+            check_engine_route(launch_sequence(torch, calls["K2b_bf16"]), f"K2b bf16 {tag}", K)
             if B == 512:
                 report.setdefault("breakdown_us", {})[f"K1b_bf16/{tag}"] = kernel_breakdown(
                     torch, calls["K1b_bf16"], f"K1b bf16 {tag}")
@@ -1248,16 +1327,17 @@ def phase_bf16_times(torch, mk, serving, Trainer, apply_overrides, load_cfg, syn
             report["bounds_ms"][f"K1b_bf16/{tag}"] = bound(flops, nbytes, "bf16")
             stack_bytes = K * (nbytes - act) + act + ln_bytes
             report["bounds_ms"][f"K2b_bf16/{tag}"] = bound(K * flops, stack_bytes, "bf16")
-            tc[f"K1b_bf16/{tag}"] = max(flops / TC_2XTF32, nbytes / HBM_BYTES_PER_S) * 1e3
-            tc[f"K2b_bf16/{tag}"] = max(K * flops / TC_2XTF32,
-                                        stack_bytes / HBM_BYTES_PER_S) * 1e3
+            one = bf16_bwd_design_ms(B, geom["N"], geom["D"], geom["T"], geom["C"], False)
+            design[f"K1b_bf16/{tag}"] = max(one, nbytes / HBM_BYTES_PER_S * 1e3)
+            design[f"K2b_bf16/{tag}"] = max(K * one, stack_bytes / HBM_BYTES_PER_S * 1e3)
             print(f"  {tag}: K1b bf16 {times[f'K1b_bf16/{tag}']:.4f} ms (plain "
                   f"{times[f'K1b_bf16_plain/{tag}']:.4f}, bf16-peak bound "
-                  f"{report['bounds_ms'][f'K1b_bf16/{tag}'][0]:.4f}, 2xTF32 bound "
-                  f"{tc[f'K1b_bf16/{tag}']:.4f}); K2b bf16 x{K} {times[f'K2b_bf16/{tag}']:.4f} ms "
-                  f"(plain {times[f'K2b_bf16_plain/{tag}']:.4f}, bf16-peak bound "
-                  f"{report['bounds_ms'][f'K2b_bf16/{tag}'][0]:.4f}, 2xTF32 bound "
-                  f"{tc[f'K2b_bf16/{tag}']:.4f})")
+                  f"{report['bounds_ms'][f'K1b_bf16/{tag}'][0]:.4f}, design bound "
+                  f"{design[f'K1b_bf16/{tag}']:.4f}); K2b bf16 x{K} "
+                  f"{times[f'K2b_bf16/{tag}']:.4f} ms (plain "
+                  f"{times[f'K2b_bf16_plain/{tag}']:.4f}, bf16-peak bound "
+                  f"{report['bounds_ms'][f'K2b_bf16/{tag}'][0]:.4f}, design bound "
+                  f"{design[f'K2b_bf16/{tag}']:.4f})")
     model, plain = served
     fwd = {"turbo_paired": serving.serve_fn(plain), "turbo_stacked": model.forward_device}
     times.update(b_served_times(torch, np, fwd))
@@ -1833,7 +1913,8 @@ def phase_error_rows(torch, mk, gk, dk, lib, report):
     slices the plan sums dW3/dW4 (dW_in/dW_out, dW_o/dW_c) over. Held to the
     unchanged gates (K1b: the mixer's, with its exactly-zero gradient)."""
     print("[6/16] 3xTF32 error against rows: K1b (encoder and fusion shape), K3b (encoder "
-          f"shape) and K4b at batch {' and '.join(map(str, ROWS_BATCHES))}")
+          f"shape) and K4b at batch {' and '.join(map(str, ROWS_BATCHES))}; the bf16 wgmma "
+          "engine's products against float64")
     out = report["error_vs_rows"] = {}
 
     def record(key, names, a, b, rslice, rows):
@@ -1881,6 +1962,7 @@ def phase_error_rows(torch, mk, gk, dk, lib, report):
         grad_err(torch, a, b, key)
         del got, want, a, b, x, g
         torch.cuda.empty_cache()
+    engine_errors(torch, lib, report)
     names3 = ["dx", *gk.GmlpBlockParams._fields]
     names4 = ["dx", *dk.DynaMixerOpParams._fields]
     p3 = gmlp_params(gk, torch, seed=35, **GMLP_ENC)
@@ -1908,6 +1990,56 @@ def phase_error_rows(torch, mk, gk, dk, lib, report):
             rel_err(torch, a, b, f"{kernel}/B{B}")
         del got, want, x, g, cases
         torch.cuda.empty_cache()
+
+
+def engine_errors(torch, lib, report) -> None:
+    """The bf16 route's five channel products alone (``m2m_wg_product``: the
+    wgmma engine in the layouts K1b runs them in, the whole depth in one
+    slice) at the L fusion shape, batch 512 (R = 40960 rows, D 512, C 4096),
+    on operands drawn as the block's: z, W3, W4^T and h2 bf16, da4 bf16 times
+    a keep bit, da3 float32 as its three bf16 planes. Each output's error
+    against the float64 product of the same values (for dz and dW3: of the
+    float32 da3, so the split's own error counts), relative to its largest
+    magnitude."""
+    import ctypes
+
+    geom = L_GEOMS[2][1]
+    R, D, C = 512 * geom["N"], geom["D"], geom["C"]
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    bf = torch.bfloat16
+    rand = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")  # noqa: E731
+    z = rand(R, D).to(bf)
+    w3, w4t = (rand(D, C) / D ** 0.5).to(bf), (rand(D, C) / C ** 0.5).to(bf)
+    da4 = (rand(R, D) * (torch.rand(R, D, generator=gen, device="cuda") < 0.5)).to(bf)
+    h2 = torch.nn.functional.gelu(rand(R, C)).to(bf)
+    da3 = rand(R, C) * 1e-3
+    planes = [da3.to(bf)]
+    planes.append((da3 - planes[0].float()).to(bf))
+    planes.append((da3 - planes[0].float() - planes[1].float()).to(bf))
+    # (A planes, A K-major, B planes, B K-major, M, N, K, float64 reference)
+    cases = {"a3": ([z], 1, [w3], 0, R, C, D, lambda: z.double() @ w3.double()),
+             "dh2": ([da4], 1, [w4t], 0, R, C, D, lambda: da4.double() @ w4t.double()),
+             "dz": (planes, 1, [w3], 1, R, D, C, lambda: da3.double() @ w3.double().t()),
+             "dW3": ([z], 0, planes, 0, D, C, R, lambda: z.double().t() @ da3.double()),
+             "dW4^T": ([da4], 0, [h2], 0, D, C, R, lambda: da4.double().t() @ h2.double())}
+    out = report.setdefault("engine_rel_err", {})
+    for name, (a, a_k, b, b_k, M, N, K, ref) in cases.items():
+        got = torch.empty(M, N, device="cuda")
+        code = lib.m2m_wg_product(a_k, b_k, len(a), len(b), M, N, K,
+                                  (ctypes.c_void_p * 3)(*[t.data_ptr() for t in a]),
+                                  a[0].shape[1], (ctypes.c_void_p * 3)(*[t.data_ptr() for t in b]),
+                                  b[0].shape[1], got.data_ptr(), 0,
+                                  torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"m2m_wg_product {name}: {lib.m2m_error_string(code).decode()}")
+        want = ref()
+        out[f"L_fusion/B512/{name}"] = ((got.double() - want).abs().max() /
+                                        want.abs().max()).item()
+        del got, want
+    print("  the wgmma engine's channel products at the L fusion shape, batch 512, error / "
+          "max|float64|: " + ", ".join(f"{k.split('/')[-1]} {v:.2e}" for k, v in out.items()))
+    del z, w3, w4t, da4, h2, da3, planes
+    torch.cuda.empty_cache()
 
 
 def dyna_counters(dk):
@@ -2491,13 +2623,15 @@ def phase_new_route_times(torch, mk, dk, serving, Trainer, apply_overrides, load
                 bounds[f"K1b/{tag}"] = bound(bfl, bbytes, peak)
                 bounds[f"K2b/{tag}"] = bound(K * bfl, K * (bbytes - 1.5 * act) + 1.5 * act, peak)
                 # the tensor-core rate of the products as the kernels run them: 3xTF32 in
-                # float32; in bf16 1xTF32 forward (both operands bf16), 2xTF32 backward
+                # float32; in bf16 1xTF32 forward (both operands bf16), and the
+                # backward's design bound (the wgmma engine's nine passes and the
+                # token products)
                 f_rate = TC_3XTF32 if dtype == "f32" else 495e12
-                b_rate = TC_3XTF32 if dtype == "f32" else TC_2XTF32
                 tc[f"K1f/{tag}"] = ffl / f_rate * 1e3
                 tc[f"K2f/{tag}"] = K * ffl / f_rate * 1e3
-                tc[f"K1b/{tag}"] = bfl / b_rate * 1e3
-                tc[f"K2b/{tag}"] = K * bfl / b_rate * 1e3
+                tc[f"K1b/{tag}"] = bfl / TC_3XTF32 * 1e3 if dtype == "f32" else \
+                    bf16_bwd_design_ms(B, geom["N"], geom["D"], geom["T"], geom["C"], True)
+                tc[f"K2b/{tag}"] = K * tc[f"K1b/{tag}"]
                 print(f"  {tag}: " + "; ".join(
                     f"{n} {times[f'{n}/{tag}']:.4f} ms (plain {times[f'{n}_plain/{tag}']:.4f}, "
                     f"bound {bounds[f'{n}/{tag}'][0]:.4f}, tensor-core bound "
@@ -2506,6 +2640,13 @@ def phase_new_route_times(torch, mk, dk, serving, Trainer, apply_overrides, load
                     bd = report.setdefault("breakdown_us", {})
                     bd[f"K1f/{tag}"] = kernel_breakdown(torch, calls["K1f"], f"K1f {tag}")
                     bd[f"K1b/{tag}"] = kernel_breakdown(torch, calls["K1b"], f"K1b {tag}")
+                if dtype == "bf16" and B == 512:
+                    seq = launch_sequence(torch, calls["K2b"])
+                    check_engine_route(seq, f"K2b {tag}", K)
+                    prods = channel_products(launch_sequence(torch, calls["K1b"]))
+                    report.setdefault("channel_products_us", {})[f"K1b/{tag}"] = prods
+                    print(f"  K1b {tag}: the channel products {sum(us for _, us in prods):.1f} "
+                          "us (" + ", ".join(f"{us:.1f}" for _, us in prods) + ")")
                 del saved, calls
             del x, g
             torch.cuda.empty_cache()
@@ -2577,9 +2718,10 @@ def phase_new_route_times(torch, mk, dk, serving, Trainer, apply_overrides, load
 def product_yardsticks(torch, report) -> None:
     """Each product of K1b, K3f, K3b, K4f and K4b at batch 512 timed as one
     ``torch.matmul`` in float32 (TF32 off), and each of K1b's also as one bf16
-    ``torch.matmul`` (the bf16 K1b's yardstick): a yardstick per product, never
-    called by the port. Shapes (M x K x N); the SGU's token products are
-    batched over the sample's F/2 v-channels. K3f's in-projection and token
+    ``torch.matmul`` (the bf16 K1b's yardstick; at the B shapes and the L
+    fusion shape): a yardstick per product, never called by the port. Shapes
+    (M x K x N); the SGU's token products are batched over the sample's F/2
+    v-channels. K3f's in-projection and token
     product are K3b's in_proj and sgu t."""
     print("  per-product yardsticks, torch.matmul float32 (TF32 off), batch 512:")
     ys = report["product_library_ms"] = {}
@@ -2606,6 +2748,12 @@ def product_yardsticks(torch, report) -> None:
                                  "sgu d sgu_w": (N, 512 * H, N)}.items():
             mm(f"K3b/{geom_name}/B512/{prod}", M, K, Nn)
         mm(f"K3f/{geom_name}/B512/out_proj", R, H, D)
+    # the bf16 K1b's channel products at the L fusion shape, one bf16 matmul each
+    lf = L_GEOMS[2][1]
+    R, D, C = 512 * lf["N"], lf["D"], lf["C"]
+    for prod, (M, K, Nn) in {"a3": (R, D, C), "dh2": (R, D, C), "dz": (R, C, D),
+                             "dW3": (D, R, C), "dW4": (C, R, D)}.items():
+        mm(f"K1b_bf16/L_fusion/B512/{prod} (bf16 matmul)", M, K, Nn, torch.bfloat16)
     rows, C, HR = 7 * 512 * DYNA_OP["L"], DYNA_OP["C"], DYNA_OP["H"] * DYNA_OP["R"]
     mm("K4f/B512/out_proj", rows, C, C)
     for prod, (M, K, Nn) in {"d_mixed": (rows, C, C), "dW_o": (C, rows, C),
@@ -2680,9 +2828,12 @@ def kernel_times(torch, mk, gk, dk) -> dict:
     bf16 compute), K3f and K3b (encoder and fusion shape), K4f and K4b alone
     at batch 32 and 512 (CUDA events,
     median of 5 runs of 20 calls; the forwards float32 without dropout, as
-    served), the numbers the A/B compares; for one K1f call at each shape at
-    batch 512, and one K1b call at each shape and batch, the device time of
-    each launch; and the host time to enqueue one K1b call."""
+    served), and bf16 K1b and K2b (2 blocks + LN) at the L fusion shape at
+    batch 512 (5 calls a run) with the device time of each launch of one call
+    in launch order and, for K1b, the sum of its five channel products
+    (``channel_products``), the numbers the A/B compares; for one K1f call at
+    each shape at batch 512, and one K1b call at each shape and batch, the
+    device time of each launch; and the host time to enqueue one K1b call."""
     times, breakdown, host = {}, {}, {}
     for geom_name, geom, K in MIXER_STACKS:
         blocks, ln_s, ln_b = rand_blocks(mk, torch, K, seed=13, **geom)
@@ -2708,6 +2859,28 @@ def kernel_times(torch, mk, gk, dk) -> dict:
             g = torch.randn(B, geom["N"], geom["D"], generator=gen).cuda()
             times[f"K3f/{geom_name}/B{B}"] = cuda_ms(torch, lambda: gk.fused_gmlp_block(x, p))
             times[f"K3b/{geom_name}/B{B}"] = cuda_ms(torch, lambda: gk.fused_gmlp_block_bwd(x, g, p))
+    # bf16 K1b and K2b (the 2 blocks + LN) at the L fusion shape, batch 512: the
+    # redesigned route's main cost, with each launch of one call
+    geom = L_GEOMS[2][1]
+    blocks, ln_s, ln_b = rand_blocks(mk, torch, 2, seed=53, **geom)
+    flat = mk.stack_flat_params(blocks, ln_s, ln_b)
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(512, geom["N"], geom["D"], generator=gen).cuda()
+    g = torch.randn(512, geom["N"], geom["D"], generator=gen).cuda()
+    with torch.no_grad():
+        _, saved = mk._stack_forward(x, flat, 1, 0.5, torch.bfloat16, True, False, save=True)
+    calls = {"K1b_bf16": lambda: mk.fused_mixer_block_bwd(x, g, blocks[0], 1, 0.5, torch.bfloat16),
+             "K2b_bf16": lambda: mk.fused_mixer_stack_bwd(x, g, flat, 1, 0.5, torch.bfloat16,
+                                                          saved=saved)}
+    for name, fn in calls.items():
+        key = f"{name}/L_fusion/B512"
+        times[key] = cuda_ms(torch, fn, iters=5)
+        breakdown[key] = launch_sequence(torch, fn)
+        if name == "K1b_bf16":
+            prods = channel_products(breakdown[key])
+            times[f"{key}/channel_products"] = sum(us for _, us in prods) / 1e3
+    del x, g, saved, calls, blocks, flat
+    torch.cuda.empty_cache()
     H, R = DYNA_OP["H"], DYNA_OP["R"]
     p = dyna_params(dk, torch, seed=43, **DYNA_OP)
     try:
@@ -2927,7 +3100,7 @@ def main() -> int:
          "ms": t["K4b/B512"], "plain_ms": t["K4b_plain/B512"],
          "bound_ms": b8, "bound_by": by8, "library_ms": None},
         {"name": "mixer_bwd bf16 (K1b, one MixerBlock backward, bf16 compute, B=512 N=4 D=128 "
-                 "T=32 C=3072, dropout 0.5, products in 2xTF32)",
+                 "T=32 C=3072, dropout 0.5, channel products on bf16 wgmma)",
          "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/mixer_bwd.cu",
          "replaces": "m2mixer_tpu/ops/mixer_kernel.py:267",
          "launches": report["turbo_training_launches"]["K1b_bf16"],
@@ -2935,7 +3108,7 @@ def main() -> int:
          "ms": t["K1b_bf16/encoder/B512"], "plain_ms": t["K1b_bf16_plain/encoder/B512"],
          "bound_ms": b9, "bound_by": by9, "library_ms": None},
         {"name": "mixer_bwd bf16 (K2b, 4 MixerBlocks + LN backward, bf16 compute, B=512 N=4 "
-                 "D=128 T=32 C=3072, dropout 0.5, products in 2xTF32)",
+                 "D=128 T=32 C=3072, dropout 0.5, channel products on bf16 wgmma)",
          "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/mixer_bwd.cu",
          "replaces": "m2mixer_tpu/ops/mixer_kernel.py:506",
          "launches": report["turbo_training_launches"]["K2b_bf16"],
@@ -2983,7 +3156,7 @@ def main() -> int:
          "ms": t[f"K2f/{lf}"], "plain_ms": t[f"K2f_plain/{lf}"],
          "bound_ms": bd[f"K2f/{lf}"][0], "bound_by": bd[f"K2f/{lf}"][1], "library_ms": None},
         {"name": "mixer_bwd bf16 token pipeline (K1b, one MixerBlock backward, L fusion: B=512 "
-                 "N=80 D=512 T=256 C=4096, dropout 0.5)",
+                 "N=80 D=512 T=256 C=4096, dropout 0.5, channel products on bf16 wgmma)",
          "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/mixer_bwd.cu",
          "replaces": "m2mixer_tpu/ops/mixer_kernel.py:267",
          "launches": l_runs["per_block"]["K1b_token_ff"],
@@ -2991,7 +3164,7 @@ def main() -> int:
          "ms": t[f"K1b/{lf}"], "plain_ms": t[f"K1b_plain/{lf}"],
          "bound_ms": bd[f"K1b/{lf}"][0], "bound_by": bd[f"K1b/{lf}"][1], "library_ms": None},
         {"name": "mixer_bwd bf16 token pipeline (K2b, 2 MixerBlocks + LN backward, L fusion: "
-                 "B=512 N=80 D=512 T=256 C=4096, dropout 0.5)",
+                 "B=512 N=80 D=512 T=256 C=4096, dropout 0.5, channel products on bf16 wgmma)",
          "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/mixer_bwd.cu",
          "replaces": "m2mixer_tpu/ops/mixer_kernel.py:506",
          "launches": l_runs["stacked"]["K2b_token_ff"],

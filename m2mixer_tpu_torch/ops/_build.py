@@ -113,7 +113,7 @@ def _declare(lib):
     lib.m2m_mixer_fwd.argtypes = ([c_void_p] * 3 + [c_int] * 8 + dropout
                                   + [c_int, c_int] + [c_void_p] * 3)
     lib.m2m_mixer_fwd.restype = c_int
-    lib.m2m_mixer_bwd_workspace_bytes.argtypes = [c_int] * 8
+    lib.m2m_mixer_bwd_workspace_bytes.argtypes = [c_int] * 9
     lib.m2m_mixer_bwd_workspace_bytes.restype = c_size_t
     lib.m2m_mixer_bwd.argtypes = ([c_void_p] * 3 + [c_int] * 8 + dropout
                                   + [c_int, c_int] + [c_void_p] * 4)
@@ -126,6 +126,9 @@ def _declare(lib):
     lib.m2m_mixer_token_row_slice.restype = c_int
     lib.m2m_mixer_row_slice.argtypes = [c_int] * 6
     lib.m2m_mixer_row_slice.restype = c_int
+    lib.m2m_wg_product.argtypes = ([c_int] * 7 + [c_void_p, ctypes.c_longlong] * 2
+                                   + [c_void_p, c_int, c_void_p])
+    lib.m2m_wg_product.restype = c_int
     lib.m2m_gmlp_workspace_bytes.argtypes = [c_int] * 7
     lib.m2m_gmlp_workspace_bytes.restype = c_size_t
     lib.m2m_gmlp_row_slice.argtypes = [c_int] * 5

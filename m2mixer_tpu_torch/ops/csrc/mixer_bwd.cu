@@ -26,9 +26,12 @@
 // The biases b1..b4 add in float32 and their gradients are not rounded; the
 // float32 cotangents (da1, da2, da3, da4) are never rounded. JAX sums per-tile
 // bf16-rounded weight gradients over its grid; these kernels round once, after
-// their own sum over the batch. The products keep float32 sums: one operand of
-// each is a bf16 value, exact in TF32, so tc_gemm drops the products with its
-// zero small half (2xTF32; a3 = z W3, both operands bf16: 1xTF32).
+// their own sum over the batch. The products keep float32 sums, one operand of
+// each a bf16 value. The channel FF's five run on the wgmma engine
+// (wgmma_bf16.cuh: bf16 operands in the workspace, da4's dropout scale on the
+// sums, da3 as three bf16 planes); the token FF's, at the L shapes, on
+// tc_gemm, which drops the products with a bf16 operand's zero small half
+// (2xTF32; both operands bf16: 1xTF32).
 //
 // Design. The TPU kernel differentiates one batch tile in VMEM and sums the
 // parameter gradients over a sequential grid. Here the tiles run in parallel,
@@ -75,8 +78,12 @@
 // on the tensor cores in 3xTF32 (tile_common.cuh's tc_gemm: float32-accurate
 // at a third of the TF32 rate); the two of stage 2 take the 64x64 tile where
 // the wide one would leave SMs idle (batch 32). The rest is CUDA-core work on
-// memory. In bf16 the same pipeline runs with the header's roundings; its
-// products take two mma where float32 takes three (a3 one).
+// memory. In bf16 the same pipeline runs with the header's roundings, and its
+// channel products on wgmma_bf16.cuh's engine (its header has their bound):
+// stage 0 lays W3 and W4^T out in bf16 (Cp: C rounded up to 8), stage 1
+// writes z and da4 in bf16, stage 2 is one launch (a3, then dh2 over the same
+// tile; its epilogue writes h2 in bf16 and da3 as three bf16 planes), stages 3
+// and 5 read those, and stage 5 computes dW4^T (the reduction transposes it).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,19 +91,26 @@
 #include "mixer_common.cuh"
 #include "tile_common.cuh"
 #include "token_ff.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
 constexpr int kLnRows = 16;  // rows per CTA of the final LN's backward
 constexpr int kTr = 32;      // stage 0's transpose tile
 
+// how the channel FF's operands (w3p, w4t, z, da4, h2) lie in the workspace:
+// float32 for tc_gemm, bf16 for the wgmma engine (wgmma_bf16.cuh)
+template <bool kBF16>
+using ChanT = std::conditional_t<kBF16, __nv_bfloat16, float>;
+
 // stage 0: w3p[d, c] = w3[d, c], w4t[d, c] = w4[c, d] for c < C, zeros for
 // C <= c < Cp; a kTr x kTr tile a CTA, W4 transposed through shared memory.
-// kBF16: both rounded to bf16, the copies JAX's kernels read
+// kBF16: both in bf16, the copies JAX's kernels read
 template <bool kBF16>
 __global__ void __launch_bounds__(kTr * 8)
     pad_weights_kernel(const float* __restrict__ w3, const float* __restrict__ w4,
-                       float* __restrict__ w3p, float* __restrict__ w4t, int D, int C, int Cp) {
+                       ChanT<kBF16>* __restrict__ w3p, ChanT<kBF16>* __restrict__ w4t, int D,
+                       int C, int Cp) {
   __shared__ float tile[kTr][kTr + 1];
   const int c0 = blockIdx.x * kTr, d0 = blockIdx.y * kTr;
   const int tx = threadIdx.x % kTr, ty = threadIdx.x / kTr;
@@ -108,8 +122,8 @@ __global__ void __launch_bounds__(kTr * 8)
   for (int i = ty; i < kTr; i += 8) {  // rows d0 + i, columns c0 + tx of both
     const int d = d0 + i, c = c0 + tx;
     if (d >= D || c >= Cp) continue;
-    w3p[(size_t)d * Cp + c] = c < C ? rd<kBF16>(__ldg(w3 + (size_t)d * C + c)) : 0.f;
-    w4t[(size_t)d * Cp + c] = tile[tx][i];
+    w3p[(size_t)d * Cp + c] = to_operand<ChanT<kBF16>>(c < C ? __ldg(w3 + (size_t)d * C + c) : 0.f);
+    w4t[(size_t)d * Cp + c] = to_operand<ChanT<kBF16>>(tile[tx][i]);
   }
 }
 
@@ -123,9 +137,8 @@ struct EpiA3 {
 };
 // v = dh2: reads a3 from h2[r, c] (ld Cp) and writes h2 = gelu(a3) m2 there;
 // returns da3 = dh2 m2 gelu'(a3), zero in the pad. Each (r, c) is one
-// thread's, in this launch and in the a3 launch before it. kBF16: dh2 and h2
-// rounded to bf16 (h2 is the down product's bf16 operand).
-template <bool kBF16>
+// thread's, in this launch and in the a3 launch before it (float32 compute;
+// bf16's is EpiChannelWg).
 struct EpiChannelBwd {
   float* h2;
   int C, Cp, tanh_flavor, blk;
@@ -135,10 +148,77 @@ struct EpiChannelBwd {
     float* h = h2 + (size_t)r * Cp + c;
     const float a3 = *h;
     const float m2 = keep(dp, blk, 2, (uint32_t)r * C + c);
-    *h = rd<kBF16>(gelu(a3, tanh_flavor) * m2);
-    return rd<kBF16>(v) * m2 * gelu_grad(a3, tanh_flavor);
+    *h = gelu(a3, tanh_flavor) * m2;
+    return v * m2 * gelu_grad(a3, tanh_flavor);
   }
 };
+
+// The bf16 route's stage 2 epilogue (wgmma_bf16.cuh, two products in
+// sequence): columns c and c + 1 of row r with a3's sums (before b3) and
+// dh2's (before da4's dropout scale) -> h2 = rd(gelu(a3) m2) and da3 =
+// rd(dh2) m2 gelu'(a3) as its three bf16 planes (hi, mid, lo); zeros in the
+// pad columns C <= c < Cp. The engine writes them to h2 and the planes.
+struct EpiChannelWg {
+  static constexpr int kOuts = 4;  // h2, then da3's planes
+  const float* b3;
+  __nv_bfloat16* h2;   // (B*N) x Cp
+  __nv_bfloat16* da3;  // three planes of (B*N) x Cp
+  size_t plane;
+  int C, tanh_flavor, blk;
+  float scale;
+  Dropout dp;
+  __device__ __forceinline__ __nv_bfloat16* dst(int k) const {
+    return k ? da3 + (k - 1) * plane : h2;
+  }
+  __device__ __forceinline__ void operator()(int r, int c, float a0, float a1, float d0,
+                                             float d1, __nv_bfloat162 (&out)[kOuts]) const {
+    float h[2], t[3][2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int cc = c + e;
+      float hv = 0.f, x = 0.f;
+      if (cc < C) {
+        const float a3 = (e ? a1 : a0) + __ldg(b3 + cc);
+        const float m2 = keep(dp, blk, 2, (uint32_t)r * C + cc);
+        hv = rd<true>(gelu(a3, tanh_flavor) * m2);
+        x = rd<true>((e ? d1 : d0) * scale) * m2 * gelu_grad(a3, tanh_flavor);
+      }
+      h[e] = hv;
+      t[0][e] = rd<true>(x);
+      t[1][e] = rd<true>(x - t[0][e]);
+      t[2][e] = rd<true>(x - t[0][e] - t[1][e]);
+    }
+    out[0] = __floats2bfloat162_rn(h[0], h[1]);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) out[k + 1] = __floats2bfloat162_rn(t[k][0], t[k][1]);
+  }
+};
+
+// The bf16 route's stage 6: job blockIdx.z 0 writes p3[y * C + c] = the sum
+// over rows [y * rslice, (y + 1) * rslice) of da3[r, c] = hi + mid + lo (its
+// planes, row stride Cp), job 1 p4[y * D + d] = scale x the sum of da4[r, d]
+// (rd(g) times the keep bit); rows in order (db3, db4's slices).
+__global__ void __launch_bounds__(kThreads)
+    col_bf16_kernel(const __nv_bfloat16* __restrict__ da3, size_t plane,
+                    const __nv_bfloat16* __restrict__ da4, float scale, float* __restrict__ p3,
+                    float* __restrict__ p4, int R, int C, int Cp, int D, int rslice) {
+  const int job = blockIdx.z, width = job ? D : C;
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= width) return;
+  const int r0 = blockIdx.y * rslice, r1 = min(R, r0 + rslice);
+  Kahan v;
+  if (job == 0) {
+    for (int r = r0; r < r1; ++r) {
+      const size_t e = (size_t)r * Cp + c;
+      v.add(__bfloat162float(da3[e]) + __bfloat162float(da3[plane + e]) +
+            __bfloat162float(da3[2 * plane + e]));
+    }
+    p3[(size_t)blockIdx.y * C + c] = v.s;
+  } else {
+    for (int r = r0; r < r1; ++r) v.add(__bfloat162float(da4[(size_t)r * D + c]));
+    p4[(size_t)blockIdx.y * D + c] = scale * v.s;
+  }
+}
 
 // the 8 small parameters of a block (everything but w3, b3, w4, b4)
 struct Small {
@@ -153,11 +233,13 @@ struct Small {
 };
 
 // stage 1: LN1 -> token FF -> LN2 of the tile's rows again: z and da4 = g m3
-// (kBF16: at the forward's casts, and g rounded to bf16)
+// (kBF16: at the forward's casts, and g rounded to bf16; both stored in bf16,
+// da4 as rd(g) times m3's keep bit, token_ff.cuh's da4_operand)
 template <bool kBF16>
 __global__ void __launch_bounds__(kThreads)
-    prefix_kernel(const float* __restrict__ x, const float* __restrict__ g, float* __restrict__ z,
-                  float* __restrict__ da4, int B, int N, int T, int D, int tb, int tanh_flavor,
+    prefix_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                  ChanT<kBF16>* __restrict__ z, ChanT<kBF16>* __restrict__ da4, int B, int N,
+                  int T, int D, int tb, int tanh_flavor,
                   Small p, const __grid_constant__ Dropout dp, int blk) {
   extern __shared__ __align__(16) float sm[];
   const int s0 = blockIdx.x * tb, nb = min(tb, B - s0), R = nb * N;
@@ -175,8 +257,9 @@ __global__ void __launch_bounds__(kThreads)
   layer_norm_rows<kBF16>(xs, ys, R, D, p.ln2_s, p.ln2_b);
   __syncthreads();
   for (int e = threadIdx.x; e < R * D; e += kThreads) {
-    z[off + e] = ys[e];
-    da4[off + e] = rd<kBF16>(g[off + e]) * keep(dp, blk, 3, (uint32_t)(off + e));
+    z[off + e] = to_operand<ChanT<kBF16>>(ys[e]);
+    da4[off + e] =
+        da4_operand<kBF16, ChanT<kBF16>>(g[off + e], keep(dp, blk, 3, (uint32_t)(off + e)));
   }
 }
 
@@ -389,6 +472,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 struct Plan {
+  int bf16;        // bf16 compute: the channel products on the wgmma engine, their
+                   // operands in bf16
+  int device;
   int sms;         // the card's SMs (the tile rule of stage 2's products)
   int reg;         // 1: stages 1 and 4 on row tiles of whole samples (N <= kMaxTokens,
                    // and one sample's rows fit them); 0: token_ff.cuh's pipeline and its
@@ -397,7 +483,8 @@ struct Plan {
   int tiles;       // row tiles
   int nc;          // tokens per row tile (token pipeline)
   int ln_tiles;    // CTAs of kLnRows rows of an LN backward (token pipeline)
-  int Cp;          // C rounded up to whole 16-byte groups: the row stride of h2, da3, W3 and W4^T
+  int Cp;          // C rounded up to whole 16-byte groups (of float32, or of bf16 in
+                   // bf16 compute): the row stride of h2, da3, W3 and W4^T
   int ksplit;      // slices of C in stage 3
   int kslice;      // hidden units per slice
   int wsplit;      // slices of the rows in stage 5's products
@@ -408,7 +495,8 @@ struct Plan {
   int tcsplit, tcslice;  // db1 and db2's column sums: slices of the B*D rows
   size_t prefix_smem, rows_smem;
   size_t ws_floats;  // workspace
-  // workspace offsets (floats, each a multiple of 4: 16-byte aligned)
+  // workspace offsets (floats, each a multiple of 4: 16-byte aligned); in bf16
+  // compute w3p, w4t, z, da4 and h2 hold bf16, da3 its three bf16 planes
   size_t w3p, w4t, z, da4, h2, da3, dzp, p_w3, p_w4, p_col, part, ping;
   // the token pipeline's: rounded w1 and w2 (bf16), x1, LN1 out transposed, h,
   // a1, da1, the down product's output then dy transposed, da2, dx1, dy, and
@@ -427,12 +515,14 @@ void col_plan(long long R, int cols, int sms, int& slice, int& split) {
   split = ceil_div(R, slice);
 }
 
-int make_plan(int B, int N, int T, int D, int C, int n_blocks, int final_ln, int device,
-              Plan& pl) {
+int make_plan(int B, int N, int T, int D, int C, int n_blocks, int final_ln, int bf16,
+              int device, Plan& pl) {
   DeviceInfo dev;
   const cudaError_t err = device_info(device, dev);
   if (err != cudaSuccess) return err;
   const int sms = dev.sms;
+  pl.bf16 = bf16;
+  pl.device = device;
   pl.sms = sms;
   auto prefix_bytes = [=](int tb) {
     return (2 * (size_t)tb * N * D + 2 * (size_t)N * T + T + N) * 4;
@@ -466,11 +556,21 @@ int make_plan(int B, int N, int T, int D, int C, int n_blocks, int final_ln, int
     row_slices((long long)cols, t1 > t2 ? t1 : t2, sms, pl.tslice, pl.tsplit);
     col_plan((long long)cols, T > N ? T : N, sms, pl.tcslice, pl.tcsplit);
   }
-  pl.Cp = (C + 3) / 4 * 4;
-  // dz = da3 W3^T: (rows x D) tiles x slices of C
-  fill_slices(C, ceil_div(R, kTcBM) * ceil_div(D, kTcBN), sms, pl.kslice, pl.ksplit);
-  // dW3, dW4: dW3's few tiles x slices of the rows
-  row_slices(R, ceil_div(D, kTcBM) * ceil_div(C, kTcBN), sms, pl.wslice, pl.wsplit);
+  if (bf16) {
+    if (D % 8) return -1;  // z and da4's bf16 rows: whole 16-byte groups for TMA
+    pl.Cp = (C + 7) / 8 * 8;
+    // dz = da3 W3^T: 128 x 128 tiles x slices of C, about a CTA an SM
+    wg_slices(C, (long long)ceil_div(R, kWgBM) * ceil_div(D, kWgBN), sms, 1, pl.kslice,
+              pl.ksplit);
+    // dW3 and dW4^T (D x C each): slices of the rows, about two CTAs an SM
+    wg_slices(R, 2LL * ceil_div(D, kWgBM) * ceil_div(C, kWgBN), sms, 2, pl.wslice, pl.wsplit);
+  } else {
+    pl.Cp = (C + 3) / 4 * 4;
+    // dz = da3 W3^T: (rows x D) tiles x slices of C
+    fill_slices(C, ceil_div(R, kTcBM) * ceil_div(D, kTcBN), sms, pl.kslice, pl.ksplit);
+    // dW3, dW4: dW3's few tiles x slices of the rows
+    row_slices(R, ceil_div(D, kTcBM) * ceil_div(C, kTcBN), sms, pl.wslice, pl.wsplit);
+  }
   // db3, db4: a slice is one thread's serial sum
   col_plan(R, C, sms, pl.cslice, pl.csplit);
   size_t part = pl.reg ? (size_t)pl.tiles * small_floats(N, T, D) : 0;
@@ -478,12 +578,14 @@ int make_plan(int B, int N, int T, int D, int C, int n_blocks, int final_ln, int
   const size_t tok = pl.reg ? 0 : 1;  // the token pipeline's buffers, or none
   size_t o = 0;
   auto take = [&o](size_t& at, size_t floats) { at = o, o += (floats + 3) / 4 * 4; };
-  take(pl.w3p, (size_t)D * pl.Cp);
-  take(pl.w4t, (size_t)D * pl.Cp);
-  take(pl.z, rows * D);
-  take(pl.da4, rows * D);
-  take(pl.h2, rows * pl.Cp);
-  take(pl.da3, rows * pl.Cp);
+  // the channel operands: bf16 ones take half a float each
+  auto chan = [bf16](size_t n) { return bf16 ? (n + 1) / 2 : n; };
+  take(pl.w3p, chan((size_t)D * pl.Cp));
+  take(pl.w4t, chan((size_t)D * pl.Cp));
+  take(pl.z, chan(rows * D));
+  take(pl.da4, chan(rows * D));
+  take(pl.h2, chan(rows * pl.Cp));
+  take(pl.da3, (bf16 ? 3 : 1) * chan(rows * pl.Cp));
   take(pl.dzp, (size_t)pl.ksplit * rows * D);
   take(pl.p_w3, (size_t)pl.wsplit * D * C);
   take(pl.p_w4, (size_t)pl.wsplit * C * D);
@@ -564,9 +666,78 @@ int token_backward(const Plan& pl, float* ws, const float* x, const float* g, fl
   return (int)cudaGetLastError();
 }
 
+// The bf16 route's channel products on the wgmma engine (wgmma_bf16.cuh):
+// stage 2, a3 = z W3 and dh2 = da4 W4^T in one launch whose epilogue writes h2
+// and da3's planes; stage 3, dz = da3 W3^T (three passes a stage, slices of C)
+cudaError_t channel_bf16(const Plan& pl, float* ws, const float* b3, int B, int N, int D, int C,
+                         int tanh_flavor, const Dropout& dp, int blk, cudaStream_t st) {
+  const long long R = (long long)B * N, Cp = pl.Cp;
+  const size_t plane = (size_t)R * Cp;
+  const auto* z = reinterpret_cast<const __nv_bfloat16*>(ws + pl.z);
+  const auto* da4 = reinterpret_cast<const __nv_bfloat16*>(ws + pl.da4);
+  const auto* w3p = reinterpret_cast<const __nv_bfloat16*>(ws + pl.w3p);
+  const auto* w4t = reinterpret_cast<const __nv_bfloat16*>(ws + pl.w4t);
+  auto* h2 = reinterpret_cast<__nv_bfloat16*>(ws + pl.h2);
+  auto* da3 = reinterpret_cast<__nv_bfloat16*>(ws + pl.da3);
+  const float scale = dp.on ? dp.scale : 1.f;
+  cudaError_t e;
+  {  // a3 then dh2 over each 128 x 128 tile of (B*N) x Cp, depth D
+    WgArgs a = {};
+    const WgOperand rows_z{{z}, 1, R, D, D}, rows_da4{{da4}, 1, R, D, D};
+    if ((e = make_job<true, false>(a.job[0], rows_z, WgOperand{{w3p}, 1, D, Cp, Cp}, nullptr,
+                                   1.f)) != cudaSuccess ||
+        (e = make_job<true, false>(a.job[1], rows_da4, WgOperand{{w4t}, 1, D, Cp, Cp}, nullptr,
+                                   1.f)) != cudaSuccess)
+      return e;
+    a.M = (int)R, a.N = (int)Cp, a.K = D, a.kslice = D, a.slices = 1;
+    e = wg_gemm<true, false, 1, 1, 2, 64>(
+        a, 1, EpiChannelWg{b3, h2, da3, plane, C, tanh_flavor, blk, scale, dp},
+        pl.device, st);
+    if (e != cudaSuccess) return e;
+  }
+  // dz (B*N x D) = sum over the planes of da3_t W3^T, into stage 3's slices
+  WgArgs a = {};
+  const WgOperand planes{{da3, da3 + plane, da3 + 2 * plane}, 3, R, C, Cp};
+  if ((e = make_job<true, true>(a.job[0], planes, WgOperand{{w3p}, 1, D, C, Cp}, ws + pl.dzp,
+                                1.f)) != cudaSuccess)
+    return e;
+  a.M = (int)R, a.N = D, a.K = C, a.kslice = pl.kslice, a.slices = pl.ksplit;
+  return wg_gemm<true, true, 3, 1, 1, kWgBN>(a, 1, EpiWgStore{}, pl.device, st);
+}
+
+// The bf16 route's stage 5 and stage 6's column sums: dW3 = z^T da3 (three
+// passes) and dW4^T = da4^T h2 (x da4's dropout scale), D x C each, over
+// slices of the rows in one launch; db3 and db4's slices
+cudaError_t weight_grads_bf16(const Plan& pl, float* ws, int B, int N, int D, int C,
+                              const Dropout& dp, cudaStream_t st) {
+  const long long R = (long long)B * N, Cp = pl.Cp;
+  const size_t plane = (size_t)R * Cp;
+  const auto* z = reinterpret_cast<const __nv_bfloat16*>(ws + pl.z);
+  const auto* da4 = reinterpret_cast<const __nv_bfloat16*>(ws + pl.da4);
+  const auto* h2 = reinterpret_cast<const __nv_bfloat16*>(ws + pl.h2);
+  const auto* da3 = reinterpret_cast<const __nv_bfloat16*>(ws + pl.da3);
+  const float scale = dp.on ? dp.scale : 1.f;
+  WgArgs a = {};
+  cudaError_t e;
+  if ((e = make_job<false, false>(a.job[0], WgOperand{{z}, 1, R, D, D},
+                                  WgOperand{{da3, da3 + plane, da3 + 2 * plane}, 3, R, C, Cp},
+                                  ws + pl.p_w3, 1.f)) != cudaSuccess ||
+      (e = make_job<false, false>(a.job[1], WgOperand{{da4}, 1, R, D, D},
+                                  WgOperand{{h2}, 1, R, C, Cp}, ws + pl.p_w4, scale)) !=
+          cudaSuccess)
+    return e;
+  a.M = D, a.N = C, a.K = (int)R, a.kslice = pl.wslice, a.slices = pl.wsplit;
+  if ((e = wg_gemm<false, false, 1, 3, 1, kWgBN>(a, 2, EpiWgStore{}, pl.device, st)) != cudaSuccess)
+    return e;
+  col_bf16_kernel<<<dim3(ceil_div(C > D ? C : D, kThreads), pl.csplit, 2), kThreads, 0, st>>>(
+      da3, plane, da4, scale, ws + pl.p_col, ws + pl.p_col + (size_t)pl.csplit * C, (int)R, C,
+      (int)Cp, D, pl.cslice);
+  return cudaGetLastError();
+}
+
 // one block's backward: x its input, g the gradient of its output; dx and the
 // 12 parameter gradients (float32, MixerBlockParams order) out; kBF16: bf16
-// compute (the header's cast points)
+// compute (the header's cast points), the channel products on the wgmma engine
 template <bool kBF16>
 int block_bwd(const Plan& pl, float* ws, const float* x, const float* g, float* dx,
               const void* const* q, void* const* gq, int B, int N, int T, int D, int C,
@@ -579,16 +750,12 @@ int block_bwd(const Plan& pl, float* ws, const float* x, const float* g, float* 
   const float* w3 = static_cast<const float*>(q[8]);
   const float* b3 = static_cast<const float*>(q[9]);
   const float* w4 = static_cast<const float*>(q[10]);
-  // the operands that hold bf16 values, product by product (tc_gemm's kExact)
-  constexpr int kBoth = kBF16 ? kExactA | kExactB : 0;
-  constexpr int kA = kBF16 ? kExactA : 0, kB = kBF16 ? kExactB : 0;
   float* const* gf = reinterpret_cast<float* const*>(gq);
-  float* w3p = ws + pl.w3p;
-  float* w4t = ws + pl.w4t;
-  float* z = ws + pl.z;
-  float* da4 = ws + pl.da4;
-  float* h2 = ws + pl.h2;
-  float* da3 = ws + pl.da3;
+  using CT = ChanT<kBF16>;
+  CT* w3p = reinterpret_cast<CT*>(ws + pl.w3p);
+  CT* w4t = reinterpret_cast<CT*>(ws + pl.w4t);
+  CT* z = reinterpret_cast<CT*>(ws + pl.z);
+  CT* da4 = reinterpret_cast<CT*>(ws + pl.da4);
   float* dzp = ws + pl.dzp;
   float* part = ws + pl.part;
 
@@ -612,17 +779,23 @@ int block_bwd(const Plan& pl, float* ws, const float* x, const float* g, float* 
     // keeping a1, with da4 = g m3
     const TokenBufs tb{ws + pl.yt, ws + pl.ht, ws + pl.tt, ws + pl.a1};
     M2M_TRY_INT(token_forward<kBF16>(x, nullptr, 0, nullptr, ws + pl.x1, z, nullptr, tb, sp.ln1_s,
-                                 sp.ln1_b, w1, sp.b1, w2, sp.b2, sp.ln2_s, sp.ln2_b, g, da4, B, N,
-                                 T, D, pl.nc, pl.sms, tanh_flavor, dp, blk, st));
+                                     sp.ln1_b, w1, sp.b1, w2, sp.b2, sp.ln2_s, sp.ln2_b, g, da4, B,
+                                     N, T, D, pl.nc, pl.sms, tanh_flavor, dp, blk, st));
   }
-  // stage 2: a3 into h2's buffer, then dh2 with the epilogue that finishes h2 and da3
-  M2M_TRY(tc_gemm_auto<kBoth>(View{z, D, 1}, View{w3p, Cp, 1}, h2, R, Cp, D, pl.sms, st,
-                              EpiA3{b3, C}));
-  M2M_TRY(tc_gemm_auto<kB>(View{da4, D, 1}, View{w4t, Cp, 1}, da3, R, Cp, D, pl.sms, st,
-                           EpiChannelBwd<kBF16>{h2, C, Cp, tanh_flavor, blk, dp}));
-  // stage 3: dz = da3 W3^T, slices of C
-  M2M_TRY(tc_gemm_wide<kB>(View{da3, Cp, 1}, View{w3p, 1, Cp}, dzp, R, D, C, pl.kslice,
-                           pl.ksplit, st));
+  if constexpr (kBF16) {
+    M2M_TRY(channel_bf16(pl, ws, b3, B, N, D, C, tanh_flavor, dp, blk, st));
+  } else {
+    float* h2 = ws + pl.h2;
+    float* da3 = ws + pl.da3;
+    // stage 2: a3 into h2's buffer, then dh2 with the epilogue that finishes h2 and da3
+    M2M_TRY(tc_gemm_auto(View{z, D, 1}, View{w3p, Cp, 1}, h2, R, Cp, D, pl.sms, st,
+                         EpiA3{b3, C}));
+    M2M_TRY(tc_gemm_auto(View{da4, D, 1}, View{w4t, Cp, 1}, da3, R, Cp, D, pl.sms, st,
+                         EpiChannelBwd{h2, C, Cp, tanh_flavor, blk, dp}));
+    // stage 3: dz = da3 W3^T, slices of C
+    M2M_TRY(tc_gemm_wide(View{da3, Cp, 1}, View{w3p, 1, Cp}, dzp, R, D, C, pl.kslice, pl.ksplit,
+                         st));
+  }
   if (pl.reg) {
     rows_bwd_kernel<kBF16><<<pl.tiles, kThreads, pl.rows_smem, st>>>(
         x, g, dzp, pl.ksplit, dx, part, B, N, T, D, pl.tb, tanh_flavor, sp, dp, blk);
@@ -631,23 +804,30 @@ int block_bwd(const Plan& pl, float* ws, const float* x, const float* g, float* 
     M2M_TRY_INT(token_backward<kBF16>(pl, ws, x, g, dx, sp, w1, w2, B, N, T, D, tanh_flavor, dp, blk,
                                   st));
   }
-  // stage 5: dW3 (D x C) = z^T da3, dW4 (C x D) = h2^T da4, slices of the rows
-  M2M_TRY(tc_gemm_wide<kA>(View{z, 1, D}, View{da3, Cp, 1}, ws + pl.p_w3, D, C, R, pl.wslice,
-                           pl.wsplit, st));
-  M2M_TRY(tc_gemm_wide<kA>(View{h2, 1, Cp}, View{da4, D, 1}, ws + pl.p_w4, C, D, R, pl.wslice,
-                           pl.wsplit, st));
-  // stage 6: db3, db4 over slices of the rows
-  ColJobs<2> cj = {};
-  cj.job[0] = ColJob{da3, C, Cp, ws + pl.p_col};
-  cj.job[1] = ColJob{da4, D, D, ws + pl.p_col + (size_t)pl.csplit * C};
-  col_slices_kernel<2><<<dim3(ceil_div(C > D ? C : D, kThreads), pl.csplit, 2), kThreads, 0,
-                          st>>>(cj, R, pl.cslice);
-  M2M_TRY(cudaGetLastError());
-  // dW3, dW4, db3, db4: the row slices' partials in slice order
+  if constexpr (kBF16) {
+    M2M_TRY(weight_grads_bf16(pl, ws, B, N, D, C, dp, st));
+  } else {
+    float* h2 = ws + pl.h2;
+    float* da3 = ws + pl.da3;
+    // stage 5: dW3 (D x C) = z^T da3, dW4 (C x D) = h2^T da4, slices of the rows
+    M2M_TRY(tc_gemm_wide(View{z, 1, D}, View{da3, Cp, 1}, ws + pl.p_w3, D, C, R, pl.wslice,
+                         pl.wsplit, st));
+    M2M_TRY(tc_gemm_wide(View{h2, 1, Cp}, View{da4, D, 1}, ws + pl.p_w4, C, D, R, pl.wslice,
+                         pl.wsplit, st));
+    // stage 6: db3, db4 over slices of the rows
+    ColJobs<2> cj = {};
+    cj.job[0] = ColJob{da3, C, Cp, ws + pl.p_col};
+    cj.job[1] = ColJob{da4, D, D, ws + pl.p_col + (size_t)pl.csplit * C};
+    col_slices_kernel<2><<<dim3(ceil_div(C > D ? C : D, kThreads), pl.csplit, 2), kThreads, 0,
+                            st>>>(cj, R, pl.cslice);
+    M2M_TRY(cudaGetLastError());
+  }
+  // dW3, dW4, db3, db4: the row slices' partials in slice order (bf16: dW4's
+  // partials are dW4^T, transposed as they are summed)
   constexpr int kRnd = kBF16 ? kRnd0 | kRnd1 : 0;
   RedJobs<kTokJobs + 4> rj = {};
   rj.job[0] = RedJob{ws + pl.p_w3, pl.wsplit, D * C, gf[8], D * C, nullptr, kRnd};
-  rj.job[1] = RedJob{ws + pl.p_w4, pl.wsplit, C * D, gf[10], C * D, nullptr, kRnd};
+  rj.job[1] = RedJob{ws + pl.p_w4, pl.wsplit, C * D, gf[10], C * D, nullptr, kRnd, kBF16 ? D : 0};
   rj.job[2] = RedJob{ws + pl.p_col, pl.csplit, C, gf[9], C, nullptr, 0};
   rj.job[3] = RedJob{ws + pl.p_col + (size_t)pl.csplit * C, pl.csplit, D, gf[11], D, nullptr, 0};
   int jobs = 4;
@@ -690,13 +870,13 @@ int mixer_bwd(const float* saved, const float* g, float* dx, int B, int N, int T
   if (check_args(B, N, T, D, C, n_blocks)) return -1;
   M2M_TRY(cudaSetDevice(device));
   Plan pl;
-  int code = make_plan(B, N, T, D, C, n_blocks, final_ln, device, pl);
+  int code = make_plan(B, N, T, D, C, n_blocks, final_ln, kBF16, device, pl);
   if (code) return code;
   if (pl.reg) {
     M2M_TRY(prepare(prefix_kernel<kBF16>, pl.prefix_smem, device));
     M2M_TRY(prepare(rows_bwd_kernel<kBF16>, pl.rows_smem, device));
   } else {
-    M2M_TRY(prepare_token_kernels<kBF16>(pl.nc, D, device));
+    M2M_TRY((prepare_token_kernels<kBF16, ChanT<kBF16>>(pl.nc, D, device)));
   }
   if (!pl.reg || final_ln) M2M_TRY(prepare(ln_bwd_kernel<kBF16>, ln_bwd_smem_bytes(kLnRows, D), device));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -739,11 +919,13 @@ int mixer_bwd(const float* saved, const float* g, float* dx, int B, int N, int T
 
 extern "C" {
 
-// Workspace bytes mixer backward needs (the wrapper allocates it).
+// Workspace bytes mixer backward needs (the wrapper allocates it); bf16: the
+// compute dtype is bfloat16 (the channel operands stored in bf16).
 size_t m2m_mixer_bwd_workspace_bytes(int B, int N, int T, int D, int C, int n_blocks, int final_ln,
-                                     int device) {
+                                     int bf16, int device) {
   Plan pl;
-  if (check_args(B, N, T, D, C, n_blocks) || make_plan(B, N, T, D, C, n_blocks, final_ln, device, pl))
+  if (check_args(B, N, T, D, C, n_blocks) ||
+      make_plan(B, N, T, D, C, n_blocks, final_ln, bf16 != 0, device, pl))
     return 0;
   return pl.ws_floats * 4;
 }
@@ -753,7 +935,7 @@ size_t m2m_mixer_bwd_workspace_bytes(int B, int N, int T, int D, int C, int n_bl
 // tiles), 0 if on row tiles in registers, -1 for shapes the kernels do not take.
 int m2m_mixer_bwd_token_ff(int B, int N, int T, int D, int C, int device) {
   Plan pl;
-  if (check_args(B, N, T, D, C, 1) || make_plan(B, N, T, D, C, 1, 0, device, pl)) return -1;
+  if (check_args(B, N, T, D, C, 1) || make_plan(B, N, T, D, C, 1, 0, 0, device, pl)) return -1;
   return !pl.reg;
 }
 
@@ -762,7 +944,7 @@ int m2m_mixer_bwd_token_ff(int B, int N, int T, int D, int C, int device) {
 // take: what the 3xTF32 error of the token weight gradients is measured against.
 int m2m_mixer_token_row_slice(int B, int N, int T, int D, int C, int device) {
   Plan pl;
-  if (check_args(B, N, T, D, C, 1) || make_plan(B, N, T, D, C, 1, 0, device, pl)) return 0;
+  if (check_args(B, N, T, D, C, 1) || make_plan(B, N, T, D, C, 1, 0, 0, device, pl)) return 0;
   return pl.reg ? 0 : pl.tslice;
 }
 
@@ -770,7 +952,7 @@ int m2m_mixer_token_row_slice(int B, int N, int T, int D, int C, int device) {
 // do not take: what the 3xTF32 error is measured against.
 int m2m_mixer_row_slice(int B, int N, int T, int D, int C, int device) {
   Plan pl;
-  if (check_args(B, N, T, D, C, 1) || make_plan(B, N, T, D, C, 1, 0, device, pl)) return 0;
+  if (check_args(B, N, T, D, C, 1) || make_plan(B, N, T, D, C, 1, 0, 0, device, pl)) return 0;
   return pl.wslice;
 }
 
@@ -790,6 +972,42 @@ int m2m_mixer_bwd(const float* saved, const float* g, float* dx, int B, int N, i
   return (bf16 ? mixer_bwd<true> : mixer_bwd<false>)(saved, g, dx, B, N, T, D, C, n_blocks,
                                                       final_ln, tanh_flavor, keys, thresh, scale,
                                                       device, ptrs, grads, workspace, stream);
+}
+
+// The bf16 route's product engine alone (wgmma_bf16.cuh), for the tests and
+// chip_smoke.py's error record: out (M x N float32, row-major) = the sum over
+// the planes of A_t B_t, the whole depth K in one slice. a[t] and b[t] are bf16
+// row-major matrices (row strides lda, ldb: multiples of 8): A is M x K
+// (a_k = 1: K-major, the layout of a3's, dh2's and dz's A) or K x M (a_k = 0:
+// MN-major, the weight gradients'); B is N x K (b_k = 1: dz's W3) or K x N
+// (b_k = 0: a3's and dh2's weights, the weight gradients' B). terms_a or
+// terms_b (1-3) planes of the split operand, the other 1; the layouts the
+// route runs: (a_k, b_k) = (1, 0), (1, 1) and (0, 0).
+int m2m_wg_product(int a_k, int b_k, int terms_a, int terms_b, int M, int N, int K,
+                   const void* const* a, long long lda, const void* const* b, long long ldb,
+                   float* out, int device, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || terms_a < 1 || terms_b < 1 || (terms_a > 1 && terms_b > 1) ||
+      terms_a > (a_k && b_k ? kWgMaxTerms : 1) || terms_b > (a_k || b_k ? 1 : kWgMaxTerms) ||
+      (a_k == 0 && b_k == 1))
+    return -1;
+  M2M_TRY(cudaSetDevice(device));
+  WgOperand oa{{}, terms_a, a_k ? M : K, a_k ? K : M, lda};
+  WgOperand ob{{}, terms_b, b_k ? N : K, b_k ? K : N, ldb};
+  for (int t = 0; t < terms_a; ++t) oa.p[t] = static_cast<const __nv_bfloat16*>(a[t]);
+  for (int t = 0; t < terms_b; ++t) ob.p[t] = static_cast<const __nv_bfloat16*>(b[t]);
+  WgArgs args = {};
+  args.M = M, args.N = N, args.K = K, args.kslice = K, args.slices = 1;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a_k && !b_k) {
+    M2M_TRY((make_job<true, false>(args.job[0], oa, ob, out, 1.f)));
+    return wg_gemm<true, false, 1, 1, 1, kWgBN>(args, 1, EpiWgStore{}, device, st);
+  }
+  if (a_k) {
+    M2M_TRY((make_job<true, true>(args.job[0], oa, ob, out, 1.f)));
+    return wg_gemm<true, true, 3, 1, 1, kWgBN>(args, 1, EpiWgStore{}, device, st);
+  }
+  M2M_TRY((make_job<false, false>(args.job[0], oa, ob, out, 1.f)));
+  return wg_gemm<false, false, 1, 3, 1, kWgBN>(args, 1, EpiWgStore{}, device, st);
 }
 
 }  // extern "C"

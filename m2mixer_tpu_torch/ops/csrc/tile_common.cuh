@@ -25,17 +25,20 @@
 // products and K1b's channel products at batch 32); 64x16 on 4 warps for
 // narrow outputs (DynaMixerOp's 16-wide dW_c). The depth is summed in one
 // order; k-slices are summed later by the reductions below, in slice order.
-// Why mma.sync and not wgmma: wgmma takes tf32 operands only K-major in
-// shared memory, and most backward products have an operand whose depth is
-// not its contiguous axis (both operands of every weight gradient, whose
-// depth is the rows); the big/small split would also have to be stored
-// twice. mma.sync loads its fragments from shared memory in whatever layout
+// Why mma.sync and not wgmma, for float32: wgmma takes tf32 operands only
+// K-major in shared memory, and most backward products have an operand whose
+// depth is not its contiguous axis (both operands of every weight gradient,
+// whose depth is the rows); the big/small split would also have to be stored
+// twice. That holds for tf32 and not for bf16, which wgmma also takes
+// MN-major: the bf16 mixer backward's channel products run on wgmma
+// (wgmma_bf16.cuh). mma.sync loads its fragments from shared memory in whatever layout
 // the View gives and splits them in registers, so one loader serves every
 // product. The forwards' weights (W_in, W_out, W_o) are small enough to be laid
 // K-major once per call, which would lift that obstacle for their products;
 // that is left to the work on the tile's own rate (ROADMAP.md).
-// The bf16 kernels (the mixer's pipelines, the gMLP block's, the DynaMixerOp's)
-// run their products on this tile too: an operand that holds bf16 values is
+// The bf16 kernels (the mixer's forward and the token products of its
+// backward, the gMLP block's, the DynaMixerOp's) run their products on this
+// tile too: an operand that holds bf16 values is
 // exact in TF32, so its small half is zero and the products with it go
 // (kExact): two of the three remain where one operand is bf16 (2xTF32), one
 // where both are (1xTF32, each mma's sum added to the accumulator in float32,

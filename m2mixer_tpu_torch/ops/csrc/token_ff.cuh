@@ -29,8 +29,11 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mixer_common.cuh"
 #include "tile_common.cuh"
@@ -110,14 +113,34 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The backward's channel operands z and da4 as stored: float32 (tc_gemm's
+// operands), or bf16 (ZT = __nv_bfloat16, wgmma_bf16.cuh's), where da4 is
+// rd(g) times the keep bit of m3 and the products' sums take the dropout scale.
+template <class ZT>
+__device__ __forceinline__ ZT to_operand(float v) {
+  if constexpr (std::is_same_v<ZT, float>) {
+    return v;
+  } else {
+    return __float2bfloat16_rn(v);
+  }
+}
+template <bool kBF16, class ZT>
+__device__ __forceinline__ ZT da4_operand(float g, float m3) {
+  if constexpr (std::is_same_v<ZT, float>) {
+    return rd<kBF16>(g) * m3;
+  } else {
+    return __float2bfloat16_rn(m3 != 0.f ? rd<true>(g) : 0.f);
+  }
+}
+
 // x1[n, d] = rd(x1[n, d] + rd(tt[(s*D + d)*N + n])) for tokens [n0, n0 + nc) of
 // sample blockIdx.y, then z = LN2(x1); with g, also da4 = rd(g) m3 there (the
-// backward's stage 1)
-template <bool kBF16>
+// backward's stage 1; ZT: how z and da4 are stored, above)
+template <bool kBF16, class ZT = float>
 __global__ void __launch_bounds__(kThreads)
-    tok_out_kernel(const float* __restrict__ tt, float* x1, float* __restrict__ z, int N, int D,
+    tok_out_kernel(const float* __restrict__ tt, float* x1, ZT* __restrict__ z, int N, int D,
                    int nc, const float* __restrict__ ln_s, const float* __restrict__ ln_b,
-                   const float* __restrict__ g, float* __restrict__ da4,
+                   const float* __restrict__ g, ZT* __restrict__ da4,
                    const __grid_constant__ Dropout dp, int blk) {
   extern __shared__ __align__(16) float sm[];
   const int s = blockIdx.y, n0 = blockIdx.x * nc, R = min(nc, N - n0), ld = D + 1;
@@ -133,12 +156,14 @@ __global__ void __launch_bounds__(kThreads)
     const float v = rd<kBF16>(x1[off + e] + rd<kBF16>(*t));
     *t = v;
     x1[off + e] = v;
-    if (g) da4[off + e] = rd<kBF16>(g[off + e]) * keep(dp, blk, 3, (uint32_t)(off + e));
+    if (g)
+      da4[off + e] = da4_operand<kBF16, ZT>(g[off + e], keep(dp, blk, 3, (uint32_t)(off + e)));
   }
   __syncthreads();
   ln_tile<kBF16>(sm, R, D, ld, ln_s, ln_b);
   __syncthreads();
-  for (int e = threadIdx.x; e < R * D; e += kThreads) z[off + e] = sm[(e / D) * ld + e % D];
+  for (int e = threadIdx.x; e < R * D; e += kThreads)
+    z[off + e] = to_operand<ZT>(sm[(e / D) * ld + e % D]);
 }
 
 // the up product's epilogue over (B*D) x T: h = rd(gelu(v + b1) m0); the
@@ -225,8 +250,9 @@ inline cudaError_t round_token_weights(const float* w1, const float* w2, float* 
 // The forward of block blk's token half above kMaxTokens tokens: u (x, or the
 // finish of block blk - 1) -> x1 = u + token FF, z = LN2(x1). w1, w2: the
 // weights the products read (in bf16 rounded copies); with g, also da4 = rd(g)
-// m3, and a1 kept (the backward's recompute). Buffers: yt, tt (B*D*N), ht
-// (B*D*T); sms: the products' tile rule.
+// m3, and a1 kept (the backward's recompute); ZT: how z and da4 are stored
+// (tok_out_kernel). Buffers: yt, tt (B*D*N), ht (B*D*T); sms: the products'
+// tile rule.
 struct TokenBufs {
   float* yt;
   float* ht;
@@ -234,13 +260,19 @@ struct TokenBufs {
   float* a1;  // or nullptr
 };
 
-template <bool kBF16>
+// da4's type follows z's (the forward passes nullptr for it)
+template <class T>
+struct NoDeduce {
+  using type = T;
+};
+
+template <bool kBF16, class ZT = float>
 int token_forward(const float* x, const float* part, int ksplit, const float* b4_prev, float* x1,
-                  float* z, float* save, const TokenBufs& tb, const float* ln1_s,
+                  ZT* z, float* save, const TokenBufs& tb, const float* ln1_s,
                   const float* ln1_b, const float* w1, const float* b1, const float* w2,
                   const float* b2, const float* ln2_s, const float* ln2_b, const float* g,
-                  float* da4, int B, int N, int T, int D, int nc, int sms, int tanh_flavor,
-                  const Dropout& dp, int blk, cudaStream_t st) {
+                  typename NoDeduce<ZT>::type* da4, int B, int N, int T, int D, int nc, int sms,
+                  int tanh_flavor, const Dropout& dp, int blk, cudaStream_t st) {
   constexpr int kBoth = kBF16 ? kExactA | kExactB : 0;
   const size_t smem = tok_tile_bytes(nc, D);
   const dim3 grid(ceil_div(N, nc), B);
@@ -252,17 +284,17 @@ int token_forward(const float* x, const float* part, int ksplit, const float* b4
                               EpiTokenUp<kBF16>{b1, tb.a1, T, tanh_flavor, blk, dp}));
   M2M_TRY(tc_gemm_auto<kBoth>(View{tb.ht, T, 1}, View{w2, N, 1}, tb.tt, rows, N, T, sms, st,
                               EpiTokenDown{b2, N, blk, dp}));
-  tok_out_kernel<kBF16><<<grid, kThreads, smem, st>>>(tb.tt, x1, z, N, D, nc, ln2_s, ln2_b, g,
-                                                      da4, dp, blk);
+  tok_out_kernel<kBF16, ZT><<<grid, kThreads, smem, st>>>(tb.tt, x1, z, N, D, nc, ln2_s, ln2_b,
+                                                          g, da4, dp, blk);
   return (int)cudaGetLastError();
 }
 
 // both row kernels may take tok_tile_bytes(nc, D) of dynamic shared memory
-template <bool kBF16>
+template <bool kBF16, class ZT = float>
 cudaError_t prepare_token_kernels(int nc, int D, int device) {
   const cudaError_t err = prepare(tok_in_kernel<kBF16>, tok_tile_bytes(nc, D), device);
   if (err != cudaSuccess) return err;
-  return prepare(tok_out_kernel<kBF16>, tok_tile_bytes(nc, D), device);
+  return prepare(tok_out_kernel<kBF16, ZT>, tok_tile_bytes(nc, D), device);
 }
 
 }  // namespace

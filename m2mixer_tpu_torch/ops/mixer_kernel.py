@@ -294,6 +294,21 @@ def _fwd_workspace_bytes(lib, b: int, n: int, t: int, d: int, c: int, n_blocks: 
     return nbytes
 
 
+def _bwd_workspace_bytes(lib, b: int, n: int, t: int, d: int, c: int, n_blocks: int,
+                         final_ln: bool, bf16: bool, dev: int) -> int:
+    """Bytes of device workspace ``m2m_mixer_bwd`` needs: the channel FF's
+    operands (W3 and W4^T padded to Cp columns, z, da4, h2 and da3; in bf16
+    compute stored in bf16, da3 as three planes), the slices' partials of dz,
+    dW3, dW4, db3 and db4, the small gradients' partials, a stack's ping-pong
+    buffers and, where the token FF runs as products, its buffers."""
+    nbytes = lib.m2m_mixer_bwd_workspace_bytes(b, n, t, d, c, n_blocks, int(final_ln), int(bf16),
+                                               dev)
+    if nbytes == 0:
+        raise ValueError(f"the CUDA mixer backward does not take B={b} N={n} T={t} D={d} "
+                         f"C={c} ({n_blocks} blocks{', bf16' if bf16 else ''})")
+    return nbytes
+
+
 def _kernel_args(x, flat, n_blocks: int):
     """Validate shapes and devices; return (T, C, kernel-ready params, every
     one float32: in bf16 compute the kernels round them where JAX casts)."""
@@ -368,7 +383,9 @@ def _launch_bwd(saved, g, flat, n_blocks: int, final_ln: bool, compute_dtype,
                 approximate_gelu: bool, seed, rate: float):
     """dx and the float32 gradients of ``flat`` from ``csrc/mixer_bwd.cu``;
     ``saved``: the block inputs (+ the pre-LN output), (n_blocks + 1, B, N, D),
-    or for one block without a final LN its input (B, N, D)."""
+    or for one block without a final LN its input (B, N, D). In bf16 compute
+    the channel FF's products run on the wgmma engine (``csrc/wgmma_bf16.cuh``;
+    hidden_dim a multiple of 8)."""
     from ._build import check, load_library
 
     lib = load_library()
@@ -384,10 +401,7 @@ def _launch_bwd(saved, g, flat, n_blocks: int, final_ln: bool, compute_dtype,
         raise ValueError(f"saved block inputs {saved.dtype} {tuple(saved.shape)} on "
                          f"{saved.device} do not fit {n_blocks} blocks of {tuple(g.shape)}")
     dev = _device_index(g)
-    nbytes = lib.m2m_mixer_bwd_workspace_bytes(B, N, T, D, C, n_blocks, int(final_ln), dev)
-    if nbytes == 0:
-        raise ValueError(f"the CUDA mixer backward does not take B={B} N={N} T={T} D={D} "
-                         f"C={C} ({n_blocks} blocks)")
+    nbytes = _bwd_workspace_bytes(lib, B, N, T, D, C, n_blocks, final_ln, bf16, dev)
     workspace = torch.empty(nbytes, dtype=torch.uint8, device=g.device)
     dx = torch.empty_like(g)
     grads = [torch.empty(p.shape, dtype=torch.float32, device=g.device) for p in params]

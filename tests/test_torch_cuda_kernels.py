@@ -419,6 +419,107 @@ def test_bf16_stack_backward_matches_plain(cuda, shape, group_size, rate):
                      dead=(False, *(b2 * 3), False, False))
 
 
+def test_backward_workspace_matches_the_mirror(cuda):
+    """m2m_mixer_bwd_workspace_bytes against tests/test_torch_mixer_bwd_plan.py's
+    Python mirror of its plan, float32 and bf16, on this card's SM count."""
+    from m2mixer_tpu_torch.ops._build import load_library
+    from test_torch_mixer_bwd_plan import GEOMS, PLANS, bwd_workspace_floats
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = load_library()
+    for geom, B, K, ln in PLANS:
+        g = GEOMS[geom]
+        dims = (B, g["N"], g["T"], g["D"], g["C"], K, ln)
+        for bf16 in (0, 1):
+            assert lib.m2m_mixer_bwd_workspace_bytes(*dims, bf16, 0) == \
+                4 * bwd_workspace_floats(*dims, bf16, sms=sms), (dims, bf16)
+
+
+# bf16 K1b and K2b (one block + LN) with their channel products on the wgmma
+# engine: the L config's fusion shape, and ragged batches at the B fusion
+# shape (C = 3078: Cp = 3080; one sample; more rows than the batch-512 plans)
+BF16_WG_CASES = {"l_fusion_B32": (32, dict(N=80, D=512, T=256, C=4096)),
+                 "fusion_B1": (1, SHAPES["fusion"]), "fusion_B7": (7, SHAPES["fusion"]),
+                 "fusion_B600": (600, SHAPES["fusion"])}
+
+
+@pytest.mark.parametrize("case", sorted(BF16_WG_CASES))
+def test_bf16_backward_on_the_wgmma_engine(cuda, case):
+    """bf16 K1b and K2b against autograd of the plain bf16 versions at dropout
+    0.5 and tanh GELU (bf16_grads_close: 10% / 40% of the rounded elements),
+    each counted as a bf16 launch; two runs give bit-identical gradients."""
+    B, geom = BF16_WG_CASES[case]
+    blocks, s, b = blocks_on(cuda, 1, **geom)
+    gen = torch.Generator().manual_seed(B)
+    x = torch.randn(B, geom["N"], geom["D"], generator=gen).to(cuda)
+    g = torch.randn(B, geom["N"], geom["D"], generator=gen).to(cuda)
+    flat = mk.stack_flat_params(blocks, s, b)
+    bf = torch.bfloat16
+    k1b = lambda: mk.fused_mixer_block_bwd(x, g, blocks[0], 5, 0.5, bf, True)
+    k2b = lambda: mk.fused_mixer_stack_bwd(x, g, flat, 6, 0.5, bf, True, True)
+    runs = ((k1b, mk.mixer_block_bwd_reference(x, g, blocks[0], 0.5, bf, True, seed=5),
+             (True, *BF16_ROUNDED), 0.10, mk.fused_mixer_block_bwd),
+            (k2b, mk.mixer_stack_bwd_reference(x, g, flat, 0.5, bf, True, True, seed=6),
+             (True, *BF16_ROUNDED, True, True), 0.40, mk.fused_mixer_stack_bwd))
+    for run, want, rounded, share, wrapper in runs:
+        before = wrapper.bf16_launches
+        dx, grads = run()
+        assert wrapper.bf16_launches == before + 1
+        bf16_grads_close((dx, *grads), (want[0], *want[1]), rounded, share)
+        dx2, grads2 = run()
+        assert torch.equal(dx, dx2) and all(torch.equal(a, c) for a, c in zip(grads, grads2))
+
+
+# (A K-major, B K-major, A's planes, B's planes): the layouts the bf16 route
+# runs (a3 and dh2; dz; dW3 and dW4^T), at ragged M, N and K
+WG_LAYOUTS = {"a3_dh2": (1, 0, 1, 1), "dz": (1, 1, 3, 1), "dW3": (0, 0, 1, 3),
+              "dW4": (0, 0, 1, 1)}
+
+
+@pytest.mark.parametrize("mnk", [(128, 128, 64), (300, 200, 333), (1000, 3080, 512)],
+                         ids=lambda m: "x".join(map(str, m)))
+@pytest.mark.parametrize("layout", sorted(WG_LAYOUTS))
+def test_wgmma_engine_products_match_float64(cuda, layout, mnk):
+    """The wgmma engine alone (m2m_wg_product): the sum over the planes of
+    A_t B_t against the float64 product of the same bf16 values, within 1e-5
+    of the largest output (float32 sums of exact bf16 products)."""
+    from m2mixer_tpu_torch.ops._build import load_library
+    import ctypes
+
+    a_k, b_k, ta, tb = WG_LAYOUTS[layout]
+    M, N, K = mnk
+    gen = torch.Generator().manual_seed(M + N + K)
+
+    def planes(x, t):  # a float32 value as t bf16 planes, largest first
+        out, rest = [], x
+        for _ in range(t):
+            out.append(rest.to(torch.bfloat16))
+            rest = rest - out[-1].float()
+        return out
+
+    def stored(p, transpose):  # row-major, rows padded to 16-byte groups
+        p = (p.t() if transpose else p).contiguous()
+        out = torch.zeros(p.shape[0], -(-p.shape[1] // 8) * 8, dtype=p.dtype)
+        out[:, :p.shape[1]] = p
+        return out.to(cuda)
+
+    ap = planes(torch.randn(M, K, generator=gen), ta)
+    bp = planes(torch.randn(K, N, generator=gen), tb)
+    want = sum(p.double() for p in ap) @ sum(p.double() for p in bp)
+    a = [stored(p, not a_k) for p in ap]
+    b = [stored(p, bool(b_k)) for p in bp]
+    out = torch.full((M, N), float("nan"), device=cuda)
+    lib = load_library()
+    code = lib.m2m_wg_product(a_k, b_k, ta, tb, M, N, K,
+                              (ctypes.c_void_p * 3)(*[t.data_ptr() for t in a]), a[0].shape[1],
+                              (ctypes.c_void_p * 3)(*[t.data_ptr() for t in b]), b[0].shape[1],
+                              out.data_ptr(), 0, torch.cuda.current_stream().cuda_stream)
+    assert code == 0, lib.m2m_error_string(code)
+    torch.cuda.synchronize()
+    err = (out.cpu().double() - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
 def test_bf16_kernel_modules_keep_float32_weights_on_cuda(cuda):
     """A bf16 kernel-backed stack trains float32 parameters on the card:
     every gradient float32 and non-zero, K2b launched."""
