@@ -6,13 +6,17 @@
 
 With no arguments it runs every phase below. ``--kernel-times`` only builds
 and prints the times of all eight kernels: K1f, K2f, K1b and K2b (the
-encoder and fusion stacks), K3f and K3b (encoder and fusion shape), K4f and
-K4b at batch 32 and 512, and bf16 K1b and K2b at the L fusion shape at batch
+encoder and fusion stacks, float32 and bf16), K3f and K3b (encoder and fusion shape), K4f and
+K4b at batch 32 and 512, bf16 K1b and K2b at the L fusion shape at batch
 512 (each launch of one call in launch order, and K1b's five channel
-products summed); the device time of each launch of one K1f call at
+products summed), and bf16 K1f and K2f (the main path's depth) at the three
+L shapes at batch 512 (each launch in order, and K1f's two channel products
+summed); the device time of each launch of one K1f call at
 each shape at batch 512 and of one K1b call at each shape and batch; the
-host time to enqueue one K1b call; and the B config's served forward and
-train step at batch 32 and 512 (plain modules and both kernel block types),
+host time to enqueue one K1b call; the B config's served forward and
+train step at batch 32 and 512 (plain modules and both kernel block types);
+and the L config's served forward at batch 32 and 512 (plain modules and the
+``export --pallas`` network) and train step at 512 (both kernel block types),
 as one JSON line (``--root``: those of the ``m2mixer_tpu_torch`` of another
 checkout). ``--ab`` compares another checkout's numbers with this one's on
 the same card, in turns (parent, this, this, parent), each in its own
@@ -24,7 +28,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and print every kernel's registers and spills (ptxas);
 2. K1f ``fused_mixer_block`` on the card against its plain PyTorch version at
    the served shapes (N=4/C=3072 and N=8/C=3078): batch 512 in f32 and bf16,
-   batch 32 and 600 (above the top bucket) in f32, erf and tanh GELU;
+   batch 32 and 600 (above the top bucket) in f32, erf and tanh GELU; each
+   bf16 call's launches checked: its products on the wgmma engine (two
+   ``wg_gemm_kernel`` a block, four on the token pipeline) and no
+   ``tc_gemm_kernel``;
 3. K2f ``fused_mixer_stack``: a 4-block encoder with its final LN, whole and
    with ``group_size=2``, and the 2-block fusion mixer, the same way;
 4. K1b / K2b, the backward kernels, against autograd of the plain versions
@@ -43,7 +50,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    tanh GELU), batch 32 (dropout 0.5) and 512, float32 and bf16: there every
    token FF runs as products (``token_ff.cuh``); the bf16 stacks held to the
    share of a second implementation (the plain version with float64 sums) +
-   ``L_STACK_EXCESS``;
+   ``L_STACK_EXCESS``; each bf16 K1f/K2f call's launches checked as in 2;
 5. K3f / K3b, the gMLP block kernels, against the plain version and its
    autograd at the gMLP config's shapes (D=128, F=768; encoder N=49, fusion
    N=99), batch 32 and 512, erf and tanh, dropout 0 and 0.5: the output, dx
@@ -70,9 +77,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    shapes at batch 512 (the token weight gradients sum B*D = 262144 rows),
    against autograd of their plain versions on the card, each tensor's error
    relative to max(1, max|plain|) beside the rows of the slices the plan
-   sums the weight gradients over; and the bf16 wgmma engine's five channel
-   products alone (``m2m_wg_product``, K1b's layouts, da3 as three bf16
-   planes) at the L fusion shape, batch 512, each against the float64
+   sums the weight gradients over; and the bf16 wgmma engine's products
+   alone (``m2m_wg_product``) at the L fusion shape, batch 512: K1b's five
+   channel products (da3 as three bf16 planes) and K1f's four (the channel
+   FF's up and down, the token FF's up and down), each against the float64
    product of the same values, relative to its largest magnitude;
 7. serving: export the B config (``cfg/avmnist/avmnist_m2-mixer_B.yml``, full
    width and depth, seeded weights) through ``serving export --pallas`` (one
@@ -166,7 +174,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    plain bf16 and the float32 network's answers;
 13. times (CUDA events, median of 5 runs): the mixer kernels and their plain
     versions (K1f, K2f, K1b and K2b at the encoder and fusion shapes, with
-    their float32 and 3xTF32 bounds), the served B forward at batch 32 and
+    their float32 and 3xTF32 bounds; bf16 K1f and K2f with their bf16-peak
+    and design bounds), the served B forward at batch 32 and
     512, the B train step at batch 32 and 512 for plain modules and both
     kernel block types; and the device time of each launch of one K1f and
     one K1b call at batch 512 at both shapes (``torch.profiler``);
@@ -185,8 +194,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     kernels take (``torch.profiler``), so the share of the call in which the
     card is busy; then each product of K1b, K3f, K3b, K4f and K4b at batch 512
     timed as one ``torch.matmul`` in float32 (TF32 off), a yardstick per
-    product that the port never calls, and K1b's also as one bf16
-    ``torch.matmul``; then the bf16 K1b and K2b alone at the encoder and
+    product that the port never calls, K1b's also as one bf16
+    ``torch.matmul``, and the bf16 K1f's four at the L shapes as one bf16
+    ``torch.matmul`` each; then the bf16 K1b and K2b alone at the encoder and
     fusion shapes at batch 32 and 512 with their plain versions, their
     bound at the dense bf16 peak and their design bound (the wgmma engine's
     nine bf16 passes and the token FF's products at their rate), each K2b
@@ -196,10 +206,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     served forward and train step at batch 32 and 512 on paths (a) and (b);
     then the routes this slice added: K1f, K2f, K1b and K2b at the three L
     shapes, batch 32 and 512, float32 and bf16, with their plain versions,
-    bounds and tensor-core bounds (bf16 K1b/K2b: the design bound), the
+    bounds and tensor-core bounds (in bf16 the design bounds:
+    ``bf16_fwd_design_ms``, ``bf16_bwd_design_ms``), the
     profiler's breakdown at the fusion shape, batch 512, and at batch 512 in
-    bf16 the engine check of K2b's launches and the device time of bf16 K1b's
-    five channel products; bf16 K4f and K4b; the L served forward
+    bf16 the engine check of K2b's and K1f's launches, the device time of
+    bf16 K1b's five channel products and of each launch of one bf16 K1f
+    call, its two channel products summed; bf16 K4f and K4b; the L served forward
     and train step (plain, stacked, per-block) and the bf16 DynaMixer
     served forward, batch 32 and 512;
 16. one JSON line naming every ported kernel (the bf16 K4f/K4b, the bf16
@@ -457,6 +469,20 @@ def launch_sequence(torch, fn, calls: int = 3) -> list:
     return [[kernel_name(e.name), e.time_range.elapsed_us()] for e in events[-per_call:]]
 
 
+def launch_counts(torch, fn) -> dict:
+    """{kernel: launches} of one call of ``fn`` for the kernels the library
+    tallies on the host where it enqueues them (``_build.launch_tally``: the
+    wgmma engine's, tc_gemm's and tok_in_kernel): exact, where a profiler
+    trace may drop events."""
+    from m2mixer_tpu_torch.ops import _build
+
+    before = _build.launch_tally()
+    fn()
+    torch.cuda.synchronize()
+    after = _build.launch_tally()
+    return {name: after[name] - before[name] for name in after}
+
+
 def channel_products(seq) -> list:
     """The channel FF's five products among one bf16 K1b call's launches (in
     order): the wgmma engine's (``wg_gemm_kernel``: a3 and dh2 in one launch,
@@ -471,20 +497,66 @@ def channel_products(seq) -> list:
     return [tc[k] for k in (i - 1, i, i + 1, len(tc) - 2, len(tc) - 1)]
 
 
-def check_engine_route(seq, what: str, blocks: int = 1) -> None:
-    """A bf16 K1b/K2b call ran its channel products on the wgmma engine: three
-    ``wg_gemm_kernel`` launches a block, and ``tc_gemm_kernel`` only for the
-    token FF's products (six a block on the token pipeline, none on the
-    register route)."""
-    names = [name for name, _ in seq]
-    wg = sum(n.startswith("wg_gemm_kernel") for n in names)
-    tc = sum(n.startswith("tc_gemm_kernel") for n in names)
-    token = any(n.startswith("tok_in_kernel") for n in names)
+def check_engine_route(counts, what: str, blocks: int = 1) -> None:
+    """A bf16 K1b/K2b call (``counts``: launch_counts) ran its channel
+    products on the wgmma engine: three ``wg_gemm_kernel`` launches a block,
+    and ``tc_gemm_kernel`` only for the token FF's products (six a block on
+    the token pipeline, none on the register route)."""
+    wg, tc = counts["wg_gemm_kernel"], counts["tc_gemm_kernel"]
+    token = counts["tok_in_kernel"] > 0
     if wg != 3 * blocks or tc != (6 * blocks if token else 0):
         raise AssertionError(f"{what}: {wg} wgmma-engine and {tc} tc_gemm launches for "
                              f"{blocks} block(s) ({'token pipeline' if token else 'registers'})")
     print(f"  {what}: channel products on the wgmma engine ({wg} launches; tc_gemm {tc}, the "
           "token FF's)")
+
+
+def check_fwd_engine_route(counts, what: str, blocks: int = 1) -> None:
+    """A bf16 K1f/K2f call (``counts``: launch_counts) ran every product on
+    the wgmma engine: two ``wg_gemm_kernel`` launches a block (the channel
+    FF's up and down products), four on the token pipeline (the token FF's
+    two as well), and no ``tc_gemm_kernel``."""
+    wg, tc = counts["wg_gemm_kernel"], counts["tc_gemm_kernel"]
+    token = counts["tok_in_kernel"] > 0
+    if wg != (4 if token else 2) * blocks or tc:
+        raise AssertionError(f"{what}: {wg} wgmma-engine and {tc} tc_gemm launches for "
+                             f"{blocks} block(s) ({'token pipeline' if token else 'registers'})")
+    print(f"  {what}: every product on the wgmma engine ({wg} launches, "
+          f"{'token pipeline' if token else 'token FF in registers'}; no tc_gemm)")
+
+
+def fwd_channel_products(rows) -> list:
+    """[[kernel, device us per call], ...] of the channel FF's two products
+    of a K1f call, from its kernel_breakdown rows (every kernel over several
+    calls, so a trace that loses an event still finds both): the up product
+    (its epilogue EpiUpWg on the wgmma engine, EpiUp on tc_gemm in a tree
+    from before it) and the down product (the engine's EpiWgStore, tc_gemm's
+    EpiNone)."""
+    return [[name, us] for name, (us, _) in rows.items()
+            if "EpiUp" in name or "EpiWgStore" in name or
+            (name.startswith("tc_gemm_kernel") and "EpiNone" in name)]
+
+
+def bf16_fwd_design_ms(B, N, D, T, C, token_products: bool) -> float:
+    """The bf16 K1f design's bound (ms) of one block: each product on the
+    wgmma engine at the larger of its flops at the dense bf16 peak and its
+    bytes at HBM rate (bf16 operands, each read once, its output written
+    once): the channel FF's up (h2 in bf16) and down (float32 sums) products,
+    2*B*N*D*C flops each, and on the token pipeline the token FF's two,
+    2*B*D*N*T each (ht bf16, tt float32); on the register route the token FF
+    runs on the float32 CUDA cores (4*B*D*N*T flops)."""
+    def product(flops, nbytes):
+        return max(flops / PEAK["bf16"], nbytes / HBM_BYTES_PER_S)
+
+    R, rows = B * N, B * D
+    chan = product(2 * R * D * C, 2 * (R * D + D * C + R * C)) + \
+        product(2 * R * D * C, 2 * (R * C + C * D) + 4 * R * D)
+    if token_products:
+        tok = product(2 * rows * N * T, 2 * (rows * N + N * T + rows * T)) + \
+            product(2 * rows * N * T, 2 * (rows * T + T * N) + 4 * rows * N)
+    else:
+        tok = 4 * rows * N * T / PEAK["f32"]
+    return (chan + tok) * 1e3
 
 
 def bf16_bwd_design_ms(B, N, D, T, C, token_products: bool) -> float:
@@ -612,6 +684,8 @@ def phase_kernels(torch, mk, report):
                         control = mk.mixer_block_reference(x, blocks[0], approximate_gelu=approx)
                         report["errors"][key] = bf16_err(torch, got, want,
                                                          round_bf16(torch, control), key, report)
+                        check_fwd_engine_route(launch_counts(torch, lambda: mk.fused_mixer_block(
+                            x, blocks[0], compute_dtype=cd, approximate_gelu=approx)), key)
 
     print("[3/16] K2f fused_mixer_stack vs plain version")
     cases = [("encoder", ENC, 4, 0), ("encoder", ENC, 4, 2), ("fusion", FUSION, 2, 0)]
@@ -636,6 +710,10 @@ def phase_kernels(torch, mk, report):
                         control = mk.mixer_stack_reference(x, flat, approximate_gelu=approx)
                         report["errors"][key] = bf16_err(torch, got, want,
                                                          round_bf16(torch, control), key, report)
+                        check_fwd_engine_route(launch_counts(
+                            torch, lambda: mk.fused_mixer_stack_grouped(
+                                x, blocks, ln_s, ln_b, compute_dtype=cd, group_size=group,
+                                approximate_gelu=approx)), key, K)
 
 
 def phase_backward(torch, mk, report):
@@ -879,11 +957,17 @@ def phase_times(torch, mk, serving, np, plain, models, report):
                 report["bounds_ms"][f"K1f/{tag}"] = bound(flops, pbytes + act, dtype)
                 report["bounds_ms"][f"K2f/{tag}"] = bound(
                     K * flops, K * pbytes + 8 * geom["D"] + act, dtype)
-                tc_note = ""
                 if dtype == "f32":  # the float32 route's products run in 3xTF32
                     tc[f"K1f/{tag}"] = flops / TC_3XTF32 * 1e3
                     tc[f"K2f/{tag}"] = K * flops / TC_3XTF32 * 1e3
                     tc_note = f", 3xTF32 bounds {tc[f'K1f/{tag}']:.4f} / {tc[f'K2f/{tag}']:.4f}"
+                else:  # bf16: the wgmma engine's design (token FF in registers)
+                    design = report.setdefault("bounds_design_ms", {})
+                    design[f"K1f/{tag}"] = bf16_fwd_design_ms(B, geom["N"], geom["D"], geom["T"],
+                                                              geom["C"], False)
+                    design[f"K2f/{tag}"] = K * design[f"K1f/{tag}"]
+                    tc_note = (f", design bounds {design[f'K1f/{tag}']:.4f} / "
+                               f"{design[f'K2f/{tag}']:.4f}")
                 print(f"  {tag}: K1f {times[f'K1f/{tag}']:.4f} ms (plain "
                       f"{times[f'K1f_plain/{tag}']:.4f}, bound "
                       f"{report['bounds_ms'][f'K1f/{tag}'][0]:.4f}); K2f x{K} "
@@ -1315,7 +1399,7 @@ def phase_bf16_times(torch, mk, serving, Trainer, apply_overrides, load_cfg, syn
                      if "bf16" in k}
             for name, fn in calls.items():
                 times[f"{name}/{tag}"] = cuda_ms(torch, fn)
-            check_engine_route(launch_sequence(torch, calls["K2b_bf16"]), f"K2b bf16 {tag}", K)
+            check_engine_route(launch_counts(torch, calls["K2b_bf16"]), f"K2b bf16 {tag}", K)
             if B == 512:
                 report.setdefault("breakdown_us", {})[f"K1b_bf16/{tag}"] = kernel_breakdown(
                     torch, calls["K1b_bf16"], f"K1b bf16 {tag}")
@@ -1993,14 +2077,16 @@ def phase_error_rows(torch, mk, gk, dk, lib, report):
 
 
 def engine_errors(torch, lib, report) -> None:
-    """The bf16 route's five channel products alone (``m2m_wg_product``: the
-    wgmma engine in the layouts K1b runs them in, the whole depth in one
-    slice) at the L fusion shape, batch 512 (R = 40960 rows, D 512, C 4096),
-    on operands drawn as the block's: z, W3, W4^T and h2 bf16, da4 bf16 times
-    a keep bit, da3 float32 as its three bf16 planes. Each output's error
-    against the float64 product of the same values (for dz and dW3: of the
-    float32 da3, so the split's own error counts), relative to its largest
-    magnitude."""
+    """The bf16 route's products alone (``m2m_wg_product``: the wgmma engine
+    in the layouts the bf16 kernels run them in, the whole depth in one slice)
+    at the L fusion shape, batch 512 (R = 40960 rows, D 512, C 4096; the token
+    FF's B*D = 262144 rows, N 80, T 256), on operands drawn as the block's:
+    K1b's five channel products (z, W3, W4^T and h2 bf16, da4 bf16 times a
+    keep bit, da3 float32 as its three bf16 planes) and K1f's four (up: z
+    W3, down: h2 W4, the token FF's up: yt W1 and down: ht W2, every operand
+    bf16). Each output's error against the float64 product of the same
+    values (for dz and dW3: of the float32 da3, so the split's own error
+    counts), relative to its largest magnitude."""
     import ctypes
 
     geom = L_GEOMS[2][1]
@@ -2016,12 +2102,20 @@ def engine_errors(torch, lib, report) -> None:
     planes = [da3.to(bf)]
     planes.append((da3 - planes[0].float()).to(bf))
     planes.append((da3 - planes[0].float() - planes[1].float()).to(bf))
+    w4 = (rand(C, D) / C ** 0.5).to(bf)
+    rows, N, T = 512 * D, geom["N"], geom["T"]
+    yt, w1 = rand(rows, N).to(bf), (rand(N, T) / N ** 0.5).to(bf)
+    ht, w2 = torch.nn.functional.gelu(rand(rows, T)).to(bf), (rand(T, N) / T ** 0.5).to(bf)
     # (A planes, A K-major, B planes, B K-major, M, N, K, float64 reference)
     cases = {"a3": ([z], 1, [w3], 0, R, C, D, lambda: z.double() @ w3.double()),
              "dh2": ([da4], 1, [w4t], 0, R, C, D, lambda: da4.double() @ w4t.double()),
              "dz": (planes, 1, [w3], 1, R, D, C, lambda: da3.double() @ w3.double().t()),
              "dW3": ([z], 0, planes, 0, D, C, R, lambda: z.double().t() @ da3.double()),
-             "dW4^T": ([da4], 0, [h2], 0, D, C, R, lambda: da4.double().t() @ h2.double())}
+             "dW4^T": ([da4], 0, [h2], 0, D, C, R, lambda: da4.double().t() @ h2.double()),
+             "up": ([z], 1, [w3], 0, R, C, D, lambda: z.double() @ w3.double()),
+             "down": ([h2], 1, [w4], 0, R, D, C, lambda: h2.double() @ w4.double()),
+             "token up": ([yt], 1, [w1], 0, rows, T, N, lambda: yt.double() @ w1.double()),
+             "token down": ([ht], 1, [w2], 0, rows, N, T, lambda: ht.double() @ w2.double())}
     out = report.setdefault("engine_rel_err", {})
     for name, (a, a_k, b, b_k, M, N, K, ref) in cases.items():
         got = torch.empty(M, N, device="cuda")
@@ -2036,9 +2130,10 @@ def engine_errors(torch, lib, report) -> None:
         out[f"L_fusion/B512/{name}"] = ((got.double() - want).abs().max() /
                                         want.abs().max()).item()
         del got, want
-    print("  the wgmma engine's channel products at the L fusion shape, batch 512, error / "
-          "max|float64|: " + ", ".join(f"{k.split('/')[-1]} {v:.2e}" for k, v in out.items()))
-    del z, w3, w4t, da4, h2, da3, planes
+    print("  the wgmma engine's products (K1b's five, K1f's four) at the L fusion shape, batch "
+          "512, error / max|float64|: " + ", ".join(f"{k.split('/')[-1]} {v:.2e}"
+                                                    for k, v in out.items()))
+    del z, w3, w4t, w4, da4, h2, da3, planes, yt, w1, ht, w2
     torch.cuda.empty_cache()
 
 
@@ -2197,7 +2292,9 @@ def phase_dyna_times(torch, dk, serving, Trainer, load_cfg, synthetic, np, serve
 L_CFG = os.path.join(REPO, "cfg", "avmnist", "avmnist_m2-mixer_L.yml")
 # avmnist_m2-mixer_L.yml's three mixers: 4 image blocks of 16 tokens, 4 audio
 # blocks of 64, 2 fusion blocks of 80 (16 + 64 fused); at D = 512 none of them
-# fits the register route's tiles, so every one runs the token FF as products
+# fits the backward's register tiles, so every backward runs the token FF as
+# products; the forward does at 64 and 80 tokens and keeps the register route
+# at 16
 L_GEOMS = (("image", dict(N=16, D=512, T=256, C=4096), 4),
            ("audio", dict(N=64, D=512, T=256, C=4096), 4),
            ("fusion", dict(N=80, D=512, T=256, C=4096), 2))
@@ -2342,6 +2439,8 @@ def phase_l_kernels(torch, mk, report):
                         torch, kernel(cd), plain(cd), round_bf16(torch, plain(torch.float32)),
                         key, report, second, L_BF16_SHARE.get(name),
                         None if name in L_BF16_SHARE else L_STACK_EXCESS)
+                    check_fwd_engine_route(launch_counts(torch, lambda: kernel(cd)), key,
+                                           1 if name == "K1f" else K)
                 bwd = {"K1b": (lambda c: mk.fused_mixer_block_bwd(x, g, blocks[0], 7, rate, c,
                                                                   True),
                                lambda c: mk.mixer_block_bwd_reference(x, g, blocks[0], rate, c,
@@ -2623,12 +2722,15 @@ def phase_new_route_times(torch, mk, dk, serving, Trainer, apply_overrides, load
                 bounds[f"K1b/{tag}"] = bound(bfl, bbytes, peak)
                 bounds[f"K2b/{tag}"] = bound(K * bfl, K * (bbytes - 1.5 * act) + 1.5 * act, peak)
                 # the tensor-core rate of the products as the kernels run them: 3xTF32 in
-                # float32; in bf16 1xTF32 forward (both operands bf16), and the
-                # backward's design bound (the wgmma engine's nine passes and the
-                # token products)
-                f_rate = TC_3XTF32 if dtype == "f32" else 495e12
-                tc[f"K1f/{tag}"] = ffl / f_rate * 1e3
-                tc[f"K2f/{tag}"] = K * ffl / f_rate * 1e3
+                # float32; in bf16 the designs' bounds (the forward's four products on
+                # the wgmma engine, the backward's nine passes and the token products)
+                if dtype == "f32":
+                    tc[f"K1f/{tag}"] = ffl / TC_3XTF32 * 1e3
+                else:
+                    tc[f"K1f/{tag}"] = bf16_fwd_design_ms(B, geom["N"], geom["D"], geom["T"],
+                                                          geom["C"],
+                                                          bool(mk._token_ff("fwd", x, flat)))
+                tc[f"K2f/{tag}"] = K * tc[f"K1f/{tag}"]
                 tc[f"K1b/{tag}"] = bfl / TC_3XTF32 * 1e3 if dtype == "f32" else \
                     bf16_bwd_design_ms(B, geom["N"], geom["D"], geom["T"], geom["C"], True)
                 tc[f"K2b/{tag}"] = K * tc[f"K1b/{tag}"]
@@ -2641,12 +2743,19 @@ def phase_new_route_times(torch, mk, dk, serving, Trainer, apply_overrides, load
                     bd[f"K1f/{tag}"] = kernel_breakdown(torch, calls["K1f"], f"K1f {tag}")
                     bd[f"K1b/{tag}"] = kernel_breakdown(torch, calls["K1b"], f"K1b {tag}")
                 if dtype == "bf16" and B == 512:
-                    seq = launch_sequence(torch, calls["K2b"])
-                    check_engine_route(seq, f"K2b {tag}", K)
+                    check_engine_route(launch_counts(torch, calls["K2b"]), f"K2b {tag}", K)
                     prods = channel_products(launch_sequence(torch, calls["K1b"]))
                     report.setdefault("channel_products_us", {})[f"K1b/{tag}"] = prods
                     print(f"  K1b {tag}: the channel products {sum(us for _, us in prods):.1f} "
                           "us (" + ", ".join(f"{us:.1f}" for _, us in prods) + ")")
+                    check_fwd_engine_route(launch_counts(torch, calls["K1f"]), f"K1f {tag}")
+                    seq = launch_sequence(torch, calls["K1f"])
+                    report.setdefault("launches_us", {})[f"K1f/{tag}"] = seq
+                    prods = fwd_channel_products(kernel_breakdown(torch, calls["K1f"], None))
+                    report["channel_products_us"][f"K1f/{tag}"] = prods
+                    print(f"  K1f {tag}: " + ", ".join(f"{n.split('<')[0]} {us:.1f}"
+                                                       for n, us in seq) + " us; the channel "
+                          f"products {sum(us for _, us in prods):.1f} us")
                 del saved, calls
             del x, g
             torch.cuda.empty_cache()
@@ -2717,9 +2826,11 @@ def phase_new_route_times(torch, mk, dk, serving, Trainer, apply_overrides, load
 # ------------------------------------------- yardsticks, registers, A/B times
 def product_yardsticks(torch, report) -> None:
     """Each product of K1b, K3f, K3b, K4f and K4b at batch 512 timed as one
-    ``torch.matmul`` in float32 (TF32 off), and each of K1b's also as one bf16
+    ``torch.matmul`` in float32 (TF32 off), each of K1b's also as one bf16
     ``torch.matmul`` (the bf16 K1b's yardstick; at the B shapes and the L
-    fusion shape): a yardstick per product, never called by the port. Shapes
+    fusion shape), and the bf16 K1f's four (the channel FF's up and down, the
+    token FF's up and down) as one bf16 ``torch.matmul`` each at the three L
+    shapes: a yardstick per product, never called by the port. Shapes
     (M x K x N); the SGU's token products are batched over the sample's F/2
     v-channels. K3f's in-projection and token
     product are K3b's in_proj and sgu t."""
@@ -2754,6 +2865,13 @@ def product_yardsticks(torch, report) -> None:
     for prod, (M, K, Nn) in {"a3": (R, D, C), "dh2": (R, D, C), "dz": (R, C, D),
                              "dW3": (D, R, C), "dW4": (C, R, D)}.items():
         mm(f"K1b_bf16/L_fusion/B512/{prod} (bf16 matmul)", M, K, Nn, torch.bfloat16)
+    # the bf16 K1f's four products at the three L shapes, one bf16 matmul each
+    for geom_name, geom, _ in L_GEOMS:
+        N, D, T, C = geom["N"], geom["D"], geom["T"], geom["C"]
+        R, rows = 512 * N, 512 * D
+        for prod, (M, K, Nn) in {"up": (R, D, C), "down": (R, C, D), "token_up": (rows, N, T),
+                                 "token_down": (rows, T, N)}.items():
+            mm(f"K1f_bf16/L_{geom_name}/B512/{prod} (bf16 matmul)", M, K, Nn, torch.bfloat16)
     rows, C, HR = 7 * 512 * DYNA_OP["L"], DYNA_OP["C"], DYNA_OP["H"] * DYNA_OP["R"]
     mm("K4f/B512/out_proj", rows, C, C)
     for prod, (M, K, Nn) in {"d_mixed": (rows, C, C), "dW_o": (C, rows, C),
@@ -2824,14 +2942,16 @@ def host_us(torch, fn, calls: int = 20) -> float:
 
 
 def kernel_times(torch, mk, gk, dk) -> dict:
-    """K1f, K2f, K1b and K2b (encoder and fusion stack; K1b and K2b also in
-    bf16 compute), K3f and K3b (encoder and fusion shape), K4f and K4b alone
+    """K1f, K2f, K1b and K2b (encoder and fusion stack; each also in bf16
+    compute), K3f and K3b (encoder and fusion shape), K4f and K4b alone
     at batch 32 and 512 (CUDA events,
     median of 5 runs of 20 calls; the forwards float32 without dropout, as
-    served), and bf16 K1b and K2b (2 blocks + LN) at the L fusion shape at
+    served), bf16 K1b and K2b (2 blocks + LN) at the L fusion shape at
     batch 512 (5 calls a run) with the device time of each launch of one call
     in launch order and, for K1b, the sum of its five channel products
-    (``channel_products``), the numbers the A/B compares; for one K1f call at
+    (``channel_products``), and bf16 K1f and K2f at the three L shapes at
+    batch 512 the same way (K1f's two channel products summed,
+    ``fwd_channel_products``), the numbers the A/B compares; for one K1f call at
     each shape at batch 512, and one K1b call at each shape and batch, the
     device time of each launch; and the host time to enqueue one K1b call."""
     times, breakdown, host = {}, {}, {}
@@ -2843,6 +2963,11 @@ def kernel_times(torch, mk, gk, dk) -> dict:
             k1f = lambda: mk.fused_mixer_block(x, blocks[0])
             times[f"K1f/{geom_name}/B{B}"] = cuda_ms(torch, k1f)
             times[f"K2f/{geom_name}/B{B}"] = cuda_ms(torch, lambda: mk.fused_mixer_stack(x, flat))
+            bf = torch.bfloat16
+            times[f"K1f_bf16/{geom_name}/B{B}"] = cuda_ms(
+                torch, lambda: mk.fused_mixer_block(x, blocks[0], compute_dtype=bf))
+            times[f"K2f_bf16/{geom_name}/B{B}"] = cuda_ms(
+                torch, lambda: mk.fused_mixer_stack(x, flat, compute_dtype=bf))
             if B == 512:
                 breakdown[f"K1f/{geom_name}/B{B}"] = kernel_breakdown(torch, k1f, None)
         for B in (32, 512):
@@ -2881,6 +3006,24 @@ def kernel_times(torch, mk, gk, dk) -> dict:
             times[f"{key}/channel_products"] = sum(us for _, us in prods) / 1e3
     del x, g, saved, calls, blocks, flat
     torch.cuda.empty_cache()
+    # bf16 K1f and K2f (the main path's depth + LN) at the three L shapes, batch
+    # 512, as served: each launch of one call, and K1f's two channel products
+    for geom_name, geom, K in L_GEOMS:
+        blocks, ln_s, ln_b = rand_blocks(mk, torch, K, seed=53, **geom)
+        flat = mk.stack_flat_params(blocks, ln_s, ln_b)
+        x = torch.randn(512, geom["N"], geom["D"], generator=torch.Generator().manual_seed(5)).cuda()
+        calls = {"K1f_bf16": lambda: mk.fused_mixer_block(x, blocks[0],
+                                                          compute_dtype=torch.bfloat16),
+                 "K2f_bf16": lambda: mk.fused_mixer_stack(x, flat, compute_dtype=torch.bfloat16)}
+        for name, fn in calls.items():
+            key = f"{name}/L_{geom_name}/B512"
+            times[key] = cuda_ms(torch, fn, iters=5)
+            breakdown[key] = launch_sequence(torch, fn)
+            if name == "K1f_bf16":
+                prods = fwd_channel_products(kernel_breakdown(torch, fn, None))
+                times[f"{key}/channel_products"] = sum(us for _, us in prods) / 1e3
+        del x, calls, blocks, flat
+        torch.cuda.empty_cache()
     H, R = DYNA_OP["H"], DYNA_OP["R"]
     p = dyna_params(dk, torch, seed=43, **DYNA_OP)
     try:
@@ -2894,6 +3037,39 @@ def kernel_times(torch, mk, gk, dk) -> dict:
         times[f"K4f/B{B}"] = cuda_ms(torch, lambda: dk.fused_dynamixer_op(x, p, H, R))
         times[f"K4b/B{B}"] = cuda_ms(torch, lambda: dk.fused_dynamixer_op_bwd(x, g, p, H, R))
     return {"kernel_times": times, "breakdown_us": breakdown, "host_us": host}
+
+
+def l_e2e_times(torch, np, serving, Trainer, apply_overrides, load_cfg, synthetic) -> dict:
+    """The L config (bf16) at full width, seeded weights: the served forward
+    at batch 32 and 512 through the plain modules and through the network
+    ``serving export --pallas`` builds (``PallasStacked*``: three bf16 K2f
+    stacks), and the train step at 512 (the config's dropout 0.5) through
+    ``PallasStacked*`` and ``Pallas*`` (CUDA events, median of 5 runs of 5)."""
+    times = {}
+    plain, cfg = l_task(serving, apply_overrides, load_cfg, "plain")
+    kernel, _ = serving.to_torch_kernel_serving(cfg, plain.network.state_dict(), device="cuda")
+    rng = np.random.RandomState(5)
+    for B in (32, 512):
+        feats = {"image": torch.from_numpy(rng.rand(B, 1, 28, 28).astype(np.float32)).cuda(),
+                 "audio": torch.from_numpy(rng.rand(B, 1, 112, 112).astype(np.float32)).cuda()}
+        for flavor, task in (("plain", plain), ("stacked", kernel)):
+            fn = serving.serve_fn(task)
+            times[f"l_served/{flavor}/B{B}"] = cuda_ms(torch, lambda: fn(feats), iters=5)
+    del plain, kernel
+    data = synthetic(512, seed=4, learnable=True)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_l_e2e_") as tmp:
+        for flavor in ("stacked", "per_block"):
+            task, cfg = l_task(serving, apply_overrides, load_cfg, flavor)
+            trainer = Trainer(cfg.train, name=f"l_e2e_{flavor}", work_dir=tmp)
+            trainer.setup(task)
+            ctx = task.make_ctx(0, "train")
+            times[f"l_train_step/{flavor}/B512"] = cuda_ms(
+                torch, lambda: trainer.train_step(task, batch, ctx), iters=5)
+            trainer.logger.close()
+            del task, trainer
+            torch.cuda.empty_cache()
+    return times
 
 
 def card_line() -> str:
@@ -2964,6 +3140,8 @@ def main() -> int:
         e2e = b_served_times(torch, np, fwd)
         e2e.update(b_train_step_times(torch, serving, Trainer, apply_cli_overrides, load_cfg,
                                       synthetic_avmnist_arrays))
+        e2e.update(l_e2e_times(torch, np, serving, Trainer, apply_cli_overrides, load_cfg,
+                               synthetic_avmnist_arrays))
         print(json.dumps({**kernel_times(torch, mk, gk, dk), "e2e_ms": e2e, "card": card_line()}))
         return 0
     t_start = time.time()
@@ -3140,16 +3318,16 @@ def main() -> int:
          "bound_ms": bd["K4b_bf16/B512"][0], "bound_by": bd["K4b_bf16/B512"][1],
          "library_ms": None},
         {"name": "mixer_fwd bf16 token pipeline (K1f, one MixerBlock, L fusion: B=512 N=80 "
-                 "D=512 T=256 C=4096)",
-         "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/token_ff.cuh",
+                 "D=512 T=256 C=4096, channel and token products on bf16 wgmma)",
+         "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/mixer_fwd.cu",
          "replaces": "m2mixer_tpu/ops/mixer_kernel.py:213",
          "launches": l_runs["per_block"]["K1f_token_ff"],
          "max_abs_err": report["errors"]["K1f/L/fusion/B512/bf16"],
          "ms": t[f"K1f/{lf}"], "plain_ms": t[f"K1f_plain/{lf}"],
          "bound_ms": bd[f"K1f/{lf}"][0], "bound_by": bd[f"K1f/{lf}"][1], "library_ms": None},
         {"name": "mixer_fwd bf16 token pipeline (K2f, 2 MixerBlocks + LN, L fusion: B=512 N=80 "
-                 "D=512 T=256 C=4096)",
-         "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/token_ff.cuh",
+                 "D=512 T=256 C=4096, channel and token products on bf16 wgmma)",
+         "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/mixer_fwd.cu",
          "replaces": "m2mixer_tpu/ops/mixer_kernel.py:421",
          "launches": l_runs["stacked"]["K2f_token_ff"],
          "max_abs_err": report["errors"]["K2f/L/fusion/B512/bf16"],

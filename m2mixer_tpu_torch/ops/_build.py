@@ -21,11 +21,15 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["load_library", "build_library", "CSRC_DIR", "BUILD_DIR"]
+__all__ = ["load_library", "build_library", "launch_tally", "CSRC_DIR", "BUILD_DIR",
+           "TALLIED_KERNELS"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libm2mixer_torch_kernels.so"
+# the kernels the library tallies where it enqueues them (mixer_common.cuh's
+# M2mTally order)
+TALLIED_KERNELS = ("wg_gemm_kernel", "tc_gemm_kernel", "tok_in_kernel")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", *ARCH_FLAGS]
 
@@ -108,6 +112,8 @@ def _declare(lib):
     dropout = [ctypes.POINTER(ctypes.c_uint), ctypes.c_uint, ctypes.c_float]
     lib.m2m_error_string.argtypes = [c_int]
     lib.m2m_error_string.restype = ctypes.c_char_p
+    lib.m2m_launch_tally.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.m2m_launch_tally.restype = None
     lib.m2m_mixer_fwd_workspace_bytes.argtypes = [c_int] * 8
     lib.m2m_mixer_fwd_workspace_bytes.restype = c_size_t
     lib.m2m_mixer_fwd.argtypes = ([c_void_p] * 3 + [c_int] * 8 + dropout
@@ -159,6 +165,15 @@ def load_library():
         if _LIB is None:
             _LIB = _declare(ctypes.CDLL(str(build_library())))
         return _LIB
+
+
+def launch_tally() -> dict:
+    """{kernel: launches since the library was loaded} of TALLIED_KERNELS,
+    counted on the host where the library enqueues them: exact, where a
+    profiler trace may drop events."""
+    out = (ctypes.c_ulonglong * len(TALLIED_KERNELS))()
+    load_library().m2m_launch_tally(out)
+    return dict(zip(TALLIED_KERNELS, out))
 
 
 def check(lib, code: int, what: str) -> None:

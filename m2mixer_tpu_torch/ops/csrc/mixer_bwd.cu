@@ -98,10 +98,8 @@ namespace {
 constexpr int kLnRows = 16;  // rows per CTA of the final LN's backward
 constexpr int kTr = 32;      // stage 0's transpose tile
 
-// how the channel FF's operands (w3p, w4t, z, da4, h2) lie in the workspace:
-// float32 for tc_gemm, bf16 for the wgmma engine (wgmma_bf16.cuh)
-template <bool kBF16>
-using ChanT = std::conditional_t<kBF16, __nv_bfloat16, float>;
+// the channel FF's operands (w3p, w4t, z, da4, h2) lie in the workspace as
+// token_ff.cuh's ChanT: float32 for tc_gemm, bf16 for the wgmma engine
 
 // stage 0: w3p[d, c] = w3[d, c], w4t[d, c] = w4[c, d] for c < C, zeros for
 // C <= c < Cp; a kTr x kTr tile a CTA, W4 transposed through shared memory.

@@ -21,8 +21,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <mutex>
 #include <vector>
+
+// Host-side launch tallies, read through m2m_launch_tally (mixer_fwd.cu): the
+// wgmma engine's kernel, tc_gemm's and the token pipeline's first kernel,
+// counted where they are enqueued, so that a check of the route a call took
+// does not rest on a profiler trace, which may drop events.
+enum M2mTally { kTallyWgGemm, kTallyTcGemm, kTallyTokIn, kTallies };
+extern std::atomic<unsigned long long> m2m_tally[kTallies];
+inline void m2m_count(M2mTally t) { m2m_tally[t].fetch_add(1, std::memory_order_relaxed); }
 
 namespace {
 

@@ -46,21 +46,43 @@
 // outputs, and a stack's saved slots equal a chain of one-block calls.
 // bf16 compute runs the same pipeline with _block_math's casts (rd<true> at
 // each: the block input, the LN outputs, h, h2 and the residual stream rounded
-// to bf16; LN statistics, sums, biases and GELU float32) and products of bf16
-// operands, exact in TF32, so one mma in place of three (kExact). The
-// parameters arrive in float32 at either precision; stage 0 lays out the
+// to bf16; LN statistics, sums, biases and GELU float32), its products on the
+// wgmma engine (wgmma_bf16.cuh): bf16 operands in the workspace, float32 sums,
+// each 64-deep stage's sums added to the float32 accumulator (the tensor
+// core's own accumulation truncates). What bounds it: at the L config's
+// fusion mixer (B 512, N 80, D 512, C 4096) each channel product is 2*B*N*D*C
+// = 171.8 GFLOP, 0.17 ms at the dense bf16 peak of 989 TFLOP/s, against
+// 1xTF32 mma.sync on tc_gemm at about 64 TFLOP/s; the token FF's two products
+// are 11 GFLOP each against 176 and 218 MB of operands and outputs, bound
+// by bytes. So:
+//   0. w3p (D x Cp, Cp = C rounded up to 8: TMA's whole 16-byte rows) and
+//      w4r (C x D) in bf16, rounded;
+//   1. the prefix (register route) or tok_out_kernel (token pipeline) writes
+//      z in bf16; x1 stays float32. The token pipeline's products run on the
+//      engine too (token_forward_wg below: yt and ht in bf16);
+//   2. up: z (K-major) times w3p (MN-major) on a 128 x 64 tile, three CTAs
+//      an SM (an epilogue of GELU and the hash per element, which takes about
+//      as long as the products: one CTA's epilogue beside the others'
+//      products), h2 in bf16 staged through shared memory and written in
+//      whole rows, zeros in the pad columns;
+//   3. down: h2 (K-major) times w4r (MN-major) on a 128 x 128 tile, the depth
+//      C sliced where the tiles are few (wg_slices), float32 partials;
+//   4. the finish as in float32, its two roundings unchanged.
+// The parameters arrive in float32 at either precision; stage 0 lays out the
 // rounded W3/W4 copies the products read, as the JAX kernels cast theirs on
-// each call.
+// each call. No fallback: a bf16 call the engine cannot take raises.
 //
-// Limits checked by the wrappers and again here: D % 4 == 0, K <= kMaxBlocks,
-// the masks' 32-bit element counts and the products' grid.
+// Limits checked by the wrappers and again here: D % 4 == 0 (bf16: D % 8 ==
+// 0), K <= kMaxBlocks, the masks' 32-bit element counts and the products' grid.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mixer_common.cuh"
 #include "tile_common.cuh"
 #include "token_ff.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -116,36 +138,40 @@ StackArgs pack(const void* const* ptrs, int n_blocks, int final_ln, float* saved
 }
 
 constexpr int kFewTokens = 8;  // the prefix's narrow token bound (the B config: N = 4, 8)
+constexpr int kSomeTokens = 16;  // the next (the L config's image mixer: N = 16)
 
 // stage 0: for block blockIdx.y, w3p (D x Cp) = its W3 (D x C), zeros in
-// columns C..Cp-1, and in bf16 w4r (C x D) = its W4; both rounded to the
-// compute dtype (the copies the products read)
+// columns C..Cp-1, and in bf16 w4r (C x D) = its W4; both in the compute
+// dtype (ChanT: the copies the products read)
 struct W34Srcs {
   const float* w3[kMaxBlocks];
   const float* w4[kMaxBlocks];
 };
 template <bool kBF16>
 __global__ void __launch_bounds__(kThreads)
-    prep_w34_kernel(const __grid_constant__ W34Srcs src, float* __restrict__ w3p,
-                    float* __restrict__ w4r, int D, int C, int Cp) {
+    prep_w34_kernel(const __grid_constant__ W34Srcs src, ChanT<kBF16>* __restrict__ w3p,
+                    ChanT<kBF16>* __restrict__ w4r, int D, int C, int Cp) {
   const int k = blockIdx.y;
   const int e = blockIdx.x * kThreads + threadIdx.x;
   if (e < D * Cp) {
     const int d = e / Cp, c = e - d * Cp;
-    w3p[(size_t)k * D * Cp + e] = c < C ? rd<kBF16>(__ldg(src.w3[k] + (size_t)d * C + c)) : 0.f;
+    w3p[(size_t)k * D * Cp + e] =
+        to_operand<ChanT<kBF16>>(c < C ? __ldg(src.w3[k] + (size_t)d * C + c) : 0.f);
   }
-  if (kBF16 && e < C * D) w4r[(size_t)k * C * D + e] = rd<kBF16>(__ldg(src.w4[k] + e));
+  if (kBF16 && e < C * D)
+    w4r[(size_t)k * C * D + e] = to_operand<ChanT<kBF16>>(__ldg(src.w4[k] + e));
 }
 
 // stage 1 of block `blk` on a tile of tb whole samples, at most kMaxTokens
 // tokens: the block input u (x rounded to the compute dtype for the first
 // block, else the finish of block blk - 1 from x1 and `part`), saved to `save`
 // when given, then LN1 -> token FF -> x1 = u + token FF -> LN2 = z; x1 and z
-// to device memory. x1 is read and rewritten in place: a tile's rows are its own.
+// to device memory (z in the compute dtype, ChanT). x1 is read and rewritten in
+// place: a tile's rows are its own.
 template <int kMaxN, bool kBF16>
 __global__ void __launch_bounds__(kThreads)
     fwd_prefix_kernel(const float* __restrict__ x, const float* __restrict__ part, int ksplit,
-                      const float* __restrict__ b4_prev, float* x1, float* __restrict__ z,
+                      const float* __restrict__ b4_prev, float* x1, ChanT<kBF16>* __restrict__ z,
                       float* __restrict__ save, int B, int N, int T, int D, int tb,
                       int tanh_flavor, BlockPtrs p, const __grid_constant__ Dropout dp, int blk) {
   extern __shared__ __align__(16) float sm[];
@@ -172,21 +198,41 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   for (int e = threadIdx.x; e < R * D; e += kThreads) {
     x1[off + e] = xs[e];
-    z[off + e] = ys[e];
+    z[off + e] = to_operand<ChanT<kBF16>>(ys[e]);
   }
 }
 
-// stage 2's epilogue over (rows) x Cp: h2 = rd(gelu(v + b3) m2), zero in the pad
+// stage 2's epilogue over (rows) x Cp: h2 = gelu(v + b3) m2, zero in the pad
 // columns (K1b's EpiA3 and then EpiChannelBwd compute the same h2)
-template <bool kBF16>
 struct EpiUp {
   const float* b3;
   int C, tanh_flavor, blk;
   Dropout dp;
   __device__ __forceinline__ float operator()(int r, int c, float v) const {
     if (c >= C) return 0.f;
-    return rd<kBF16>(gelu(v + __ldg(b3 + c), tanh_flavor) *
-                     keep(dp, blk, 2, (uint32_t)r * C + c));
+    return gelu(v + __ldg(b3 + c), tanh_flavor) * keep(dp, blk, 2, (uint32_t)r * C + c);
+  }
+};
+// the same on the wgmma engine (bf16): columns c, c + 1 of row r -> h2 =
+// rd(gelu(v + b3) m2) in bf16, which the engine stages and writes
+struct EpiUpWg {
+  static constexpr int kOuts = 1;
+  const float* b3;
+  __nv_bfloat16* h2;  // (B*N) x Cp
+  int C, tanh_flavor, blk;
+  Dropout dp;
+  __device__ __forceinline__ __nv_bfloat16* dst(int) const { return h2; }
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1,
+                                             __nv_bfloat162 (&out)[kOuts]) const {
+    float v[2] = {v0, v1};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int cc = c + e;
+      v[e] = cc < C ? gelu(v[e] + __ldg(b3 + cc), tanh_flavor) *
+                          keep(dp, blk, 2, (uint32_t)r * C + cc)
+                    : 0.f;
+    }
+    out[0] = __floats2bfloat162_rn(v[0], v[1]);
   }
 };
 
@@ -222,16 +268,126 @@ __global__ void __launch_bounds__(kThreads)
                              rd<kBF16>(__ldg(lnf_b + d)));
 }
 
+// token_ff.cuh's EpiTokenUp and EpiTokenDown on the wgmma engine (the bf16
+// forward's token pipeline): the up product's columns c, c + 1 of row r -> h
+// = rd(gelu(v + b1) m0) in bf16, zeros in the pad columns T <= c < Tp (the
+// engine stages and writes them)
+struct EpiTokenUpWg {
+  static constexpr int kOuts = 1;
+  const float* b1;
+  __nv_bfloat16* h;  // (B*D) x Tp
+  int T, tanh_flavor, blk;
+  Dropout dp;
+  __device__ __forceinline__ __nv_bfloat16* dst(int) const { return h; }
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1,
+                                             __nv_bfloat162 (&out)[kOuts]) const {
+    float v[2] = {v0, v1};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int cc = c + e;
+      v[e] = cc < T ? gelu(v[e] + __ldg(b1 + cc), tanh_flavor) *
+                          keep(dp, blk, 0, (uint32_t)r * T + cc)
+                    : 0.f;
+    }
+    out[0] = __floats2bfloat162_rn(v[0], v[1]);
+  }
+};
+// and the down product's: tt[r, c] = (v + b2) m1 in float32 (args.N = N columns)
+struct EpiTokenDownWg {
+  static constexpr int kOuts = 0;
+  const float* b2;
+  int blk;
+  Dropout dp;
+  __device__ __forceinline__ void operator()(const WgJob& jb, const WgArgs& a, int, int r, int c,
+                                             float v0, float v1) const {
+    const float v[2] = {v0, v1};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int cc = c + e;
+      if (cc >= a.N) break;
+      const uint32_t i = (uint32_t)r * a.N + cc;
+      jb.out[i] = (v[e] + __ldg(b2 + cc)) * keep(dp, blk, 1, i);
+    }
+  }
+};
+
+// The bf16 forward's token products' weights, rounded and padded as the
+// engine reads them: w1p (N x Tp) = rd(w1), w2p (T x Np) = rd(w2), zeros in
+// the pad columns
+__global__ void __launch_bounds__(kThreads)
+    pad_token_weights_kernel(const float* __restrict__ w1, const float* __restrict__ w2,
+                             __nv_bfloat16* __restrict__ w1p, __nv_bfloat16* __restrict__ w2p,
+                             int N, int T, int Np, int Tp) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i < N * Tp) {
+    const int n = i / Tp, j = i - n * Tp;
+    w1p[i] = __float2bfloat16_rn(j < T ? __ldg(w1 + (size_t)n * T + j) : 0.f);
+  }
+  if (i < T * Np) {
+    const int j = i / Np, n = i - j * Np;
+    w2p[i] = __float2bfloat16_rn(n < N ? __ldg(w2 + (size_t)j * N + n) : 0.f);
+  }
+}
+
+// The bf16 forward's token half above kMaxTokens tokens on the wgmma engine,
+// as token_ff.cuh's token_forward (without the backward's extras): u -> x1 =
+// u + token FF, z = LN2(x1) in bf16. yt and ht are bf16, rows padded to
+// whole 16-byte groups (Np = N, Tp = T rounded up to 8; the pad columns are
+// read as TMA's out-of-bounds zeros or written as zeros), the rounded token
+// weights laid out padded the same way, tt float32: at the L config's
+// fusion shape, batch 512, ht's round trip through device memory halves
+// (268 MB written and read in float32). w1 and w2 are the float32
+// parameters; both products in one slice of their depth on the 64-wide tile.
+struct TokenWgBufs {
+  __nv_bfloat16* w1p;  // N x Tp
+  __nv_bfloat16* w2p;  // T x Np
+  __nv_bfloat16* yt;   // (B*D) x Np
+  __nv_bfloat16* ht;   // (B*D) x Tp
+  float* tt;           // (B*D) x N
+  int Np, Tp;
+};
+
+inline int token_forward_wg(const float* x, const float* part, int ksplit, const float* b4_prev,
+                            float* x1, __nv_bfloat16* z, float* save, const TokenWgBufs& tb,
+                            const float* ln1_s, const float* ln1_b, const float* w1,
+                            const float* b1, const float* w2, const float* b2,
+                            const float* ln2_s, const float* ln2_b, int B, int N, int T, int D,
+                            int nc, int tanh_flavor, const Dropout& dp, int blk, int device,
+                            cudaStream_t st) {
+  const int most = N * tb.Tp > T * tb.Np ? N * tb.Tp : T * tb.Np;
+  pad_token_weights_kernel<<<ceil_div(most, kThreads), kThreads, 0, st>>>(w1, w2, tb.w1p, tb.w2p,
+                                                                         N, T, tb.Np, tb.Tp);
+  M2M_TRY(cudaGetLastError());
+  const size_t smem = tok_tile_bytes(nc, D);
+  const dim3 grid(ceil_div(N, nc), B);
+  tok_in_kernel<true, __nv_bfloat16><<<grid, kThreads, smem, st>>>(
+      x, part, ksplit, b4_prev, x1, tb.yt, tb.Np, save, B, N, D, nc, ln1_s, ln1_b, dp, blk);
+  m2m_count(kTallyTokIn);
+  M2M_TRY(cudaGetLastError());
+  const long long rows = (long long)B * D;
+  M2M_TRY(wg_product<64>(tb.yt, tb.Np, tb.w1p, tb.Tp, nullptr, rows, tb.Tp, N, N, 1,
+                         EpiTokenUpWg{b1, tb.ht, T, tanh_flavor, blk, dp}, device, st));
+  M2M_TRY(wg_product<64>(tb.ht, tb.Tp, tb.w2p, tb.Np, tb.tt, rows, N, T, T, 1,
+                         EpiTokenDownWg{b2, blk, dp}, device, st));
+  tok_out_kernel<true, __nv_bfloat16><<<grid, kThreads, smem, st>>>(
+      tb.tt, x1, z, N, D, nc, ln2_s, ln2_b, nullptr, nullptr, dp, blk);
+  return (int)cudaGetLastError();
+}
+
 struct FwdPlan {
   int sms;            // the card's SMs (the products' tile rule, the down product's slices)
   int reg;            // 1: the token FF in registers (N <= kMaxTokens and a sample's
                       // rows fit the prefix tile); 0: token_ff.cuh's pipeline
   int tb, tiles;      // register route: samples per prefix tile, prefix tiles
   int nc;             // token pipeline: tokens per row tile
-  int Cp;             // C rounded up to whole 16-byte groups: h2's row stride
+  int Cp;             // C rounded up to whole 16-byte groups (of float32, or of bf16 in
+                      // bf16 compute): h2's and w3p's row stride
+  int Np, Tp;         // bf16 token pipeline: N and T rounded up to 8 (yt's, ht's rows)
   int kslice, ksplit; // the down product's slices of C
   size_t prefix_smem, finish_smem;
-  // workspace offsets (floats, each a multiple of 4: 16-byte aligned)
+  // workspace offsets (floats, each a multiple of 4: 16-byte aligned); in bf16
+  // compute w3p, w4r, z, h2, the token weights (twr: w1p then w2p), yt and ht
+  // hold bf16
   size_t w3p, w4r, twr, x1, z, h2, part, yt, ht, tt, ws_floats;
 };
 
@@ -251,6 +407,7 @@ int make_fwd_plan(int B, int N, int T, int D, int C, int n_blocks, int bf16, int
   const cudaError_t err = device_info(device, dev);
   if (err != cudaSuccess) return err;
   pl.sms = dev.sms;
+  if (bf16 && D % 8) return -1;  // z's bf16 rows: whole 16-byte groups for TMA
   auto prefix_bytes = [=](int tb) {
     return (2 * (size_t)tb * N * D + 2 * (size_t)N * T + T + N) * 4;
   };
@@ -276,21 +433,35 @@ int make_fwd_plan(int B, int N, int T, int D, int C, int n_blocks, int bf16, int
   }
   const long long R = (long long)B * N;
   const size_t rows = (size_t)R, cols = (size_t)B * D;
-  pl.Cp = (C + 3) / 4 * 4;
-  // the down product (rows x D) in wide tiles x slices of C, as K1b's dz
-  fill_slices(C, ceil_div(R, kTcBM) * ceil_div(D, kTcBN), pl.sms, pl.kslice, pl.ksplit);
+  if (bf16) {
+    pl.Cp = (C + 7) / 8 * 8;
+    pl.Np = (N + 7) / 8 * 8;
+    pl.Tp = (T + 7) / 8 * 8;
+    // the down product (rows x D) in 128 x 128 tiles x slices of C, about a CTA an SM
+    wg_slices(C, (long long)ceil_div(R, kWgBM) * ceil_div(D, kWgBN), pl.sms, 1, pl.kslice,
+              pl.ksplit);
+  } else {
+    pl.Cp = (C + 3) / 4 * 4;
+    pl.Np = N;
+    pl.Tp = T;
+    // the down product (rows x D) in wide tiles x slices of C, as K1b's dz
+    fill_slices(C, ceil_div(R, kTcBM) * ceil_div(D, kTcBN), pl.sms, pl.kslice, pl.ksplit);
+  }
   size_t o = 0;
   auto take = [&o](size_t& at, size_t floats) { at = o, o += (floats + 3) / 4 * 4; };
-  take(pl.w3p, pl.Cp != C || bf16 ? (size_t)n_blocks * D * pl.Cp : 0);
-  take(pl.w4r, bf16 ? (size_t)n_blocks * C * D : 0);
-  take(pl.twr, bf16 && !pl.reg ? 2 * (size_t)N * T : 0);
+  // a product operand: bf16 ones take half a float each
+  auto op = [bf16](size_t n) { return bf16 ? (n + 1) / 2 : n; };
+  const size_t tok = pl.reg ? 0 : 1;  // the token pipeline's buffers, or none
+  take(pl.w3p, pl.Cp != C || bf16 ? op((size_t)n_blocks * D * pl.Cp) : 0);
+  take(pl.w4r, bf16 ? op((size_t)n_blocks * C * D) : 0);
+  take(pl.twr, bf16 ? tok * op((size_t)N * pl.Tp + (size_t)T * pl.Np) : 0);
   take(pl.x1, rows * D);
-  take(pl.z, rows * D);
-  take(pl.h2, rows * pl.Cp);
+  take(pl.z, op(rows * D));
+  take(pl.h2, op(rows * pl.Cp));
   take(pl.part, (size_t)pl.ksplit * rows * D);
-  take(pl.yt, pl.reg ? 0 : cols * N);
-  take(pl.ht, pl.reg ? 0 : cols * T);
-  take(pl.tt, pl.reg ? 0 : cols * N);
+  take(pl.yt, tok * op(cols * pl.Np));
+  take(pl.ht, tok * op(cols * pl.Tp));
+  take(pl.tt, tok * cols * N);
   pl.ws_floats = o;
   return 0;
 }
@@ -304,22 +475,22 @@ int run_pipeline(const float* x, float* out, int B, int N, int T, int D, int C, 
   FwdPlan pl;
   const int code = make_fwd_plan(B, N, T, D, C, n_blocks, kBF16, device, pl);
   if (code) return code;
-  constexpr int kBoth = kBF16 ? kExactA | kExactB : 0;
-  auto prefix = N <= kFewTokens ? fwd_prefix_kernel<kFewTokens, kBF16>
-                                : fwd_prefix_kernel<kMaxTokens, kBF16>;
+  using CT = ChanT<kBF16>;
+  auto prefix = N <= kFewTokens    ? fwd_prefix_kernel<kFewTokens, kBF16>
+                : N <= kSomeTokens ? fwd_prefix_kernel<kSomeTokens, kBF16>
+                                   : fwd_prefix_kernel<kMaxTokens, kBF16>;
   if (pl.reg)
     M2M_TRY(prepare(prefix, pl.prefix_smem, device));
   else
-    M2M_TRY(prepare_token_kernels<kBF16>(pl.nc, D, device));
+    M2M_TRY((prepare_token_kernels<kBF16, CT, CT>(pl.nc, D, device)));
   M2M_TRY(prepare(finish_kernel<kBF16>, pl.finish_smem, device));
   const int R = B * N, Cp = pl.Cp;
   const size_t slot = (size_t)R * D;  // one saved block input
-  float* w3p = ws + pl.w3p;
-  float* w4r = ws + pl.w4r;
-  float* twr = ws + pl.twr;
+  CT* w3p = reinterpret_cast<CT*>(ws + pl.w3p);
+  CT* w4r = reinterpret_cast<CT*>(ws + pl.w4r);
+  CT* z = reinterpret_cast<CT*>(ws + pl.z);
+  CT* h2 = reinterpret_cast<CT*>(ws + pl.h2);
   float* x1 = ws + pl.x1;
-  float* z = ws + pl.z;
-  float* h2 = ws + pl.h2;
   float* part = ws + pl.part;
   const bool copy_w3 = Cp != C || kBF16;
   if (copy_w3) {
@@ -333,7 +504,7 @@ int run_pipeline(const float* x, float* out, int B, int N, int T, int D, int C, 
         src, w3p, w4r, D, C, Cp);
     M2M_TRY(cudaGetLastError());
   }
-  const TokenBufs tbufs{ws + pl.yt, ws + pl.ht, ws + pl.tt, nullptr};
+  auto* twr = reinterpret_cast<__nv_bfloat16*>(ws + pl.twr);
   for (int k = 0; k < n_blocks; ++k) {
     const BlockPtrs& p = a.blocks[k];
     const float* in = k ? nullptr : x;
@@ -344,24 +515,33 @@ int run_pipeline(const float* x, float* out, int B, int N, int T, int D, int C, 
                                                          save, B, N, T, D, pl.tb, tanh_flavor, p,
                                                          a.dp, k);
       M2M_TRY(cudaGetLastError());
+    } else if constexpr (kBF16) {
+      const TokenWgBufs tbufs{twr, twr + (size_t)N * pl.Tp,
+                              reinterpret_cast<__nv_bfloat16*>(ws + pl.yt),
+                              reinterpret_cast<__nv_bfloat16*>(ws + pl.ht), ws + pl.tt, pl.Np,
+                              pl.Tp};
+      M2M_TRY_INT(token_forward_wg(in, part, pl.ksplit, b4_prev, x1, z, save, tbufs, p.ln1_s,
+                                   p.ln1_b, p.w1, p.b1, p.w2, p.b2, p.ln2_s, p.ln2_b, B, N, T, D,
+                                   pl.nc, tanh_flavor, a.dp, k, device, st));
     } else {
-      const float* w1 = p.w1;
-      const float* w2 = p.w2;
-      if (kBF16) {  // the token weights rounded, the copies the bf16 products read
-        M2M_TRY(round_token_weights(p.w1, p.w2, twr, N * T, st));
-        w1 = twr;
-        w2 = twr + N * T;
-      }
-      M2M_TRY_INT(token_forward<kBF16>(in, part, pl.ksplit, b4_prev, x1, z, save, tbufs, p.ln1_s,
-                                   p.ln1_b, w1, p.b1, w2, p.b2, p.ln2_s, p.ln2_b, nullptr,
-                                   nullptr, B, N, T, D, pl.nc, pl.sms, tanh_flavor, a.dp, k, st));
+      const TokenBufs tbufs{ws + pl.yt, ws + pl.ht, ws + pl.tt, nullptr};
+      M2M_TRY_INT(token_forward<false>(in, part, pl.ksplit, b4_prev, x1, z, save, tbufs, p.ln1_s,
+                                       p.ln1_b, p.w1, p.b1, p.w2, p.b2, p.ln2_s, p.ln2_b, nullptr,
+                                       nullptr, B, N, T, D, pl.nc, pl.sms, tanh_flavor, a.dp, k,
+                                       st));
     }
-    const float* w3 = copy_w3 ? w3p + (size_t)k * D * Cp : p.w3;
-    const float* w4 = kBF16 ? w4r + (size_t)k * C * D : p.w4;
-    M2M_TRY(tc_gemm_auto<kBoth>(View{z, D, 1}, View{w3, Cp, 1}, h2, R, Cp, D, pl.sms, st,
-                                EpiUp<kBF16>{p.b3, C, tanh_flavor, k, a.dp}));
-    M2M_TRY(tc_gemm_wide<kBoth>(View{h2, Cp, 1}, View{w4, D, 1}, part, R, D, C, pl.kslice,
-                                pl.ksplit, st));
+    if constexpr (kBF16) {  // the channel products on the wgmma engine
+      M2M_TRY(wg_product<64>(z, D, w3p + (size_t)k * D * Cp, Cp, nullptr, R, Cp, D, D, 1,
+                             EpiUpWg{p.b3, h2, C, tanh_flavor, k, a.dp}, device, st));
+      M2M_TRY(wg_product<kWgBN>(h2, Cp, w4r + (size_t)k * C * D, D, part, R, D, C, pl.kslice,
+                                pl.ksplit, EpiWgStore{}, device, st));
+    } else {
+      const float* w3 = copy_w3 ? w3p + (size_t)k * D * Cp : p.w3;
+      M2M_TRY(tc_gemm_auto(View{z, D, 1}, View{w3, Cp, 1}, h2, R, Cp, D, pl.sms, st,
+                           EpiUp{p.b3, C, tanh_flavor, k, a.dp}));
+      M2M_TRY(tc_gemm_wide(View{h2, Cp, 1}, View{p.w4, D, 1}, part, R, D, C, pl.kslice,
+                           pl.ksplit, st));
+    }
   }
   finish_kernel<kBF16><<<ceil_div(R, kThreads / 32), kThreads, pl.finish_smem, st>>>(
       x1, part, pl.ksplit, a.blocks[n_blocks - 1].b4, a.saved ? a.saved + n_blocks * slot : nullptr,
@@ -371,11 +551,20 @@ int run_pipeline(const float* x, float* out, int B, int N, int T, int D, int C, 
 
 }  // namespace
 
+std::atomic<unsigned long long> m2m_tally[kTallies];
+
 extern "C" {
 
 const char* m2m_error_string(int code) {
   if (code == -1) return "invalid shape arguments for the mixer kernel";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// out[kTallies]: the launches of each tallied kernel (M2mTally order: the
+// wgmma engine, tc_gemm, the token pipeline's tok_in_kernel) since the
+// library was loaded.
+void m2m_launch_tally(unsigned long long* out) {
+  for (int i = 0; i < kTallies; ++i) out[i] = m2m_tally[i].load(std::memory_order_relaxed);
 }
 
 // 1 if the pipeline forward runs the token FF as products (token_ff.cuh: above

@@ -412,6 +412,7 @@ cudaError_t tc_gemm_launch(const View& A, const View& B, float* out, int M, int 
   const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, ksplit);
   tc_gemm_kernel<T, Epi, kExact><<<grid, T::kThreadsT, T::smem_bytes, st>>>(A, B, out, M, N, K,
                                                                               kslice, epi);
+  m2m_count(kTallyTcGemm);
   return cudaGetLastError();
 }
 

@@ -17,6 +17,10 @@
 //     down product:   tt (B*D, N) = (ht W2 + b2) m1            (EpiTokenDown);
 //     tok_out_kernel: x1 = u + tt^T, z = LN2(x1)  (B, N, D), and in the
 //                     backward's recompute also da4 = g m3.
+//   The float32 forward and the backward's recompute run the two products on
+//   tc_gemm over float32 buffers (token_forward). The bf16 forward runs them
+//   on the wgmma engine (mixer_fwd.cu's token_forward_wg) between the same
+//   two row kernels, yt and ht in bf16.
 //   backward (mixer_bwd.cu): the transposes of these products, with
 //   transpose_kernel between the (B, N, D) and (B*D, N) layouts.
 // Both row kernels own a tile of nc tokens of one sample, every channel, in
@@ -80,14 +84,28 @@ inline int tok_tile_tokens(int N, int D, int smem_optin) {
   return nc;
 }
 
+// A value stored as a product's operand: float32 (tc_gemm reads it) or bf16
+// (OT = __nv_bfloat16, the wgmma engine's); ChanT<kBF16>: the operand type of
+// the compute dtype
+template <class OT>
+__device__ __forceinline__ OT to_operand(float v) {
+  if constexpr (std::is_same_v<OT, float>) {
+    return v;
+  } else {
+    return __float2bfloat16_rn(v);
+  }
+}
+template <bool kBF16>
+using ChanT = std::conditional_t<kBF16, __nv_bfloat16, float>;
+
 // The block input u of tokens [n0, n0 + nc) of sample blockIdx.y: x (rounded to
 // the compute dtype), or for a later block the finish of block blk - 1 from x1
 // and its down product's `part`; u to x1 (the residual's base) and to `save`
-// when given; then yt[(s*D + d)*N + n] = LN1(u)[n, d].
-template <bool kBF16>
+// when given; then yt[(s*D + d)*ldy + n] = LN1(u)[n, d], stored as YT.
+template <bool kBF16, class YT = float>
 __global__ void __launch_bounds__(kThreads)
     tok_in_kernel(const float* __restrict__ x, const float* __restrict__ part, int ksplit,
-                  const float* __restrict__ b4_prev, float* x1, float* __restrict__ yt,
+                  const float* __restrict__ b4_prev, float* x1, YT* __restrict__ yt, int ldy,
                   float* __restrict__ save, int B, int N, int D, int nc,
                   const float* __restrict__ ln_s, const float* __restrict__ ln_b,
                   const __grid_constant__ Dropout dp, int blk) {
@@ -106,24 +124,16 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   ln_tile<kBF16>(sm, R, D, ld, ln_s, ln_b);
   __syncthreads();
-  float* dst = yt + (size_t)s * D * N + n0;
+  YT* dst = yt + (size_t)s * D * ldy + n0;
   for (int i = threadIdx.x; i < R * D; i += kThreads) {  // neighbouring threads: neighbouring n
     const int r = i % R, d = i / R;
-    dst[(size_t)d * N + r] = sm[r * ld + d];
+    dst[(size_t)d * ldy + r] = to_operand<YT>(sm[r * ld + d]);
   }
 }
 
 // The backward's channel operands z and da4 as stored: float32 (tc_gemm's
 // operands), or bf16 (ZT = __nv_bfloat16, wgmma_bf16.cuh's), where da4 is
 // rd(g) times the keep bit of m3 and the products' sums take the dropout scale.
-template <class ZT>
-__device__ __forceinline__ ZT to_operand(float v) {
-  if constexpr (std::is_same_v<ZT, float>) {
-    return v;
-  } else {
-    return __float2bfloat16_rn(v);
-  }
-}
 template <bool kBF16, class ZT>
 __device__ __forceinline__ ZT da4_operand(float g, float m3) {
   if constexpr (std::is_same_v<ZT, float>) {
@@ -276,8 +286,9 @@ int token_forward(const float* x, const float* part, int ksplit, const float* b4
   constexpr int kBoth = kBF16 ? kExactA | kExactB : 0;
   const size_t smem = tok_tile_bytes(nc, D);
   const dim3 grid(ceil_div(N, nc), B);
-  tok_in_kernel<kBF16><<<grid, kThreads, smem, st>>>(x, part, ksplit, b4_prev, x1, tb.yt, save, B,
-                                                     N, D, nc, ln1_s, ln1_b, dp, blk);
+  tok_in_kernel<kBF16><<<grid, kThreads, smem, st>>>(x, part, ksplit, b4_prev, x1, tb.yt, N, save,
+                                                     B, N, D, nc, ln1_s, ln1_b, dp, blk);
+  m2m_count(kTallyTokIn);
   M2M_TRY(cudaGetLastError());
   const int rows = B * D;
   M2M_TRY(tc_gemm_auto<kBoth>(View{tb.yt, N, 1}, View{w1, T, 1}, tb.ht, rows, T, N, sms, st,
@@ -289,10 +300,11 @@ int token_forward(const float* x, const float* part, int ksplit, const float* b4
   return (int)cudaGetLastError();
 }
 
-// both row kernels may take tok_tile_bytes(nc, D) of dynamic shared memory
-template <bool kBF16, class ZT = float>
+// both row kernels may take tok_tile_bytes(nc, D) of dynamic shared memory (YT:
+// how tok_in_kernel stores yt, ZT: how tok_out_kernel stores z)
+template <bool kBF16, class ZT = float, class YT = float>
 cudaError_t prepare_token_kernels(int nc, int D, int device) {
-  const cudaError_t err = prepare(tok_in_kernel<kBF16>, tok_tile_bytes(nc, D), device);
+  const cudaError_t err = prepare(tok_in_kernel<kBF16, YT>, tok_tile_bytes(nc, D), device);
   if (err != cudaSuccess) return err;
   return prepare(tok_out_kernel<kBF16, ZT>, tok_tile_bytes(nc, D), device);
 }

@@ -1,6 +1,9 @@
-// The bf16 product engine of the mixer backward (mixer_bwd.cu, block_bwd<true>):
-// the channel FF's five products of bf16 K1b and K2b on Hopper's warpgroup
-// tensor-core instruction (wgmma) with operand tiles brought in by TMA.
+// The bf16 product engine of the mixer kernels on Hopper's warpgroup
+// tensor-core instruction (wgmma) with operand tiles brought in by TMA: the
+// channel FF's five products of bf16 K1b and K2b (mixer_bwd.cu,
+// block_bwd<true>), and every product of bf16 K1f and K2f (mixer_fwd.cu: the
+// channel FF's up and down products and, on the token pipeline, the token
+// FF's two; the header there has their bound and tiles).
 //
 // Replaces, with the rest of mixer_bwd.cu's bf16 route, the products of the TPU
 // kernels m2mixer_tpu/ops/mixer_kernel.py::_bwd_rule (:267) and
@@ -270,15 +273,17 @@ __device__ __forceinline__ void load_operand(uint32_t dst, const CUtensorMap* ma
 
 // A kernel's shared memory: the ring (and, two products in sequence, the
 // first's sums). A 128-wide tile takes one CTA an SM (192 KB); a 64-wide one
-// two (at most 104 KB each), so one CTA's epilogue runs beside the other's
-// products.
+// two (at most 104 KB each; two products in sequence) or three (72 KB, a ring
+// of three stages; one product, the bf16 forward's, whose up products' GELU
+// epilogue takes about as long as their products), so one CTA's epilogue runs
+// beside the others' products.
 template <int kTermsA, int kTermsB, int kSeq, int kBN>
 struct WgShape {
-  static constexpr int ctas = kBN == 64 ? 2 : 1;  // CTAs an SM
+  static constexpr int ctas = kBN == 128 ? 1 : (kSeq == 2 ? 2 : 3);  // CTAs an SM
   static constexpr int b_tile = kBN * kWgBK * 2;
   static constexpr int stage = kTermsA * kWgTile + kTermsB * b_tile;
   static constexpr int stash = kSeq == 2 ? kWgBM * kBN * 4 : 0;
-  static constexpr int stages = ((ctas == 2 ? 104 : 192) * 1024 - stash) / stage;
+  static constexpr int stages = ((ctas == 3 ? 72 : ctas == 2 ? 104 : 192) * 1024 - stash) / stage;
   // + 1024: the base aligned to the swizzle atom; + the stages' mbarriers
   static constexpr size_t smem = (size_t)stages * stage + stash + 1024 + 8 * stages;
   static_assert(stages >= 2, "a ring of at least two stages");
@@ -286,7 +291,10 @@ struct WgShape {
 };
 
 // The plain store of a product's sums: jb.out[slice] (M x N) = scale x sum.
+// An epilogue with kOuts 0 stores float32 sums itself; one with kOuts > 0
+// fills kOuts bf16 outputs that the kernel stages and writes (below).
 struct EpiWgStore {
+  static constexpr int kOuts = 0;
   __device__ __forceinline__ void operator()(const WgJob& jb, const WgArgs& a, int slice, int r,
                                              int c, float v0, float v1) const {
     float* o = jb.out + (size_t)slice * a.M * a.N + (size_t)r * a.N + c;
@@ -303,8 +311,9 @@ struct EpiWgStore {
 // operand's planes (A's with kTermsA > 1, B's with kTermsB > 1) run smallest
 // first into the stage's zeroed registers. kAK / kBK: the operand is K-major
 // (else MN-major; a 64-wide tile's B is). The sums of a pair of neighbouring
-// columns (c, c + 1) go to the epilogue together: epi(job, args, slice, r, c,
-// v0, v1); with kSeq 2, epi(r, c, first0, first1, second0, second1, out)
+// columns (c, c + 1) go to the epilogue together: with Epi::kOuts 0,
+// epi(job, args, slice, r, c, v0, v1) stores them; else epi(r, c, v0, v1,
+// out), or with kSeq 2 epi(r, c, first0, first1, second0, second1, out),
 // fills the pair of each of its Epi::kOuts bf16 outputs, which the kernel
 // writes to epi.dst(k) (rows N apart; N a multiple of 8) in whole rows.
 template <bool kAK, bool kBK, int kTermsA, int kTermsB, int kSeq, int kBN, class Epi>
@@ -387,7 +396,8 @@ __global__ void __launch_bounds__(kWgThreads, WgShape<kTermsA, kTermsB, kSeq, kB
   // row 16 warp + lane / 4 + 8 (e / 2), column 8 i + 2 (lane % 4) + e % 2
   const int lane = tid & 31, warp = (tid & 127) >> 5;
   const int rloc = wg * 64 + warp * 16 + (lane >> 2), cloc = 2 * (lane & 3);
-  if constexpr (kSeq == 2) {
+  static_assert(kSeq == 1 || Epi::kOuts > 0, "two products in sequence stage their outputs");
+  if constexpr (Epi::kOuts > 0) {
     // the tile's Epi::kOuts bf16 outputs, staged in the ring (all its loads are
     // consumed) as rows of kBN bf16 whose 16-byte chunks are swizzled by the
     // row (chunk j of row i at j ^ (i % 8): the fragment stores of a warp's 8
@@ -401,8 +411,11 @@ __global__ void __launch_bounds__(kWgThreads, WgShape<kTermsA, kTermsB, kSeq, kB
       for (int h = 0; h < 2; ++h) {
         const int rl = rloc + 8 * h, cl = cloc + 8 * i, e = 4 * i + 2 * h;
         __nv_bfloat162 v[Epi::kOuts];
-        epi(m0 + rl, n0 + cl, stash[e * kWgThreads + tid], stash[(e + 1) * kWgThreads + tid],
-            acc[e], acc[e + 1], v);
+        if constexpr (kSeq == 2)
+          epi(m0 + rl, n0 + cl, stash[e * kWgThreads + tid], stash[(e + 1) * kWgThreads + tid],
+              acc[e], acc[e + 1], v);
+        else
+          epi(m0 + rl, n0 + cl, acc[e], acc[e + 1], v);
         const int at = rl * kRow + (((cl >> 3) ^ (rl & 7)) << 4) + (cl & 7) * 2;
 #pragma unroll
         for (int k = 0; k < Epi::kOuts; ++k)
@@ -510,7 +523,24 @@ cudaError_t wg_gemm(const WgArgs& args, int jobs, const Epi& epi, int device, cu
                   kSeq == 2 ? 1 : jobs * args.slices);
   if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidConfiguration;
   kernel<<<grid, kWgThreads, S::smem, st>>>(args, epi);
+  m2m_count(kTallyWgGemm);
   return cudaGetLastError();
+}
+
+// out = epi(A B) for one product on the engine: A (M x K) K-major, B (K x N)
+// MN-major, bf16 row-major matrices with row strides lda and ldb (multiples
+// of 8; B's N columns are the output's, pad columns included); the depth in
+// `split` slices of kslice (a multiple of kWgBK), the kBN-wide tile
+template <int kBN, class Epi>
+cudaError_t wg_product(const __nv_bfloat16* a, long long lda, const __nv_bfloat16* b,
+                       long long ldb, float* out, long long M, int N, int K, int kslice,
+                       int split, const Epi& epi, int device, cudaStream_t st) {
+  WgArgs args = {};
+  const cudaError_t e = make_job<true, false>(args.job[0], WgOperand{{a}, 1, M, K, lda},
+                                              WgOperand{{b}, 1, K, N, ldb}, out, 1.f);
+  if (e != cudaSuccess) return e;
+  args.M = (int)M, args.N = N, args.K = K, args.kslice = kslice, args.slices = split;
+  return wg_gemm<true, false, 1, 1, 1, kBN>(args, 1, epi, device, st);
 }
 
 // slices of a depth K (each whole stages) for `tiles` output tiles: about

@@ -9,7 +9,9 @@ layout: ``x (B, N, D)`` float32 in and out, ``w1 (N, T)``, ``w2 (T, N)``,
   mask for mask; ``mixer_block_bwd_reference`` / ``mixer_stack_bwd_reference``
   are autograd of them.
 - ``fused_mixer_block`` (K1f) and ``fused_mixer_stack`` (K2f) launch the
-  hand-written kernels of ``csrc/mixer_fwd.cu`` on CUDA tensors. When a
+  hand-written kernels of ``csrc/mixer_fwd.cu`` on CUDA tensors (in bf16
+  compute every product on the wgmma engine, ``csrc/wgmma_bf16.cuh``;
+  hidden_dim a multiple of 8). When a
   gradient is wanted they run inside a ``torch.autograd.Function`` whose
   backward is ``fused_mixer_block_bwd`` (K1b) / ``fused_mixer_stack_bwd``
   (K2b), the kernels of ``csrc/mixer_bwd.cu``, float32 or bf16 compute, at
@@ -286,11 +288,13 @@ def _fwd_workspace_bytes(lib, b: int, n: int, t: int, d: int, c: int, n_blocks: 
     """Bytes of device workspace the pipeline route (``m2m_mixer_fwd``)
     needs: the activations between its launches (x1, z, h2, the down
     product's slices of C and, above 32 tokens, the token FF's), the padded
-    W3 copies where C is no multiple of 4, and in bf16 the rounded weights."""
+    W3 copies where C is no multiple of 4, and in bf16 the rounded weights;
+    in bf16 compute the products' operands (z, h2, the weight copies and the
+    token FF's yt and ht) are stored in bf16, rows padded to 8 elements."""
     nbytes = lib.m2m_mixer_fwd_workspace_bytes(b, n, t, d, c, n_blocks, int(bf16), dev)
     if nbytes == 0:
         raise ValueError(f"the CUDA mixer forward does not take B={b} N={n} T={t} D={d} "
-                         f"C={c} ({n_blocks} blocks)")
+                         f"C={c} ({n_blocks} blocks{', bf16: hidden_dim % 8' if bf16 else ''})")
     return nbytes
 
 

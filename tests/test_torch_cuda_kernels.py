@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from m2mixer_tpu_torch.config import loads
+from m2mixer_tpu_torch.ops import _build
 from m2mixer_tpu_torch.ops import dynamixer_kernel as dk
 from m2mixer_tpu_torch.ops import gmlp_kernel as gk
 from m2mixer_tpu_torch.ops import mixer_kernel as mk
@@ -299,12 +300,14 @@ def test_forward_workspace_matches_the_mirror(cuda):
     """m2m_mixer_fwd_workspace_bytes against tests/test_torch_mixer_fwd_plan.py's
     Python mirror of its plan, on this card's SM count."""
     from m2mixer_tpu_torch.ops._build import load_library
-    from test_torch_mixer_fwd_plan import B_BF16_PLANS, PLANS, fwd_workspace_floats
+    from test_torch_mixer_fwd_plan import (B_BF16_PLANS, PLANS, TOKEN_BF16_PLANS,
+                                           fwd_workspace_floats)
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     lib = load_library()
     shapes = [shape for shape, _, _ in PLANS.values()] + [
-        (b, n, 32, 128, 3072 if n == 4 else 3078, 1) for n, b in B_BF16_PLANS]
+        (b, n, 32, 128, 3072 if n == 4 else 3078, 1) for n, b in B_BF16_PLANS] + [
+        (*shape, 2) for shape in TOKEN_BF16_PLANS] + [(7, 4, 16, 20, 64, 1), (7, 40, 16, 36, 64, 1)]
     for shape in shapes:
         for bf16 in (0, 1):
             assert lib.m2m_mixer_fwd_workspace_bytes(*shape, bf16, 0) == \
@@ -476,7 +479,8 @@ WG_LAYOUTS = {"a3_dh2": (1, 0, 1, 1), "dz": (1, 1, 3, 1), "dW3": (0, 0, 1, 3),
               "dW4": (0, 0, 1, 1)}
 
 
-@pytest.mark.parametrize("mnk", [(128, 128, 64), (300, 200, 333), (1000, 3080, 512)],
+@pytest.mark.parametrize("mnk", [(128, 128, 64), (300, 200, 333), (1000, 3080, 512),
+                                 (2048, 80, 16)],
                          ids=lambda m: "x".join(map(str, m)))
 @pytest.mark.parametrize("layout", sorted(WG_LAYOUTS))
 def test_wgmma_engine_products_match_float64(cuda, layout, mnk):
@@ -990,3 +994,84 @@ def test_bf16_forward_at_the_b_shapes(cuda, shape):
         assert torch.equal(got, run())
     assert (mk.fused_mixer_block.token_ff_launches,
             mk.fused_mixer_stack.token_ff_launches) == before
+
+
+# bf16 K1f and K2f with every product on the wgmma engine: the B shapes (the
+# token FF in registers), the L shapes, and 33 and 40 tokens (the token
+# pipeline; 33 pads yt's rows to 40)
+L_SHAPE = dict(D=512, T=256, C=4096)
+BF16_FWD_CASES = {"encoder": SHAPES["encoder"], "fusion": SHAPES["fusion"],
+                  "l_image": dict(N=16, **L_SHAPE), "l_audio": dict(N=64, **L_SHAPE),
+                  "l_fusion": dict(N=80, **L_SHAPE), "n33": dict(N=33, D=32, T=16, C=64),
+                  "n40": dict(N=40, D=32, T=16, C=64)}
+L_STACK_EXCESS = 0.05  # chip_smoke.py's: the L stacks' share over the float64-sum floor
+
+
+def float64_sums_reference(fn):
+    """``fn()`` with every torch.matmul summed in float64 and rounded to its
+    operands' type (chip_smoke.py's float64_sums): a second implementation of
+    the plain version's casts."""
+    matmul = torch.matmul
+    torch.matmul = lambda a, b: matmul(a.double(), b.double()).to(
+        torch.promote_types(a.dtype, b.dtype))
+    try:
+        return fn()
+    finally:
+        torch.matmul = matmul
+
+
+@pytest.mark.parametrize("B", [1, 7, 600])
+@pytest.mark.parametrize("case", sorted(BF16_FWD_CASES))
+def test_bf16_forward_on_the_wgmma_engine(cuda, case, B):
+    """bf16 K1f, and K2f as 2 blocks + LN, on the wgmma engine against the
+    plain bf16 versions (dropout 0.5, tanh GELU): K1f by assert_close (at
+    most 10% of the outputs differing); K2f the same, or at the L shapes
+    within the share of the plain version with float64 sums + 0.05; each call
+    counted, its products tallied as wgmma-engine launches (two a block, four
+    on the token pipeline) and none as tc_gemm; two runs bit-identical."""
+    geom = BF16_FWD_CASES[case]
+    blocks, s, b = blocks_on(cuda, 2, **geom)
+    gen = torch.Generator().manual_seed(B)
+    x = torch.randn(B, geom["N"], geom["D"], generator=gen).to(cuda)
+    flat = mk.stack_flat_params(blocks, s, b)
+    bf = torch.bfloat16
+    k1f = lambda: mk.fused_mixer_block(x, blocks[0], 3, 0.5, bf, True)
+    k2f = lambda: mk.fused_mixer_stack(x, flat, 4, 0.5, bf, True, True)
+    plain1 = lambda: mk.mixer_block_reference(x, blocks[0], 0.5, bf, True, seed=3)
+    plain2 = lambda: mk.mixer_stack_reference(x, flat, bf, True, True, 0.5, seed=4)
+    before = (mk.fused_mixer_block.launches, mk.fused_mixer_stack.launches)
+    tallies = [_build.launch_tally()]
+    got1 = k1f()
+    tallies.append(_build.launch_tally())
+    got2 = k2f()
+    tallies.append(_build.launch_tally())
+    assert (mk.fused_mixer_block.launches, mk.fused_mixer_stack.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for n_blocks, (t0, t1) in zip((1, 2), zip(tallies, tallies[1:])):
+        tok = t1["tok_in_kernel"] - t0["tok_in_kernel"]
+        assert tok in (0, n_blocks)
+        assert t1["wg_gemm_kernel"] - t0["wg_gemm_kernel"] == (4 if tok else 2) * n_blocks
+        assert t1["tc_gemm_kernel"] == t0["tc_gemm_kernel"]
+    assert_close(got1, plain1(), True)
+    want2 = plain2()
+    if case.startswith("l_"):
+        floor = (float64_sums_reference(plain2) != want2).float().mean().item()
+        assert torch.isfinite(got2).all() and torch.equal(got2, got2.to(bf).float())
+        assert (got2 - want2).abs().max().item() <= 2e-2 * want2.abs().max().item()
+        share = (got2 != want2).float().mean().item()
+        assert share <= floor + L_STACK_EXCESS, (share, floor)
+    else:
+        assert_close(got2, want2, True)
+    assert torch.equal(got1, k1f()) and torch.equal(got2, k2f())
+
+
+def test_bf16_forward_raises_below_a_hidden_width_of_8(cuda):
+    """No fallback: a bf16 CUDA call the engine cannot take (hidden_dim % 8)
+    raises; float32 runs the same shape."""
+    blocks, s, b = blocks_on(cuda, 1, N=4, D=20, T=8, C=64)
+    x = torch.randn(3, 4, 20, device=cuda)
+    with pytest.raises(ValueError, match="hidden_dim % 8"):
+        mk.fused_mixer_block(x, blocks[0], compute_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="hidden_dim % 8"):
+        mk.fused_mixer_stack(x, mk.stack_flat_params(blocks, s, b), compute_dtype=torch.bfloat16)
+    assert_close(mk.fused_mixer_block(x, blocks[0]), mk.mixer_block_reference(x, blocks[0]), False)

@@ -19,11 +19,11 @@ operands (Cp = C rounded up to 4) and tc_gemm's slices.
 import pytest
 
 from m2mixer_tpu_torch.ops import mixer_kernel as mk
-from test_torch_mixer_fwd_plan import (MAX_BLOCKS, MAX_SPLIT, REG_TOKENS, SMEM_OPTIN, SMS, TC_BM,
-                                       TC_BN, TC_K, cdiv, fill_slices)
+from test_torch_mixer_fwd_plan import (MAX_BLOCKS, MAX_ROW_SPLIT, MAX_SPLIT, REG_TOKENS,
+                                       SMEM_OPTIN, SMS, TC_BM, TC_BN, TC_K, WG_BK, WG_BM, WG_BN,
+                                       cdiv, fill_slices, wg_slices)
 
-MAX_SLICE_ROWS, MAX_ROW_SPLIT = 2304, 128  # kMaxSliceRows, kMaxRowSplit
-WG_BM, WG_BN, WG_BK = 128, 128, 64  # the wgmma engine: kWgBM, kWgBN, kWgBK
+MAX_SLICE_ROWS = 2304  # kMaxSliceRows
 THREADS, LN_ROWS = 256, 16  # kThreads, kLnRows
 
 
@@ -43,14 +43,6 @@ def col_plan(rows, cols, sms):
     cs = min(cdiv(2 * sms, cdiv(cols, THREADS)), MAX_ROW_SPLIT, cdiv(rows, 16))
     size = cdiv(rows, cs)
     return size, cdiv(rows, size)
-
-
-def wg_slices(depth, tiles, sms, waves):
-    """(slice, split) of wgmma_bf16.cuh::wg_slices: about ``waves`` CTAs an SM,
-    slices of whole 64-deep stages, at most kMaxRowSplit."""
-    n = min(max(cdiv(waves * sms, tiles), 1), MAX_ROW_SPLIT)
-    size = cdiv(cdiv(depth, n), WG_BK) * WG_BK
-    return size, cdiv(depth, size)
 
 
 def bwd_plan(B, N, T, D, C, n_blocks, final_ln, bf16=0, sms=SMS):
