@@ -6,17 +6,22 @@
 
 With no arguments it runs every phase below. ``--kernel-times`` only builds
 and prints the times of all eight kernels: K1f, K2f, K1b and K2b (the
-encoder and fusion stacks, float32 and bf16), K3f and K3b (encoder and fusion shape), K4f and
+encoder and fusion stacks, float32 and bf16), K3f and K3b (encoder and
+fusion shape, float32 and bf16; each bf16 call's launches in order and its
+products summed), K4f and
 K4b at batch 32 and 512, bf16 K1b and K2b at the L fusion shape at batch
 512 (each launch of one call in launch order, and K1b's five channel
 products summed), and bf16 K1f and K2f (the main path's depth) at the three
 L shapes at batch 512 (each launch in order, and K1f's two channel products
 summed); the device time of each launch of one K1f call at
 each shape at batch 512 and of one K1b call at each shape and batch; the
-host time to enqueue one K1b call; the B config's served forward and
-train step at batch 32 and 512 (plain modules and both kernel block types);
-and the L config's served forward at batch 32 and 512 (plain modules and the
-``export --pallas`` network) and train step at 512 (both kernel block types),
+host time to enqueue one K1b call and one bf16 K3f and K3b call; the B
+config's served forward and train step at batch 32 and 512 (plain modules
+and both kernel block types);
+the L config's served forward at batch 32 and 512 (plain modules and the
+``export --pallas`` network) and train step at 512 (both kernel block types);
+and the bf16 gMLP config's served forward (plain modules and the ``export
+--pallas`` network) and train step (kernel blocks) at 32 and 512,
 as one JSON line (``--root``: those of the ``m2mixer_tpu_torch`` of another
 checkout). ``--ab`` compares another checkout's numbers with this one's on
 the same card, in turns (parent, this, this, parent), each in its own
@@ -62,7 +67,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    0 and 0.1: the output by the bf16 check below, dx and the 10 gradients by
    the bf16 gradient check (all but b_in, sgu_b and b_out rounded; the plain
    bf16 version on the CPU beside at batch 32), each with its float32-math
-   control; two backward runs bit-identical;
+   control; two backward runs bit-identical; each bf16 call's launches
+   checked by the library's tallies: K3f's two products and K3b's five as
+   ``wg_gemm_kernel`` (the wgmma engine), no ``tc_gemm_kernel``;
 6. K4f / K4b, the DynaMixerOp kernels, against the plain version and its
    autograd at the DynaMixer config's op (L=7, C=256, H=8, R=2; S = 7 x 32
    and 7 x 512 sequences; the weights output-major, as ``DynaMixerOp``
@@ -80,8 +87,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    sums the weight gradients over; and the bf16 wgmma engine's products
    alone (``m2m_wg_product``) at the L fusion shape, batch 512: K1b's five
    channel products (da3 as three bf16 planes) and K1f's four (the channel
-   FF's up and down, the token FF's up and down), each against the float64
-   product of the same values, relative to its largest magnitude;
+   FF's up and down, the token FF's up and down), and at the gMLP fusion
+   shape, batch 512, bf16 K3f's and K3b's six (the in- and out-projection,
+   dgated, dxn and dW_in with dpre as three bf16 planes, dW_out), each
+   against the float64 product of the same values, relative to its largest
+   magnitude;
 7. serving: export the B config (``cfg/avmnist/avmnist_m2-mixer_B.yml``, full
    width and depth, seeded weights) through ``serving export --pallas`` (one
    stack kernel per mixer), and through ``to_torch_kernel_serving(...,
@@ -133,7 +143,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    run's - 0.1; the plain run's weights through ``serving export --pallas``
    (bf16 K3f, counter zeroed just before, read just after), requests of 1,
    7, 32 and 100 samples on the card against the same artifact on the CPU
-   within 2e-2 x max(1, max|CPU|);
+   within 2e-2 x max(1, max|CPU|); in the bf16 step, the kernel run and the
+   serving the library's tallies show every K3f/K3b product on the wgmma
+   engine (two ``wg_gemm_kernel`` a K3f call, five a K3b call) and no
+   ``tc_gemm_kernel``;
 12. training the DynaMixer config: step 1 at ``model.dropout=0.0`` on the card
     against the same step on the CPU with the same weights and batch (the
     loss and the branch losses within 1e-5 relative, every gradient within
@@ -184,9 +197,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     and the profiler's breakdown of one call of each at both shapes, batch
     512), the served forward and the train step at batch 32 and 512, plain
     modules and kernel blocks; then the same in bf16 compute (bf16 K3f / K3b
-    with their plain bf16 versions, their bound at the dense bf16 peak and at
-    the rate their products run, 1xTF32 forward and 2xTF32 backward; the bf16
-    served forward and train step, plain modules and kernel blocks);
+    with their plain bf16 versions, their bound at the dense bf16 peak and
+    the design's, ``bf16_gmlp_design_ms``; the bf16 served forward and train
+    step, plain modules and kernel blocks);
 15. DynaMixer times: K4f and K4b alone at batch 32 and 512 (S = 224 and 3584)
     with their plain versions, float32 and 3xTF32 bounds and the profiler's
     breakdown of one K4f and one K4b call at batch 512, the served forward
@@ -195,8 +208,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     card is busy; then each product of K1b, K3f, K3b, K4f and K4b at batch 512
     timed as one ``torch.matmul`` in float32 (TF32 off), a yardstick per
     product that the port never calls, K1b's also as one bf16
-    ``torch.matmul``, and the bf16 K1f's four at the L shapes as one bf16
-    ``torch.matmul`` each; then the bf16 K1b and K2b alone at the encoder and
+    ``torch.matmul``, and the bf16 K1f's four at the L shapes and bf16 K3f's
+    and K3b's six at both gMLP shapes as one bf16 ``torch.matmul`` each; then
+    the bf16 K1b and K2b alone at the encoder and
     fusion shapes at batch 32 and 512 with their plain versions, their
     bound at the dense bf16 peak and their design bound (the wgmma engine's
     nine bf16 passes and the token FF's products at their rate), each K2b
@@ -474,13 +488,19 @@ def launch_counts(torch, fn) -> dict:
     tallies on the host where it enqueues them (``_build.launch_tally``: the
     wgmma engine's, tc_gemm's and tok_in_kernel): exact, where a profiler
     trace may drop events."""
+    return tallied(torch, fn)[1]
+
+
+def tallied(torch, fn):
+    """(``fn()``, its launch_counts): the result of a call with the launches
+    of the kernels the library tallies on the host during it."""
     from m2mixer_tpu_torch.ops import _build
 
     before = _build.launch_tally()
-    fn()
+    out = fn()
     torch.cuda.synchronize()
     after = _build.launch_tally()
-    return {name: after[name] - before[name] for name in after}
+    return out, {name: after[name] - before[name] for name in after}
 
 
 def channel_products(seq) -> list:
@@ -523,6 +543,31 @@ def check_fwd_engine_route(counts, what: str, blocks: int = 1) -> None:
                              f"{blocks} block(s) ({'token pipeline' if token else 'registers'})")
     print(f"  {what}: every product on the wgmma engine ({wg} launches, "
           f"{'token pipeline' if token else 'token FF in registers'}; no tc_gemm)")
+
+
+# a bf16 gMLP call's products on the wgmma engine: K3f's in- and out-projection,
+# K3b's in-projection, dgated, dxn, dW_in and dW_out
+GMLP_WG_LAUNCHES = {"K3f": 2, "K3b": 5}
+
+
+def check_gmlp_engine_route(counts, what: str, calls: dict) -> None:
+    """bf16 K3f/K3b calls (``calls``: {"K3f": n, "K3b": m}; ``counts``: the
+    tallies over them) ran every D x F and F/2 x D product on the wgmma
+    engine: two ``wg_gemm_kernel`` launches a K3f call, five a K3b call, and
+    no ``tc_gemm_kernel``."""
+    wg, tc = counts["wg_gemm_kernel"], counts["tc_gemm_kernel"]
+    want = sum(GMLP_WG_LAUNCHES[k] * n for k, n in calls.items())
+    if wg != want or tc:
+        raise AssertionError(f"{what}: {wg} wgmma-engine launches (want {want}) and {tc} "
+                             f"tc_gemm launches for {calls}")
+    print(f"  {what}: every product on the wgmma engine ({wg} launches for {calls}; no "
+          "tc_gemm)")
+
+
+def gmlp_products(seq) -> list:
+    """The D x F and F/2 x D products among one gMLP call's launches (in
+    order): the wgmma engine's, or tc_gemm's in a tree from before it."""
+    return [row for row in seq if row[0].startswith(("wg_gemm_kernel", "tc_gemm_kernel"))]
 
 
 def fwd_channel_products(rows) -> list:
@@ -571,6 +616,38 @@ def bf16_bwd_design_ms(B, N, D, T, C, token_products: bool) -> float:
     tok_s = 4 * tok / TC_2XTF32 + 2 * tok / (2 * TC_2XTF32) if token_products \
         else 6 * tok / PEAK["f32"]
     return (chan + tok_s) * 1e3
+
+
+def bf16_gmlp_design_ms(B, N, D, F) -> tuple:
+    """(forward, backward) bound (ms) of the bf16 K3f / K3b design on one gMLP
+    block: each wgmma-engine product at the larger of its flops at the dense
+    bf16 peak and its bf16 operands and output (float32 where the design
+    stores float32) at HBM rate, dpre's three planes counted as three passes
+    of dxn and dW_in; every other kernel at its bytes (each input read once,
+    each output written once) at HBM rate. Forward: LN rows (x in, xn out),
+    the in-projection (h out), LN(v)'s statistics, the SGU (h in, gated out)
+    and the out-projection (x in, y out).
+    Backward: LN rows (x, g in; xn, dout out), the in-projection (pm out),
+    dgated, the statistics, the SGU backward (pm, dgated in; gated, dpre's u
+    planes, dv' out), LN(v)'s backward (pm's v half, dv' in; dpre's v
+    planes out), dxn, dW_in, dW_out and LN1's backward (x, g, dxn in; dx
+    out); the weights' copies and the partials' reductions are left out."""
+    def product(flops, nbytes):
+        return max(flops / PEAK["bf16"], nbytes / HBM_BYTES_PER_S)
+
+    R, H = B * N, F // 2
+    hbm = lambda nbytes: nbytes / HBM_BYTES_PER_S  # noqa: E731
+    fwd = (hbm(4 * R * D + 2 * R * D) + product(2 * R * D * F, 2 * (R * D + D * F) + 4 * R * F)
+           + hbm(4 * R * H) + hbm(4 * R * F + 2 * R * H)
+           + product(2 * R * H * D, 2 * (R * H + H * D) + 8 * R * D))
+    bwd = (hbm(8 * R * D + 4 * R * D) + product(2 * R * D * F, 2 * (R * D + D * F) + 4 * R * F)
+           + product(2 * R * D * H, 2 * (R * D + D * H + R * H)) + hbm(4 * R * H)
+           + hbm(4 * R * F + 2 * R * H + 2 * R * H + 6 * R * H + 2 * R * H)
+           + hbm(4 * R * H + 2 * R * H + 6 * R * H)
+           + product(3 * 2 * R * F * D, 6 * R * F + 2 * D * F + 4 * R * D)
+           + product(3 * 2 * R * D * F, 2 * R * D + 6 * R * F + 4 * D * F)
+           + product(2 * R * H * D, 2 * (R * H + R * D) + 4 * H * D) + hbm(16 * R * D))
+    return fwd * 1e3, bwd * 1e3
 
 
 def device_busy_ms(torch, fn, calls: int = 3) -> float:
@@ -1717,14 +1794,17 @@ def phase_gmlp_bf16_kernels(torch, gk, report):
             g = torch.randn(B, geom["N"], geom["D"], generator=gen).cuda()
             for rate in GMLP_BF16_RATES:
                 tag = f"{geom_name}/B{B}/rate{rate}"
-                got = gk.fused_gmlp_block(x, p, seed=9, dropout_rate=rate, compute_dtype=bf16)
+                got, counts = tallied(torch, lambda: gk.fused_gmlp_block(
+                    x, p, seed=9, dropout_rate=rate, compute_dtype=bf16))
+                check_gmlp_engine_route(counts, f"K3f_bf16/{tag}", {"K3f": 1})
                 want = gk.gmlp_block_reference(x, p, rate, seed=9, compute_dtype=bf16)
                 control = round_bf16(torch, gk.gmlp_block_reference(x, p, rate, seed=9))
                 report["errors"][f"K3f_bf16/{tag}"] = bf16_err(torch, got, want, control,
                                                                f"K3f_bf16/{tag}", report)
                 run = lambda: gk.fused_gmlp_block_bwd(x, g, p, seed=9, dropout_rate=rate,
                                                       compute_dtype=bf16)
-                dx, grads = run()
+                (dx, grads), counts = tallied(torch, run)
+                check_gmlp_engine_route(counts, f"K3b_bf16/{tag}", {"K3b": 1})
                 wdx, wgrads = gk.gmlp_block_bwd_reference(x, g, p, rate, seed=9,
                                                           compute_dtype=bf16)
                 fdx, fgrads = gk.gmlp_block_bwd_reference(x, g, p, rate, seed=9)
@@ -1766,9 +1846,11 @@ def phase_gmlp_bf16_training(torch, gk, serving, run, apply_overrides, load_cfg,
     cpu.network.load_state_dict(task.network.state_dict())
     batch = synthetic(32, seed=3, learnable=True)
     gmlp_bf16_zero(gk)
-    g_losses, g_grads = train_step_one(torch, task, {k: torch.from_numpy(v).cuda()
-                                                     for k, v in batch.items()})
+    (g_losses, g_grads), counts = tallied(torch, lambda: train_step_one(
+        torch, task, {k: torch.from_numpy(v).cuda() for k, v in batch.items()}))
     launched = gmlp_bf16_counters(gk)
+    check_gmlp_engine_route(counts, "gMLP bf16 step 1", {"K3f": launched["K3f_bf16"],
+                                                         "K3b": launched["K3b_bf16"]})
     c_losses, c_grads = train_step_one(torch, cpu, {k: torch.from_numpy(v)
                                                     for k, v in batch.items()})
     if not all(launched.values()):
@@ -1785,13 +1867,27 @@ def phase_gmlp_bf16_training(torch, gk, serving, run, apply_overrides, load_cfg,
     del task, cpu, g_grads, c_grads
     torch.cuda.empty_cache()
 
+    from m2mixer_tpu_torch.ops import _build
+
     runs = report["gmlp_bf16_training_runs"] = {}
+    tally = {}
     for flavor in ("plain", "kernel"):
+        def zero():
+            gmlp_bf16_zero(gk)
+            tally["before"] = _build.launch_tally()
+
+        def read():
+            after = _build.launch_tally()
+            tally[flavor] = {k: after[k] - tally["before"][k] for k in after}
+            return gmlp_bf16_counters(gk)
+
         runs[flavor] = train_run(
-            run, np, gmlp_bf16_args(tmp, f"gmlp_bf16_{flavor}", flavor == "kernel"),
-            lambda: gmlp_bf16_zero(gk), lambda: gmlp_bf16_counters(gk), f"gMLP bf16 {flavor}",
-            0.0)
+            run, np, gmlp_bf16_args(tmp, f"gmlp_bf16_{flavor}", flavor == "kernel"), zero, read,
+            f"gMLP bf16 {flavor}", 0.0)
         torch.cuda.empty_cache()
+    check_gmlp_engine_route(tally["kernel"], "gMLP bf16 kernel run",
+                            {"K3f": runs["kernel"]["launches"]["K3f_bf16"],
+                             "K3b": runs["kernel"]["launches"]["K3b_bf16"]})
     if any(runs["plain"]["launches"].values()):
         raise AssertionError("the plain bf16 gMLP run launched a gMLP kernel")
     for name, count in runs["kernel"]["launches"].items():
@@ -1828,11 +1924,12 @@ def phase_gmlp_bf16_training(torch, gk, serving, run, apply_overrides, load_cfg,
                     "audio": rng.rand(n, 1, 112, 112).astype(np.float32)}
                 for n in GMLP_BF16_REQUESTS}
     gmlp_bf16_zero(gk)
-    answers = {n: model.predict(f) for n, f in requests.items()}
+    answers, counts = tallied(torch, lambda: {n: model.predict(f) for n, f in requests.items()})
     launched = gmlp_bf16_counters(gk)["K3f_bf16"]
     print(f"  main-path launches: bf16 K3f {launched}")
     if launched <= 0:
         raise AssertionError("bf16 K3f was never launched serving the bf16 gMLP")
+    check_gmlp_engine_route(counts, "bf16 gMLP serving", {"K3f": launched})
     rel = lambda a, b: float(np.abs(a - b).max() / max(1.0, float(np.abs(b).max())))
     worst = to_plain = 0.0
     for n, got in answers.items():
@@ -1855,13 +1952,13 @@ def phase_gmlp_bf16_training(torch, gk, serving, run, apply_overrides, load_cfg,
 def phase_gmlp_bf16_times(torch, gk, serving, Trainer, apply_overrides, load_cfg, synthetic, np,
                           served, report):
     """bf16 K3f / K3b alone with their plain versions and bounds (the dense
-    bf16 peak; the tensor-core rate their products run at: 1xTF32 forward,
-    2xTF32 backward), the profiler's breakdown of one call of each at batch
-    512; the bf16 served forward and train step, plain modules against the
-    kernel blocks, batch 32 and 512."""
+    bf16 peak; the design's, ``bf16_gmlp_design_ms``: its products on the
+    wgmma engine, its other kernels at their bytes), the profiler's
+    breakdown of one call of each at batch 512; the bf16 served forward and
+    train step, plain modules against the kernel blocks, batch 32 and 512."""
     print("[14/16] bf16 gMLP times (CUDA events, median of 5 runs)")
     times, bounds = report["times_ms"], report["bounds_ms"]
-    tc = report.setdefault("bounds_tc_ms", {})
+    design = report.setdefault("bounds_design_ms", {})
     bf16 = torch.bfloat16
     for geom_name, geom in (("encoder", GMLP_ENC), ("fusion", GMLP_FUSION)):
         p = gmlp_params(gk, torch, seed=37, **geom)
@@ -1888,11 +1985,10 @@ def phase_gmlp_bf16_times(torch, gk, serving, Trainer, apply_overrides, load_cfg
             wbytes = pbytes // 2
             bounds[f"K3f_bf16/{tag}"] = bound(flops, wbytes + 2 * act, "bf16")
             bounds[f"K3b_bf16/{tag}"] = bound(2 * flops, wbytes + pbytes + 3 * act, "bf16")
-            tc[f"K3f_bf16/{tag}"] = flops / 495e12 * 1e3
-            tc[f"K3b_bf16/{tag}"] = 2 * flops / TC_2XTF32 * 1e3
+            design[f"K3f_bf16/{tag}"], design[f"K3b_bf16/{tag}"] = bf16_gmlp_design_ms(B, **geom)
             print(f"  {tag}: " + "; ".join(
                 f"{n} {times[f'{n}/{tag}']:.4f} ms (plain {times[f'{n}_plain/{tag}']:.4f}, bound "
-                f"{bounds[f'{n}/{tag}'][0]:.4f}, tensor-core bound {tc[f'{n}/{tag}']:.4f})"
+                f"{bounds[f'{n}/{tag}'][0]:.4f}, bf16_gmlp_design_ms {design[f'{n}/{tag}']:.4f})"
                 for n in ("K3f_bf16", "K3b_bf16")))
             del calls
     rng = np.random.RandomState(3)
@@ -2084,11 +2180,14 @@ def engine_errors(torch, lib, report) -> None:
     K1b's five channel products (z, W3, W4^T and h2 bf16, da4 bf16 times a
     keep bit, da3 float32 as its three bf16 planes) and K1f's four (up: z
     W3, down: h2 W4, the token FF's up: yt W1 and down: ht W2, every operand
-    bf16). Each output's error against the float64 product of the same
-    values (for dz and dW3: of the float32 da3, so the split's own error
+    bf16); then bf16 K3f's and K3b's six at the gMLP fusion shape, batch 512
+    (R = 50688 rows, D 128, F 768), in their tiles (128 x 64 for the in- and
+    out-projection and dgated): in: xn W_in, out: gated W_out, dgated: dout
+    W_out^T (dout bf16 times a keep bit), dxn: dpre W_in^T and dW_in: xn^T
+    dpre (dpre float32 as its three planes), dW_out: gated^T dout. Each
+    output's error against the float64 product of the same values (for dz,
+    dW3, dxn and dW_in: of the float32 cotangent, so the split's own error
     counts), relative to its largest magnitude."""
-    import ctypes
-
     geom = L_GEOMS[2][1]
     R, D, C = 512 * geom["N"], geom["D"], geom["C"]
     gen = torch.Generator(device="cuda").manual_seed(29)
@@ -2117,9 +2216,51 @@ def engine_errors(torch, lib, report) -> None:
              "token up": ([yt], 1, [w1], 0, rows, T, N, lambda: yt.double() @ w1.double()),
              "token down": ([ht], 1, [w2], 0, rows, N, T, lambda: ht.double() @ w2.double())}
     out = report.setdefault("engine_rel_err", {})
+    run_engine_cases(torch, lib, cases, {}, "L_fusion/B512", out)
+    print("  the wgmma engine's products (K1b's five, K1f's four) at the L fusion shape, batch "
+          "512, error / max|float64|: " + ", ".join(f"{k.split('/')[-1]} {v:.2e}"
+                                                    for k, v in out.items()))
+    del z, w3, w4t, w4, da4, h2, da3, planes, yt, w1, ht, w2, cases
+    torch.cuda.empty_cache()
+    # the gMLP block's six at the fusion shape, batch 512; every operand's rows
+    # padded to 8, as the workspace holds them (F/2 = 384 and D = 128 are)
+    geom = GMLP_FUSION
+    R, D, F = 512 * geom["N"], geom["D"], geom["F"]
+    H = F // 2
+    xn, gated = rand(R, D).to(bf), (rand(R, H) * 0.3).to(bf)
+    w_in, w_out = (rand(D, F) / D ** 0.5).to(bf), (rand(H, D) / H ** 0.5).to(bf)
+    dout = (rand(R, D) * (torch.rand(R, D, generator=gen, device="cuda") < 0.9)).to(bf)
+    dpre = rand(R, F) * 1e-3
+    planes = [dpre.to(bf)]
+    planes.append((dpre - planes[0].float()).to(bf))
+    planes.append((dpre - planes[0].float() - planes[1].float()).to(bf))
+    w_out_t = w_out.t().contiguous()
+    gmlp = {"in": ([xn], 1, [w_in], 0, R, F, D, lambda: xn.double() @ w_in.double()),
+            "out": ([gated], 1, [w_out], 0, R, D, H, lambda: gated.double() @ w_out.double()),
+            "dgated": ([dout], 1, [w_out_t], 0, R, H, D,
+                       lambda: dout.double() @ w_out.double().t()),
+            "dxn": (planes, 1, [w_in], 1, R, D, F, lambda: dpre.double() @ w_in.double().t()),
+            "dW_in": ([xn], 0, planes, 0, D, F, R, lambda: xn.double().t() @ dpre.double()),
+            "dW_out": ([gated], 0, [dout], 0, H, D, R,
+                       lambda: gated.double().t() @ dout.double())}
+    tiles = {"in": 64, "out": 64, "dgated": 64}
+    run_engine_cases(torch, lib, gmlp, tiles, "gmlp_fusion/B512", out)
+    print("  the wgmma engine's products of bf16 K3f and K3b at the gMLP fusion shape, batch "
+          "512, error / max|float64|: " + ", ".join(
+              f"{k.split('/')[-1]} {v:.2e}" for k, v in out.items() if k.startswith("gmlp")))
+    del xn, gated, w_in, w_out, w_out_t, dout, dpre, planes, gmlp
+    torch.cuda.empty_cache()
+
+
+def run_engine_cases(torch, lib, cases, tiles, prefix, out) -> None:
+    """Each case's product on the engine alone (``m2m_wg_product``, the tile
+    ``tiles`` names, else 128 wide) against its float64 reference:
+    out[prefix/name] = max |error| / max |float64|."""
+    import ctypes
+
     for name, (a, a_k, b, b_k, M, N, K, ref) in cases.items():
         got = torch.empty(M, N, device="cuda")
-        code = lib.m2m_wg_product(a_k, b_k, len(a), len(b), M, N, K,
+        code = lib.m2m_wg_product(a_k, b_k, len(a), len(b), M, N, K, tiles.get(name, 128),
                                   (ctypes.c_void_p * 3)(*[t.data_ptr() for t in a]),
                                   a[0].shape[1], (ctypes.c_void_p * 3)(*[t.data_ptr() for t in b]),
                                   b[0].shape[1], got.data_ptr(), 0,
@@ -2127,14 +2268,8 @@ def engine_errors(torch, lib, report) -> None:
         if code:
             raise RuntimeError(f"m2m_wg_product {name}: {lib.m2m_error_string(code).decode()}")
         want = ref()
-        out[f"L_fusion/B512/{name}"] = ((got.double() - want).abs().max() /
-                                        want.abs().max()).item()
+        out[f"{prefix}/{name}"] = ((got.double() - want).abs().max() / want.abs().max()).item()
         del got, want
-    print("  the wgmma engine's products (K1b's five, K1f's four) at the L fusion shape, batch "
-          "512, error / max|float64|: " + ", ".join(f"{k.split('/')[-1]} {v:.2e}"
-                                                    for k, v in out.items()))
-    del z, w3, w4t, w4, da4, h2, da3, planes, yt, w1, ht, w2
-    torch.cuda.empty_cache()
 
 
 def dyna_counters(dk):
@@ -2830,7 +2965,9 @@ def product_yardsticks(torch, report) -> None:
     ``torch.matmul`` (the bf16 K1b's yardstick; at the B shapes and the L
     fusion shape), and the bf16 K1f's four (the channel FF's up and down, the
     token FF's up and down) as one bf16 ``torch.matmul`` each at the three L
-    shapes: a yardstick per product, never called by the port. Shapes
+    shapes, and bf16 K3f's and K3b's six (in_proj, out_proj, dgated, dxn,
+    dW_in, dW_out) as one bf16 ``torch.matmul`` each at both gMLP shapes: a
+    yardstick per product, never called by the port. Shapes
     (M x K x N); the SGU's token products are batched over the sample's F/2
     v-channels. K3f's in-projection and token
     product are K3b's in_proj and sgu t."""
@@ -2859,6 +2996,11 @@ def product_yardsticks(torch, report) -> None:
                                  "sgu d sgu_w": (N, 512 * H, N)}.items():
             mm(f"K3b/{geom_name}/B512/{prod}", M, K, Nn)
         mm(f"K3f/{geom_name}/B512/out_proj", R, H, D)
+        # bf16 K3f's and K3b's products of these shapes as one bf16 matmul each
+        for prod, (M, K, Nn) in {"in_proj": (R, D, F), "out_proj": (R, H, D),
+                                 "dgated": (R, D, H), "dxn": (R, F, D), "dW_in": (D, R, F),
+                                 "dW_out": (H, R, D)}.items():
+            mm(f"K3_bf16/{geom_name}/B512/{prod} (bf16 matmul)", M, K, Nn, torch.bfloat16)
     # the bf16 K1b's channel products at the L fusion shape, one bf16 matmul each
     lf = L_GEOMS[2][1]
     R, D, C = 512 * lf["N"], lf["D"], lf["C"]
@@ -2953,7 +3095,8 @@ def kernel_times(torch, mk, gk, dk) -> dict:
     batch 512 the same way (K1f's two channel products summed,
     ``fwd_channel_products``), the numbers the A/B compares; for one K1f call at
     each shape at batch 512, and one K1b call at each shape and batch, the
-    device time of each launch; and the host time to enqueue one K1b call."""
+    device time of each launch; and the host time to enqueue one K1b call and
+    one bf16 K3f and K3b call."""
     times, breakdown, host = {}, {}, {}
     for geom_name, geom, K in MIXER_STACKS:
         blocks, ln_s, ln_b = rand_blocks(mk, torch, K, seed=13, **geom)
@@ -2984,6 +3127,16 @@ def kernel_times(torch, mk, gk, dk) -> dict:
             g = torch.randn(B, geom["N"], geom["D"], generator=gen).cuda()
             times[f"K3f/{geom_name}/B{B}"] = cuda_ms(torch, lambda: gk.fused_gmlp_block(x, p))
             times[f"K3b/{geom_name}/B{B}"] = cuda_ms(torch, lambda: gk.fused_gmlp_block_bwd(x, g, p))
+            # bf16 K3f and K3b: each launch of one call in order, the products summed
+            bf = torch.bfloat16
+            calls = {"K3f_bf16": lambda: gk.fused_gmlp_block(x, p, compute_dtype=bf),
+                     "K3b_bf16": lambda: gk.fused_gmlp_block_bwd(x, g, p, compute_dtype=bf)}
+            for name, fn in calls.items():
+                key = f"{name}/{geom_name}/B{B}"
+                times[key] = cuda_ms(torch, fn)
+                breakdown[key] = launch_sequence(torch, fn)
+                times[f"{key}/products"] = sum(us for _, us in gmlp_products(breakdown[key])) / 1e3
+                host[key] = host_us(torch, fn)
     # bf16 K1b and K2b (the 2 blocks + LN) at the L fusion shape, batch 512: the
     # redesigned route's main cost, with each launch of one call
     geom = L_GEOMS[2][1]
@@ -3072,6 +3225,45 @@ def l_e2e_times(torch, np, serving, Trainer, apply_overrides, load_cfg, syntheti
     return times
 
 
+def gmlp_bf16_e2e_times(torch, np, serving, Trainer, apply_overrides, load_cfg,
+                        synthetic) -> dict:
+    """The gMLP config at ``model.precision=bf16``, full width and depth,
+    seeded weights: the served forward at batch 32 and 512 through the plain
+    modules and through the network ``serving export --pallas`` builds (75
+    bf16 K3f), and the train step (the config otherwise unchanged: dropout 0,
+    stochastic depth on) through the kernel blocks at 32 and 512 (CUDA
+    events, median of 5 runs of 5 and 3)."""
+    times = {}
+    cfg = load_cfg(GMLP_CFG)
+    apply_overrides(cfg, ["model.precision=bf16"], warn=False)
+    plain = serving._build_task(cfg, device="cuda")
+    kernel, _ = serving.to_torch_kernel_serving(cfg, plain.network.state_dict(), device="cuda")
+    rng = np.random.RandomState(3)
+    for B in (32, 512):
+        feats = {"image": torch.from_numpy(rng.rand(B, 1, 28, 28).astype(np.float32)).cuda(),
+                 "audio": torch.from_numpy(rng.rand(B, 1, 112, 112).astype(np.float32)).cuda()}
+        for flavor, task in (("plain", plain), ("kernel", kernel)):
+            fn = serving.serve_fn(task)
+            times[f"gmlp_bf16_served/{flavor}/B{B}"] = cuda_ms(torch, lambda: fn(feats), iters=5)
+    del plain, kernel
+    data = synthetic(512, seed=4, learnable=True)
+    cfg = load_cfg(GMLP_CFG)
+    apply_overrides(cfg, ["model.precision=bf16", *GMLP_KERNEL_BLOCKS], warn=False)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gmlp_e2e_") as tmp:
+        task = serving._build_task(cfg, device="cuda")
+        trainer = Trainer(cfg.train, name="gmlp_bf16_e2e", work_dir=tmp)
+        trainer.setup(task)
+        ctx = task.make_ctx(0, "train")
+        for B in (32, 512):
+            batch = {k: torch.from_numpy(v[:B]).cuda() for k, v in data.items()}
+            times[f"gmlp_bf16_train_step/kernel/B{B}"] = cuda_ms(
+                torch, lambda: trainer.train_step(task, batch, ctx), iters=3)
+        trainer.logger.close()
+        del task, trainer
+    torch.cuda.empty_cache()
+    return times
+
+
 def card_line() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True,
@@ -3142,6 +3334,8 @@ def main() -> int:
                                       synthetic_avmnist_arrays))
         e2e.update(l_e2e_times(torch, np, serving, Trainer, apply_cli_overrides, load_cfg,
                                synthetic_avmnist_arrays))
+        e2e.update(gmlp_bf16_e2e_times(torch, np, serving, Trainer, apply_cli_overrides, load_cfg,
+                                       synthetic_avmnist_arrays))
         print(json.dumps({**kernel_times(torch, mk, gk, dk), "e2e_ms": e2e, "card": card_line()}))
         return 0
     t_start = time.time()
@@ -3353,7 +3547,7 @@ def main() -> int:
     gf, gb = "K3f_bf16/encoder/B512", "K3b_bf16/encoder/B512"
     kernels += [
         {"name": "gmlp_fwd bf16 (K3f, one gMLP block in bf16 compute, B=512 N=49 D=128 F=768, "
-                 "products in 1xTF32)",
+                 "products on bf16 wgmma)",
          "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/gmlp.cu",
          "replaces": "m2mixer_tpu/ops/gmlp_kernel.py:134",
          "launches": report["gmlp_bf16_serving_launches"],
@@ -3361,7 +3555,7 @@ def main() -> int:
          "ms": t[gf], "plain_ms": t["K3f_bf16_plain/encoder/B512"],
          "bound_ms": bd[gf][0], "bound_by": bd[gf][1], "library_ms": None},
         {"name": "gmlp_bwd bf16 (K3b, one gMLP block backward in bf16 compute, B=512 N=49 "
-                 "D=128 F=768, products in 2x/1xTF32)",
+                 "D=128 F=768, products on bf16 wgmma)",
          "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/gmlp.cu",
          "replaces": "m2mixer_tpu/ops/gmlp_kernel.py:167",
          "launches": report["gmlp_bf16_training_launches"]["K3b_bf16"],

@@ -132,7 +132,7 @@ def _declare(lib):
     lib.m2m_mixer_token_row_slice.restype = c_int
     lib.m2m_mixer_row_slice.argtypes = [c_int] * 6
     lib.m2m_mixer_row_slice.restype = c_int
-    lib.m2m_wg_product.argtypes = ([c_int] * 7 + [c_void_p, ctypes.c_longlong] * 2
+    lib.m2m_wg_product.argtypes = ([c_int] * 8 + [c_void_p, ctypes.c_longlong] * 2
                                    + [c_void_p, c_int, c_void_p])
     lib.m2m_wg_product.restype = c_int
     lib.m2m_gmlp_workspace_bytes.argtypes = [c_int] * 7

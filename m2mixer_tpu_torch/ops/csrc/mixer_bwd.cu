@@ -972,7 +972,7 @@ int m2m_mixer_bwd(const float* saved, const float* g, float* dx, int B, int N, i
                                                       device, ptrs, grads, workspace, stream);
 }
 
-// The bf16 route's product engine alone (wgmma_bf16.cuh), for the tests and
+// The bf16 routes' product engine alone (wgmma_bf16.cuh), for the tests and
 // chip_smoke.py's error record: out (M x N float32, row-major) = the sum over
 // the planes of A_t B_t, the whole depth K in one slice. a[t] and b[t] are bf16
 // row-major matrices (row strides lda, ldb: multiples of 8): A is M x K
@@ -980,13 +980,16 @@ int m2m_mixer_bwd(const float* saved, const float* g, float* dx, int B, int N, i
 // MN-major, the weight gradients'); B is N x K (b_k = 1: dz's W3) or K x N
 // (b_k = 0: a3's and dh2's weights, the weight gradients' B). terms_a or
 // terms_b (1-3) planes of the split operand, the other 1; the layouts the
-// route runs: (a_k, b_k) = (1, 0), (1, 1) and (0, 0).
-int m2m_wg_product(int a_k, int b_k, int terms_a, int terms_b, int M, int N, int K,
+// routes run: (a_k, b_k) = (1, 0), (1, 1) and (0, 0). tile_n: the output
+// tile's columns, 128, or 64 for (1, 0) with one plane each (the forwards'
+// products, K3b's in-projection and dgated: three CTAs an SM).
+int m2m_wg_product(int a_k, int b_k, int terms_a, int terms_b, int M, int N, int K, int tile_n,
                    const void* const* a, long long lda, const void* const* b, long long ldb,
                    float* out, int device, void* stream) {
   if (M < 1 || N < 1 || K < 1 || terms_a < 1 || terms_b < 1 || (terms_a > 1 && terms_b > 1) ||
       terms_a > (a_k && b_k ? kWgMaxTerms : 1) || terms_b > (a_k || b_k ? 1 : kWgMaxTerms) ||
-      (a_k == 0 && b_k == 1))
+      (a_k == 0 && b_k == 1) || (tile_n != kWgBN && tile_n != 64) ||
+      (tile_n == 64 && !(a_k && !b_k)))
     return -1;
   M2M_TRY(cudaSetDevice(device));
   WgOperand oa{{}, terms_a, a_k ? M : K, a_k ? K : M, lda};
@@ -998,6 +1001,7 @@ int m2m_wg_product(int a_k, int b_k, int terms_a, int terms_b, int M, int N, int
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a_k && !b_k) {
     M2M_TRY((make_job<true, false>(args.job[0], oa, ob, out, 1.f)));
+    if (tile_n == 64) return wg_gemm<true, false, 1, 1, 1, 64>(args, 1, EpiWgStore{}, device, st);
     return wg_gemm<true, false, 1, 1, 1, kWgBN>(args, 1, EpiWgStore{}, device, st);
   }
   if (a_k) {

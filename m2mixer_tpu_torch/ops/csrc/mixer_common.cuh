@@ -94,6 +94,21 @@ __device__ __forceinline__ float gelu_grad(float v, int tanh_flavor) {
   return 0.5f * (1.0f + erff(v * kInvSqrt2)) + v * kInvSqrt2Pi * expf(-0.5f * v * v);
 }
 
+// gelu(v) and gelu_grad(v) at once, their one erf (tanh) taken once: the
+// same values as the two calls
+__device__ __forceinline__ void gelu_both(float v, int tanh_flavor, float& y, float& dy) {
+  if (tanh_flavor) {
+    const float th = tanhf(kSqrt2OverPi * (v + 0.044715f * v * v * v));
+    y = 0.5f * v * (1.0f + th);
+    dy = 0.5f * (1.0f + th) +
+         0.5f * v * (1.0f - th * th) * kSqrt2OverPi * (1.0f + 3.0f * 0.044715f * v * v);
+    return;
+  }
+  const float e = erff(v * kInvSqrt2);
+  y = 0.5f * v * (1.0f + e);
+  dy = 0.5f * (1.0f + e) + v * kInvSqrt2Pi * expf(-0.5f * v * v);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);

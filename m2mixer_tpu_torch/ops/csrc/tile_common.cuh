@@ -36,9 +36,9 @@
 // product. The forwards' weights (W_in, W_out, W_o) are small enough to be laid
 // K-major once per call, which would lift that obstacle for their products;
 // that is left to the work on the tile's own rate (ROADMAP.md).
-// The bf16 kernels (the mixer's forward and the token products of its
-// backward, the gMLP block's, the DynaMixerOp's) run their products on this
-// tile too: an operand that holds bf16 values is
+// The bf16 kernels that are not on the wgmma engine (the token products of
+// the mixer's backward, the DynaMixerOp's) run their products on this tile
+// too: an operand that holds bf16 values is
 // exact in TF32, so its small half is zero and the products with it go
 // (kExact): two of the three remain where one operand is bf16 (2xTF32), one
 // where both are (1xTF32, each mma's sum added to the accumulator in float32,
@@ -317,15 +317,12 @@ struct EpiBiasMaskGelu {
     return gelu(pre(r, c, v), tanh_flavor);
   }
 };
-// res[r * ld + c] + EpiBiasMask's value (a residual branch's output); kBF16: a
-// bf16 addition of the two rounded to bf16
-template <bool kBF16 = false>
+// res[r * ld + c] + EpiBiasMask's value (a residual branch's output)
 struct EpiResidual {
   EpiBiasMask branch;
   const float* res;
   __device__ __forceinline__ float operator()(int r, int c, float v) const {
-    return rd<kBF16>(rd<kBF16>(__ldg(res + (size_t)r * branch.ld + c)) +
-                     rd<kBF16>(branch(r, c, v)));
+    return __ldg(res + (size_t)r * branch.ld + c) + branch(r, c, v);
   }
 };
 
@@ -611,7 +608,13 @@ __global__ void __launch_bounds__(kThreads)
 // out1[p - len0]; rnd rounds to bf16 (a gradient that a bf16 cast transposes)
 // the out0 elements (bit kRnd0) and the out1 ones (kRnd1); tr: 0, or the rows
 // of out0's partials read as a tr x (len0 / tr) matrix, which out0 receives
-// transposed; the grid covers the longest job
+// transposed; the grid covers the longest job. kSplit > 1 (2, 4 or 8): each
+// of a CTA's kSplit warp groups sums one run of the tiles of the same
+// kThreads / kSplit elements (neighbouring threads on neighbouring elements)
+// and the first group adds the runs in order, for jobs of many tiles (the
+// bf16 gMLP's 32-row tiles), whose one chain of loads would set the launch's
+// time; the same order every run. Its grid is flat: job j takes the CTAs
+// from first[j] (flat_grid), so no job pays for the longest one's CTAs.
 constexpr int kRnd0 = 1, kRnd1 = 2;
 struct RedJob {
   const float* part;
@@ -625,16 +628,50 @@ struct RedJob {
 template <int kJobs>
 struct RedJobs {
   RedJob job[kJobs];
+  int first[kJobs + 1];  // kSplit > 1: each job's first CTA, then the grid's size
 };
 
+// the flat grid of reduce_jobs_kernel<kJobs, kSplit> (kSplit > 1): CTAs of
+// kThreads / kSplit elements, job after job; returns its size
 template <int kJobs>
+int flat_grid(RedJobs<kJobs>& rj, int kSplit) {
+  const int elems = kThreads / kSplit;
+  rj.first[0] = 0;
+  for (int j = 0; j < kJobs; ++j)
+    rj.first[j + 1] = rj.first[j] + (rj.job[j].P + elems - 1) / elems;
+  return rj.first[kJobs];
+}
+
+template <int kJobs, int kSplit = 1>
 __global__ void __launch_bounds__(kThreads)
     reduce_jobs_kernel(const __grid_constant__ RedJobs<kJobs> jobs) {
-  const RedJob& jb = jobs.job[blockIdx.y];
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p >= jb.P) return;
+  static_assert(kSplit == 1 || kSplit == 2 || kSplit == 4 || kSplit == 8, "warp groups");
+  constexpr int kElems = kThreads / kSplit;  // elements a CTA
+  int j = blockIdx.y, block = blockIdx.x;
+  if constexpr (kSplit > 1) {  // the flat grid
+    j = 0;
+    while (j + 1 < kJobs && (int)blockIdx.x >= jobs.first[j + 1]) ++j;
+    block -= jobs.first[j];
+  }
+  const RedJob& jb = jobs.job[j];
+  const int sub = threadIdx.x / kElems;
+  const int p = block * kElems + threadIdx.x % kElems;
   Kahan v;
-  for (int t = 0; t < jb.tiles; ++t) v.add(jb.part[(size_t)t * jb.P + p]);
+  if constexpr (kSplit == 1) {
+    if (p >= jb.P) return;
+    for (int t = 0; t < jb.tiles; ++t) v.add(jb.part[(size_t)t * jb.P + p]);
+  } else {
+    __shared__ float runs[kSplit][kElems];
+    const int run = (jb.tiles + kSplit - 1) / kSplit;
+    const int t1 = min(jb.tiles, (sub + 1) * run);
+    if (p < jb.P)
+      for (int t = sub * run; t < t1; ++t) v.add(jb.part[(size_t)t * jb.P + p]);
+    runs[sub][threadIdx.x % kElems] = v.s;
+    __syncthreads();
+    if (sub || p >= jb.P) return;
+    v = Kahan{};
+    for (int k = 0; k < kSplit; ++k) v.add(runs[k][threadIdx.x]);
+  }
   if (p < jb.len0) {
     const int cols = jb.tr ? jb.len0 / jb.tr : 0;
     jb.out0[jb.tr ? (p % cols) * jb.tr + p / cols : p] = jb.rnd & kRnd0 ? rd<true>(v.s) : v.s;

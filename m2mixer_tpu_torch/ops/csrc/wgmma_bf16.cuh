@@ -1,9 +1,11 @@
-// The bf16 product engine of the mixer kernels on Hopper's warpgroup
+// The bf16 product engine of the mixer and gMLP kernels on Hopper's warpgroup
 // tensor-core instruction (wgmma) with operand tiles brought in by TMA: the
 // channel FF's five products of bf16 K1b and K2b (mixer_bwd.cu,
-// block_bwd<true>), and every product of bf16 K1f and K2f (mixer_fwd.cu: the
+// block_bwd<true>), every product of bf16 K1f and K2f (mixer_fwd.cu: the
 // channel FF's up and down products and, on the token pipeline, the token
-// FF's two; the header there has their bound and tiles).
+// FF's two; the header there has their bound and tiles), and the D x F and
+// F/2 x D products of bf16 K3f and K3b (gmlp.cu: the in- and out-projections,
+// dgated, dxn and the two weight gradients, dpre split as da3 is below).
 //
 // Replaces, with the rest of mixer_bwd.cu's bf16 route, the products of the TPU
 // kernels m2mixer_tpu/ops/mixer_kernel.py::_bwd_rule (:267) and

@@ -28,8 +28,10 @@ layout: ``x (B, N, D)`` float32 in and out, ``w_in (D, F)``, ``sgu_w (N, N)``
   the card) rounds the cotangent of each of those casts to bf16: g, both
   sides of the gate, each product operand's (so dW_in, d sgu_w and dW_out,
   each summed over the whole batch first), LN1's input gradient and the LN
-  scale and bias gradients; the bias gradients stay float32. Each wrapper
-  counts its bf16 launches alone too, in ``bf16_launches``.
+  scale and bias gradients; the bias gradients stay float32. On the card the
+  bf16 kernels run their D x F and F/2 x D products on the wgmma engine
+  (``csrc/wgmma_bf16.cuh``), their operands bf16 in the workspace. Each
+  wrapper counts its bf16 launches alone too, in ``bf16_launches``.
 
 Dropout masks are the hash masks of ``ops/mixer_kernel.py`` for block 0 of a
 launch seeded with ``seed``, mask ids 0-2, counted in the JAX layouts:
@@ -155,6 +157,21 @@ def _kernel_params(x, params):
     return out
 
 
+def _workspace_bytes(lib, B: int, N: int, D: int, F: int, backward: bool, bf16: bool,
+                     dev: int) -> int:
+    """Bytes of device workspace K3f (``backward`` False) or K3b needs: the
+    activations between their launches (xn, h or pm, gated, LN(v)'s
+    statistics; the backward's dout, dgated, dpre, dxn's slices) and the
+    partials of the gradients. In bf16 compute the products' operands (xn,
+    gated, dout, dgated and the rounded weights) lie in bf16, rows padded to
+    8 elements, and dpre as three bf16 planes."""
+    nbytes = lib.m2m_gmlp_workspace_bytes(B, N, D, F, int(backward), int(bf16), dev)
+    if nbytes == 0:
+        raise ValueError(f"the CUDA gMLP kernel does not take B={B} N={N} D={D} F={F}"
+                         f"{' (bf16)' if bf16 else ''}")
+    return nbytes
+
+
 def _launch(x, params, approximate_gelu: bool, seed, rate: float, bf16: bool, g=None):
     """K3f (``g`` None): the block's output; K3b: (dx, the 10 float32
     parameter gradients); ``bf16``: bf16 compute (``csrc/gmlp.cu``'s casts;
@@ -168,9 +185,7 @@ def _launch(x, params, approximate_gelu: bool, seed, rate: float, bf16: bool, g=
     F = params[2].shape[1]
     dev = _device_index(x)
     backward = g is not None
-    nbytes = lib.m2m_gmlp_workspace_bytes(B, N, D, F, int(backward), int(bf16), dev)
-    if nbytes == 0:
-        raise ValueError(f"the CUDA gMLP kernel does not take B={B} N={N} D={D} F={F}")
+    nbytes = _workspace_bytes(lib, B, N, D, F, backward, bf16, dev)
     workspace = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     ptrs = (ctypes.c_void_p * len(params))(*[p.data_ptr() for p in params])
     keys, thresh, scale = _dropout_args(seed, rate, 1)

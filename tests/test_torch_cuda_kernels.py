@@ -514,7 +514,7 @@ def test_wgmma_engine_products_match_float64(cuda, layout, mnk):
     b = [stored(p, bool(b_k)) for p in bp]
     out = torch.full((M, N), float("nan"), device=cuda)
     lib = load_library()
-    code = lib.m2m_wg_product(a_k, b_k, ta, tb, M, N, K,
+    code = lib.m2m_wg_product(a_k, b_k, ta, tb, M, N, K, 128,
                               (ctypes.c_void_p * 3)(*[t.data_ptr() for t in a]), a[0].shape[1],
                               (ctypes.c_void_p * 3)(*[t.data_ptr() for t in b]), b[0].shape[1],
                               out.data_ptr(), 0, torch.cuda.current_stream().cuda_stream)
@@ -777,6 +777,131 @@ def test_gmlp_bf16_block_module_trains_on_cuda(cuda):
     for name, prm in m.named_parameters():
         assert prm.dtype == torch.float32 and prm.grad.dtype == torch.float32, name
         assert prm.grad.abs().sum().item() > 0, name
+
+
+# bf16 K3f/K3b on the wgmma engine: the config's two shapes (D 128, F 768) at
+# one sample, a ragged batch, and more rows than the batch-512 plans
+GMLP_WG_SHAPES = {"encoder": dict(N=49, D=128, F=768), "fusion": dict(N=99, D=128, F=768)}
+
+
+def tally_delta(fn):
+    """fn()'s result and its launches of the tallied kernels (_build.launch_tally)."""
+    before = _build.launch_tally()
+    out = fn()
+    after = _build.launch_tally()
+    return out, {k: after[k] - before[k] for k in after}
+
+
+@pytest.mark.parametrize("B", [1, 7, 600])
+@pytest.mark.parametrize("shape", sorted(GMLP_WG_SHAPES))
+def test_gmlp_bf16_on_the_wgmma_engine(cuda, shape, B):
+    """bf16 K3f against the plain bf16 version (assert_close) and bf16 K3b
+    against its autograd (bf16_grads_close, 10% of the rounded elements) at
+    dropout 0.1, erf; by the library's tallies K3f's two products and K3b's
+    five run as wgmma-engine launches and no tc_gemm_kernel is launched; two
+    runs of each bit-identical."""
+    geom = GMLP_WG_SHAPES[shape]
+    p = gmlp_params_on(cuda, seed=6, **geom)
+    gen = torch.Generator().manual_seed(B)
+    x = torch.randn(B, geom["N"], geom["D"], generator=gen).to(cuda)
+    g = torch.randn(B, geom["N"], geom["D"], generator=gen).to(cuda)
+    bf16 = torch.bfloat16
+    fwd = lambda: gk.fused_gmlp_block(x, p, seed=8, dropout_rate=0.1, compute_dtype=bf16)
+    bwd = lambda: gk.fused_gmlp_block_bwd(x, g, p, seed=8, dropout_rate=0.1, compute_dtype=bf16)
+    out, launched = tally_delta(fwd)
+    assert (launched["wg_gemm_kernel"], launched["tc_gemm_kernel"]) == (2, 0), launched
+    assert_close(out, gk.gmlp_block_reference(x, p, 0.1, seed=8, compute_dtype=bf16), True)
+    (dx, grads), launched = tally_delta(bwd)
+    assert (launched["wg_gemm_kernel"], launched["tc_gemm_kernel"]) == (5, 0), launched
+    want_dx, want = gk.gmlp_block_bwd_reference(x, g, p, 0.1, seed=8, compute_dtype=bf16)
+    bf16_grads_close((dx, *grads), (want_dx, *want), GMLP_ROUNDED, 0.10)
+    assert torch.equal(out, fwd())
+    dx2, grads2 = bwd()
+    assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+
+
+def test_gmlp_workspace_matches_the_mirror(cuda):
+    """m2m_gmlp_workspace_bytes against tests/test_torch_gmlp_plan.py's
+    Python mirror of its plan, forward and backward, float32 and bf16, on
+    this card's SM count."""
+    from m2mixer_tpu_torch.ops._build import load_library
+    from test_torch_gmlp_plan import CASES, workspace_floats
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = load_library()
+    for dims in CASES:
+        for backward in (0, 1):
+            for bf16 in (0, 1):
+                assert lib.m2m_gmlp_workspace_bytes(*dims, backward, bf16, 0) == \
+                    4 * workspace_floats(*dims, backward, bf16, sms=sms), (dims, backward, bf16)
+
+
+def test_gmlp_bf16_raises_where_the_kernels_do_not_take_it(cuda):
+    """No fallback: a bf16 call at a width the kernels cannot take (F/2 =
+    2048 v-channels: LN(v)'s backward keeps its rows in a CTA's shared
+    memory, bf16 six floats a channel for each of 8 warps, float32 two for
+    each of 32 rows) raises with the shape in the message, as float32 does."""
+    p = gmlp_params_on(cuda, N=6, D=16, F=4096)
+    x = torch.randn(2, 6, 16, device=cuda)
+    g = torch.randn_like(x)
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="does not take B=2 N=6 D=16 F=4096"):
+            gk.fused_gmlp_block_bwd(x, g, p, compute_dtype=dtype)
+
+
+# the gMLP block's engine products (A K-major, B K-major, A's planes, B's
+# planes, the tile's columns) at the fusion shape's widths with ragged rows:
+# the in-projection and dgated (and the out-projection), dxn, dW_in, dW_out
+GMLP_WG_LAYOUTS = {"in": (1, 0, 1, 1, 64, 1000, 768, 128),
+                   "out": (1, 0, 1, 1, 64, 1000, 128, 384),
+                   "dgated": (1, 0, 1, 1, 64, 1000, 384, 128),
+                   "dxn": (1, 1, 3, 1, 128, 1000, 128, 768),
+                   "dW_in": (0, 0, 1, 3, 128, 128, 768, 1000),
+                   "dW_out": (0, 0, 1, 1, 128, 384, 128, 1000),
+                   "odd_in": (1, 0, 1, 1, 64, 65, 44, 20),
+                   "odd_dW_in": (0, 0, 1, 3, 128, 20, 44, 65)}
+
+
+@pytest.mark.parametrize("layout", sorted(GMLP_WG_LAYOUTS))
+def test_wgmma_engine_gmlp_layouts_match_float64(cuda, layout):
+    """The engine alone (m2m_wg_product) in the layouts and tiles of bf16
+    K3f/K3b, rows padded to 8 (odd: D 20, F 44): against the float64 product
+    of the same bf16 values (dpre's three planes for dxn and dW_in), within
+    1e-5 of the largest output."""
+    from m2mixer_tpu_torch.ops._build import load_library
+    import ctypes
+
+    a_k, b_k, ta, tb, tile, M, N, K = GMLP_WG_LAYOUTS[layout]
+    gen = torch.Generator().manual_seed(M + N + K)
+
+    def planes(x, t):
+        out, rest = [], x
+        for _ in range(t):
+            out.append(rest.to(torch.bfloat16))
+            rest = rest - out[-1].float()
+        return out
+
+    def stored(p, transpose):
+        p = (p.t() if transpose else p).contiguous()
+        out = torch.zeros(p.shape[0], -(-p.shape[1] // 8) * 8, dtype=p.dtype)
+        out[:, :p.shape[1]] = p
+        return out.to(cuda)
+
+    ap = planes(torch.randn(M, K, generator=gen), ta)
+    bp = planes(torch.randn(K, N, generator=gen), tb)
+    want = sum(p.double() for p in ap) @ sum(p.double() for p in bp)
+    a = [stored(p, not a_k) for p in ap]
+    b = [stored(p, bool(b_k)) for p in bp]
+    out = torch.full((M, N), float("nan"), device=cuda)
+    lib = load_library()
+    code = lib.m2m_wg_product(a_k, b_k, ta, tb, M, N, K, tile,
+                              (ctypes.c_void_p * 3)(*[t.data_ptr() for t in a]), a[0].shape[1],
+                              (ctypes.c_void_p * 3)(*[t.data_ptr() for t in b]), b[0].shape[1],
+                              out.data_ptr(), 0, torch.cuda.current_stream().cuda_stream)
+    assert code == 0, lib.m2m_error_string(code)
+    torch.cuda.synchronize()
+    err = (out.cpu().double() - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
 
 
 # ----------------------------------------------------------------- DynaMixer
