@@ -21,7 +21,10 @@ and both kernel block types);
 the L config's served forward at batch 32 and 512 (plain modules and the
 ``export --pallas`` network) and train step at 512 (both kernel block types);
 and the bf16 gMLP config's served forward (plain modules and the ``export
---pallas`` network) and train step (kernel blocks) at 32 and 512,
+--pallas`` network) and train step (kernel blocks) at 32 and 512; bf16 K4f
+and K4b at 32 and 512 (at 512 each launch of one call in order, and their
+engine products summed) and the bf16 DynaMixer config's served forward and
+train step at 32 and 512,
 as one JSON line (``--root``: those of the ``m2mixer_tpu_torch`` of another
 checkout). ``--ab`` compares another checkout's numbers with this one's on
 the same card, in turns (parent, this, this, parent), each in its own
@@ -69,7 +72,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    bf16 version on the CPU beside at batch 32), each with its float32-math
    control; two backward runs bit-identical; each bf16 call's launches
    checked by the library's tallies: K3f's two products and K3b's five as
-   ``wg_gemm_kernel`` (the wgmma engine), no ``tc_gemm_kernel``;
+   ``wg_gemm_kernel`` (the wgmma engine), no ``tc_gemm_kernel``. Then the
+   block at F = 4096 (N=49, D=128, batch 32, dropout 0.1; LN(v)'s rows on a
+   row tile sized from the shared memory) in float32 and bf16 the same way.
+   (At the end of 4: K1f, K2f (4 blocks + LN), K1b and K2b at hidden widths
+   the kernels pad, D = 20 and 30 at the B shapes' N, T and C, batch 64,
+   dropout 0.5, float32 and bf16, by the checks above);
 6. K4f / K4b, the DynaMixerOp kernels, against the plain version and its
    autograd at the DynaMixer config's op (L=7, C=256, H=8, R=2; S = 7 x 32
    and 7 x 512 sequences; the weights output-major, as ``DynaMixerOp``
@@ -78,7 +86,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    gradients; two backward runs give bit-identical gradients. Then the same
    in bf16 compute (float32 parameters): the output within 1.5e-3 x max(1,
    max|plain bf16|), dx and the gradients by the bf16 gradient check (dW_c,
-   dW_g, dW_o rounded), each with its float32-math control. Then the
+   dW_g, dW_o rounded), each with its float32-math control, every bf16 call's
+   products counted by the library's tallies (three ``wg_gemm_kernel`` a
+   K4f, eight a K4b, no ``tc_gemm_kernel``; so too over the bf16 training
+   and serving runs of 12); both dtypes also at the lifted shapes, whose
+   sequence would outgrow a CTA's shared memory (L=33 C=1280 H=8 R=2 and
+   L=64 C=512 H=4 R=3, 64 sequences; bf16 x as drawn and x30, the
+   float32-math control asserted at x30). Then the
    3xTF32 error against rows: K1b (encoder and fusion shape), K3b (encoder
    shape) and K4b at batch 2048 and 4096, and K1b at the L audio and fusion
    shapes at batch 512 (the token weight gradients sum B*D = 262144 rows),
@@ -89,9 +103,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    channel products (da3 as three bf16 planes) and K1f's four (the channel
    FF's up and down, the token FF's up and down), and at the gMLP fusion
    shape, batch 512, bf16 K3f's and K3b's six (the in- and out-projection,
-   dgated, dxn and dW_in with dpre as three bf16 planes, dW_out), each
-   against the float64 product of the same values, relative to its largest
-   magnitude;
+   dgated, dxn and dW_in with dpre as three bf16 planes, dW_out), and at the
+   DynaMixer config's op, batch 512, bf16 K4f's three and K4b's six (g and
+   d_logit as three bf16 planes), each against the float64 product of the
+   same values, relative to its largest magnitude;
 7. serving: export the B config (``cfg/avmnist/avmnist_m2-mixer_B.yml``, full
    width and depth, seeded weights) through ``serving export --pallas`` (one
    stack kernel per mixer), and through ``to_torch_kernel_serving(...,
@@ -329,6 +344,10 @@ SERVED_REL = 2e-4
 GMLP_MIN_ACC = 0.5
 DYNA_CFG = os.path.join(REPO, "cfg", "avmnist", "avmnist_3loss_dyna.yml")
 DYNA_OP = dict(L=7, C=256, H=8, R=2)  # the config's op: rows or columns of a 7 x 7 grid
+# the lifted shapes, whose sequence (x, W_g) would outgrow a CTA's shared
+# memory, DYNA_LIFTED_S sequences each
+DYNA_LIFTED = {"l33": dict(L=33, C=1280, H=8, R=2), "l64": dict(L=64, C=512, H=4, R=3)}
+DYNA_LIFTED_S = 64
 DYNA_OPS_PER_FORWARD = 40  # mix_h and mix_w in each of the 8 + 8 + 4 DynaMixerBlocks
 LOSS_REL = 1e-5  # card against CPU: the loss and the branch losses
 # the unchanged DynaMixer config (dropout 0.5 after every block, no residual,
@@ -545,18 +564,20 @@ def check_fwd_engine_route(counts, what: str, blocks: int = 1) -> None:
           f"{'token pipeline' if token else 'token FF in registers'}; no tc_gemm)")
 
 
-# a bf16 gMLP call's products on the wgmma engine: K3f's in- and out-projection,
-# K3b's in-projection, dgated, dxn, dW_in and dW_out
-GMLP_WG_LAUNCHES = {"K3f": 2, "K3b": 5}
+# a bf16 call's products on the wgmma engine: K3f's in- and out-projection;
+# K3b's in-projection, dgated, dxn, dW_in and dW_out; K4f's compress, generate
+# and output products; K4b's two recomputed, d_mixed, d_gin, dx's compress
+# part, dW_c, dW_g and dW_o
+WG_LAUNCHES = {"K3f": 2, "K3b": 5, "K4f": 3, "K4b": 8}
 
 
-def check_gmlp_engine_route(counts, what: str, calls: dict) -> None:
-    """bf16 K3f/K3b calls (``calls``: {"K3f": n, "K3b": m}; ``counts``: the
-    tallies over them) ran every D x F and F/2 x D product on the wgmma
-    engine: two ``wg_gemm_kernel`` launches a K3f call, five a K3b call, and
-    no ``tc_gemm_kernel``."""
+def check_wg_route(counts, what: str, calls: dict) -> None:
+    """bf16 K3f/K3b/K4f/K4b calls (``calls``: {"K3f": n, ...}; ``counts``:
+    the library's launch tallies over them) ran every product on the wgmma
+    engine: WG_LAUNCHES ``wg_gemm_kernel`` launches a call and no
+    ``tc_gemm_kernel``."""
     wg, tc = counts["wg_gemm_kernel"], counts["tc_gemm_kernel"]
-    want = sum(GMLP_WG_LAUNCHES[k] * n for k, n in calls.items())
+    want = sum(WG_LAUNCHES[k] * n for k, n in calls.items())
     if wg != want or tc:
         raise AssertionError(f"{what}: {wg} wgmma-engine launches (want {want}) and {tc} "
                              f"tc_gemm launches for {calls}")
@@ -564,9 +585,10 @@ def check_gmlp_engine_route(counts, what: str, calls: dict) -> None:
           "tc_gemm)")
 
 
-def gmlp_products(seq) -> list:
-    """The D x F and F/2 x D products among one gMLP call's launches (in
-    order): the wgmma engine's, or tc_gemm's in a tree from before it."""
+def product_launches(seq) -> list:
+    """The products among one call's launches (in order): the wgmma engine's,
+    or tc_gemm's in a tree from before it (a gMLP call's D x F and F/2 x D
+    products, a DynaMixerOp's)."""
     return [row for row in seq if row[0].startswith(("wg_gemm_kernel", "tc_gemm_kernel"))]
 
 
@@ -647,6 +669,40 @@ def bf16_gmlp_design_ms(B, N, D, F) -> tuple:
            + product(3 * 2 * R * F * D, 6 * R * F + 2 * D * F + 4 * R * D)
            + product(3 * 2 * R * D * F, 2 * R * D + 6 * R * F + 4 * D * F)
            + product(2 * R * H * D, 2 * (R * H + R * D) + 4 * H * D) + hbm(16 * R * D))
+    return fwd * 1e3, bwd * 1e3
+
+
+
+def bf16_dyna_design_ms(S, L, C, H, R) -> tuple:
+    """(forward, backward) bound (ms) of the bf16 K4f / K4b design on one
+    DynaMixerOp of S sequences, counted as bf16_gmlp_design_ms counts: each
+    wgmma-engine product at the larger of its flops at the dense bf16 peak
+    and its operands (bf16; a float32 one as three planes, three passes) and
+    output at HBM rate; every other kernel at its bytes. Forward: x and the
+    weights rounded (x in, xb out), compress (gin out, bf16), generate (logits
+    out, float32), the mix (logits, xb in; mixed out) and the output product
+    (y out, float32). Backward: x, g (into three planes) and the weights
+    rounded, compress and generate again, d_mixed, the sequence step (logits,
+    xb, d_mixed in; mixed, dx, d_logit and its planes out), d_gin (d_comp out),
+    dx's compress part (dx read and written), dW_c, dW_g and dW_o; the
+    column sums and the reduction are left out."""
+    def product(flops, nbytes):
+        return max(flops / PEAK["bf16"], nbytes / HBM_BYTES_PER_S)
+
+    rows, units, HR, LR, LL = S * L, S * H, H * R, L * R, L * L
+    hbm = lambda nbytes: nbytes / HBM_BYTES_PER_S  # noqa: E731
+    logits = product(2 * rows * C * HR, 2 * (rows * C + HR * C + units * LR)) + \
+        product(2 * units * LR * LL, 2 * (units * LR + LL * LR) + 4 * units * LL)
+    fwd = (hbm(4 * rows * C + 2 * rows * C) + logits + hbm(4 * units * LL + 4 * rows * C)
+           + product(2 * rows * C * C, 2 * (rows * C + C * C) + 4 * rows * C))
+    bwd = (hbm(8 * rows * C + 8 * rows * C) + logits
+           + product(6 * rows * C * C, 6 * rows * C + 2 * C * C + 2 * rows * C)
+           + hbm(4 * units * LL + 6 * rows * C + 4 * rows * C + 10 * units * LL)
+           + product(6 * units * LL * LR, 6 * units * LL + 2 * LL * LR + 6 * rows * HR)
+           + product(2 * rows * HR * C, 2 * rows * HR + 2 * HR * C + 8 * rows * C)
+           + product(2 * rows * C * HR, 2 * rows * C + 2 * rows * HR + 4 * C * HR)
+           + product(6 * units * LL * LR, 6 * units * LL + 2 * units * LR + 4 * LL * LR)
+           + product(6 * rows * C * C, 8 * rows * C + 4 * C * C))
     return fwd * 1e3, bwd * 1e3
 
 
@@ -1796,7 +1852,7 @@ def phase_gmlp_bf16_kernels(torch, gk, report):
                 tag = f"{geom_name}/B{B}/rate{rate}"
                 got, counts = tallied(torch, lambda: gk.fused_gmlp_block(
                     x, p, seed=9, dropout_rate=rate, compute_dtype=bf16))
-                check_gmlp_engine_route(counts, f"K3f_bf16/{tag}", {"K3f": 1})
+                check_wg_route(counts, f"K3f_bf16/{tag}", {"K3f": 1})
                 want = gk.gmlp_block_reference(x, p, rate, seed=9, compute_dtype=bf16)
                 control = round_bf16(torch, gk.gmlp_block_reference(x, p, rate, seed=9))
                 report["errors"][f"K3f_bf16/{tag}"] = bf16_err(torch, got, want, control,
@@ -1804,7 +1860,7 @@ def phase_gmlp_bf16_kernels(torch, gk, report):
                 run = lambda: gk.fused_gmlp_block_bwd(x, g, p, seed=9, dropout_rate=rate,
                                                       compute_dtype=bf16)
                 (dx, grads), counts = tallied(torch, run)
-                check_gmlp_engine_route(counts, f"K3b_bf16/{tag}", {"K3b": 1})
+                check_wg_route(counts, f"K3b_bf16/{tag}", {"K3b": 1})
                 wdx, wgrads = gk.gmlp_block_bwd_reference(x, g, p, rate, seed=9,
                                                           compute_dtype=bf16)
                 fdx, fgrads = gk.gmlp_block_bwd_reference(x, g, p, rate, seed=9)
@@ -1821,6 +1877,109 @@ def phase_gmlp_bf16_kernels(torch, gk, report):
                 dx2, grads2 = run()
                 if not all(torch.equal(a, b) for a, b in zip((dx, *grads), (dx2, *grads2))):
                     raise AssertionError(f"K3b_bf16/{tag}: two backward runs differ")
+
+
+# the widths this slice repaired: hidden widths the mixer kernels pad (no
+# multiple of 8, in float32 at 30 of 4) at the B shapes' N, T and C; the gMLP
+# block at F = 4096, whose LN(v) rows outgrew the fixed row tile
+WIDTH_GEOMS = {"d20": dict(N=4, D=20, T=32, C=3072), "d30": dict(N=8, D=30, T=32, C=3078)}
+GMLP_WIDE = dict(N=49, D=128, F=4096)
+
+
+def phase_mixer_widths(torch, mk, report):
+    """K1f, K2f (4 blocks + LN), K1b and K2b at hidden widths the kernels pad
+    (WIDTH_GEOMS), batch 64, dropout 0.5, against the plain versions and their
+    autograd: float32 (max_err, grad_err) and bf16 (bf16_err, bf16_grad_check,
+    each with its float32-math control); two runs bit-identical."""
+    print("[4/16] K1f / K2f / K1b / K2b at hidden widths the kernels pad (D = 20 and 30), "
+          "float32 and bf16")
+    for name, geom in WIDTH_GEOMS.items():
+        blocks, s, b = rand_blocks(mk, torch, 4, seed=61, **geom)
+        flat = mk.stack_flat_params(blocks, s, b)
+        gen = torch.Generator().manual_seed(64)
+        x = torch.randn(64, geom["N"], geom["D"], generator=gen).cuda()
+        g = torch.randn(64, geom["N"], geom["D"], generator=gen).cuda()
+        for dtype, cd in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            fwd = {"K1f": (lambda: mk.fused_mixer_block(x, blocks[0], 3, 0.5, cd),
+                           lambda c: mk.mixer_block_reference(x, blocks[0], 0.5, c, seed=3)),
+                   "K2f": (lambda: mk.fused_mixer_stack(x, flat, 4, 0.5, cd),
+                           lambda c: mk.mixer_stack_reference(x, flat, c, dropout_rate=0.5,
+                                                              seed=4))}
+            for kernel, (run, plain) in fwd.items():
+                key = f"{kernel}/{name}/{dtype}"
+                got = run()
+                if dtype == "f32":
+                    report["errors"][key] = max_err(torch, got, plain(cd), key)
+                else:
+                    report["errors"][key] = bf16_err(torch, got, plain(cd),
+                                                     round_bf16(torch, plain(torch.float32)), key,
+                                                     report)
+                if not torch.equal(got, run()):
+                    raise AssertionError(f"{key}: two runs differ")
+            bwd = {"K1b": (lambda: mk.fused_mixer_block_bwd(x, g, blocks[0], 3, 0.5, cd),
+                           lambda c: mk.mixer_block_bwd_reference(x, g, blocks[0], 0.5, c, seed=3),
+                           (True, *BF16_ROUNDED), BF16_GRAD_SHARE["K1b"]),
+                   "K2b": (lambda: mk.fused_mixer_stack_bwd(x, g, flat, 4, 0.5, cd),
+                           lambda c: mk.mixer_stack_bwd_reference(x, g, flat, 0.5, c, seed=4),
+                           (True, *(BF16_ROUNDED * 4), True, True), BF16_GRAD_SHARE["K2b"])}
+            for kernel, (run, plain, rounded, share) in bwd.items():
+                key = f"{kernel}/{name}/{dtype}"
+                dx, grads = run()
+                want = plain(cd)
+                if dtype == "f32":
+                    report["errors"][key] = grad_err(torch, (dx, *grads), (want[0], *want[1]),
+                                                     key)
+                else:
+                    f32 = plain(torch.float32)
+                    control = [round_bf16(torch, t) if r else t
+                               for t, r in zip((f32[0], *f32[1]), rounded)]
+                    report["errors"][key] = bf16_grad_check(
+                        torch, (dx, *grads), (want[0], *want[1]), control, None, rounded, share,
+                        key, report)
+                dx2, grads2 = run()
+                if not all(torch.equal(u, v) for u, v in zip((dx, *grads), (dx2, *grads2))):
+                    raise AssertionError(f"{key}: two backward runs differ")
+
+
+def phase_gmlp_widths(torch, gk, report):
+    """K3f / K3b at F = 4096 (GMLP_WIDE, batch 32, dropout 0.1) against the
+    plain version and its autograd: float32 (rel_err) and bf16 (bf16_err,
+    bf16_grad_check with their float32-math controls; every product on the
+    engine by the launch tallies); two backward runs bit-identical."""
+    print("[5/16] K3f / K3b at F = 4096 (LN(v)'s rows on a row tile sized from the shared "
+          "memory), float32 and bf16")
+    p = gmlp_params(gk, torch, seed=37, **GMLP_WIDE)
+    gen = torch.Generator().manual_seed(4096)
+    x = torch.randn(32, GMLP_WIDE["N"], GMLP_WIDE["D"], generator=gen).cuda()
+    g = torch.randn(32, GMLP_WIDE["N"], GMLP_WIDE["D"], generator=gen).cuda()
+    for dtype, cd in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        key = f"F4096/B32/{dtype}"
+        got, counts = tallied(torch, lambda: gk.fused_gmlp_block(x, p, seed=9, dropout_rate=0.1,
+                                                                 compute_dtype=cd))
+        want = gk.gmlp_block_reference(x, p, 0.1, seed=9, compute_dtype=cd)
+        run = lambda: gk.fused_gmlp_block_bwd(x, g, p, seed=9, dropout_rate=0.1,
+                                              compute_dtype=cd)
+        (dx, grads), bcounts = tallied(torch, run)
+        wdx, wgrads = gk.gmlp_block_bwd_reference(x, g, p, 0.1, seed=9, compute_dtype=cd)
+        if dtype == "f32":
+            report["errors"][f"K3f/{key}"] = rel_err(torch, [got], [want], f"K3f/{key}")
+            report["errors"][f"K3b/{key}"] = rel_err(torch, (dx, *grads), (wdx, *wgrads),
+                                                     f"K3b/{key}")
+        else:
+            check_wg_route(counts, f"K3f/{key}", {"K3f": 1})
+            check_wg_route(bcounts, f"K3b/{key}", {"K3b": 1})
+            control = round_bf16(torch, gk.gmlp_block_reference(x, p, 0.1, seed=9))
+            report["errors"][f"K3f/{key}"] = bf16_err(torch, got, want, control, f"K3f/{key}",
+                                                      report)
+            fdx, fgrads = gk.gmlp_block_bwd_reference(x, g, p, 0.1, seed=9)
+            control = [round_bf16(torch, t) if r else t
+                       for t, r in zip((fdx, *fgrads), GMLP_ROUNDED)]
+            report["errors"][f"K3b/{key}"] = bf16_grad_check(
+                torch, (dx, *grads), (wdx, *wgrads), control, None, GMLP_ROUNDED,
+                BF16_GRAD_SHARE["K1b"], f"K3b/{key}", report)
+        dx2, grads2 = run()
+        if not all(torch.equal(u, v) for u, v in zip((dx, *grads), (dx2, *grads2))):
+            raise AssertionError(f"K3b/{key}: two backward runs differ")
 
 
 def gmlp_bf16_args(tmp, name, kernel):
@@ -1849,7 +2008,7 @@ def phase_gmlp_bf16_training(torch, gk, serving, run, apply_overrides, load_cfg,
     (g_losses, g_grads), counts = tallied(torch, lambda: train_step_one(
         torch, task, {k: torch.from_numpy(v).cuda() for k, v in batch.items()}))
     launched = gmlp_bf16_counters(gk)
-    check_gmlp_engine_route(counts, "gMLP bf16 step 1", {"K3f": launched["K3f_bf16"],
+    check_wg_route(counts, "gMLP bf16 step 1", {"K3f": launched["K3f_bf16"],
                                                          "K3b": launched["K3b_bf16"]})
     c_losses, c_grads = train_step_one(torch, cpu, {k: torch.from_numpy(v)
                                                     for k, v in batch.items()})
@@ -1885,7 +2044,7 @@ def phase_gmlp_bf16_training(torch, gk, serving, run, apply_overrides, load_cfg,
             run, np, gmlp_bf16_args(tmp, f"gmlp_bf16_{flavor}", flavor == "kernel"), zero, read,
             f"gMLP bf16 {flavor}", 0.0)
         torch.cuda.empty_cache()
-    check_gmlp_engine_route(tally["kernel"], "gMLP bf16 kernel run",
+    check_wg_route(tally["kernel"], "gMLP bf16 kernel run",
                             {"K3f": runs["kernel"]["launches"]["K3f_bf16"],
                              "K3b": runs["kernel"]["launches"]["K3b_bf16"]})
     if any(runs["plain"]["launches"].values()):
@@ -1929,7 +2088,7 @@ def phase_gmlp_bf16_training(torch, gk, serving, run, apply_overrides, load_cfg,
     print(f"  main-path launches: bf16 K3f {launched}")
     if launched <= 0:
         raise AssertionError("bf16 K3f was never launched serving the bf16 gMLP")
-    check_gmlp_engine_route(counts, "bf16 gMLP serving", {"K3f": launched})
+    check_wg_route(counts, "bf16 gMLP serving", {"K3f": launched})
     rel = lambda a, b: float(np.abs(a - b).max() / max(1.0, float(np.abs(b).max())))
     worst = to_plain = 0.0
     for n, got in answers.items():
@@ -2084,6 +2243,22 @@ def phase_dyna_kernels(torch, dk, report):
             dx2, grads2 = run()
             if not all(torch.equal(a, b) for a, b in zip((dx, *grads), (dx2, *grads2))):
                 raise AssertionError(f"K4b/{tag}: two backward runs differ")
+    # the lifted shapes
+    for name, geom in DYNA_LIFTED.items():
+        L, C, Hh, Rr = (geom[k] for k in "LCHR")
+        pl = dyna_params(dk, torch, seed=42, **geom)
+        gen = torch.Generator().manual_seed(L)
+        x = torch.randn(DYNA_LIFTED_S, L, C, generator=gen).cuda()
+        g = torch.randn(DYNA_LIFTED_S, L, C, generator=gen).cuda()
+        out = dk.fused_dynamixer_op(x, pl, Hh, Rr)
+        report["errors"][f"K4f/{name}"] = rel_err(
+            torch, [out], [dk.dynamixer_op_reference(x, pl, Hh, Rr)], f"K4f/{name} {geom}")
+        dx, grads = dk.fused_dynamixer_op_bwd(x, g, pl, Hh, Rr)
+        wdx, wgrads = dk.dynamixer_op_bwd_reference(x, g, pl, Hh, Rr)
+        report["errors"][f"K4b/{name}"] = rel_err(torch, (dx, *grads), (wdx, *wgrads),
+                                                  f"K4b/{name} {geom}")
+        if not torch.equal(out, dk.fused_dynamixer_op(x, pl, Hh, Rr)):
+            raise AssertionError(f"K4f/{name}: two runs differ")
 
 
 def phase_error_rows(torch, mk, gk, dk, lib, report):
@@ -2249,6 +2424,60 @@ def engine_errors(torch, lib, report) -> None:
           "512, error / max|float64|: " + ", ".join(
               f"{k.split('/')[-1]} {v:.2e}" for k, v in out.items() if k.startswith("gmlp")))
     del xn, gated, w_in, w_out, w_out_t, dout, dpre, planes, gmlp
+    torch.cuda.empty_cache()
+    dyna_engine_errors(torch, lib, out, gen)
+
+
+def bf16_planes(torch, v):
+    """v (float32) as three bf16 planes, hi = bf16(v), mid = bf16(v - hi), lo
+    = bf16(v - hi - mid): how the engine takes a float32 operand."""
+    bf = torch.bfloat16
+    planes = [v.to(bf)]
+    planes.append((v - planes[0].float()).to(bf))
+    planes.append((v - planes[0].float() - planes[1].float()).to(bf))
+    return planes
+
+
+def dyna_engine_errors(torch, lib, out, gen) -> None:
+    """bf16 K4f's three and K4b's six engine products at the DynaMixer config's
+    op, batch 512 (S = 3584 sequences, S*L = 25088 rows, S*H = 28672 units;
+    C 256, H*R 16, L*R 14, L*L 49), in the layouts bf16 K4f/K4b run them,
+    every operand's rows padded to 8 as the workspace holds them: compress x
+    W_c^T, generate gin W_g^T, out_proj mixed W_o^T (both operands K-major);
+    d_mixed g W_o and d_gin d_logit W_g (g and d_logit float32, as three bf16
+    planes), dx_comp d_comp W_c (B MN-major); dW_c^T x^T d_comp (the 64-wide
+    tile), dW_g d_logit^T gin, dW_o g^T mixed (both MN-major, A's planes
+    for the float32 ones). Each against the float64 product of the same
+    values (of the float32 operand for the split ones), relative to its
+    largest magnitude: out["dyna/B512/<name>"]."""
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+    S, L, C, H, R = 7 * 512, DYNA_OP["L"], DYNA_OP["C"], DYNA_OP["H"], DYNA_OP["R"]
+    rows, units, HR, LR, LL = S * L, S * H, H * R, L * R, L * L
+    rand = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")  # noqa: E731
+    pad = lambda t: F.pad(t, (0, -t.shape[1] % 8))  # noqa: E731
+    x, mixed = rand(rows, C).to(bf), rand(rows, C).to(bf)
+    wc, wg, wo = (rand(HR, C) / C ** 0.5).to(bf), (rand(LL, LR) / LR ** 0.5).to(bf), \
+        (rand(C, C) / C ** 0.5).to(bf)
+    gin, dcomp = rand(units, LR).to(bf), (rand(rows, HR) * 1e-2).to(bf)
+    g, dlog = rand(rows, C), rand(units, LL) * 1e-3
+    gp, dp = bf16_planes(torch, g), [pad(t) for t in bf16_planes(torch, dlog)]
+    d = lambda t: t.double()  # noqa: E731
+    cases = {"compress": ([x], 1, [wc], 1, rows, HR, C, lambda: d(x) @ d(wc).t()),
+             "generate": ([pad(gin)], 1, [pad(wg)], 1, units, LL, LR, lambda: d(gin) @ d(wg).t()),
+             "out_proj": ([mixed], 1, [wo], 1, rows, C, C, lambda: d(mixed) @ d(wo).t()),
+             "d_mixed": (gp, 1, [wo], 0, rows, C, C, lambda: d(g) @ d(wo)),
+             "d_gin": (dp, 1, [pad(wg)], 0, units, LR, LL, lambda: d(dlog) @ d(wg)),
+             "dx_comp": ([dcomp], 1, [wc], 0, rows, C, HR, lambda: d(dcomp) @ d(wc)),
+             "dW_c^T": ([x], 0, [dcomp], 0, C, HR, rows, lambda: d(x).t() @ d(dcomp)),
+             "dW_g": (dp, 0, [pad(gin)], 0, LL, LR, units, lambda: d(dlog).t() @ d(gin)),
+             "dW_o": (gp, 0, [mixed], 0, C, C, rows, lambda: d(g).t() @ d(mixed))}
+    run_engine_cases(torch, lib, cases, {"dW_c^T": 64}, "dyna/B512", out)
+    print("  the wgmma engine's products of bf16 K4f and K4b at the DynaMixer config's op, "
+          "batch 512, error / max|float64|: " + ", ".join(
+              f"{k.split('/')[-1]} {v:.2e}" for k, v in out.items() if k.startswith("dyna")))
+    del x, mixed, wc, wg, wo, gin, dcomp, g, dlog, gp, dp, cases
     torch.cuda.empty_cache()
 
 
@@ -2484,50 +2713,66 @@ def float64_sums(torch):
 
 
 def dyna_bf16_fwd_check(torch, got, want, control, what, report) -> float:
-    """bf16 K4f (DYNA_BF16_FWD); the float32-math control must fail it.
-    Returns the max absolute error."""
+    """bf16 K4f (DYNA_BF16_FWD); the float32-math control must fail it
+    (``control`` None: not run, at shapes whose outputs are too small for
+    the absolute part of the limit to tell the two apart). Returns the max
+    absolute error."""
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{what}: non-finite output")
     scale = max(1.0, want.abs().max().item())
     err = (got - want).abs().max().item()
-    c_err = (control - want).abs().max().item()
+    c_rel = None if control is None else (control - want).abs().max().item() / scale
     print(f"  {what}: max |err| {err:.3e} ({err / scale:.2e} of max(1, max|plain|), tol "
-          f"{DYNA_BF16_FWD}); float32-math control {c_err / scale:.2e}")
+          f"{DYNA_BF16_FWD}); float32-math control "
+          + ("not run" if c_rel is None else f"{c_rel:.2e}"))
     report["bf16_checks"][what] = {"max_abs_err": err, "rel_err": err / scale,
-                                   "control_rel_err": c_err / scale}
+                                   "control_rel_err": c_rel}
     if not err <= DYNA_BF16_FWD * scale:
         raise AssertionError(f"{what}: max |err| {err} > {DYNA_BF16_FWD} x {scale}")
-    if c_err <= DYNA_BF16_FWD * scale:
+    if c_rel is not None and c_rel <= DYNA_BF16_FWD:
         raise AssertionError(f"{what}: the float32-math control passes the bf16 check")
     return err
 
 
 def phase_dyna_bf16_kernels(torch, dk, report):
     print("[6/16] K4f / K4b in bf16 compute vs the plain bf16 version and its autograd "
-          "(float32 parameters, rounded where _op_math casts them)")
-    H, R = DYNA_OP["H"], DYNA_OP["R"]
+          "(float32 parameters, rounded where _op_math casts them), every product on the "
+          "wgmma engine")
     bf16 = torch.bfloat16
-    p = dyna_params(dk, torch, seed=41, **DYNA_OP)
-    for B in (32, 512):
-        gen = torch.Generator().manual_seed(B)
-        shape = (7 * B, DYNA_OP["L"], DYNA_OP["C"])
-        x1 = torch.randn(*shape, generator=gen).cuda()
-        g = torch.randn(*shape, generator=gen).cuda()
-        for scale in (1, 30):
-            tag = f"B{B}/x{scale}"
+    cases = [(f"B{B}", dict(S=7 * B, **DYNA_OP), 41, (1, 30)) for B in (32, 512)]
+    cases += [(name, dict(S=DYNA_LIFTED_S, **geom), 42, (1, 30))
+              for name, geom in DYNA_LIFTED.items()]
+    for case, geom, seed, scales in cases:
+        S, L, C, H, R = (geom[k] for k in "SLCHR")
+        p = dyna_params(dk, torch, seed=seed, L=L, C=C, H=H, R=R)
+        gen = torch.Generator().manual_seed(S)
+        x1 = torch.randn(S, L, C, generator=gen).cuda()
+        g = torch.randn(S, L, C, generator=gen).cuda()
+        for scale in scales:
+            tag = f"{case}/x{scale}"
             x = scale * x1
+            got, counts = tallied(torch, lambda: dk.fused_dynamixer_op(x, p, H, R,
+                                                                       compute_dtype=bf16))
+            check_wg_route(counts, f"K4f_bf16/{tag}", {"K4f": 1})
+            # the control at the config's op, and at the lifted shapes at x30
+            # (at x1 their outputs sit below 1, where max(1, .) leaves bf16 and
+            # float32 math within 1.5e-3)
+            control = (dk.dynamixer_op_reference(x, p, H, R)
+                       if case.startswith("B") or scale == 30 else None)
             report["errors"][f"K4f_bf16/{tag}"] = dyna_bf16_fwd_check(
-                torch, dk.fused_dynamixer_op(x, p, H, R, compute_dtype=bf16),
-                dk.dynamixer_op_reference(x, p, H, R, bf16), dk.dynamixer_op_reference(x, p, H, R),
+                torch, got, dk.dynamixer_op_reference(x, p, H, R, bf16), control,
                 f"K4f_bf16/{tag}", report)
+            if not torch.equal(got, dk.fused_dynamixer_op(x, p, H, R, compute_dtype=bf16)):
+                raise AssertionError(f"K4f_bf16/{tag}: two runs differ")
             run = lambda: dk.fused_dynamixer_op_bwd(x, g, p, H, R, compute_dtype=bf16)
-            dx, grads = run()
+            (dx, grads), counts = tallied(torch, run)
+            check_wg_route(counts, f"K4b_bf16/{tag}", {"K4b": 1})
             want = dk.dynamixer_op_bwd_reference(x, g, p, H, R, bf16)
             f32 = dk.dynamixer_op_bwd_reference(x, g, p, H, R)
             control = [round_bf16(torch, t) if r else t
                        for t, r in zip((f32[0], *f32[1]), DYNA_ROUNDED)]
             cpu = None
-            if B == 32:
+            if case == "B32":
                 c = dk.dynamixer_op_bwd_reference(x.cpu(), g.cpu(), [t.cpu() for t in p], H, R,
                                                   bf16)
                 cpu = (c[0], *c[1])
@@ -2773,11 +3018,15 @@ def phase_dyna_bf16(torch, dk, serving, run, np, report):
                 f"train.epochs={DYNA_EPOCHS}", "dataset.params.synthetic=true",
                 "dataset.params.synthetic_learnable=true",
                 f"dataset.params.synthetic_sizes={TRAIN_SIZES}", "model.precision=bf16"]
-        result = train_run(run, np, argv, lambda: dyna_bf16_zero(dk),
-                           lambda: dyna_bf16_counters(dk), "DynaMixer bf16", 0.0)
+        result, counts = tallied(torch, lambda: train_run(
+            run, np, argv, lambda: dyna_bf16_zero(dk), lambda: dyna_bf16_counters(dk),
+            "DynaMixer bf16", 0.0))
         for name, count in result["launches"].items():
             if count <= 0:
                 raise AssertionError(f"{name} was never launched on the bf16 DynaMixer path")
+        check_wg_route(counts, "the bf16 DynaMixer training run",
+                                {"K4f": result["launches"]["K4f_bf16"],
+                                 "K4b": result["launches"]["K4b_bf16"]})
         report["dyna_bf16_training_run"] = result
         log_root = os.path.join(tmp, "smoke_dyna_bf16")
         weights = os.path.join(log_root, sorted(os.listdir(log_root))[-1], "checkpoints",
@@ -2790,8 +3039,10 @@ def phase_dyna_bf16(torch, dk, serving, run, np, report):
     requests = {n: {"image": rng.rand(n, 1, 28, 28).astype(np.float32),
                     "audio": rng.rand(n, 1, 112, 112).astype(np.float32)} for n in REQUESTS}
     dyna_bf16_zero(dk)
-    answers = {n: card.predict(feats) for n, feats in requests.items()}
+    answers, counts = tallied(torch, lambda: {n: card.predict(feats)
+                                              for n, feats in requests.items()})
     launches = dk.fused_dynamixer_op.bf16_launches
+    check_wg_route(counts, "the bf16 DynaMixer serving run", {"K4f": launches})
     forwards = sum(-(-n // max(card.buckets)) for n in REQUESTS)
     print(f"  main-path launches: bf16 K4f {launches} over {forwards} device forwards")
     if launches != DYNA_OPS_PER_FORWARD * forwards:
@@ -2862,9 +3113,9 @@ def phase_new_route_times(torch, mk, dk, serving, Trainer, apply_overrides, load
                 if dtype == "f32":
                     tc[f"K1f/{tag}"] = ffl / TC_3XTF32 * 1e3
                 else:
-                    tc[f"K1f/{tag}"] = bf16_fwd_design_ms(B, geom["N"], geom["D"], geom["T"],
-                                                          geom["C"],
-                                                          bool(mk._token_ff("fwd", x, flat)))
+                    tc[f"K1f/{tag}"] = bf16_fwd_design_ms(
+                        B, geom["N"], geom["D"], geom["T"], geom["C"],
+                        bool(mk._token_ff("fwd", x, flat, torch.bfloat16)))
                 tc[f"K2f/{tag}"] = K * tc[f"K1f/{tag}"]
                 tc[f"K1b/{tag}"] = bfl / TC_3XTF32 * 1e3 if dtype == "f32" else \
                     bf16_bwd_design_ms(B, geom["N"], geom["D"], geom["T"], geom["C"], True)
@@ -2913,12 +3164,18 @@ def phase_new_route_times(torch, mk, dk, serving, Trainer, apply_overrides, load
         act = x.numel() * 4
         bounds[f"K4f_bf16/{tag}"] = bound(flops, pbytes + 2 * act, "bf16")
         bounds[f"K4b_bf16/{tag}"] = bound(2 * flops, 2 * pbytes + 3 * act, "bf16")
+        design = report.setdefault("bounds_design_ms", {})
+        design[f"K4f_bf16/{tag}"], design[f"K4b_bf16/{tag}"] = bf16_dyna_design_ms(S, **DYNA_OP)
         print(f"  {tag} (S={S}): K4f bf16 {times[f'K4f_bf16/{tag}']:.4f} ms (plain "
-              f"{times[f'K4f_bf16_plain/{tag}']:.4f}, bound {bounds[f'K4f_bf16/{tag}'][0]:.4f}); "
+              f"{times[f'K4f_bf16_plain/{tag}']:.4f}, bound {bounds[f'K4f_bf16/{tag}'][0]:.4f}, "
+              f"bf16_dyna_design_ms {design[f'K4f_bf16/{tag}']:.4f}); "
               f"K4b bf16 {times[f'K4b_bf16/{tag}']:.4f} ms (plain "
-              f"{times[f'K4b_bf16_plain/{tag}']:.4f}, bound {bounds[f'K4b_bf16/{tag}'][0]:.4f})")
+              f"{times[f'K4b_bf16_plain/{tag}']:.4f}, bound {bounds[f'K4b_bf16/{tag}'][0]:.4f}, "
+              f"bf16_dyna_design_ms {design[f'K4b_bf16/{tag}']:.4f})")
         if B == 512:
             bd = report.setdefault("breakdown_us", {})
+            bd[f"K4f_bf16/{tag}"] = kernel_breakdown(torch, lambda: dk.fused_dynamixer_op(
+                x, p, H, R, compute_dtype=bf16), f"K4f bf16 {tag}")
             bd[f"K4b_bf16/{tag}"] = kernel_breakdown(torch, lambda: dk.fused_dynamixer_op_bwd(
                 x, g, p, H, R, compute_dtype=bf16), f"K4b bf16 {tag}")
     rng = np.random.RandomState(5)
@@ -2967,7 +3224,9 @@ def product_yardsticks(torch, report) -> None:
     token FF's up and down) as one bf16 ``torch.matmul`` each at the three L
     shapes, and bf16 K3f's and K3b's six (in_proj, out_proj, dgated, dxn,
     dW_in, dW_out) as one bf16 ``torch.matmul`` each at both gMLP shapes: a
-    yardstick per product, never called by the port. Shapes
+    yardstick per product, never called by the port; likewise bf16 K4f's
+    three and K4b's six products (compress, generate, out_proj, d_mixed,
+    d_gin, dx_comp, dW_c, dW_g, dW_o) as one bf16 ``torch.matmul`` each. Shapes
     (M x K x N); the SGU's token products are batched over the sample's F/2
     v-channels. K3f's in-projection and token
     product are K3b's in_proj and sgu t."""
@@ -3019,6 +3278,14 @@ def product_yardsticks(torch, report) -> None:
     for prod, (M, K, Nn) in {"d_mixed": (rows, C, C), "dW_o": (C, rows, C),
                              "dW_c": (C, rows, HR)}.items():
         mm(f"K4b/B512/{prod}", M, K, Nn)
+    # bf16 K4f's three and K4b's six engine products, one bf16 matmul each
+    units, LR, LL = 7 * 512 * DYNA_OP["H"], DYNA_OP["L"] * DYNA_OP["R"], DYNA_OP["L"] ** 2
+    for prod, (M, K, Nn) in {"compress": (rows, C, HR), "generate": (units, LR, LL),
+                             "out_proj": (rows, C, C), "d_mixed": (rows, C, C),
+                             "d_gin": (units, LL, LR), "dx_comp": (rows, HR, C),
+                             "dW_c": (C, rows, HR), "dW_g": (LL, units, LR),
+                             "dW_o": (C, rows, C)}.items():
+        mm(f"K4_bf16/B512/{prod} (bf16 matmul)", M, K, Nn, torch.bfloat16)
 
 
 def ptxas_usage(log: str) -> dict:
@@ -3093,10 +3360,11 @@ def kernel_times(torch, mk, gk, dk) -> dict:
     in launch order and, for K1b, the sum of its five channel products
     (``channel_products``), and bf16 K1f and K2f at the three L shapes at
     batch 512 the same way (K1f's two channel products summed,
-    ``fwd_channel_products``), the numbers the A/B compares; for one K1f call at
-    each shape at batch 512, and one K1b call at each shape and batch, the
-    device time of each launch; and the host time to enqueue one K1b call and
-    one bf16 K3f and K3b call."""
+    ``fwd_channel_products``), the numbers the A/B compares; for one K1f call
+    (float32 and bf16; bf16 also summed, ``/device``) at each shape at batch
+    512, and one K1b call at each shape and batch, the device time of each
+    launch; and the host time to enqueue one K1b, bf16 K1f (at 512), bf16 K3f
+    and K3b call, and one K4f and K4b call in either dtype."""
     times, breakdown, host = {}, {}, {}
     for geom_name, geom, K in MIXER_STACKS:
         blocks, ln_s, ln_b = rand_blocks(mk, torch, K, seed=13, **geom)
@@ -3107,12 +3375,16 @@ def kernel_times(torch, mk, gk, dk) -> dict:
             times[f"K1f/{geom_name}/B{B}"] = cuda_ms(torch, k1f)
             times[f"K2f/{geom_name}/B{B}"] = cuda_ms(torch, lambda: mk.fused_mixer_stack(x, flat))
             bf = torch.bfloat16
-            times[f"K1f_bf16/{geom_name}/B{B}"] = cuda_ms(
-                torch, lambda: mk.fused_mixer_block(x, blocks[0], compute_dtype=bf))
+            k1f_bf16 = lambda: mk.fused_mixer_block(x, blocks[0], compute_dtype=bf)
+            times[f"K1f_bf16/{geom_name}/B{B}"] = cuda_ms(torch, k1f_bf16)
             times[f"K2f_bf16/{geom_name}/B{B}"] = cuda_ms(
                 torch, lambda: mk.fused_mixer_stack(x, flat, compute_dtype=bf))
             if B == 512:
                 breakdown[f"K1f/{geom_name}/B{B}"] = kernel_breakdown(torch, k1f, None)
+                key = f"K1f_bf16/{geom_name}/B{B}"
+                breakdown[key] = kernel_breakdown(torch, k1f_bf16, None)
+                times[f"{key}/device"] = sum(us for us, _ in breakdown[key].values()) / 1e3
+                host[key] = host_us(torch, k1f_bf16)
         for B in (32, 512):
             calls = mixer_bwd_calls(torch, mk, geom, K, B)
             for name in ("K1b", "K2b", "K1b_bf16", "K2b_bf16"):
@@ -3135,7 +3407,8 @@ def kernel_times(torch, mk, gk, dk) -> dict:
                 key = f"{name}/{geom_name}/B{B}"
                 times[key] = cuda_ms(torch, fn)
                 breakdown[key] = launch_sequence(torch, fn)
-                times[f"{key}/products"] = sum(us for _, us in gmlp_products(breakdown[key])) / 1e3
+                times[f"{key}/products"] = sum(
+                    us for _, us in product_launches(breakdown[key])) / 1e3
                 host[key] = host_us(torch, fn)
     # bf16 K1b and K2b (the 2 blocks + LN) at the L fusion shape, batch 512: the
     # redesigned route's main cost, with each launch of one call
@@ -3187,9 +3460,60 @@ def kernel_times(torch, mk, gk, dk) -> dict:
         gen = torch.Generator().manual_seed(7)
         x = torch.randn(7 * B, DYNA_OP["L"], DYNA_OP["C"], generator=gen).cuda()
         g = torch.randn(7 * B, DYNA_OP["L"], DYNA_OP["C"], generator=gen).cuda()
-        times[f"K4f/B{B}"] = cuda_ms(torch, lambda: dk.fused_dynamixer_op(x, p, H, R))
-        times[f"K4b/B{B}"] = cuda_ms(torch, lambda: dk.fused_dynamixer_op_bwd(x, g, p, H, R))
+        calls = {"K4f": lambda: dk.fused_dynamixer_op(x, p, H, R),
+                 "K4b": lambda: dk.fused_dynamixer_op_bwd(x, g, p, H, R)}
+        for name, fn in calls.items():
+            times[f"{name}/B{B}"] = cuda_ms(torch, fn)
+            host[f"{name}/B{B}"] = host_us(torch, fn)
+        # bf16 K4f and K4b: at 512 each launch of one call in order, the products summed
+        bf = torch.bfloat16
+        calls = {"K4f_bf16": lambda: dk.fused_dynamixer_op(x, p, H, R, compute_dtype=bf),
+                 "K4b_bf16": lambda: dk.fused_dynamixer_op_bwd(x, g, p, H, R, compute_dtype=bf)}
+        for name, fn in calls.items():
+            key = f"{name}/B{B}"
+            times[key] = cuda_ms(torch, fn)
+            host[key] = host_us(torch, fn)
+            if B == 512:
+                breakdown[key] = launch_sequence(torch, fn)
+                times[f"{key}/products"] = sum(
+                    us for _, us in product_launches(breakdown[key])) / 1e3
     return {"kernel_times": times, "breakdown_us": breakdown, "host_us": host}
+
+
+def dyna_bf16_e2e_times(torch, np, serving, Trainer, apply_overrides, load_cfg,
+                        synthetic) -> dict:
+    """The DynaMixer config at ``model.precision=bf16``, full width and depth,
+    seeded weights: the served forward (40 bf16 K4f) and the train step (the
+    config's dropout 0.5, Adam; 40 bf16 K4f and K4b) at batch 32 and 512
+    (CUDA events, median of 5 runs of 5; the served forward at 32 of 5 runs
+    of 20), and the served forward's device time (its kernels' profiler
+    sum, ``/device``)."""
+    times = {}
+    cfg = load_cfg(DYNA_CFG)
+    apply_overrides(cfg, ["model.precision=bf16"], warn=False)
+    data = synthetic(512, seed=4, learnable=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dyna_e2e_") as tmp:
+        task = serving._build_task(cfg, device="cuda")
+        fn = serving.serve_fn(task)
+        rng = np.random.RandomState(3)
+        for B in (32, 512):
+            feats = {"image": torch.from_numpy(rng.rand(B, 1, 28, 28).astype(np.float32)).cuda(),
+                     "audio": torch.from_numpy(rng.rand(B, 1, 112, 112).astype(np.float32)).cuda()}
+            # at 32 more calls a run: the host paces it, and its time spreads
+            times[f"dyna_bf16_served/B{B}"] = cuda_ms(torch, lambda: fn(feats),
+                                                      iters=5 if B == 512 else 20)
+            times[f"dyna_bf16_served/B{B}/device"] = device_busy_ms(torch, lambda: fn(feats))
+        trainer = Trainer(cfg.train, name="dyna_bf16_e2e", work_dir=tmp)
+        trainer.setup(task)
+        ctx = task.make_ctx(0, "train")
+        for B in (32, 512):
+            batch = {k: torch.from_numpy(v[:B]).cuda() for k, v in data.items()}
+            times[f"dyna_bf16_train_step/B{B}"] = cuda_ms(
+                torch, lambda: trainer.train_step(task, batch, ctx), iters=5)
+        trainer.logger.close()
+        del task, trainer
+    torch.cuda.empty_cache()
+    return times
 
 
 def l_e2e_times(torch, np, serving, Trainer, apply_overrides, load_cfg, synthetic) -> dict:
@@ -3336,6 +3660,8 @@ def main() -> int:
                                synthetic_avmnist_arrays))
         e2e.update(gmlp_bf16_e2e_times(torch, np, serving, Trainer, apply_cli_overrides, load_cfg,
                                        synthetic_avmnist_arrays))
+        e2e.update(dyna_bf16_e2e_times(torch, np, serving, Trainer, apply_cli_overrides, load_cfg,
+                                       synthetic_avmnist_arrays))
         print(json.dumps({**kernel_times(torch, mk, gk, dk), "e2e_ms": e2e, "card": card_line()}))
         return 0
     t_start = time.time()
@@ -3350,9 +3676,11 @@ def main() -> int:
     phase_kernels(torch, mk, report)
     phase_backward(torch, mk, report)
     phase_bf16_backward(torch, mk, report)
+    phase_mixer_widths(torch, mk, report)
     phase_l_kernels(torch, mk, report)
     phase_gmlp_kernels(torch, gk, report)
     phase_gmlp_bf16_kernels(torch, gk, report)
+    phase_gmlp_widths(torch, gk, report)
     phase_dyna_kernels(torch, dk, report)
     phase_dyna_bf16_kernels(torch, dk, report)
     phase_error_rows(torch, mk, gk, dk, _build.load_library(), report)
@@ -3494,7 +3822,7 @@ def main() -> int:
     lf = "L/fusion/B512/bf16"
     kernels += [
         {"name": "dyna_fwd bf16 (K4f, one DynaMixerOp in bf16 compute, S=3584 L=7 C=256 H=8 "
-                 "R=2)",
+                 "R=2, its three products on bf16 wgmma)",
          "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/dynamixer.cu",
          "replaces": "m2mixer_tpu/ops/dynamixer_kernel.py:130",
          "launches": report["dyna_bf16_serving_launches"],
@@ -3503,7 +3831,7 @@ def main() -> int:
          "bound_ms": bd["K4f_bf16/B512"][0], "bound_by": bd["K4f_bf16/B512"][1],
          "library_ms": None},
         {"name": "dyna_bwd bf16 (K4b, one DynaMixerOp backward in bf16 compute, S=3584 L=7 "
-                 "C=256 H=8 R=2)",
+                 "C=256 H=8 R=2, its eight products on bf16 wgmma)",
          "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/dynamixer.cu",
          "replaces": "m2mixer_tpu/ops/dynamixer_kernel.py:162",
          "launches": dyna_run["K4b_bf16"],

@@ -116,12 +116,12 @@ def _declare(lib):
     lib.m2m_launch_tally.restype = None
     lib.m2m_mixer_fwd_workspace_bytes.argtypes = [c_int] * 8
     lib.m2m_mixer_fwd_workspace_bytes.restype = c_size_t
-    lib.m2m_mixer_fwd.argtypes = ([c_void_p] * 3 + [c_int] * 8 + dropout
+    lib.m2m_mixer_fwd.argtypes = ([c_void_p] * 3 + [c_int] * 9 + dropout
                                   + [c_int, c_int] + [c_void_p] * 3)
     lib.m2m_mixer_fwd.restype = c_int
     lib.m2m_mixer_bwd_workspace_bytes.argtypes = [c_int] * 9
     lib.m2m_mixer_bwd_workspace_bytes.restype = c_size_t
-    lib.m2m_mixer_bwd.argtypes = ([c_void_p] * 3 + [c_int] * 8 + dropout
+    lib.m2m_mixer_bwd.argtypes = ([c_void_p] * 3 + [c_int] * 9 + dropout
                                   + [c_int, c_int] + [c_void_p] * 4)
     lib.m2m_mixer_bwd.restype = c_int
     lib.m2m_mixer_fwd_token_ff.argtypes = [c_int] * 6

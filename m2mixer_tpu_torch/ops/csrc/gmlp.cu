@@ -652,19 +652,6 @@ __global__ void __launch_bounds__(128 * kWC, 1)
 // float32 sum (tile_common.cuh's 1xTF32 rule). Tokens padded to whole m16
 // tiles; the depth of the token products (the tokens) in k16 steps over them.
 
-// c += a b, a 16 x 16 (row), b 16 x 8 (col), bf16; the mma's sum added in float32
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  float t[4];
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(t[0]), "=f"(t[1]), "=f"(t[2]), "=f"(t[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
-#pragma unroll
-  for (int i = 0; i < 4; ++i) c[i] += t[i];
-}
-
 // four (A) or two (B) 8 x 8 bf16 matrices from the rows each lane points at;
 // kTrans: each matrix transposed (rows in memory are the fragment's columns)
 template <bool kTrans>
@@ -1053,19 +1040,20 @@ __global__ void __launch_bounds__(128 * kWC, 1)
   for (int i = threadIdx.x; i < N; i += kT) mine[N * N + i] = dbs[i];
 }
 
-// backward step 5 on kRowTile rows: dpre's v half holds dv' (sgu_bwd_kernel);
-// the LN(v) backward (gmlp_kernel.py:68) turns it into dv, then gelu'(pm) and
-// mask 0 into d pre, in place. The tile's partials of d sgu_ln_scale and
-// d sgu_ln_bias (2 x F/2) go to part[blockIdx.x] (float32 compute).
+// backward step 5 on `tile` rows (the plan's row tile): dpre's v half holds
+// dv' (sgu_bwd_kernel); the LN(v) backward (gmlp_kernel.py:68) turns it into
+// dv, then gelu'(pm) and mask 0 into d pre, in place. The tile's partials of
+// d sgu_ln_scale and d sgu_ln_bias (2 x F/2) go to part[blockIdx.x] (float32
+// compute).
 __global__ void __launch_bounds__(kThreads)
     vln_bwd_kernel(const float* __restrict__ pm, float* __restrict__ dpre,
                    const float* __restrict__ s, float* __restrict__ part, int R, int F,
-                   int tanh_flavor, const __grid_constant__ Dropout dp) {
+                   int tile, int tanh_flavor, const __grid_constant__ Dropout dp) {
   extern __shared__ __align__(16) float sm[];
   const int H = F / 2;
-  const int r0 = blockIdx.x * kRowTile, nr = min(kRowTile, R - r0);
-  float* xh = sm;               // v, then its normalized value
-  float* as = xh + kRowTile * H;  // dv'
+  const int r0 = blockIdx.x * tile, nr = min(tile, R - r0);
+  float* xh = sm;           // v, then its normalized value
+  float* as = xh + tile * H;  // dv'
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int i = warp; i < nr; i += kThreads / 32) {
     const size_t row = (size_t)(r0 + i) * F + H;
@@ -1112,7 +1100,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The bf16 route's step 5 on kRowTile rows, a warp a row: dpre's hi plane
+// The bf16 route's step 5 on `tile` rows, a warp a row (kW warps, kWarps or
+// fewer where the plan fits fewer in shared memory): dpre's hi plane
 // holds dv' in its v half (sgu_bwd_bf16_kernel); the LN(v) backward (its scale
 // read rounded to bf16, the LN in float32) and gelu'(pm) m0 turn it into the
 // v half of dpre, written as its three planes in place. A warp reads its row
@@ -1121,20 +1110,21 @@ __global__ void __launch_bounds__(kThreads)
 // columns; the tile's partials of d sgu_ln_scale and d sgu_ln_bias go to
 // part[blockIdx.x] (2 x F/2) and of db_in's v half to dq.bin[blockIdx.x]
 // (F/2), the warps' sums added in warp order.
-__global__ void __launch_bounds__(kThreads)
+template <int kW>
+__global__ void __launch_bounds__(32 * kW)
     vln_bwd_bf16_kernel(const float* __restrict__ pm, const DpreOut dq,
                         const float* __restrict__ s, float* __restrict__ part, int R, int F,
-                        int tanh_flavor, const __grid_constant__ Dropout dp) {
-  extern __shared__ __align__(16) float sm[];  // kWarps x 6 x F/2
+                        int tile, int tanh_flavor, const __grid_constant__ Dropout dp) {
+  extern __shared__ __align__(16) float sm[];  // kW x 6 x F/2
   const int H = F / 2;
-  const int r0 = blockIdx.x * kRowTile, nr = min(kRowTile, R - r0);
+  const int r0 = blockIdx.x * tile, nr = min(tile, R - r0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* x = sm + (size_t)warp * 6 * H;  // the row's v, then its normalized value
   float* gp = x + H;                     // gelu'(pm)
   float* a = gp + H;                     // the row's dv'
   float* acc = a + H;                    // the warp's sums of dv' x, dv', dpre
   for (int c = lane; c < 3 * H; c += 32) acc[c] = 0.f;
-  for (int i = warp; i < nr; i += kWarps) {
+  for (int i = warp; i < nr; i += kW) {
     const size_t r = (size_t)(r0 + i);
     const float* pr = pm + r * F + H;
     bf16_t* dr = dq.p + r * dq.ld + H;
@@ -1173,9 +1163,9 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();
-  for (int c = threadIdx.x; c < H; c += kThreads) {
+  for (int c = threadIdx.x; c < H; c += 32 * kW) {
     Kahan ds, db, dbin;
-    for (int w = 0; w < kWarps; ++w) {
+    for (int w = 0; w < kW; ++w) {
       const float* wacc = sm + (size_t)w * 6 * H + 3 * H;
       ds.add(wacc[c]);
       db.add(wacc[H + c]);
@@ -1303,6 +1293,8 @@ struct Plan {
   int xsplit, xslice;   // dxn: slices of F
   int wsplit, wslice;   // dW_in (and in float32 dW_out, db_in, db_out): slices of the rows
   int tiles;            // row tiles of the LN backward and bf16 row kernels
+  int rt;               // their rows: kRowTile, or as many as fit the shared memory
+  int vwarps;           // warps of the bf16 LN(v) backward: kWarps, or the most of 4, 2, 1 that fit
   bool wide_sgu;        // the SGU kernels on 16 warps (8 m16 token tiles), else 8 (4)
   size_t sgu_fwd_smem, sgu_bwd_smem, vln_smem, ln_smem;
   // bf16: the operands' padded rows (D, F/2 and F rounded up to 8); the
@@ -1413,13 +1405,23 @@ int make_plan(int B, int N, int D, int F, bool bf16, int device, Plan& pl) {
   pl.wide_sgu = sgu_layout(N, false).nm > 64;
   pl.sgu_fwd_smem = (bf16 ? sgu_layout_bf16(N, false).floats : sgu_layout(N, false).floats) * 4;
   pl.sgu_bwd_smem = (bf16 ? sgu_layout_bf16(N, true).floats : sgu_layout(N, true).floats) * 4;
-  pl.vln_smem = bf16 ? (size_t)kWarps * 6 * H * 4 : (size_t)2 * kRowTile * H * 4;
-  pl.ln_smem = ln_bwd_smem_bytes(kRowTile, D);
-  pl.rows_smem = bf16 ? (size_t)kWarps * D * 4 : 0;
   const size_t most = (size_t)dev.smem_optin;
+  // the row tile of the LN backwards and the bf16 row kernels: kRowTile rows,
+  // or as many as fit a CTA's shared memory (LN1's backward: 3 floats a
+  // column and 2 a row; the float32 LN(v) backward: 2 floats a column of F/2)
+  int rt = kRowTile;
+  while (rt > 1 && (ln_bwd_smem_bytes(rt, D) > most || (!bf16 && (size_t)2 * rt * H * 4 > most)))
+    --rt;
+  // the bf16 LN(v) backward: a warp a row, 6 floats a column of F/2 a warp
+  int vw = kWarps;
+  while (vw > 1 && (size_t)vw * 6 * H * 4 > most) vw /= 2;
+  pl.rt = rt, pl.vwarps = vw;
+  pl.vln_smem = bf16 ? (size_t)vw * 6 * H * 4 : (size_t)2 * rt * H * 4;
+  pl.ln_smem = ln_bwd_smem_bytes(rt, D);
+  pl.rows_smem = bf16 ? (size_t)kWarps * D * 4 : 0;
   if (pl.sgu_bwd_smem > most || pl.vln_smem > most || pl.ln_smem > most || pl.rows_smem > most)
     return -1;
-  pl.tiles = ceil_div(R, kRowTile);
+  pl.tiles = ceil_div(R, rt);
   if (bf16)
     plan_bf16(B, N, D, F, pl);
   else
@@ -1532,7 +1534,8 @@ int gmlp_bwd_f32(const Plan& pl, const float* x, const float* g, float* dx, int 
       sgu_params(ptrs), N, F, tanh_flavor, dp);
   M2M_TRY(cudaGetLastError());
   vln_bwd_kernel<<<pl.tiles, kThreads, pl.vln_smem, st>>>(ws + pl.act, ws + pl.dpre, q(4),
-                                                          ws + pl.p_vln, R, F, tanh_flavor, dp);
+                                                          ws + pl.p_vln, R, F, pl.rt, tanh_flavor,
+                                                          dp);
   M2M_TRY(cudaGetLastError());
   // dxn = dpre W_in^T (:62), slices of F (summed by ln_bwd_kernel)
   M2M_TRY(tc_gemm_wide(View{ws + pl.dpre, F, 1}, View{w_in, 1, F}, ws + pl.dxnp, R, D, F,
@@ -1550,7 +1553,7 @@ int gmlp_bwd_f32(const Plan& pl, const float* x, const float* g, float* dx, int 
   M2M_TRY(cudaGetLastError());
   // the LN backward over D plus the residual g (:61, :80), dxn's slices in order
   ln_bwd_kernel<false><<<pl.tiles, kThreads, pl.ln_smem, st>>>(
-      x, ws + pl.dxnp, pl.xsplit, g, q(0), dx, ws + pl.p_ln, R, D, kRowTile);
+      x, ws + pl.dxnp, pl.xsplit, g, q(0), dx, ws + pl.p_ln, R, D, pl.rt, D);
   M2M_TRY(cudaGetLastError());
   const int NN = N * N;
   RedJobs<kRedJobs> rj = {};
@@ -1576,7 +1579,11 @@ int gmlp_bwd_bf16(const Plan& pl, const float* x, const float* g, float* dx, int
   const int R = B * N, H = F / 2;
   auto sgu_bwd = pl.wide_sgu ? sgu_bwd_bf16_kernel<8, 4> : sgu_bwd_bf16_kernel<4, 2>;
   M2M_TRY(prepare(sgu_bwd, pl.sgu_bwd_smem, device));
-  M2M_TRY(prepare(vln_bwd_bf16_kernel, pl.vln_smem, device));
+  auto vln_bwd = pl.vwarps == 8   ? vln_bwd_bf16_kernel<8>
+                 : pl.vwarps == 4 ? vln_bwd_bf16_kernel<4>
+                 : pl.vwarps == 2 ? vln_bwd_bf16_kernel<2>
+                                  : vln_bwd_bf16_kernel<1>;
+  M2M_TRY(prepare(vln_bwd, pl.vln_smem, device));
   M2M_TRY(prepare(ln_bwd_kernel<true>, pl.ln_smem, device));
   M2M_TRY(prepare(ln_rows_bf16_kernel, pl.rows_smem, device));
   auto q = [ptrs](int i) { return static_cast<const float*>(ptrs[i]); };
@@ -1594,7 +1601,7 @@ int gmlp_bwd_bf16(const Plan& pl, const float* x, const float* g, float* dx, int
   M2M_TRY(cudaGetLastError());
   // xn = LN(x) and the dout operand, bf16; db_out's row-tile partials
   ln_rows_bf16_kernel<<<pl.tiles, kThreads, pl.rows_smem, st>>>(
-      x, q(0), q(1), bf(pl.xn), pl.Dp, g, bf(pl.dout), ws + pl.p_bout, R, D, kRowTile, dp);
+      x, q(0), q(1), bf(pl.xn), pl.Dp, g, bf(pl.dout), ws + pl.p_bout, R, D, pl.rt, dp);
   M2M_TRY(cudaGetLastError());
   // pm = (xn W_in + b_in) m0, float32
   M2M_TRY(wg_product<64>(bf(pl.xn), pl.Dp, bf(pl.w_in_r), pl.Fp, nullptr, R, F, D, D, 1,
@@ -1610,9 +1617,9 @@ int gmlp_bwd_bf16(const Plan& pl, const float* x, const float* g, float* dx, int
       DpreOut{dpre, plane, pl.Fp, ws + pl.p_bin}, ws + pl.p_sgu, sgu_params(ptrs), N, F,
       tanh_flavor, dp);
   M2M_TRY(cudaGetLastError());
-  vln_bwd_bf16_kernel<<<pl.tiles, kThreads, pl.vln_smem, st>>>(
+  vln_bwd<<<pl.tiles, 32 * pl.vwarps, pl.vln_smem, st>>>(
       ws + pl.act, DpreOut{dpre, plane, pl.Fp, ws + pl.p_bin + (size_t)B * H}, q(4),
-      ws + pl.p_vln, R, F, tanh_flavor, dp);
+      ws + pl.p_vln, R, F, pl.rt, tanh_flavor, dp);
   M2M_TRY(cudaGetLastError());
   const WgOperand dpre_rows{{planes[0], planes[1], planes[2]}, 3, R, F, pl.Fp};
   {  // dxn = dpre W_in^T (:62), three passes a stage, slices of F (summed by ln_bwd_kernel)
@@ -1640,7 +1647,7 @@ int gmlp_bwd_bf16(const Plan& pl, const float* x, const float* g, float* dx, int
   // the LN backward over D plus the residual g (:61, :80), dxn's slices in
   // order and rounded (the cotangent of LN1's bf16 output)
   ln_bwd_kernel<true><<<pl.tiles, kThreads, pl.ln_smem, st>>>(
-      x, ws + pl.dxnp, pl.xsplit, g, q(0), dx, ws + pl.p_ln, R, D, kRowTile);
+      x, ws + pl.dxnp, pl.xsplit, g, q(0), dx, ws + pl.p_ln, R, D, pl.rt, D);
   M2M_TRY(cudaGetLastError());
   // every gradient but the biases' is rounded once its sum is complete
   constexpr int kBoth = kRnd0 | kRnd1;

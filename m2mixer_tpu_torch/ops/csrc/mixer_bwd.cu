@@ -95,7 +95,7 @@
 
 namespace {
 
-constexpr int kLnRows = 16;  // rows per CTA of the final LN's backward
+constexpr int kLnRows = 16;  // rows per CTA of an LN backward, at most (Plan::ln_rows)
 constexpr int kTr = 32;      // stage 0's transpose tile
 
 // the channel FF's operands (w3p, w4t, z, da4, h2) lie in the workspace as
@@ -232,8 +232,10 @@ struct Small {
 
 // stage 1: LN1 -> token FF -> LN2 of the tile's rows again: z and da4 = g m3
 // (kBF16: at the forward's casts, and g rounded to bf16; both stored in bf16,
-// da4 as rd(g) times m3's keep bit, token_ff.cuh's da4_operand)
-template <bool kBF16>
+// da4 as rd(g) times m3's keep bit, token_ff.cuh's da4_operand). kPad: D is
+// a padded hidden width (dp.width the true one); without it the kernel takes
+// no width test (an instantiation of its own).
+template <bool kBF16, bool kPad>
 __global__ void __launch_bounds__(kThreads)
     prefix_kernel(const float* __restrict__ x, const float* __restrict__ g,
                   ChanT<kBF16>* __restrict__ z, ChanT<kBF16>* __restrict__ da4, int B, int N,
@@ -245,19 +247,21 @@ __global__ void __launch_bounds__(kThreads)
   float* ys = xs + tb * N * D;
   float* tw = ys + tb * N * D;
   const size_t off = (size_t)s0 * N * D;
+  const int width = kPad ? dp.width : D;
   for (int e = threadIdx.x; e < R * D; e += kThreads) xs[e] = rd<kBF16>(x[off + e]);
   load_token_weights<kBF16>(tw, TokenPtrs{p.w1, p.b1, p.w2, p.b2}, N, T);
   __syncthreads();
-  layer_norm_rows<kBF16>(xs, ys, R, D, p.ln1_s, p.ln1_b);
+  layer_norm_rows<kBF16>(xs, ys, R, D, p.ln1_s, p.ln1_b, width);
   __syncthreads();
-  token_mix<kBF16>(ys, xs, nb, N, T, D, tw, tanh_flavor, dp, blk, s0);
+  token_mix<kBF16>(ys, xs, nb, N, T, D, width, tw, tanh_flavor, dp, blk, s0);
   __syncthreads();
-  layer_norm_rows<kBF16>(xs, ys, R, D, p.ln2_s, p.ln2_b);
+  layer_norm_rows<kBF16>(xs, ys, R, D, p.ln2_s, p.ln2_b, width);
   __syncthreads();
   for (int e = threadIdx.x; e < R * D; e += kThreads) {
     z[off + e] = to_operand<ChanT<kBF16>>(ys[e]);
-    da4[off + e] =
-        da4_operand<kBF16, ChanT<kBF16>>(g[off + e], keep(dp, blk, 3, (uint32_t)(off + e)));
+    const uint32_t i = (uint32_t)(off + e);
+    da4[off + e] = da4_operand<kBF16, ChanT<kBF16>>(
+        g[off + e], kPad ? keep_padded(dp, blk, 3, i) : keep(dp, blk, 3, i));
   }
 }
 
@@ -275,7 +279,8 @@ __host__ __device__ int small_floats(int N, int T, int D) { return 4 * D + 2 * N
 // backward -> dy -> LN1 backward (+ dx1) = dx; the tile's small-gradient
 // partials to part[blockIdx.x]. kBF16: the forward again at its casts, and
 // dz, dh, dy, the LN input gradients and the residual sums rounded to bf16.
-template <bool kBF16>
+// kPad: as prefix_kernel's.
+template <bool kBF16, bool kPad>
 __global__ void __launch_bounds__(kThreads)
     rows_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
                     const float* __restrict__ dzp, int ksplit, float* __restrict__ dx,
@@ -305,13 +310,14 @@ __global__ void __launch_bounds__(kThreads)
   const size_t off = (size_t)s0 * N * D;
   const size_t rows_total = (size_t)B * N * D;
   float* my_part = part + (size_t)blockIdx.x * small_floats(N, T, D);
+  const int width = kPad ? dp.width : D;
 
   for (int e = threadIdx.x; e < R * D; e += kThreads) xs[e] = rd<kBF16>(x[off + e]);
   load_token_weights<kBF16>(tw, TokenPtrs{p.w1, p.b1, p.w2, p.b2}, N, T);
   __syncthreads();
   for (int r = warp; r < R; r += kThreads / 32) {  // LN1
     float mean, inv;
-    row_stats(xs + r * D, D, mean, inv);
+    row_stats(xs + r * D, width, mean, inv);
     if (lane == 0) {
       mean1[r] = mean;
       inv1[r] = inv;
@@ -325,7 +331,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int item = threadIdx.x; item < nb * D; item += kThreads) {
     const int s = item / D, d = item - s * D;
     const int base = s * N * D + d;
-    const uint32_t col = (uint32_t)(s0 + s) * D + d;
+    const uint32_t col = (uint32_t)(s0 + s) * width + d;
     float* c = cb + (size_t)item * cw;
     float in[kMaxTokens], acc[kMaxTokens];
 #pragma unroll
@@ -360,7 +366,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   for (int r = warp; r < R; r += kThreads / 32) {  // LN2 statistics
     float mean, inv;
-    row_stats(x1s + r * D, D, mean, inv);
+    row_stats(x1s + r * D, width, mean, inv);
     if (lane == 0) {
       mean2[r] = mean;
       inv2[r] = inv;
@@ -372,13 +378,13 @@ __global__ void __launch_bounds__(kThreads)
   for (int e = threadIdx.x; e < R * D; e += kThreads)
     dys[e] = rd<kBF16>(g[off + e]);  // g, for a moment
   __syncthreads();
-  ln_backward_rows<kBF16>(gs, dys, x1s, mean2, inv2, p.ln2_s, R, D);
+  ln_backward_rows<kBF16, kPad>(gs, dys, x1s, mean2, inv2, p.ln2_s, R, D, width);
   __syncthreads();
   // token FF backward per column: da2 = dt m1, da1 = (da2 w2^T) m0 gelu'(a1), dy = da1 w1^T
   for (int item = threadIdx.x; item < nb * D; item += kThreads) {
     const int s = item / D, d = item - s * D;
     const int base = s * N * D + d;
-    const uint32_t col = (uint32_t)(s0 + s) * D + d;
+    const uint32_t col = (uint32_t)(s0 + s) * width + d;
     float* c = cb + (size_t)item * cw;
     float da2[kMaxTokens], dy[kMaxTokens];
 #pragma unroll
@@ -439,7 +445,7 @@ __global__ void __launch_bounds__(kThreads)
   // LN1's parameter gradients from dy, then dx = dx1 + LN1 backward
   ln_param_grads(dys, xs, mean1, inv1, R, D, my_part);
   __syncthreads();
-  ln_backward_rows<kBF16>(dys, gs, xs, mean1, inv1, p.ln1_s, R, D);
+  ln_backward_rows<kBF16, kPad>(dys, gs, xs, mean1, inv1, p.ln1_s, R, D, width);
   __syncthreads();
   for (int e = threadIdx.x; e < R * D; e += kThreads) dx[off + e] = dys[e];
 }
@@ -480,7 +486,8 @@ struct Plan {
   int tb;          // samples per row tile (stages 1 and 4, register route)
   int tiles;       // row tiles
   int nc;          // tokens per row tile (token pipeline)
-  int ln_tiles;    // CTAs of kLnRows rows of an LN backward (token pipeline)
+  int ln_rows;     // rows per CTA of an LN backward: kLnRows, or as many as fit
+  int ln_tiles;    // its CTAs (the token pipeline's and the final LN's)
   int Cp;          // C rounded up to whole 16-byte groups (of float32, or of bf16 in
                    // bf16 compute): the row stride of h2, da3, W3 and W4^T
   int ksplit;      // slices of C in stage 3
@@ -529,8 +536,11 @@ int make_plan(int B, int N, int T, int D, int C, int n_blocks, int final_ln, int
            prefix_bytes(1) <= (size_t)dev.smem_optin;
   const long long R = (long long)B * N;
   const size_t rows = (size_t)R, cols = (size_t)B * D;
-  pl.ln_tiles = ceil_div(R, kLnRows);
-  if ((!pl.reg || final_ln) && ln_bwd_smem_bytes(kLnRows, D) > (size_t)dev.smem_optin) return -1;
+  int lr = kLnRows;
+  while (lr > 1 && ln_bwd_smem_bytes(lr, D) > (size_t)dev.smem_optin) --lr;
+  pl.ln_rows = lr;
+  pl.ln_tiles = ceil_div(R, lr);
+  if ((!pl.reg || final_ln) && ln_bwd_smem_bytes(lr, D) > (size_t)dev.smem_optin) return -1;
   if (pl.reg) {
     int tb = kThreads / D > 1 ? kThreads / D : 1;
     if (tb > B) tb = B;
@@ -633,7 +643,7 @@ int token_backward(const Plan& pl, float* ws, const float* x, const float* g, fl
                    int tanh_flavor, const Dropout& dp, int blk, cudaStream_t st) {
   constexpr int kA = kBF16 ? kExactA : 0, kB = kBF16 ? kExactB : 0;
   const int R = B * N, cols = B * D;
-  const size_t lsm = ln_bwd_smem_bytes(kLnRows, D);
+  const size_t lsm = ln_bwd_smem_bytes(pl.ln_rows, D);
   float* dx1 = ws + pl.dx1;
   float* da2 = ws + pl.da2;
   float* da1 = ws + pl.da1;
@@ -641,7 +651,8 @@ int token_backward(const Plan& pl, float* ws, const float* x, const float* g, fl
   float* dy = ws + pl.dy;
   // dx1 = g + LN2's backward of dz (stage 3's slices, summed in slice order)
   ln_bwd_kernel<kBF16><<<pl.ln_tiles, kThreads, lsm, st>>>(
-      ws + pl.x1, ws + pl.dzp, pl.ksplit, g, sp.ln2_s, dx1, ws + pl.p_ln2, R, D, kLnRows);
+      ws + pl.x1, ws + pl.dzp, pl.ksplit, g, sp.ln2_s, dx1, ws + pl.p_ln2, R, D, pl.ln_rows,
+      dp.width);
   M2M_TRY(cudaGetLastError());
   M2M_TRY(launch_transpose<kBF16>(dx1, da2, B, N, D, 1, dp, blk, st));
   M2M_TRY(tc_gemm_wide<kB>(View{da2, N, 1}, View{w2, 1, N}, da1, cols, T, N, N, 1, st,
@@ -654,7 +665,8 @@ int token_backward(const Plan& pl, float* ws, const float* x, const float* g, fl
   M2M_TRY(launch_transpose<kBF16>(dyt, dy, B, D, N, 0, dp, blk, st));
   // dx = dx1 + LN1's backward of dy, on the block input
   ln_bwd_kernel<kBF16><<<pl.ln_tiles, kThreads, lsm, st>>>(x, dy, 1, dx1, sp.ln1_s, dx,
-                                                           ws + pl.p_ln1, R, D, kLnRows);
+                                                           ws + pl.p_ln1, R, D, pl.ln_rows,
+                                                           dp.width);
   M2M_TRY(cudaGetLastError());
   ColJobs<2> cj = {};
   cj.job[0] = ColJob{da1, T, T, ws + pl.p_tcol};
@@ -763,9 +775,13 @@ int block_bwd(const Plan& pl, float* ws, const float* x, const float* g, float* 
   // the token weights the token pipeline's products read (rounded copies in bf16)
   const float* w1 = sp.w1;
   const float* w2 = sp.w2;
+  // the register route's kernels in their unpadded instantiation unless D is padded
+  const bool pad = dp.width != D;
+  auto prefix = pad ? prefix_kernel<kBF16, true> : prefix_kernel<kBF16, false>;
+  auto rows = pad ? rows_bwd_kernel<kBF16, true> : rows_bwd_kernel<kBF16, false>;
   if (pl.reg) {
-    prefix_kernel<kBF16><<<pl.tiles, kThreads, pl.prefix_smem, st>>>(
-        x, g, z, da4, B, N, T, D, pl.tb, tanh_flavor, sp, dp, blk);
+    prefix<<<pl.tiles, kThreads, pl.prefix_smem, st>>>(x, g, z, da4, B, N, T, D, pl.tb,
+                                                       tanh_flavor, sp, dp, blk);
     M2M_TRY(cudaGetLastError());
   } else {
     if (kBF16) {
@@ -795,8 +811,8 @@ int block_bwd(const Plan& pl, float* ws, const float* x, const float* g, float* 
                          st));
   }
   if (pl.reg) {
-    rows_bwd_kernel<kBF16><<<pl.tiles, kThreads, pl.rows_smem, st>>>(
-        x, g, dzp, pl.ksplit, dx, part, B, N, T, D, pl.tb, tanh_flavor, sp, dp, blk);
+    rows<<<pl.tiles, kThreads, pl.rows_smem, st>>>(x, g, dzp, pl.ksplit, dx, part, B, N, T, D,
+                                                   pl.tb, tanh_flavor, sp, dp, blk);
     M2M_TRY(cudaGetLastError());
   } else {
     M2M_TRY_INT(token_backward<kBF16>(pl, ws, x, g, dx, sp, w1, w2, B, N, T, D, tanh_flavor, dp, blk,
@@ -862,35 +878,39 @@ int block_bwd(const Plan& pl, float* ws, const float* x, const float* g, float* 
 
 template <bool kBF16>
 int mixer_bwd(const float* saved, const float* g, float* dx, int B, int N, int T, int D, int C,
-              int n_blocks, int final_ln, int tanh_flavor, const unsigned* keys, unsigned thresh,
-              float scale, int device, const void* const* ptrs, void* const* grads,
-              void* workspace, void* stream) {
-  if (check_args(B, N, T, D, C, n_blocks)) return -1;
+              int n_blocks, int final_ln, int tanh_flavor, int width, const unsigned* keys,
+              unsigned thresh, float scale, int device, const void* const* ptrs,
+              void* const* grads, void* workspace, void* stream) {
+  if (check_args(B, N, T, D, C, n_blocks) || width < 1 || width > D || D - width >= 8) return -1;
   M2M_TRY(cudaSetDevice(device));
   Plan pl;
   int code = make_plan(B, N, T, D, C, n_blocks, final_ln, kBF16, device, pl);
   if (code) return code;
   if (pl.reg) {
-    M2M_TRY(prepare(prefix_kernel<kBF16>, pl.prefix_smem, device));
-    M2M_TRY(prepare(rows_bwd_kernel<kBF16>, pl.rows_smem, device));
+    const bool pad = width != D;
+    M2M_TRY(prepare(pad ? prefix_kernel<kBF16, true> : prefix_kernel<kBF16, false>,
+                    pl.prefix_smem, device));
+    M2M_TRY(prepare(pad ? rows_bwd_kernel<kBF16, true> : rows_bwd_kernel<kBF16, false>,
+                    pl.rows_smem, device));
   } else {
     M2M_TRY((prepare_token_kernels<kBF16, ChanT<kBF16>>(pl.nc, D, device)));
   }
-  if (!pl.reg || final_ln) M2M_TRY(prepare(ln_bwd_kernel<kBF16>, ln_bwd_smem_bytes(kLnRows, D), device));
+  if (!pl.reg || final_ln)
+    M2M_TRY(prepare(ln_bwd_kernel<kBF16>, ln_bwd_smem_bytes(pl.ln_rows, D), device));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout dp = make_dropout(keys, n_blocks, thresh, scale);
+  const Dropout dp = mixer_dropout(keys, n_blocks, thresh, scale, width, D, T, N);
   float* ws = static_cast<float*>(workspace);
   const size_t slot = (size_t)B * N * D;
   float* ping[2] = {ws + pl.ping, ws + pl.ping + slot};
   const float* cur = g;
   if (final_ln) {
-    const int rows = B * N, blocks = (rows + kLnRows - 1) / kLnRows;
+    const int rows = B * N;
     float* out = n_blocks > 0 ? ping[n_blocks % 2] : dx;
-    // the stack's final LN (no residual): kLnRows rows per CTA
-    ln_bwd_kernel<kBF16><<<blocks, kThreads, ln_bwd_smem_bytes(kLnRows, D), st>>>(
+    // the stack's final LN (no residual): pl.ln_rows rows per CTA
+    ln_bwd_kernel<kBF16><<<pl.ln_tiles, kThreads, ln_bwd_smem_bytes(pl.ln_rows, D), st>>>(
         saved + n_blocks * slot, g, 1, nullptr,
         static_cast<const float*>(ptrs[n_blocks * kParamsPerBlock]), out, ws + pl.part, rows, D,
-        kLnRows);
+        pl.ln_rows, dp.width);
     M2M_TRY(cudaGetLastError());
     Segs segs = {};
     segs.out[0] = static_cast<float*>(grads[n_blocks * kParamsPerBlock]);
@@ -898,8 +918,8 @@ int mixer_bwd(const float* saved, const float* g, float* dx, int B, int N, int T
     segs.len[0] = segs.len[1] = D;
     segs.rnd[0] = segs.rnd[1] = kBF16;
     segs.n = 2;
-    reduce_kernel<<<(2 * D + kThreads - 1) / kThreads, kThreads, 0, st>>>(ws + pl.part, blocks,
-                                                                         2 * D, segs);
+    reduce_kernel<<<(2 * D + kThreads - 1) / kThreads, kThreads, 0, st>>>(ws + pl.part,
+                                                                         pl.ln_tiles, 2 * D, segs);
     M2M_TRY(cudaGetLastError());
     cur = out;
   }
@@ -959,17 +979,20 @@ int m2m_mixer_row_slice(int B, int N, int T, int D, int C, int device) {
 // output before the final LN), as mixer_stack_fwd writes them; for one block
 // without a final LN, saved is just its input. g: the gradient of the output.
 // ptrs: the parameters, float32 (12 per block, then ln scale and bias), grads:
-// float32 outputs of the same shapes; keys/thresh/scale: the forward's dropout
-// (keys nullptr for none); bf16: the compute dtype is bfloat16 (the header's
-// cast points; w3 and w4 are rounded as stage 0 lays them out); workspace:
+// float32 outputs of the same shapes; width: the hidden width of the padded
+// rows of D (m2m_mixer_fwd; g's pad columns zeros, and the LN backwards give
+// them zero gradients); keys/thresh/scale: the forward's dropout (keys nullptr
+// for none); bf16: the compute dtype is bfloat16 (the header's cast points; w3
+// and w4 are rounded as stage 0 lays them out); workspace:
 // m2m_mixer_bwd_workspace_bytes bytes.
 int m2m_mixer_bwd(const float* saved, const float* g, float* dx, int B, int N, int T, int D,
-                  int C, int n_blocks, int final_ln, int tanh_flavor, const unsigned* keys,
-                  unsigned thresh, float scale, int bf16, int device, const void* const* ptrs,
-                  void* const* grads, void* workspace, void* stream) {
+                  int C, int n_blocks, int final_ln, int tanh_flavor, int width,
+                  const unsigned* keys, unsigned thresh, float scale, int bf16, int device,
+                  const void* const* ptrs, void* const* grads, void* workspace, void* stream) {
   return (bf16 ? mixer_bwd<true> : mixer_bwd<false>)(saved, g, dx, B, N, T, D, C, n_blocks,
-                                                      final_ln, tanh_flavor, keys, thresh, scale,
-                                                      device, ptrs, grads, workspace, stream);
+                                                      final_ln, tanh_flavor, width, keys, thresh,
+                                                      scale, device, ptrs, grads, workspace,
+                                                      stream);
 }
 
 // The bf16 routes' product engine alone (wgmma_bf16.cuh), for the tests and
@@ -979,17 +1002,18 @@ int m2m_mixer_bwd(const float* saved, const float* g, float* dx, int B, int N, i
 // (a_k = 1: K-major, the layout of a3's, dh2's and dz's A) or K x M (a_k = 0:
 // MN-major, the weight gradients'); B is N x K (b_k = 1: dz's W3) or K x N
 // (b_k = 0: a3's and dh2's weights, the weight gradients' B). terms_a or
-// terms_b (1-3) planes of the split operand, the other 1; the layouts the
-// routes run: (a_k, b_k) = (1, 0), (1, 1) and (0, 0). tile_n: the output
-// tile's columns, 128, or 64 for (1, 0) with one plane each (the forwards'
-// products, K3b's in-projection and dgated: three CTAs an SM).
+// terms_b (1-3) planes of the split operand, the other 1 (B's planes only
+// for (0, 0)); the layouts the routes run: (a_k, b_k) = (1, 0), (1, 1) and
+// (0, 0). tile_n: the output tile's columns, 128, or 64 for (1, 0) or (0, 0)
+// with one plane each (the forwards' products, K3b's in-projection and
+// dgated, bf16 K4b's dW_c: three CTAs an SM).
 int m2m_wg_product(int a_k, int b_k, int terms_a, int terms_b, int M, int N, int K, int tile_n,
                    const void* const* a, long long lda, const void* const* b, long long ldb,
                    float* out, int device, void* stream) {
   if (M < 1 || N < 1 || K < 1 || terms_a < 1 || terms_b < 1 || (terms_a > 1 && terms_b > 1) ||
-      terms_a > (a_k && b_k ? kWgMaxTerms : 1) || terms_b > (a_k || b_k ? 1 : kWgMaxTerms) ||
+      terms_a > kWgMaxTerms || terms_b > (a_k || b_k ? 1 : kWgMaxTerms) ||
       (a_k == 0 && b_k == 1) || (tile_n != kWgBN && tile_n != 64) ||
-      (tile_n == 64 && !(a_k && !b_k)))
+      (tile_n == 64 && (b_k || terms_a > 1 || terms_b > 1)))
     return -1;
   M2M_TRY(cudaSetDevice(device));
   WgOperand oa{{}, terms_a, a_k ? M : K, a_k ? K : M, lda};
@@ -1002,6 +1026,7 @@ int m2m_wg_product(int a_k, int b_k, int terms_a, int terms_b, int M, int N, int
   if (a_k && !b_k) {
     M2M_TRY((make_job<true, false>(args.job[0], oa, ob, out, 1.f)));
     if (tile_n == 64) return wg_gemm<true, false, 1, 1, 1, 64>(args, 1, EpiWgStore{}, device, st);
+    if (terms_a > 1) return wg_gemm<true, false, 3, 1, 1, kWgBN>(args, 1, EpiWgStore{}, device, st);
     return wg_gemm<true, false, 1, 1, 1, kWgBN>(args, 1, EpiWgStore{}, device, st);
   }
   if (a_k) {
@@ -1009,6 +1034,8 @@ int m2m_wg_product(int a_k, int b_k, int terms_a, int terms_b, int M, int N, int
     return wg_gemm<true, true, 3, 1, 1, kWgBN>(args, 1, EpiWgStore{}, device, st);
   }
   M2M_TRY((make_job<false, false>(args.job[0], oa, ob, out, 1.f)));
+  if (tile_n == 64) return wg_gemm<false, false, 1, 1, 1, 64>(args, 1, EpiWgStore{}, device, st);
+  if (terms_a > 1) return wg_gemm<false, false, 3, 1, 1, kWgBN>(args, 1, EpiWgStore{}, device, st);
   return wg_gemm<false, false, 1, 3, 1, kWgBN>(args, 1, EpiWgStore{}, device, st);
 }
 

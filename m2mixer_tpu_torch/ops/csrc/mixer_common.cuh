@@ -53,10 +53,21 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
 }
 
 // The four masks of every block of a launch: key[k * 4 + m] for block k, mask m.
+// A mixer launch whose hidden width was padded to D columns (the wrapper pads
+// it to whole 16-byte rows) runs on rows of D columns, of which the first
+// `width` are the block's: its LN statistics count those, and its masks index
+// the unpadded layouts, so that a mask does not depend on the padding. The
+// register route's token FF numbers its columns by the width itself;
+// keep_padded maps an index of a padded layout (element e of mask m's: b * D
+// + d along the D axis) to the unpadded one, e - (e / span[m]) * cut[m] with
+// span = D x the elements a D index holds (T, N, 1 for masks 0, 1, 3) and cut
+// = (D - width) x the same; cut 0: no padding (mask 2 has no D axis).
 struct Dropout {
   int on;
   uint32_t thresh;  // keep iff bits >= thresh
   float scale;      // 1 / (1 - rate), as float32
+  int width;
+  uint32_t span[kMasks], cut[kMasks];
   uint32_t key[kMaxBlocks * kMasks];
 };
 
@@ -64,6 +75,19 @@ struct Dropout {
 __device__ __forceinline__ float keep(const Dropout& dp, int k, int m, uint32_t e) {
   if (!dp.on) return 1.f;
   return fmix32(e * kGolden ^ dp.key[k * kMasks + m]) >= dp.thresh ? dp.scale : 0.f;
+}
+
+// e - (e / span) * cut, out of line: the division stays off the unpadded
+// path, which a kernel's loop would otherwise carry predicated
+__device__ __noinline__ uint32_t unpad_index(uint32_t e, uint32_t span, uint32_t cut) {
+  return e - e / span * cut;
+}
+
+// the same at element e of mask m's layout with the D axis padded
+__device__ __forceinline__ float keep_padded(const Dropout& dp, int k, int m, uint32_t e) {
+  if (!dp.on) return 1.f;
+  const uint32_t cut = dp.cut[m];
+  return keep(dp, k, m, cut ? unpad_index(e, dp.span[m], cut) : e);
 }
 
 template <bool kBF16>
@@ -131,15 +155,17 @@ __device__ __forceinline__ void row_stats(const float* xr, int D, float& mean, f
   inv = rsqrtf(warp_sum(sq) / D + 1e-5f);
 }
 
-// dst[r, :] = rd(LN(src[r, :]) * rd(s) + rd(b)), one warp per row, float32 statistics
+// dst[r, :] = rd(LN(src[r, :]) * rd(s) + rd(b)), one warp per row of D floats,
+// float32 statistics over its first `width`
 template <bool kBF16>
 __device__ void layer_norm_rows(const float* src, float* dst, int rows, int D,
-                                const float* __restrict__ s, const float* __restrict__ b) {
+                                const float* __restrict__ s, const float* __restrict__ b,
+                                int width) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < rows; r += kThreads / 32) {
     const float* xr = src + r * D;
     float mean, inv;
-    row_stats(xr, D, mean, inv);
+    row_stats(xr, width, mean, inv);
     for (int d = lane; d < D; d += 32)
       dst[r * D + d] = rd<kBF16>((xr[d] - mean) * inv * rd<kBF16>(s[d]) + rd<kBF16>(b[d]));
   }
@@ -173,8 +199,9 @@ __device__ void load_token_weights(float* tw, const TokenPtrs& p, int N, int T) 
 // (load_token_weights). Sample s of the tile is sample s0 + s of the batch, and
 // `blk` the block's index in the launch (both key the dropout masks). kMaxN >= N
 // sizes the per-thread token arrays (a smaller bound costs fewer registers).
+// width: the hidden width the masks index (D, or less where D is padded).
 template <bool kBF16, int kMaxN = kMaxTokens>
-__device__ void token_mix(const float* ys, float* xs, int nb, int N, int T, int D,
+__device__ void token_mix(const float* ys, float* xs, int nb, int N, int T, int D, int width,
                           const float* tw, int tanh_flavor, const Dropout& dp, int blk, int s0) {
   const float* w1 = tw;
   const float* b1 = w1 + N * T;
@@ -183,7 +210,7 @@ __device__ void token_mix(const float* ys, float* xs, int nb, int N, int T, int 
   for (int item = threadIdx.x; item < nb * D; item += kThreads) {
     const int s = item / D, d = item - s * D;
     const int base = s * N * D + d;
-    const uint32_t col = (uint32_t)(s0 + s) * D + d;  // row of masks 0 and 1
+    const uint32_t col = (uint32_t)(s0 + s) * width + d;  // row of masks 0 and 1
     float in[kMaxN], acc[kMaxN];
 #pragma unroll
     for (int n = 0; n < kMaxN; ++n) {
@@ -288,6 +315,20 @@ inline Dropout make_dropout(const unsigned* keys, int n_blocks, unsigned thresh,
   dp.scale = scale;
   if (keys)
     for (int i = 0; i < n_blocks * kMasks; ++i) dp.key[i] = keys[i];
+  return dp;
+}
+
+// a mixer launch's: the hidden width `width` of the rows of D (>= width)
+// columns the kernels run on, with T and N the masks' other axes
+inline Dropout mixer_dropout(const unsigned* keys, int n_blocks, unsigned thresh, float scale,
+                             int width, int D, int T, int N) {
+  Dropout dp = make_dropout(keys, n_blocks, thresh, scale);
+  dp.width = width;
+  const uint32_t inner[kMasks] = {(uint32_t)T, (uint32_t)N, 0, 1};
+  for (int m = 0; m < kMasks; ++m) {
+    dp.span[m] = (uint32_t)D * inner[m];
+    dp.cut[m] = (uint32_t)(D - width) * inner[m];
+  }
   return dp;
 }
 

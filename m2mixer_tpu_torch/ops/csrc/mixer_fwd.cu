@@ -72,8 +72,11 @@
 // rounded W3/W4 copies the products read, as the JAX kernels cast theirs on
 // each call. No fallback: a bf16 call the engine cannot take raises.
 //
-// Limits checked by the wrappers and again here: D % 4 == 0 (bf16: D % 8 ==
-// 0), K <= kMaxBlocks, the masks' 32-bit element counts and the products' grid.
+// Any hidden width: the wrapper pads D to whole 16-byte rows (D % 4 == 0,
+// bf16: D % 8 == 0, checked here), zeros in the pad columns of x and of the
+// parameters along D, and the kernels take the true width (Dropout's width)
+// for the LN statistics and the masks' element index. Limits checked here:
+// K <= kMaxBlocks, the masks' 32-bit element counts and the products' grid.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -190,11 +193,11 @@ __global__ void __launch_bounds__(kThreads)
   }
   load_token_weights<kBF16>(tw, TokenPtrs{p.w1, p.b1, p.w2, p.b2}, N, T);
   __syncthreads();
-  layer_norm_rows<kBF16>(xs, ys, R, D, p.ln1_s, p.ln1_b);
+  layer_norm_rows<kBF16>(xs, ys, R, D, p.ln1_s, p.ln1_b, dp.width);
   __syncthreads();
-  token_mix<kBF16, kMaxN>(ys, xs, nb, N, T, D, tw, tanh_flavor, dp, blk, s0);
+  token_mix<kBF16, kMaxN>(ys, xs, nb, N, T, D, dp.width, tw, tanh_flavor, dp, blk, s0);
   __syncthreads();
-  layer_norm_rows<kBF16>(xs, ys, R, D, p.ln2_s, p.ln2_b);
+  layer_norm_rows<kBF16>(xs, ys, R, D, p.ln2_s, p.ln2_b, dp.width);
   __syncthreads();
   for (int e = threadIdx.x; e < R * D; e += kThreads) {
     x1[off + e] = xs[e];
@@ -262,7 +265,7 @@ __global__ void __launch_bounds__(kThreads)
     return;
   }
   float mean, inv;
-  row_stats(v, D, mean, inv);
+  row_stats(v, dp.width, mean, inv);
   for (int d = lane; d < D; d += 32)
     out[row + d] = rd<kBF16>((v[d] - mean) * inv * rd<kBF16>(__ldg(lnf_s + d)) +
                              rd<kBF16>(__ldg(lnf_b + d)));
@@ -286,7 +289,7 @@ struct EpiTokenUpWg {
     for (int e = 0; e < 2; ++e) {
       const int cc = c + e;
       v[e] = cc < T ? gelu(v[e] + __ldg(b1 + cc), tanh_flavor) *
-                          keep(dp, blk, 0, (uint32_t)r * T + cc)
+                          keep_padded(dp, blk, 0, (uint32_t)r * T + cc)
                     : 0.f;
     }
     out[0] = __floats2bfloat162_rn(v[0], v[1]);
@@ -306,7 +309,7 @@ struct EpiTokenDownWg {
       const int cc = c + e;
       if (cc >= a.N) break;
       const uint32_t i = (uint32_t)r * a.N + cc;
-      jb.out[i] = (v[e] + __ldg(b2 + cc)) * keep(dp, blk, 1, i);
+      jb.out[i] = (v[e] + __ldg(b2 + cc)) * keep_padded(dp, blk, 1, i);
     }
   }
 };
@@ -594,17 +597,20 @@ size_t m2m_mixer_fwd_workspace_bytes(int B, int N, int T, int D, int C, int n_bl
 // the final LN (what m2m_mixer_bwd reads). keys: 4 dropout stream keys per block
 // (host array), or nullptr for no dropout; thresh and scale: keep iff bits >=
 // thresh, kept values times scale. bf16: bf16 compute (_block_math's casts; every
-// parameter float32, rounded where JAX casts it). device: the CUDA device the
-// tensors and the stream live on (this library has its own runtime); workspace:
-// m2m_mixer_fwd_workspace_bytes bytes.
+// parameter float32, rounded where JAX casts it). width: the hidden width, of
+// which D is the padded pitch (D - width < 8 pad columns, whose LN scales and
+// biases, W3 rows, W4 columns and b4 entries the wrapper zeroes); the LN
+// statistics count `width` columns and the masks index the unpadded layout.
+// device: the CUDA device the tensors and the stream live on (this library
+// has its own runtime); workspace: m2m_mixer_fwd_workspace_bytes bytes.
 int m2m_mixer_fwd(const float* x, float* out, float* saved, int B, int N, int T, int D, int C,
-                  int n_blocks, int final_ln, int tanh_flavor, const unsigned* keys,
+                  int n_blocks, int final_ln, int tanh_flavor, int width, const unsigned* keys,
                   unsigned thresh, float scale, int bf16, int device, const void* const* ptrs,
                   void* workspace, void* stream) {
-  if (check_args(B, N, T, D, C, n_blocks)) return -1;
+  if (check_args(B, N, T, D, C, n_blocks) || width < 1 || width > D || D - width >= 8) return -1;
   M2M_TRY(cudaSetDevice(device));
   const StackArgs a = pack(ptrs, n_blocks, final_ln, saved,
-                           make_dropout(keys, n_blocks, thresh, scale));
+                           mixer_dropout(keys, n_blocks, thresh, scale, width, D, T, N));
   return (bf16 ? run_pipeline<true> : run_pipeline<false>)(
       x, out, B, N, T, D, C, n_blocks, final_ln, tanh_flavor, a, static_cast<float*>(workspace),
       device, static_cast<cudaStream_t>(stream));

@@ -508,23 +508,28 @@ __device__ void ln_param_grads(const float* a, const float* xs, const float* mea
 // u = a[r, :] * s, xhat = (xs[r, :] - mean[r]) * inv[r]: the LN backward, a warp per row.
 // kBF16: s rounded to bf16 as the forward reads it, the LN's own gradient rounded
 // to bf16 (the transpose of the cast of its input), and so is the sum with base.
-template <bool kBF16 = false>
+// Rows of D floats of which the first `width` are the LN's (kPad: a mixer's
+// padded hidden width), whose scales are zeros in the pad columns (so u is
+// zero there): the means over the first `width`, and zeros in the pad columns.
+template <bool kBF16 = false, bool kPad = true>
 __device__ void ln_backward_rows(float* a, const float* base, const float* xs, const float* mean,
-                                 const float* inv, const float* __restrict__ s, int R, int D) {
+                                 const float* inv, const float* __restrict__ s, int R, int D,
+                                 int width) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < R; r += kThreads / 32) {
     float su = 0.f, sux = 0.f;
-    for (int d = lane; d < D; d += 32) {
+    for (int d = lane; d < D; d += 32) {  // the pad columns' scales are zeros: u = 0
       const float u = a[r * D + d] * rd<kBF16>(__ldg(s + d));
       su += u;
       sux += u * (xs[r * D + d] - mean[r]) * inv[r];
     }
-    su = warp_sum(su) / D;
-    sux = warp_sum(sux) / D;
+    su = warp_sum(su) / (kPad ? width : D);
+    sux = warp_sum(sux) / (kPad ? width : D);
     for (int d = lane; d < D; d += 32) {
       const float u = a[r * D + d] * rd<kBF16>(__ldg(s + d));
       const float xh = (xs[r * D + d] - mean[r]) * inv[r];
-      a[r * D + d] = rd<kBF16>(base[r * D + d] + rd<kBF16>(inv[r] * (u - su - xh * sux)));
+      const float v = rd<kBF16>(base[r * D + d] + rd<kBF16>(inv[r] * (u - su - xh * sux)));
+      a[r * D + d] = !kPad || d < width ? v : 0.f;
     }
   }
 }
@@ -537,11 +542,13 @@ __device__ void ln_backward_rows(float* a, const float* base, const float* xs, c
 // cast back to float32), so a is rounded to bf16 first (the transpose of that
 // cast), then as ln_backward_rows<true>; the LN's input x and base are read
 // rounded to bf16 (the forward's rounded input, the cotangent of a bf16 value).
+// Rows of D floats, the LN over the first `width` (ln_backward_rows).
 template <bool kBF16>
 __global__ void __launch_bounds__(kThreads)
     ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ a, int ksplit,
                   const float* __restrict__ base, const float* __restrict__ s,
-                  float* __restrict__ dx, float* __restrict__ part, int rows, int D, int tile) {
+                  float* __restrict__ dx, float* __restrict__ part, int rows, int D, int tile,
+                  int width) {
   extern __shared__ __align__(16) float sm[];
   const int r0 = blockIdx.x * tile, R = min(tile, rows - r0);
   float* xs = sm;
@@ -561,7 +568,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   for (int r = warp; r < R; r += kThreads / 32) {
     float m, v;
-    row_stats(xs + r * D, D, m, v);
+    row_stats(xs + r * D, width, m, v);
     if (lane == 0) {
       mean[r] = m;
       inv[r] = v;
@@ -570,7 +577,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   ln_param_grads(as, xs, mean, inv, R, D, part + (size_t)blockIdx.x * 2 * D);
   __syncthreads();
-  ln_backward_rows<kBF16>(as, bs, xs, mean, inv, s, R, D);
+  ln_backward_rows<kBF16>(as, bs, xs, mean, inv, s, R, D, width);
   __syncthreads();
   for (int e = threadIdx.x; e < R * D; e += kThreads) dx[off + e] = as[e];
 }

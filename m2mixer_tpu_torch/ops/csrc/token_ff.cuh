@@ -56,18 +56,19 @@ __device__ __forceinline__ float finish(const float* x1, const float* part, int 
                                         int blk) {
   float s = 0.f;
   for (int k = 0; k < ksplit; ++k) s += part[k * total + e];
-  return rd<kBF16>(x1[e] + rd<kBF16>(__fmul_rn(s + b4, keep(dp, blk, 3, (uint32_t)e))));
+  return rd<kBF16>(x1[e] + rd<kBF16>(__fmul_rn(s + b4, keep_padded(dp, blk, 3, (uint32_t)e))));
 }
 
-// rows r < R of the tile (row stride ld) <- rd(LN(row) * rd(s) + rd(b)), a warp per row
+// rows r < R of the tile (row stride ld) <- rd(LN(row) * rd(s) + rd(b)), a warp per row,
+// the statistics over the first `width` of its D columns
 template <bool kBF16>
 __device__ void ln_tile(float* t, int R, int D, int ld, const float* __restrict__ s,
-                        const float* __restrict__ b) {
+                        const float* __restrict__ b, int width) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < R; r += kThreads / 32) {
     float* xr = t + r * ld;
     float mean, inv;
-    row_stats(xr, D, mean, inv);
+    row_stats(xr, width, mean, inv);
     for (int d = lane; d < D; d += 32)
       xr[d] = rd<kBF16>((xr[d] - mean) * inv * rd<kBF16>(__ldg(s + d)) + rd<kBF16>(__ldg(b + d)));
   }
@@ -122,7 +123,7 @@ __global__ void __launch_bounds__(kThreads)
     if (save) save[g] = u;
   }
   __syncthreads();
-  ln_tile<kBF16>(sm, R, D, ld, ln_s, ln_b);
+  ln_tile<kBF16>(sm, R, D, ld, ln_s, ln_b, dp.width);
   __syncthreads();
   YT* dst = yt + (size_t)s * D * ldy + n0;
   for (int i = threadIdx.x; i < R * D; i += kThreads) {  // neighbouring threads: neighbouring n
@@ -167,10 +168,11 @@ __global__ void __launch_bounds__(kThreads)
     *t = v;
     x1[off + e] = v;
     if (g)
-      da4[off + e] = da4_operand<kBF16, ZT>(g[off + e], keep(dp, blk, 3, (uint32_t)(off + e)));
+      da4[off + e] =
+          da4_operand<kBF16, ZT>(g[off + e], keep_padded(dp, blk, 3, (uint32_t)(off + e)));
   }
   __syncthreads();
-  ln_tile<kBF16>(sm, R, D, ld, ln_s, ln_b);
+  ln_tile<kBF16>(sm, R, D, ld, ln_s, ln_b, dp.width);
   __syncthreads();
   for (int e = threadIdx.x; e < R * D; e += kThreads)
     z[off + e] = to_operand<ZT>(sm[(e / D) * ld + e % D]);
@@ -187,7 +189,7 @@ struct EpiTokenUp {
   __device__ __forceinline__ float operator()(int r, int c, float v) const {
     const float a = v + __ldg(b1 + c);
     if (a1) a1[(size_t)r * T + c] = a;
-    return rd<kBF16>(gelu(a, tanh_flavor) * keep(dp, blk, 0, (uint32_t)r * T + c));
+    return rd<kBF16>(gelu(a, tanh_flavor) * keep_padded(dp, blk, 0, (uint32_t)r * T + c));
   }
 };
 
@@ -197,7 +199,7 @@ struct EpiTokenDown {
   int N, blk;
   Dropout dp;
   __device__ __forceinline__ float operator()(int r, int c, float v) const {
-    return (v + __ldg(b2 + c)) * keep(dp, blk, 1, (uint32_t)r * N + c);
+    return (v + __ldg(b2 + c)) * keep_padded(dp, blk, 1, (uint32_t)r * N + c);
   }
 };
 
@@ -209,7 +211,7 @@ struct EpiTokenBwd {
   Dropout dp;
   __device__ __forceinline__ float operator()(int r, int c, float v) const {
     const size_t e = (size_t)r * T + c;
-    return rd<kBF16>(v) * keep(dp, blk, 0, (uint32_t)e) * gelu_grad(a1[e], tanh_flavor);
+    return rd<kBF16>(v) * keep_padded(dp, blk, 0, (uint32_t)e) * gelu_grad(a1[e], tanh_flavor);
   }
 };
 
@@ -237,7 +239,7 @@ __global__ void __launch_bounds__(kTr32 * 8)
     if (p >= P || q >= Q) continue;
     const size_t e = base + (size_t)q * P + p;
     const float v = tile[tx][i];
-    out[e] = mask1 ? v * keep(dp, blk, 1, (uint32_t)e) : rd<kBF16>(v);
+    out[e] = mask1 ? v * keep_padded(dp, blk, 1, (uint32_t)e) : rd<kBF16>(v);
   }
 }
 

@@ -15,14 +15,17 @@ back in the same layout.
   sum_m w_h[m, l] x[m, c]`` with ``h = c // (C/H)``; the output projection.
   ``dynamixer_op_bwd_reference`` is autograd of it.
 - ``fused_dynamixer_op`` (K4f) launches the hand-written kernels of
-  ``csrc/dynamixer.cu`` on CUDA tensors. When a gradient is wanted it runs
-  inside a ``torch.autograd.Function`` that saves only ``x`` (and the
-  parameters it was given) and whose backward is ``fused_dynamixer_op_bwd``
-  (K4b), which recomputes the forward's small intermediates. Each wrapper
-  counts its launches in its ``launches`` attribute. A CPU tensor gets the
-  plain version (the backward: autograd of it); a CUDA tensor gets the
-  kernel or an error, never the plain version.
-- ``compute_dtype`` is float32 or bfloat16. In bf16 both routes follow
+  ``csrc/dynamixer.cu`` on CUDA tensors, at any L and C: every product runs
+  over all rows through device memory (float32 on 3xTF32 tensor cores, bf16
+  on the wgmma engine) and the softmax and the mix a warp per (sequence,
+  head). When a
+  gradient is wanted it runs inside a ``torch.autograd.Function`` that
+  saves only ``x`` (and the parameters it was given) and whose backward is
+  ``fused_dynamixer_op_bwd`` (K4b), which recomputes the forward's small
+  intermediates. Each wrapper counts its launches in its ``launches``
+  attribute. A CPU tensor gets the plain version (the backward: autograd of
+  it); a CUDA tensor gets the kernel or an error, never the plain version.
+- ``compute_dtype`` is float32 or bfloat16. In bf16 the kernels follow
   ``_op_math``'s casts: x rounded to bf16; the compress, generate and output
   products on bf16 operands (the parameters arrive in float32 and are
   rounded where JAX casts ``w.astype(cd)``) with float32 sums and float32
@@ -46,9 +49,6 @@ from .mixer_kernel import _autograd_of, _device_index, _needs_grad, _route
 
 __all__ = ["DynaMixerOpParams", "dynamixer_op_reference", "dynamixer_op_bwd_reference",
            "fused_dynamixer_op", "fused_dynamixer_op_bwd"]
-
-_MAX_TOKENS = 32  # kMaxL in csrc/dynamixer.cu
-_MAX_CHANNELS = 1024  # kMaxC in csrc/dynamixer.cu
 
 
 class DynaMixerOpParams(NamedTuple):
@@ -113,16 +113,13 @@ def dynamixer_op_bwd_reference(x, g, params, num_head: int, reduced_dim: int = 2
 
 # ------------------------------------------------------------------ kernels
 def _check_kernel_args(x, params, num_head: int, reduced_dim: int) -> None:
-    """Check x and the parameters for the kernels: device, dtype, shape,
-    contiguity and the kernels' limits. Raises on anything else."""
+    """Check x and the parameters for the kernels: device, dtype, shape and
+    contiguity. Raises on anything else."""
     S, L, C = x.shape
     if len(params) != len(DynaMixerOpParams._fields):
         raise ValueError(f"expected {len(DynaMixerOpParams._fields)} parameters, got {len(params)}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    if not (1 <= L <= _MAX_TOKENS and C <= _MAX_CHANNELS):
-        raise ValueError(f"the CUDA DynaMixerOp kernels take L <= {_MAX_TOKENS} and "
-                         f"C <= {_MAX_CHANNELS}, got L={L} C={C}")
     HR, LR, LL = num_head * reduced_dim, L * reduced_dim, L * L
     expect = [(HR, C), (HR,), (LL, LR), (LL,), (C, C), (C,)]
     for name, p, shape in zip(DynaMixerOpParams._fields, params, expect):
@@ -133,6 +130,21 @@ def _check_kernel_args(x, params, num_head: int, reduced_dim: int) -> None:
             raise ValueError(f"parameter {name}: shape {tuple(p.shape)}, expected {shape}")
         if not p.is_contiguous():
             raise ValueError(f"parameter {name} must be contiguous")
+
+
+def _workspace_bytes(lib, S: int, L: int, C: int, H: int, R: int, backward: bool, bf16: bool,
+                     dev: int) -> int:
+    """Bytes of device workspace K4f (``backward`` False) or K4b needs: the
+    products' operands (bf16: x, the weights, gin, mixed, d_mixed, d_comp and
+    g's and d_logit's three planes, rows padded to 8; float32: comp, gin,
+    mixed, d_mixed, d_gin and d_comp), the logits and d_logit, and the
+    gradients' slices; raises for a shape the kernels do not take."""
+    nbytes = lib.m2m_dyna_workspace_bytes(S, L, C, H, R, int(backward), int(bf16), dev)
+    if nbytes == 0:
+        raise ValueError(f"the CUDA DynaMixerOp kernels do not take S={S} L={L} C={C} "
+                         f"H={H} R={R}: the rows of a product pass the card's grid (S*L or "
+                         "S*H above 64 x 65535)")
+    return nbytes
 
 
 def _launch(x, params, num_head: int, reduced_dim: int, bf16: bool, g=None):
@@ -146,10 +158,7 @@ def _launch(x, params, num_head: int, reduced_dim: int, bf16: bool, g=None):
     dev = _device_index(x)
     backward = g is not None
     dims = (S, L, C, num_head, reduced_dim)
-    nbytes = lib.m2m_dyna_workspace_bytes(*dims, int(backward), int(bf16), dev)
-    if nbytes == 0:
-        raise ValueError(f"the CUDA DynaMixerOp kernels do not take S={S} L={L} C={C} "
-                         f"H={num_head} R={reduced_dim}")
+    nbytes = _workspace_bytes(lib, *dims, backward, bf16, dev)
     workspace = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     ptrs = (ctypes.c_void_p * len(params))(*[p.data_ptr() for p in params])
     stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -10,8 +10,12 @@ layout: ``x (B, N, D)`` float32 in and out, ``w1 (N, T)``, ``w2 (T, N)``,
   are autograd of them.
 - ``fused_mixer_block`` (K1f) and ``fused_mixer_stack`` (K2f) launch the
   hand-written kernels of ``csrc/mixer_fwd.cu`` on CUDA tensors (in bf16
-  compute every product on the wgmma engine, ``csrc/wgmma_bf16.cuh``;
-  hidden_dim a multiple of 8). When a
+  compute every product on the wgmma engine, ``csrc/wgmma_bf16.cuh``), at
+  any hidden width: the wrappers pad D to whole 16-byte rows (a multiple of
+  4 in float32, of 8 in bf16), zeros in x's and g's pad columns and in the
+  pad entries of the LN scales and biases, W3's rows, W4's columns and b4,
+  and slice the results back; the kernels take the true width for the LN
+  statistics and the masks' element index (``_pitch``). When a
   gradient is wanted they run inside a ``torch.autograd.Function`` whose
   backward is ``fused_mixer_block_bwd`` (K1b) / ``fused_mixer_stack_bwd``
   (K2b), the kernels of ``csrc/mixer_bwd.cu``, float32 or bf16 compute, at
@@ -294,7 +298,7 @@ def _fwd_workspace_bytes(lib, b: int, n: int, t: int, d: int, c: int, n_blocks: 
     nbytes = lib.m2m_mixer_fwd_workspace_bytes(b, n, t, d, c, n_blocks, int(bf16), dev)
     if nbytes == 0:
         raise ValueError(f"the CUDA mixer forward does not take B={b} N={n} T={t} D={d} "
-                         f"C={c} ({n_blocks} blocks{', bf16: hidden_dim % 8' if bf16 else ''})")
+                         f"C={c} ({n_blocks} blocks{', bf16' if bf16 else ''})")
     return nbytes
 
 
@@ -313,6 +317,46 @@ def _bwd_workspace_bytes(lib, b: int, n: int, t: int, d: int, c: int, n_blocks: 
     return nbytes
 
 
+def _pitch(D: int, bf16: bool) -> int:
+    """The padded hidden width the kernels run on: whole 16-byte rows of the
+    float32 stream (D rounded up to 4) and, in bf16, of the bf16 operands (to
+    8)."""
+    q = 8 if bf16 else 4
+    return -(-D // q) * q
+
+
+# the axis of each block parameter that runs over the hidden width
+_D_AXES = {0: 0, 1: 0, 6: 0, 7: 0, 8: 0, 10: 1, 11: 0}
+
+
+def _pad_axis(t, axis: int, n: int):
+    shape = list(t.shape)
+    shape[axis] = n
+    return torch.cat([t.float(), t.new_zeros(shape, dtype=torch.float32)], dim=axis)
+
+
+def _pad_params(flat, n_blocks: int, final_ln: bool, D: int, Dp: int):
+    """``flat`` with every hidden-width axis padded from D to Dp with zeros."""
+    out = list(flat)
+    idx = [(k * _N_BLOCK_PARAMS + j, ax) for k in range(n_blocks) for j, ax in _D_AXES.items()]
+    if final_ln:
+        idx += [(len(flat) - 2, 0), (len(flat) - 1, 0)]
+    for i, ax in idx:
+        out[i] = _pad_axis(out[i], ax, Dp - D)
+    return tuple(out)
+
+
+def _unpad_grads(grads, n_blocks: int, final_ln: bool, D: int):
+    """The gradients of ``_pad_params``'s output sliced back to width D."""
+    out = list(grads)
+    idx = [(k * _N_BLOCK_PARAMS + j, ax) for k in range(n_blocks) for j, ax in _D_AXES.items()]
+    if final_ln:
+        idx += [(len(grads) - 2, 0), (len(grads) - 1, 0)]
+    for i, ax in idx:
+        out[i] = out[i].narrow(ax, 0, D).contiguous()
+    return tuple(out)
+
+
 def _kernel_args(x, flat, n_blocks: int):
     """Validate shapes and devices; return (T, C, kernel-ready params, every
     one float32: in bf16 compute the kernels round them where JAX casts)."""
@@ -320,8 +364,6 @@ def _kernel_args(x, flat, n_blocks: int):
         raise ValueError(f"x must be float32 (B, N, D), got {x.dtype} {tuple(x.shape)}")
     B, N, D = x.shape
     T, C = flat[2].shape[1], flat[8].shape[1]
-    if D % 4:
-        raise ValueError(f"the CUDA mixer kernel needs hidden_dim % 4 == 0, got {D}")
     if not 1 <= n_blocks <= _MAX_BLOCKS:
         raise ValueError(f"the CUDA stack kernel runs 1..{_MAX_BLOCKS} blocks, got {n_blocks}")
     out = []
@@ -360,13 +402,19 @@ def _device_index(x) -> int:
 def _launch(entry: str, x, flat, n_blocks: int, final_ln: bool, compute_dtype,
             approximate_gelu: bool, seed=None, rate: float = 0.0, saved=None):
     """K1f (``entry`` "block") or K2f ("stack"): ``m2m_mixer_fwd``, float32
-    or bf16 compute."""
+    or bf16 compute; ``saved``: room for the block inputs at the padded width
+    (``_pitch``)."""
     from ._build import check, load_library
 
     lib = load_library()
     bf16 = _check_compute_dtype(compute_dtype)
     x = x.contiguous()
-    B, N, D = x.shape
+    width = x.shape[2]
+    D = _pitch(width, bf16)
+    if D != width:
+        x = F.pad(x, (0, D - width))
+        flat = _pad_params(flat, n_blocks, final_ln, width, D)
+    B, N, _ = x.shape
     dev = _device_index(x)
     T, C, params = _kernel_args(x, flat, n_blocks)
     out = torch.empty_like(x)
@@ -377,24 +425,31 @@ def _launch(entry: str, x, flat, n_blocks: int, final_ln: bool, compute_dtype,
     nbytes = _fwd_workspace_bytes(lib, B, N, T, D, C, n_blocks, bf16, dev)
     workspace = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     code = lib.m2m_mixer_fwd(x.data_ptr(), out.data_ptr(), saved_ptr, B, N, T, D, C, n_blocks,
-                             int(final_ln), int(approximate_gelu), keys, thresh, scale, int(bf16),
-                             dev, ptrs, workspace.data_ptr(), stream)
+                             int(final_ln), int(approximate_gelu), width, keys, thresh, scale,
+                             int(bf16), dev, ptrs, workspace.data_ptr(), stream)
     check(lib, code, f"mixer {entry} kernel launch")
-    return out
+    return out if D == width else out[..., :width].contiguous()
 
 
 def _launch_bwd(saved, g, flat, n_blocks: int, final_ln: bool, compute_dtype,
                 approximate_gelu: bool, seed, rate: float):
     """dx and the float32 gradients of ``flat`` from ``csrc/mixer_bwd.cu``;
-    ``saved``: the block inputs (+ the pre-LN output), (n_blocks + 1, B, N, D),
-    or for one block without a final LN its input (B, N, D). In bf16 compute
-    the channel FF's products run on the wgmma engine (``csrc/wgmma_bf16.cuh``;
-    hidden_dim a multiple of 8)."""
+    ``saved``: the block inputs (+ the pre-LN output), (n_blocks + 1, B, N, D)
+    at the padded width (``_launch``'s), or for one block without a final LN
+    its input (B, N, D), padded here. In bf16 compute the channel FF's
+    products run on the wgmma engine (``csrc/wgmma_bf16.cuh``)."""
     from ._build import check, load_library
 
     lib = load_library()
     bf16 = _check_compute_dtype(compute_dtype)
     g = g.float().contiguous()
+    width = g.shape[2]
+    Dp = _pitch(width, bf16)
+    if Dp != width:
+        g = F.pad(g, (0, Dp - width))
+        if saved.shape[-1] == width:
+            saved = F.pad(saved.float(), (0, Dp - width))
+        flat = _pad_params(flat, n_blocks, final_ln, width, Dp)
     # float32 parameters in either dtype: in bf16 the kernel rounds w3/w4 as it
     # lays them out, the copies the JAX kernels read
     T, C, params = _kernel_args(g, flat, n_blocks)
@@ -414,18 +469,21 @@ def _launch_bwd(saved, g, flat, n_blocks: int, final_ln: bool, compute_dtype,
     keys, thresh, scale = _dropout_args(seed, rate, n_blocks)
     stream = torch.cuda.current_stream(g.device).cuda_stream
     code = lib.m2m_mixer_bwd(saved.data_ptr(), g.data_ptr(), dx.data_ptr(), B, N, T, D, C,
-                             n_blocks, int(final_ln), int(approximate_gelu), keys, thresh, scale,
-                             int(bf16), dev, ptrs, gptrs, workspace.data_ptr(), stream)
+                             n_blocks, int(final_ln), int(approximate_gelu), width, keys, thresh,
+                             scale, int(bf16), dev, ptrs, gptrs, workspace.data_ptr(), stream)
     check(lib, code, "mixer backward kernel launch")
-    return dx, tuple(grads)
+    if D == width:
+        return dx, tuple(grads)
+    return dx[..., :width].contiguous(), _unpad_grads(grads, n_blocks, final_ln, width)
 
 
-def _token_ff(entry: str, x, flat) -> int:
+def _token_ff(entry: str, x, flat, compute_dtype) -> int:
     """1 if the kernel just launched for ``x`` ran its token FF as products
     (``csrc/token_ff.cuh``: above 32 tokens, or where a sample does not fit
     the register route's tiles), else 0; ``entry``: "fwd" or "bwd"."""
     B, N, D = x.shape
-    return _token_ff_route(entry, B, N, flat[2].shape[1], D, flat[8].shape[1], _device_index(x))
+    Dp = _pitch(D, compute_dtype == torch.bfloat16)
+    return _token_ff_route(entry, B, N, flat[2].shape[1], Dp, flat[8].shape[1], _device_index(x))
 
 
 @functools.lru_cache(maxsize=None)
@@ -491,7 +549,7 @@ def _block_forward(x, params, seed, rate, compute_dtype, approximate_gelu):
     out = _launch("block", x, tuple(params), 1, False, compute_dtype, approximate_gelu, seed,
                   rate)
     fused_mixer_block.launches += 1
-    fused_mixer_block.token_ff_launches += _token_ff("fwd", x, params)
+    fused_mixer_block.token_ff_launches += _token_ff("fwd", x, params, compute_dtype)
     return out
 
 
@@ -501,11 +559,13 @@ def _stack_forward(x, flat, seed, rate, compute_dtype, final_ln, approximate_gel
         return mixer_stack_reference(x, flat, compute_dtype, final_ln, approximate_gelu, rate,
                                      seed), None
     n = _n_blocks(flat, final_ln)
-    saved = x.new_empty((n + 1, *x.shape), dtype=torch.float32) if save else None
+    B, N, D = x.shape
+    Dp = _pitch(D, _check_compute_dtype(compute_dtype))
+    saved = x.new_empty((n + 1, B, N, Dp), dtype=torch.float32) if save else None
     out = _launch("stack", x, flat, n, final_ln, compute_dtype, approximate_gelu, seed, rate,
                   saved)
     fused_mixer_stack.launches += 1
-    fused_mixer_stack.token_ff_launches += _token_ff("fwd", x, flat)
+    fused_mixer_stack.token_ff_launches += _token_ff("fwd", x, flat, compute_dtype)
     return out, saved
 
 
@@ -577,7 +637,7 @@ def fused_mixer_block_bwd(x, g, params, seed=None, dropout_rate: float = 0.0,
                       rate)
     fused_mixer_block_bwd.launches += 1
     fused_mixer_block_bwd.bf16_launches += int(compute_dtype == torch.bfloat16)
-    fused_mixer_block_bwd.token_ff_launches += _token_ff("bwd", x, params)
+    fused_mixer_block_bwd.token_ff_launches += _token_ff("bwd", x, params, compute_dtype)
     return out
 
 
@@ -628,7 +688,7 @@ def fused_mixer_stack_bwd(x, g, flat_params, seed=None, dropout_rate: float = 0.
                       approximate_gelu, seed, rate)
     fused_mixer_stack_bwd.launches += 1
     fused_mixer_stack_bwd.bf16_launches += int(compute_dtype == torch.bfloat16)
-    fused_mixer_stack_bwd.token_ff_launches += _token_ff("bwd", x, flat)
+    fused_mixer_stack_bwd.token_ff_launches += _token_ff("bwd", x, flat, compute_dtype)
     return out
 
 

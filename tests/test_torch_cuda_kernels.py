@@ -91,8 +91,8 @@ def test_stack_kernel_matches_plain(cuda, shape, dtype, group_size):
 
 
 def test_unsupported_shapes_raise_on_cuda(cuda):
-    """No token cap (40 tokens launch); a hidden_dim that is no multiple of 4
-    raises, as does a stack of more than 32 blocks."""
+    """No token cap (40 tokens launch) and no hidden-width rule (D = 30, no
+    multiple of 4, runs padded); a stack of more than 32 blocks raises."""
     blocks, s, b = blocks_on(cuda, 1, N=40, D=32, T=8, C=64)
     x = torch.randn(2, 40, 32, device=cuda)
     assert_close(mk.fused_mixer_block(x, blocks[0]), mk.mixer_block_reference(x, blocks[0]),
@@ -100,8 +100,53 @@ def test_unsupported_shapes_raise_on_cuda(cuda):
     with pytest.raises(ValueError, match="runs 1..32 blocks"):
         mk.fused_mixer_stack(x, mk.stack_flat_params(blocks * 33, s, b))
     odd, _, _ = blocks_on(cuda, 1, N=4, D=30, T=8, C=64)
-    with pytest.raises(ValueError, match="hidden_dim % 4"):
-        mk.fused_mixer_block(torch.randn(2, 4, 30, device=cuda), odd[0])
+    x = torch.randn(2, 4, 30, device=cuda)
+    assert_close(mk.fused_mixer_block(x, odd[0]), mk.mixer_block_reference(x, odd[0]), False)
+
+
+# hidden widths that are no multiple of 8 (bf16) or of 4 (float32, D = 30):
+# the wrappers pad D, and the kernels take the true width for the LN
+# statistics and the masks; "tok" runs the token FF as products (40 tokens)
+WIDTH_SHAPES = {"d20": dict(N=4, D=20, T=8, C=64), "d30": dict(N=8, D=30, T=16, C=70),
+                "d30_tok": dict(N=40, D=30, T=16, C=64)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", sorted(WIDTH_SHAPES))
+def test_any_hidden_width_matches_plain(cuda, shape, dtype):
+    """K1f, K2f (2 blocks + LN), K1b and K2b at a hidden width the kernels
+    pad, dropout 0.5, against the plain versions and their autograd (float32:
+    assert_close and rel_close; bf16: assert_close and bf16_grads_close, the
+    stack's 40% share); two runs bit-identical."""
+    geom = WIDTH_SHAPES[shape]
+    blocks, s, b = blocks_on(cuda, 2, **geom)
+    flat = mk.stack_flat_params(blocks, s, b)
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn(5, geom["N"], geom["D"], generator=gen).to(cuda)
+    g = torch.randn(5, geom["N"], geom["D"], generator=gen).to(cuda)
+    bf16 = dtype == torch.bfloat16
+    got1 = mk.fused_mixer_block(x, blocks[0], 3, 0.5, dtype)
+    got2 = mk.fused_mixer_stack(x, flat, 4, 0.5, dtype)
+    assert_close(got1, mk.mixer_block_reference(x, blocks[0], 0.5, dtype, seed=3), bf16)
+    assert_close(got2, mk.mixer_stack_reference(x, flat, dtype, dropout_rate=0.5, seed=4), bf16)
+    assert torch.equal(got1, mk.fused_mixer_block(x, blocks[0], 3, 0.5, dtype))
+    bwd1 = lambda: mk.fused_mixer_block_bwd(x, g, blocks[0], 3, 0.5, dtype)
+    bwd2 = lambda: mk.fused_mixer_stack_bwd(x, g, flat, 4, 0.5, dtype)
+    for run, want, share in ((bwd1, mk.mixer_block_bwd_reference(x, g, blocks[0], 0.5, dtype,
+                                                                  seed=3), 0.10),
+                             (bwd2, mk.mixer_stack_bwd_reference(x, g, flat, 0.5, dtype,
+                                                                  seed=4), 0.40)):
+        dx, grads = run()
+        assert dx.shape == x.shape and [t.shape for t in grads] == [t.shape for t in want[1]]
+        if bf16:
+            rounded = BF16_ROUNDED * (len(grads) // 12) + (True,) * (len(grads) % 12)
+            bf16_grads_close((dx, *grads), (want[0], *want[1]), (True, *rounded), share)
+        else:
+            rel_close(dx, want[0])
+            for a, w in zip(grads, want[1]):
+                rel_close(a, w)
+        dx2, grads2 = run()
+        assert torch.equal(dx, dx2) and all(torch.equal(a, c) for a, c in zip(grads, grads2))
 
 
 def test_served_kernel_model_matches_plain_on_cuda(cuda):
@@ -837,16 +882,31 @@ def test_gmlp_workspace_matches_the_mirror(cuda):
 
 
 def test_gmlp_bf16_raises_where_the_kernels_do_not_take_it(cuda):
-    """No fallback: a bf16 call at a width the kernels cannot take (F/2 =
-    2048 v-channels: LN(v)'s backward keeps its rows in a CTA's shared
-    memory, bf16 six floats a channel for each of 8 warps, float32 two for
-    each of 32 rows) raises with the shape in the message, as float32 does."""
+    """F/2 = 2048 v-channels, whose LN(v) rows overflowed the fixed row tile,
+    run on a tile sized from the shared memory (fewer rows, or in bf16 fewer
+    warps) and match the plain version in both dtypes; no fallback where the
+    kernels still cannot take a shape: 129 tokens (the SGU keeps a sample's
+    token projection in shared memory) raise with the shape in the message."""
     p = gmlp_params_on(cuda, N=6, D=16, F=4096)
     x = torch.randn(2, 6, 16, device=cuda)
     g = torch.randn_like(x)
     for dtype in (torch.bfloat16, torch.float32):
-        with pytest.raises(ValueError, match="does not take B=2 N=6 D=16 F=4096"):
-            gk.fused_gmlp_block_bwd(x, g, p, compute_dtype=dtype)
+        out = gk.fused_gmlp_block(x, p, compute_dtype=dtype)
+        want = gk.gmlp_block_reference(x, p, compute_dtype=dtype)
+        dx, grads = gk.fused_gmlp_block_bwd(x, g, p, compute_dtype=dtype)
+        want_dx, want_g = gk.gmlp_block_bwd_reference(x, g, p, compute_dtype=dtype)
+        if dtype == torch.bfloat16:
+            assert_close(out, want, True)
+            bf16_grads_close((dx, *grads), (want_dx, *want_g), GMLP_ROUNDED, 0.10)
+        else:
+            rel_close(out, want)
+            for a, w in zip((dx, *grads), (want_dx, *want_g)):
+                rel_close(a, w)
+    p = gmlp_params_on(cuda, N=129, D=16, F=32)
+    x = torch.randn(2, 129, 16, device=cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="129"):
+            gk.fused_gmlp_block_bwd(x, torch.randn_like(x), p, compute_dtype=dtype)
 
 
 # the gMLP block's engine products (A K-major, B K-major, A's planes, B's
@@ -908,11 +968,19 @@ def test_wgmma_engine_gmlp_layouts_match_float64(cuda, layout):
 # "config" is avmnist_3loss_dyna.yml's op at batch 32 (S = 7 x 32 rows or
 # columns of the 7 x 7 grid); "ragged" has an S*L that is no multiple of the
 # tiles' rows nor of the sequences a CTA owns; "odd" has C = 36 and H*R = 18,
-# no multiple of 8 or 16 (dW_c's narrow tile and the wide tiles' ragged columns)
+# no multiple of 8 or 16 (dW_c's narrow tile and the wide tiles' ragged
+# columns); "l33" and "l64" are the lifted shapes, whose sequence (x, W_g)
+# would outgrow a CTA's shared memory
 DYNA_SHAPES = {"small": dict(S=5, L=4, C=16, H=4, R=3),
                "config": dict(S=224, L=7, C=256, H=8, R=2),
                "ragged": dict(S=37, L=7, C=256, H=8, R=2),
-               "odd": dict(S=9, L=5, C=36, H=6, R=3)}
+               "odd": dict(S=9, L=5, C=36, H=6, R=3),
+               "l33": dict(S=6, L=33, C=1280, H=8, R=2),
+               "l64": dict(S=5, L=64, C=512, H=4, R=3)}
+# the products of a call (bf16 on the wgmma engine, float32 on tc_gemm): the
+# forward's compress, generate and output products; the backward's two
+# recomputed, d_mixed, d_gin, dx's compress part, dW_c, dW_g and dW_o
+DYNA_WG_FWD, DYNA_WG_BWD = 3, 8
 
 
 def dyna_params_on(device, L, C, H, R, seed=0):
@@ -931,18 +999,23 @@ def dyna_params_on(device, L, C, H, R, seed=0):
 def test_dynamixer_kernels_match_plain(cuda, shape, scale):
     """K4f and K4b against the plain version and its autograd, every tensor
     within 1e-4 x max(1, max|plain|); x30 drives the generate logits to tens
-    (the softmax's maximum must be subtracted); two backward runs
-    bit-identical."""
+    (the softmax's maximum must be subtracted); every product on tc_gemm (by
+    the library's tallies: three a K4f call, eight a K4b call); two forward
+    and two backward runs bit-identical."""
     geom = DYNA_SHAPES[shape]
     S, L, C, H, R = (geom[k] for k in "SLCHR")
     p = dyna_params_on(cuda, L, C, H, R)
     x = scale * torch.randn(S, L, C, device=cuda)
     g = torch.randn_like(x)
     before = (dk.fused_dynamixer_op.launches, dk.fused_dynamixer_op_bwd.launches)
-    rel_close(dk.fused_dynamixer_op(x, p, H, R), dk.dynamixer_op_reference(x, p, H, R))
-    dx, grads = dk.fused_dynamixer_op_bwd(x, g, p, H, R)
+    out, tally = tally_delta(lambda: dk.fused_dynamixer_op(x, p, H, R))
+    assert tally == {"wg_gemm_kernel": 0, "tc_gemm_kernel": DYNA_WG_FWD, "tok_in_kernel": 0}
+    rel_close(out, dk.dynamixer_op_reference(x, p, H, R))
+    assert torch.equal(out, dk.fused_dynamixer_op(x, p, H, R))
+    (dx, grads), tally = tally_delta(lambda: dk.fused_dynamixer_op_bwd(x, g, p, H, R))
+    assert tally == {"wg_gemm_kernel": 0, "tc_gemm_kernel": DYNA_WG_BWD, "tok_in_kernel": 0}
     assert (dk.fused_dynamixer_op.launches, dk.fused_dynamixer_op_bwd.launches) == \
-        (before[0] + 1, before[1] + 1)
+        (before[0] + 2, before[1] + 1)
     want_dx, want = dk.dynamixer_op_bwd_reference(x, g, p, H, R)
     rel_close(dx, want_dx)
     assert len(grads) == len(want) == 6
@@ -950,6 +1023,22 @@ def test_dynamixer_kernels_match_plain(cuda, shape, scale):
         rel_close(a, b)
     dx2, grads2 = dk.fused_dynamixer_op_bwd(x, g, p, H, R)
     assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+
+
+def test_dyna_workspace_matches_the_mirror(cuda):
+    """m2m_dyna_workspace_bytes against tests/test_torch_dynamixer_plan.py's
+    Python mirror of its plan, forward and backward, float32 and bf16, on
+    this card's SM count."""
+    from m2mixer_tpu_torch.ops._build import load_library
+    from test_torch_dynamixer_plan import CASES, workspace_bytes
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = load_library()
+    for dims in CASES:
+        for backward in (0, 1):
+            for bf16 in (0, 1):
+                assert lib.m2m_dyna_workspace_bytes(*dims, backward, bf16, 0) == \
+                    workspace_bytes(*dims, backward, bf16, sms=sms), (dims, backward, bf16)
 
 
 def test_dynamixer_block_trains_on_cuda(cuda):
@@ -975,9 +1064,13 @@ def test_dynamixer_kernels_raise_on_cuda(cuda):
         dk.fused_dynamixer_op(x.transpose(0, 1).contiguous().transpose(0, 1), p, 4, 3)
     with pytest.raises(ValueError, match="shape"):
         dk.fused_dynamixer_op(x, p, 4, 2)
+    # no L or C cap (L = 33 runs); S*L rows beyond the products' grid raise
     long = dyna_params_on(cuda, L=33, C=16, H=4, R=2)
-    with pytest.raises(ValueError, match="L <= 32"):
-        dk.fused_dynamixer_op(torch.randn(2, 33, 16, device=cuda), long, 4, 2)
+    x = torch.randn(2, 33, 16, device=cuda)
+    rel_close(dk.fused_dynamixer_op(x, long, 4, 2), dk.dynamixer_op_reference(x, long, 4, 2))
+    huge = dyna_params_on(cuda, L=65, C=4, H=1, R=1)
+    with pytest.raises(ValueError, match="do not take S=65536 L=65"):
+        dk.fused_dynamixer_op(torch.zeros(65536, 65, 4, device=cuda), huge, 1, 1)
 
 
 # DynaMixerOp in bf16 compute. The forward's output is float32 (sums of
@@ -1002,20 +1095,48 @@ def test_dynamixer_bf16_kernels_match_plain(cuda, shape, scale):
     g = torch.randn_like(x)
     bf16 = torch.bfloat16
     before = (dk.fused_dynamixer_op.bf16_launches, dk.fused_dynamixer_op_bwd.bf16_launches)
-    got = dk.fused_dynamixer_op(x, p, H, R, compute_dtype=bf16)
+    fwd = lambda: dk.fused_dynamixer_op(x, p, H, R, compute_dtype=bf16)
+    got, launched = tally_delta(fwd)
+    assert (launched["wg_gemm_kernel"], launched["tc_gemm_kernel"]) == (DYNA_WG_FWD, 0), launched
+    assert torch.equal(got, fwd())
     want = dk.dynamixer_op_reference(x, p, H, R, bf16)
     tol = DYNA_BF16_FWD * max(1.0, want.abs().max().item())
     assert torch.isfinite(got).all() and (got - want).abs().max().item() <= tol
-    if shape == "config":  # the control separates at the served shape
+    # the control separates at the served shape, and at the lifted shapes at
+    # x30 (at x1 their outputs sit below 1, where the limit's max(1, .) lets
+    # float32 math pass; at x30 the control sits about ten times the limit
+    # away, on the CPU)
+    if shape == "config" or (shape in ("l33", "l64") and scale == 30.0):
         control = dk.dynamixer_op_reference(x, p, H, R)
         assert (control - want).abs().max().item() > tol
-    dx, grads = dk.fused_dynamixer_op_bwd(x, g, p, H, R, compute_dtype=bf16)
+    (dx, grads), launched = tally_delta(
+        lambda: dk.fused_dynamixer_op_bwd(x, g, p, H, R, compute_dtype=bf16))
+    assert (launched["wg_gemm_kernel"], launched["tc_gemm_kernel"]) == (DYNA_WG_BWD, 0), launched
     assert (dk.fused_dynamixer_op.bf16_launches, dk.fused_dynamixer_op_bwd.bf16_launches) == \
-        (before[0] + 1, before[1] + 1)
+        (before[0] + 2, before[1] + 1)
     want_dx, want_g = dk.dynamixer_op_bwd_reference(x, g, p, H, R, bf16)
     bf16_grads_close((dx, *grads), (want_dx, *want_g), DYNA_ROUNDED, 0.10)
     dx2, grads2 = dk.fused_dynamixer_op_bwd(x, g, p, H, R, compute_dtype=bf16)
     assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+
+
+@pytest.mark.slow
+def test_dynamixer_bf16_reruns_are_bit_identical(cuda):
+    """The config shape at x30 in bf16, 300 forward and backward runs against
+    the first, bit for bit: no float atomics, every partial reduced in one
+    order."""
+    geom = DYNA_SHAPES["config"]
+    S, L, C, H, R = (geom[k] for k in "SLCHR")
+    p = dyna_params_on(cuda, L, C, H, R)
+    x = 30.0 * torch.randn(S, L, C, device=cuda)
+    g = torch.randn_like(x)
+    bf16 = torch.bfloat16
+    out = dk.fused_dynamixer_op(x, p, H, R, compute_dtype=bf16)
+    dx, grads = dk.fused_dynamixer_op_bwd(x, g, p, H, R, compute_dtype=bf16)
+    for i in range(300):
+        assert torch.equal(out, dk.fused_dynamixer_op(x, p, H, R, compute_dtype=bf16)), i
+        dx2, grads2 = dk.fused_dynamixer_op_bwd(x, g, p, H, R, compute_dtype=bf16)
+        assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(grads, grads2)), i
 
 
 # Above 32 tokens the mixer kernels run the token FF as products
@@ -1191,12 +1312,19 @@ def test_bf16_forward_on_the_wgmma_engine(cuda, case, B):
 
 
 def test_bf16_forward_raises_below_a_hidden_width_of_8(cuda):
-    """No fallback: a bf16 CUDA call the engine cannot take (hidden_dim % 8)
-    raises; float32 runs the same shape."""
+    """A hidden width the engine's TMA rows cannot take as it is (hidden_dim
+    % 8) runs padded in bf16, on the engine (two wg_gemm_kernel a block, no
+    tc_gemm_kernel), and matches the plain version, as float32 does; no
+    fallback where the kernels still refuse: 33 blocks in one stack raise."""
     blocks, s, b = blocks_on(cuda, 1, N=4, D=20, T=8, C=64)
     x = torch.randn(3, 4, 20, device=cuda)
-    with pytest.raises(ValueError, match="hidden_dim % 8"):
-        mk.fused_mixer_block(x, blocks[0], compute_dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="hidden_dim % 8"):
-        mk.fused_mixer_stack(x, mk.stack_flat_params(blocks, s, b), compute_dtype=torch.bfloat16)
+    bf = torch.bfloat16
+    got, launched = tally_delta(lambda: mk.fused_mixer_block(x, blocks[0], compute_dtype=bf))
+    assert (launched["wg_gemm_kernel"], launched["tc_gemm_kernel"]) == (2, 0), launched
+    assert_close(got, mk.mixer_block_reference(x, blocks[0], compute_dtype=bf), True)
+    flat = mk.stack_flat_params(blocks, s, b)
+    assert_close(mk.fused_mixer_stack(x, flat, compute_dtype=bf),
+                 mk.mixer_stack_reference(x, flat, compute_dtype=bf), True)
+    with pytest.raises(ValueError, match="runs 1..32 blocks"):
+        mk.fused_mixer_stack(x, mk.stack_flat_params(blocks * 33, s, b), compute_dtype=bf)
     assert_close(mk.fused_mixer_block(x, blocks[0]), mk.mixer_block_reference(x, blocks[0]), False)

@@ -61,13 +61,22 @@ def gmlp_plan(B, N, D, F, bf16, sms=SMS):
         return None
     H, R = F // 2, B * N
     nsplit = max(1, min(cdiv(2 * sms, B), cdiv(H, CHUNK)))
+    # the row tile of the LN backwards and the bf16 row kernels: ROW_TILE
+    # rows, or as many as fit; the bf16 LN(v) backward's warps: WARPS, or the
+    # most of 4, 2, 1 that fit
+    ln_smem = lambda rows: (3 * rows * D + 2 * rows) * 4  # noqa: E731
+    rt = ROW_TILE
+    while rt > 1 and (ln_smem(rt) > SMEM_OPTIN or (not bf16 and 2 * rt * H * 4 > SMEM_OPTIN)):
+        rt -= 1
+    vw = WARPS
+    while vw > 1 and vw * 6 * H * 4 > SMEM_OPTIN:
+        vw //= 2
     smem = ((sgu_floats_bf16 if bf16 else sgu_floats)(N, True) * 4,
-            (WARPS * 6 * H if bf16 else 2 * ROW_TILE * H) * 4,
-            (3 * ROW_TILE * D + 2 * ROW_TILE) * 4, WARPS * D * 4 if bf16 else 0)
+            (vw * 6 * H if bf16 else 2 * rt * H) * 4, ln_smem(rt), WARPS * D * 4 if bf16 else 0)
     if max(smem) > SMEM_OPTIN:
         return None
-    tiles = cdiv(R, ROW_TILE)
-    p = dict(nsplit=nsplit, tiles=tiles)
+    tiles = cdiv(R, rt)
+    p = dict(nsplit=nsplit, tiles=tiles, rt=rt, vwarps=vw)
     sizes = {}
     if bf16:
         Dp, Hp, Fp = (cdiv(n, 8) * 8 for n in (D, H, F))
@@ -132,6 +141,7 @@ PLANS = {
     (3, 65, 24, 40): (67_088, 248_056, 54_368, 218_224),
     (2, 128, 16, 48): (92_160, 369_152, 73_984, 339_904),
     (37, 49, 128, 768): (9_297_072, 39_689_504, 7_735_472, 37_796_640),
+    (2, 6, 16, 4096): (295_776, 1_052_960, 442_848, 1_347_104),
 }
 CASES = sorted(PLANS)
 
@@ -208,8 +218,20 @@ def test_bf16_slices_are_whole_stages(bn):
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
-@pytest.mark.parametrize("dims", [(2, 129, 16, 32), (2, 6, 16, 33), (2, 6, 16, 4096)],
-                         ids=["too_many_tokens", "odd_d_ffn", "v_rows_outgrow_smem"])
+@pytest.mark.parametrize("dims", [(2, 129, 16, 32), (2, 6, 16, 33)],
+                         ids=["too_many_tokens", "odd_d_ffn"])
 def test_shapes_the_kernels_do_not_take_raise(dims, bf16):
     with pytest.raises(ValueError, match="does not take"):
         gk._workspace_bytes(MirrorLib, *dims, True, bf16, 0)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_v_rows_outgrow_smem_take_a_smaller_tile(bf16):
+    """F/2 = 2048 v-channels, whose LN(v) rows overflowed the fixed tile: float32
+    takes 14 rows a CTA (2 floats a channel a row), bf16 keeps 32 rows and
+    runs 4 warps (6 floats a channel a warp); pinned in PLANS."""
+    p = gmlp_plan(2, 6, 16, 4096, bf16)
+    assert p["rt"] == (32 if bf16 else 14) and p["vwarps"] == 4
+    assert p["tiles"] == cdiv(12, p["rt"])
+    assert gk._workspace_bytes(MirrorLib, 2, 6, 16, 4096, True, bf16, 0) == \
+        PLANS[(2, 6, 16, 4096)][2 + 1 if bf16 else 1]

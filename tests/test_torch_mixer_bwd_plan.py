@@ -59,10 +59,14 @@ def bwd_plan(B, N, T, D, C, n_blocks, final_ln, bf16=0, sms=SMS):
     rows_smem = lambda tb: (5 * tb * N * D + 4 * tb * N + 2 * N * T + T + N  # noqa: E731
                             + tb * D * (2 * T + N))
     reg = N <= REG_TOKENS and rows_smem(1) * 4 <= SMEM_OPTIN and prefix(1) <= SMEM_OPTIN
-    ln_tiles = cdiv(R, LN_ROWS)
-    if (not reg or final_ln) and (3 * LN_ROWS * D + 2 * LN_ROWS) * 4 > SMEM_OPTIN:
+    ln_smem = lambda rows: (3 * rows * D + 2 * rows) * 4  # noqa: E731  ln_bwd_smem_bytes
+    ln_rows = LN_ROWS  # kLnRows, or as many rows as fit a CTA
+    while ln_rows > 1 and ln_smem(ln_rows) > SMEM_OPTIN:
+        ln_rows -= 1
+    ln_tiles = cdiv(R, ln_rows)
+    if (not reg or final_ln) and ln_smem(ln_rows) > SMEM_OPTIN:
         return None
-    p = dict(reg=reg)
+    p = dict(reg=reg, ln_rows=ln_rows)
     if reg:
         tb = min(THREADS // D if THREADS // D > 1 else 1, B)
         while tb > 1 and rows_smem(tb) * 4 > SMEM_OPTIN:
@@ -215,11 +219,29 @@ def test_bf16_slices_are_whole_stages(geom):
 
 
 def test_bf16_needs_whole_16_byte_rows_of_z():
-    """z and da4 are TMA operands in bf16: D must be a multiple of 8 (the
-    wrapper raises for the rest); float32 takes any D the kernels take."""
+    """z and da4 are TMA operands in bf16: the kernels run on rows of a
+    multiple of 8, so the wrapper pads a hidden width of 20 to 24 (zeros in
+    the pad) and the plan takes that pitch; the unpadded width stays refused
+    by the library. float32 pads 20 to nothing (a multiple of 4)."""
+    assert (mk._pitch(20, True), mk._pitch(20, False)) == (24, 20)
     with pytest.raises(ValueError, match="does not take"):
         mk._bwd_workspace_bytes(MirrorLib, 4, 4, 16, 20, 64, 1, False, True, 0)
+    assert mk._bwd_workspace_bytes(MirrorLib, 4, 4, 16, 24, 64, 1, False, True, 0) == PADDED_BWD
     assert mk._bwd_workspace_bytes(MirrorLib, 4, 4, 16, 20, 64, 1, False, False, 0) > 0
+
+
+PADDED_BWD = 31_024  # bf16, B 4, N 4, T 16, D 20 padded to 24, C 64, one block
+
+
+@pytest.mark.parametrize("final_ln", [False, True], ids=["block", "stack"])
+def test_ln_backward_rows_follow_the_width(final_ln):
+    """An LN backward holds 3 floats a column and 2 a row for each of its
+    rows in shared memory: at D = 1300 the 16-row tile (249,728 bytes)
+    outgrows a CTA, and the plan takes 14 rows a CTA where it refused before;
+    at the shipped widths it keeps 16."""
+    p = bwd_plan(64, 4, 32, 1300, 256, 2, final_ln)
+    assert p is not None and p["ln_rows"] == 14
+    assert bwd_plan(512, 4, 32, 128, 3072, 4, final_ln)["ln_rows"] == LN_ROWS
 
 
 @pytest.mark.parametrize("shape", [(1, 2**24, 8, 256, 8, 1), (4, 4, 32, 128, 3072, 33)],

@@ -196,12 +196,22 @@ def test_the_l_image_mixer_keeps_the_register_route(D):
         2 * half(D * C) + 4 * rows * D + half(rows * D) + half(rows * C) + 4 * ks16 * rows * D
 
 
+# the padded pitch of a bf16 forward at hidden width d -> its workspace bytes
+# (B 7, N 4, T 16, C 64, one block)
+PADDED_BF16 = {12: 12_160, 20: 16_448, 36: 25_024}
+
+
 @pytest.mark.parametrize("d", [12, 20, 36])
 def test_bf16_needs_hidden_width_of_8(d):
-    """TMA reads whole 16-byte rows: a bf16 forward at a hidden width that is
-    no multiple of 8 is refused (the wrapper raises), float32 takes it."""
-    with pytest.raises(ValueError, match="hidden_dim % 8"):
+    """TMA reads whole 16-byte rows: the kernels run a bf16 forward on rows
+    of a multiple of 8, so the wrapper pads a hidden width that is none to
+    the next one (``_pitch``) and the plan takes it; the unpadded width stays
+    refused by the library. float32 takes d as it is."""
+    dp = mk._pitch(d, True)
+    assert dp % 8 == 0 and 0 < dp - d < 8
+    with pytest.raises(ValueError, match="does not take"):
         mk._fwd_workspace_bytes(MirrorLib, 7, 4, 16, d, 64, 1, True, 0)
+    assert mk._fwd_workspace_bytes(MirrorLib, 7, 4, 16, dp, 64, 1, True, 0) == PADDED_BF16[d]
     assert mk._fwd_workspace_bytes(MirrorLib, 7, 4, 16, d, 64, 1, False, 0) > 0
 
 
@@ -215,12 +225,50 @@ def test_only_an_unaligned_channel_width_pads_w3():
 
 
 # too_many_tokens: more than the dropout masks' 32-bit element counts take
-@pytest.mark.parametrize("shape", [(1, 2**24, 8, 256, 8, 1), (4, 4, 32, 130, 3072, 1),
-                                   (4, 4, 32, 128, 3072, 33)],
-                         ids=["too_many_tokens", "unaligned_width", "too_many_blocks"])
+@pytest.mark.parametrize("shape", [(1, 2**24, 8, 256, 8, 1), (4, 4, 32, 128, 3072, 33)],
+                         ids=["too_many_tokens", "too_many_blocks"])
 def test_shapes_the_kernels_do_not_take_raise(shape):
     with pytest.raises(ValueError, match="does not take"):
         mk._fwd_workspace_bytes(MirrorLib, *shape, False, 0)
+
+
+# (B, N, T, D, C, blocks) at an unaligned hidden width -> float32 workspace
+# bytes at the padded pitch
+UNALIGNED = {(4, 4, 32, 130, 3072, 1): 483_840, (7, 4, 16, 30, 64, 2): 21_504}
+
+
+@pytest.mark.parametrize("shape", sorted(UNALIGNED), ids=lambda s: f"D{s[3]}")
+def test_unaligned_widths_take_the_padded_pitch(shape):
+    """A float32 hidden width that is no multiple of 4 runs at the pitch
+    ``_pitch`` pads it to (the float4 rows); the library refuses the
+    unpadded width, which the wrapper never passes."""
+    B, N, T, D, C, K = shape
+    dp = mk._pitch(D, False)
+    assert dp % 4 == 0 and 0 < dp - D < 4
+    with pytest.raises(ValueError, match="does not take"):
+        mk._fwd_workspace_bytes(MirrorLib, B, N, T, D, C, K, False, 0)
+    assert mk._fwd_workspace_bytes(MirrorLib, B, N, T, dp, C, K, False, 0) == UNALIGNED[shape]
+
+
+def test_padding_touches_only_the_hidden_width():
+    """``_pad_params`` pads every parameter along the hidden width with zeros
+    (the LN scales and biases, W3's rows, W4's columns, b4, the final LN) and
+    leaves the token FF and b3 as they are; ``_unpad_grads`` slices back."""
+    import torch
+
+    D, Dp, N, T, C = 5, 8, 3, 4, 6
+    shapes = [(D,), (D,), (N, T), (T,), (T, N), (N,), (D,), (D,), (D, C), (C,), (C, D), (D,)]
+    flat = tuple(torch.randn(*s) for s in shapes * 2 + [(D,), (D,)])
+    padded = mk._pad_params(flat, 2, True, D, Dp)
+    for a, b in zip(flat, padded):
+        sl = tuple(slice(0, n) for n in a.shape)
+        assert torch.equal(b[sl], a)
+        assert int((b != 0).sum()) == int((a != 0).sum())
+        assert all(m in (n, Dp) for n, m in zip(a.shape, b.shape))
+    assert [tuple(b.shape) for b in padded[:12]] == [
+        (Dp,), (Dp,), (N, T), (T,), (T, N), (N,), (Dp,), (Dp,), (Dp, C), (C,), (C, Dp), (Dp,)]
+    back = mk._unpad_grads(padded, 2, True, D)
+    assert all(torch.equal(a, b) for a, b in zip(flat, back))
 
 
 def test_more_than_32_tokens_take_the_token_pipeline():
