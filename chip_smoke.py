@@ -77,7 +77,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    row tile sized from the shared memory) in float32 and bf16 the same way.
    (At the end of 4: K1f, K2f (4 blocks + LN), K1b and K2b at hidden widths
    the kernels pad, D = 20 and 30 at the B shapes' N, T and C, batch 64,
-   dropout 0.5, float32 and bf16, by the checks above);
+   dropout 0.5, float32 and bf16, by the checks above; and at the MIMIC H
+   fusion mixer's shape, N 25, D 64, T 8, C 64, batch 128 and 512, dropout
+   0.3: float32 with erf, bf16 with tanh, each bf16 call's products on the
+   wgmma engine by the tallies). Then K3f / K3b above 128 tokens, the large-N
+   route (N = 129 and 196 at D 128, F 768, and 196 at F 4096; batch 32,
+   dropout 0.1; float32 and bf16 by the checks above), the launch tallies
+   showing one ``gmlp_vt_kernel`` and three (K3f) or eight (K3b) products of
+   the dtype's engine a call above 128 tokens, and the shared-memory SGU at
+   128;
 6. K4f / K4b, the DynaMixerOp kernels, against the plain version and its
    autograd at the DynaMixer config's op (L=7, C=256, H=8, R=2; S = 7 x 32
    and 7 x 512 sequences; the weights output-major, as ``DynaMixerOp``
@@ -162,6 +170,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    serving the library's tallies show every K3f/K3b product on the wgmma
    engine (two ``wg_gemm_kernel`` a K3f call, five a K3b call) and no
    ``tc_gemm_kernel``;
+    Then the MIMIC H config (``cfg/mimic/mimic_m2-mixer_H.yml``, full width:
+    static MLP 5 -> 64 -> 64 -> 64, time mixer 24 tokens 12 -> 64, fusion mixer
+    N 25, D 64, T 8, C 64) on a ``gen_mimic`` surrogate ``im.pk`` (2000 stays:
+    1600 train, 200 val, 200 test) written under a temporary directory:
+    2-epoch ``run.main`` runs with the plain modules and with the fusion
+    mixer on ``PallasStackedFusionMixer`` (K2f/K2b) and ``PallasFusionMixer``
+    (K1f/K1b), in float32 as shipped and in bf16 with bench.py's levers
+    (precision bf16, tanh GELU, bits dropout, bf16 Adam moment): losses
+    finite and falling, val and test accuracy at least 1/3, twice chance
+    (the plain float32 run of the same length reached 0.63 on the CPU),
+    the kernels counted (zeroed just before, read just after), none in the
+    plain runs; ``serving export --pallas`` of each plain run's best weights
+    (K2f), requests of 1-600 samples, float32 within 2e-4 of the plain
+    forward on the card, bf16 within 2e-2 x max(1, max|CPU|) of the same
+    artifact on the CPU; one accumulated update (``train.grad_accum_steps=4``,
+    micro-batch 32, dropout 0, stacked kernel blocks) on the card against the
+    same update on the CPU (losses 1e-5 relative, the averaged gradients 1e-4
+    x max(1, max|CPU|)). Then the gMLP config with the audio encoder at patch
+    8 (196 tokens; 246 in the fusion stack), depth cut to 2 + 2 + 2, through
+    the kernel blocks in float32 and bf16: a training step on the card
+    against the CPU (1e-4 / 2e-2 x max(1, max|CPU|)) and a served forward,
+    the large-N route counted by the tallies (one ``gmlp_vt_kernel`` a K3f
+    and a K3b call above 128 tokens);
 12. training the DynaMixer config: step 1 at ``model.dropout=0.0`` on the card
     against the same step on the CPU with the same weights and batch (the
     loss and the branch losses within 1e-5 relative, every gradient within
@@ -243,6 +274,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     call, its two channel products summed; bf16 K4f and K4b; the L served forward
     and train step (plain, stacked, per-block) and the bf16 DynaMixer
     served forward, batch 32 and 512;
+    Then this slice's: K1f, K2f, K1b and K2b at the MIMIC fusion shape (batch
+    128 and 512, float32 and bf16) with their plain versions and bounds; the
+    MIMIC H train step and served forward (plain, per-block, stacked;
+    float32 and bf16 levers; batch 128 and 512); K3f / K3b on the large-N
+    route at 196 tokens (batch 32 and 512, float32 and bf16) with their
+    plain versions, bounds and the SGU's token product as one
+    ``torch.matmul`` in the compute dtype (``library_ms``);
 16. one JSON line naming every ported kernel (the bf16 K4f/K4b, the bf16
     K3f/K3b and the token-pipeline K1f/K2f/K1b/K2b at the L fusion shape
     among them), the
@@ -3215,6 +3253,501 @@ def phase_new_route_times(torch, mk, dk, serving, Trainer, apply_overrides, load
         if k.startswith("l_train_step/")))
 
 
+# ------------------------------------- MIMIC and the gMLP's large-N route
+MIMIC_CFG = os.path.join(REPO, "cfg", "mimic", "mimic_m2-mixer_H.yml")
+# the H config's fusion mixer: the static token ahead of the 24 time tokens
+MIMIC_FUSION = dict(N=25, D=64, T=8, C=64)
+MIMIC_KERNEL_BLOCKS = {"stacked": ["model.modalities.multimodal.block_type="
+                                   "PallasStackedFusionMixer"],
+                       "per_block": ["model.modalities.multimodal.block_type=PallasFusionMixer"]}
+# bench.py's levers for the MIMIC H key (bench.py:223-241)
+MIMIC_BF16 = ["model.precision=bf16", "model.approximate_gelu=true", "model.bits_dropout=true",
+              "train.optimizer.moment_dtype=bf16"]
+# test accuracy after 2 epochs of the gen_mimic surrogate (2000 stays, seed
+# 0; 1600 train, 200 val and 200 test): twice chance (6 classes); the plain
+# float32 run of the same length reached 0.63 on the CPU (PERF.md)
+MIMIC_MIN_ACC = 2 / 6
+MIMIC_BATCHES = (128, 512)
+# the large-N route: the gMLP config's widths above 128 tokens (129: ragged
+# against every tile; 196: the audio gMLP at patch 8), and 128, the largest
+# token count of the shared-memory SGU
+GMLP_LARGE_N = (129, 196)
+GMLP_LARGE = dict(D=128, F=768)
+# a call's launches of the large-N route: one gmlp_vt_kernel; the products
+# (float32 on tc_gemm, bf16 on the wgmma engine): K3f three, K3b eight
+LARGE_N_PRODUCTS = {"K3f": 3, "K3b": 8}
+
+
+def check_large_n_route(counts, what: str, kernel: str, bf16: bool, large: bool) -> None:
+    """One K3f/K3b call (``counts``: its tallies) took the large-N route
+    (``large``: one gmlp_vt_kernel, LARGE_N_PRODUCTS products of the dtype's
+    engine, none of the other) or the shared-memory SGU (no gmlp_vt_kernel,
+    the products of WG_LAUNCHES)."""
+    engine, other = (("wg_gemm_kernel", "tc_gemm_kernel") if bf16 else
+                     ("tc_gemm_kernel", "wg_gemm_kernel"))
+    want = (1, LARGE_N_PRODUCTS[kernel], 0) if large else (0, WG_LAUNCHES[kernel], 0)
+    got = (counts["gmlp_vt_kernel"], counts[engine], counts[other])
+    if got != want:
+        raise AssertionError(f"{what}: (gmlp_vt_kernel, {engine}, {other}) launches {got}, "
+                             f"want {want}")
+    print(f"  {what}: {'large-N route' if large else 'shared-memory SGU'} by the tallies "
+          f"({got[0]} gmlp_vt_kernel, {got[1]} {engine})")
+
+
+def phase_gmlp_large_n(torch, gk, report):
+    """K3f / K3b above 128 tokens (GMLP_LARGE_N, the config's widths, batch
+    32, dropout 0.1) against the plain version and its autograd: float32
+    (rel_err) and bf16 (bf16_err, bf16_grad_check with their float32-math
+    controls); the launch tallies show the large-N route above 128 tokens
+    and the shared-memory SGU at 128; two backward runs bit-identical. Then
+    F = 4096 at 196 tokens the same way."""
+    print("[5/16] K3f / K3b above 128 tokens (the large-N route), float32 and bf16")
+    cases = [(N, GMLP_LARGE) for N in (128, *GMLP_LARGE_N)] + [(196, dict(D=128, F=4096))]
+    for N, width in cases:
+        p = gmlp_params(gk, torch, N=N, seed=39, **width)
+        gen = torch.Generator().manual_seed(N)
+        x = torch.randn(32, N, width["D"], generator=gen).cuda()
+        g = torch.randn(32, N, width["D"], generator=gen).cuda()
+        for dtype, cd in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            key = f"N{N}/F{width['F']}/B32/{dtype}"
+            bf16 = dtype == "bf16"
+            got, counts = tallied(torch, lambda: gk.fused_gmlp_block(
+                x, p, seed=9, dropout_rate=0.1, compute_dtype=cd))
+            check_large_n_route(counts, f"K3f/{key}", "K3f", bf16, N > 128)
+            run = lambda: gk.fused_gmlp_block_bwd(x, g, p, seed=9, dropout_rate=0.1,
+                                                  compute_dtype=cd)
+            (dx, grads), counts = tallied(torch, run)
+            check_large_n_route(counts, f"K3b/{key}", "K3b", bf16, N > 128)
+            want = gk.gmlp_block_reference(x, p, 0.1, seed=9, compute_dtype=cd)
+            wdx, wgrads = gk.gmlp_block_bwd_reference(x, g, p, 0.1, seed=9, compute_dtype=cd)
+            if not bf16:
+                report["errors"][f"K3f/{key}"] = rel_err(torch, [got], [want], f"K3f/{key}")
+                report["errors"][f"K3b/{key}"] = rel_err(torch, (dx, *grads), (wdx, *wgrads),
+                                                         f"K3b/{key}")
+            else:
+                control = round_bf16(torch, gk.gmlp_block_reference(x, p, 0.1, seed=9))
+                report["errors"][f"K3f/{key}"] = bf16_err(torch, got, want, control,
+                                                          f"K3f/{key}", report)
+                fdx, fgrads = gk.gmlp_block_bwd_reference(x, g, p, 0.1, seed=9)
+                control = [round_bf16(torch, t) if r else t
+                           for t, r in zip((fdx, *fgrads), GMLP_ROUNDED)]
+                report["errors"][f"K3b/{key}"] = bf16_grad_check(
+                    torch, (dx, *grads), (wdx, *wgrads), control, None, GMLP_ROUNDED,
+                    BF16_GRAD_SHARE["K1b"], f"K3b/{key}", report)
+            dx2, grads2 = run()
+            if not all(torch.equal(u, v) for u, v in zip((dx, *grads), (dx2, *grads2))):
+                raise AssertionError(f"K3b/{key}: two backward runs differ")
+        del p, x, g
+
+
+def phase_mimic_kernels(torch, mk, report):
+    """K1f, K2f (the shipped one block + LN), K1b and K2b at the MIMIC H
+    fusion mixer's shape (MIMIC_FUSION; the 8-wide token FF on the register
+    route), batch 128 and 512, dropout 0.3 (the config's): float32 with erf
+    (max_err, grad_err) and bf16 with tanh, bench.py's levers (bf16_err,
+    bf16_grad_check with their float32-math controls; each call's products
+    on the wgmma engine by the tallies); two backward runs bit-identical."""
+    print("[4/16] K1f / K2f / K1b / K2b at the MIMIC H fusion shape (N 25, D 64, T 8, C 64), "
+          "float32 and bf16")
+    blocks, s, b = rand_blocks(mk, torch, 1, seed=71, **MIMIC_FUSION)
+    flat = mk.stack_flat_params(blocks, s, b)
+    for B in MIMIC_BATCHES:
+        gen = torch.Generator().manual_seed(B + 25)
+        x = torch.randn(B, MIMIC_FUSION["N"], MIMIC_FUSION["D"], generator=gen).cuda()
+        g = torch.randn(B, MIMIC_FUSION["N"], MIMIC_FUSION["D"], generator=gen).cuda()
+        for dtype, cd, approx in (("f32", torch.float32, False), ("bf16", torch.bfloat16, True)):
+            tag = f"mimic/B{B}/{dtype}"
+            fwd = {"K1f": (lambda: mk.fused_mixer_block(x, blocks[0], 3, 0.3, cd, approx),
+                           lambda c: mk.mixer_block_reference(x, blocks[0], 0.3, c, approx,
+                                                              seed=3)),
+                   "K2f": (lambda: mk.fused_mixer_stack(x, flat, 4, 0.3, cd,
+                                                        approximate_gelu=approx),
+                           lambda c: mk.mixer_stack_reference(x, flat, c, approximate_gelu=approx,
+                                                              dropout_rate=0.3, seed=4))}
+            for kernel, (run, plain) in fwd.items():
+                key = f"{kernel}/{tag}"
+                got, counts = tallied(torch, run)
+                if dtype == "f32":
+                    report["errors"][key] = max_err(torch, got, plain(cd), key)
+                else:
+                    check_fwd_engine_route(counts, key)
+                    report["errors"][key] = bf16_err(torch, got, plain(cd),
+                                                     round_bf16(torch, plain(torch.float32)), key,
+                                                     report)
+                if not torch.equal(got, run()):
+                    raise AssertionError(f"{key}: two runs differ")
+            bwd = {"K1b": (lambda: mk.fused_mixer_block_bwd(x, g, blocks[0], 3, 0.3, cd, approx),
+                           lambda c: mk.mixer_block_bwd_reference(x, g, blocks[0], 0.3, c, approx,
+                                                                  seed=3),
+                           (True, *BF16_ROUNDED)),
+                   "K2b": (lambda: mk.fused_mixer_stack_bwd(x, g, flat, 4, 0.3, cd,
+                                                            approximate_gelu=approx),
+                           lambda c: mk.mixer_stack_bwd_reference(x, g, flat, 0.3, c,
+                                                                  approximate_gelu=approx,
+                                                                  seed=4),
+                           (True, *BF16_ROUNDED, True, True))}
+            for kernel, (run, plain, rounded) in bwd.items():
+                key = f"{kernel}/{tag}"
+                (dx, grads), counts = tallied(torch, run)
+                want = plain(cd)
+                if dtype == "f32":
+                    report["errors"][key] = grad_err(torch, (dx, *grads), (want[0], *want[1]),
+                                                     key)
+                else:
+                    # K2b without its saved block inputs recomputes the forward
+                    # first: that call's two channel products, then the backward's three
+                    check_engine_route({**counts, "wg_gemm_kernel": counts["wg_gemm_kernel"] -
+                                        (2 if kernel == "K2b" else 0)}, key)
+                    f32 = plain(torch.float32)
+                    control = [round_bf16(torch, t) if r else t
+                               for t, r in zip((f32[0], *f32[1]), rounded)]
+                    report["errors"][key] = bf16_grad_check(
+                        torch, (dx, *grads), (want[0], *want[1]), control, None, rounded,
+                        BF16_GRAD_SHARE["K1b"], key, report)
+                dx2, grads2 = run()
+                if not all(torch.equal(u, v) for u, v in zip((dx, *grads), (dx2, *grads2))):
+                    raise AssertionError(f"{key}: two backward runs differ")
+
+
+def mimic_counters(mk):
+    return {**counters(mk), "K1b_bf16": mk.fused_mixer_block_bwd.bf16_launches,
+            "K2b_bf16": mk.fused_mixer_stack_bwd.bf16_launches}
+
+
+def mimic_args(tmp, data, name, flavor, bf16):
+    return ["-c", MIMIC_CFG, "-n", name, f"train.tensorboard_path={tmp}", "train.epochs=2",
+            f"dataset.params.data_dir={data}", "dataset.params.num_workers=0",
+            *MIMIC_KERNEL_BLOCKS.get(flavor, []), *(MIMIC_BF16 if bf16 else [])]
+
+
+def mimic_task(serving, apply_overrides, load_cfg, flavor, bf16, extra=(), device="cuda"):
+    cfg = load_cfg(MIMIC_CFG)
+    apply_overrides(cfg, [*MIMIC_KERNEL_BLOCKS.get(flavor, []), *(MIMIC_BF16 if bf16 else []),
+                          *extra], warn=False)
+    return serving._build_task(cfg, device=device), cfg
+
+
+def phase_mimic(torch, mk, serving, run, Trainer, apply_overrides, load_cfg, np, report, tmp):
+    """The MIMIC H config (cfg/mimic/mimic_m2-mixer_H.yml) on the card at full
+    width: 2-epoch ``run.main`` runs on a ``gen_mimic`` surrogate pickle
+    (``im.pk``, 2000 stays) with the plain modules and the fusion mixer on
+    each kernel block type, in float32 as shipped and in bf16 with bench.py's
+    levers: losses finite and falling, val and test accuracy at least
+    MIMIC_MIN_ACC, K2f/K2b or K1f/K1b launched (counters zeroed just before,
+    read just after), no mixer kernel in the plain runs (the time mixer,
+    ``MLPMixerNoPatching``, stays plain as in JAX). Then ``serving export
+    --pallas`` of each plain run's best weights (K2f) against its plain
+    artifact: requests of 1-600 samples, float32 within SERVED_ATOL of the
+    plain forward on the card, bf16 within BF16_REL x max(1, max|CPU|) of
+    the same artifact on the CPU. Then one accumulated update
+    (``train.grad_accum_steps=4``, micro-batch 32, dropout 0, the stacked
+    kernel blocks) on the card against the same update on the CPU: the four
+    micro-batch losses within LOSS_REL, the averaged gradients within
+    GRAD_REL x max(1, max|CPU|), one optimizer update."""
+    from m2mixer_tpu_torch.datasets.surrogate import gen_mimic
+
+    print("[10/16] the MIMIC H config: 2-epoch runs on a surrogate im.pk (plain modules and "
+          "the fusion mixer's kernel blocks; float32 and bf16), export --pallas, one "
+          "accumulated update")
+    data = os.path.join(tmp, "data")
+    with contextlib.redirect_stdout(io.StringIO()):
+        gen_mimic(data, n=2000, seed=0)
+    runs = report["mimic_runs"] = {}
+    for bf16 in (False, True):
+        for flavor in ("plain", "stacked", "per_block"):
+            name = f"mimic_{flavor}{'_bf16' if bf16 else ''}"
+            runs[name] = train_run(run, np, mimic_args(tmp, data, name, flavor, bf16),
+                                   lambda: zero_bf16_counters(mk), lambda: mimic_counters(mk),
+                                   f"MIMIC H {flavor} {'bf16' if bf16 else 'float32'}",
+                                   MIMIC_MIN_ACC)
+            got = runs[name]["launches"]
+            if flavor == "plain" and any(got.values()):
+                raise AssertionError(f"the plain MIMIC run launched mixer kernels: {got}")
+            need = {"stacked": ("K2f", "K2b"), "per_block": ("K1f", "K1b")}.get(flavor, ())
+            need += tuple(f"{k}_bf16" for k in need if k.endswith("b") and bf16)
+            for k in need:
+                if got[k] <= 0:
+                    raise AssertionError(f"{k} was never launched on the MIMIC training path")
+    report["mimic_launches"] = {
+        f"{k}{sfx}": runs[f"mimic_{fl}{sfx}"]["launches"][k]
+        for sfx in ("", "_bf16") for k, fl in (("K1f", "per_block"), ("K1b", "per_block"),
+                                               ("K2f", "stacked"), ("K2b", "stacked"))}
+    rng = np.random.RandomState(5)
+    requests = {n: {"static": rng.randn(n, 5).astype(np.float32),
+                    "time": rng.randn(n, 24, 12).astype(np.float32)} for n in REQUESTS}
+    for bf16 in (False, True):
+        sfx = "_bf16" if bf16 else ""
+        log_root = os.path.join(tmp, f"mimic_plain{sfx}")
+        best = os.path.join(log_root, sorted(os.listdir(log_root))[-1], "checkpoints", "best.npz")
+        plain_dir, kernel_dir = os.path.join(tmp, f"plain{sfx}"), os.path.join(tmp, f"kernel{sfx}")
+        over = MIMIC_BF16 if bf16 else []
+        with contextlib.redirect_stdout(io.StringIO()):
+            serving.main(["export", "-c", MIMIC_CFG, "-p", best, "-o", plain_dir, *over])
+            serving.main(["export", "-c", MIMIC_CFG, "-p", best, "-o", kernel_dir, "--pallas",
+                          *over])
+        plain, kernel = serving.load_serving(plain_dir), serving.load_serving(kernel_dir)
+        ref = serving.load_serving(kernel_dir, device="cpu") if bf16 else plain
+        zero_counters(mk)
+        answers = {n: kernel.predict(f) for n, f in requests.items()}
+        launches = counters(mk)["K2f"]
+        if launches <= 0 or kernel.meta["block_flavor"] != "kernel":
+            raise AssertionError(f"MIMIC serving{sfx}: K2f launched {launches} times")
+        worst = 0.0
+        for n, got in answers.items():
+            want = ref.predict(requests[n])
+            for a, w in [(got["logits"], want["logits"])] + list(zip(got["branch_logits"],
+                                                                       want["branch_logits"])):
+                err = float(np.abs(a - w).max())
+                tol = BF16_REL * max(1.0, float(np.abs(w).max())) if bf16 else SERVED_ATOL
+                if a.shape != w.shape or not np.isfinite(a).all() or not err <= tol:
+                    raise AssertionError(f"MIMIC serving{sfx} n={n}: |err| {err} > {tol}")
+                worst = max(worst, err)
+        print(f"  MIMIC H serving{sfx} (export --pallas of the plain run's best weights, K2f "
+              f"{launches} launches, against {'the same artifact on the CPU' if bf16 else 'the plain forward'}): "
+              f"requests {list(REQUESTS)}, worst |err| {worst:.3e}")
+        report["errors"][f"mimic_served{sfx}"] = worst
+        report[f"mimic_serving_launches{sfx}"] = launches
+
+    # one accumulated update: K = 4 micro-batches of 32 on the card and the CPU
+    batches = [{k: v[i * 32:(i + 1) * 32] for k, v in requests[600].items()} for i in range(4)]
+    for b in batches:
+        b["label"] = rng.randint(0, 6, (32,)).astype(np.int32)
+    result = {}
+    for device in ("cuda", "cpu"):
+        task, cfg = mimic_task(serving, apply_overrides, load_cfg, "stacked", False,
+                               ["model.dropout=0.0", "train.grad_accum_steps=4"], device=device)
+        if device == "cpu":
+            task.network.load_state_dict(result["cuda"]["init"])
+        trainer = Trainer(cfg.train, name=f"mimic_accum_{device}", work_dir=tmp)
+        trainer.setup(task)
+        ctx = task.make_ctx(0, "train")
+        init = {k: v.detach().cpu().clone() for k, v in task.network.state_dict().items()}
+        trainer.optimizer.zero_grad(set_to_none=True)
+        losses = [trainer.micro_step(task, trainer._to_device(task, b), ctx)[0] for b in batches]
+        grads = {n: (p.grad / 4).detach().cpu() for n, p in task.network.named_parameters()}
+        trainer.apply_update(task, ctx, 4)
+        moved = any(not torch.equal(init[n], p.detach().cpu())
+                    for n, p in task.network.named_parameters())
+        result[device] = {"init": init, "losses": torch.stack(losses).cpu(), "grads": grads,
+                          "moved": moved}
+        trainer.logger.close()
+    g, c = result["cuda"], result["cpu"]
+    if not (g["moved"] and c["moved"]):
+        raise AssertionError("the accumulated update moved no parameter")
+    key = "MIMIC accumulated update (K=4, micro-batch 32): micro-batch losses"
+    report["errors"][key] = rel_err(torch, [g["losses"]], [c["losses"]], key, LOSS_REL)
+    names = sorted(g["grads"])
+    key = f"MIMIC accumulated update (K=4, micro-batch 32): {len(names)} averaged gradients"
+    report["errors"][key] = grad_err(torch, [g["grads"][n] for n in names],
+                                     [c["grads"][n] for n in names], key)
+
+
+def phase_mimic_times(torch, mk, gk, serving, Trainer, apply_overrides, load_cfg, np, report):
+    """CUDA events, median of 5 runs: K1f, K2f, K1b and K2b at the MIMIC
+    fusion shape (batch 128 and 512, float32 and bf16) with their plain
+    versions and bounds; the MIMIC H train step and served forward (plain
+    modules, per-block and stacked kernel blocks; float32 as shipped and bf16
+    with bench.py's levers; batch 128 and 512); K3f and K3b on the large-N
+    route at 196 tokens (the config's widths, batch 32 and 512, float32 and
+    bf16) with their plain versions, bounds, and the SGU's token product
+    (B*F/2 x N) x (N x N) as one ``torch.matmul`` in the compute dtype."""
+    print("[15/16] MIMIC and large-N gMLP times (CUDA events, median of 5 runs)")
+    times, bounds = report["times_ms"], report["bounds_ms"]
+    lib = report.setdefault("library_ms", {})
+    geom = MIMIC_FUSION
+    blocks, s, b = rand_blocks(mk, torch, 1, seed=72, **geom)
+    flat = mk.stack_flat_params(blocks, s, b)
+    for B in MIMIC_BATCHES:
+        gen = torch.Generator().manual_seed(7)
+        x = torch.randn(B, geom["N"], geom["D"], generator=gen).cuda()
+        g = torch.randn(B, geom["N"], geom["D"], generator=gen).cuda()
+        for dtype, cd in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            tag = f"mimic/B{B}/{dtype}"
+            calls = {
+                "K1f": lambda: mk.fused_mixer_block(x, blocks[0], compute_dtype=cd),
+                "K1f_plain": lambda: mk.mixer_block_reference(x, blocks[0], compute_dtype=cd),
+                "K2f": lambda: mk.fused_mixer_stack(x, flat, compute_dtype=cd),
+                "K2f_plain": lambda: mk.mixer_stack_reference(x, flat, cd),
+                "K1b": lambda: mk.fused_mixer_block_bwd(x, g, blocks[0], 1, 0.3, cd),
+                "K1b_plain": lambda: mk.mixer_block_bwd_reference(x, g, blocks[0], 0.3, cd,
+                                                                  seed=1),
+                "K2b": lambda: mk.fused_mixer_stack_bwd(x, g, flat, 1, 0.3, cd),
+                "K2b_plain": lambda: mk.mixer_stack_bwd_reference(x, g, flat, 0.3, cd, seed=1)}
+            for name, fn in calls.items():
+                times[f"{name}/{tag}"] = cuda_ms(torch, fn)
+            peak = "bf16" if dtype == "bf16" else "f32"
+            ffl, pbytes = block_work(B, **geom, wbytes=2 if dtype == "bf16" else 4)
+            act = 2 * B * geom["N"] * geom["D"] * 4
+            bfl, bbytes = bwd_work(B, **geom)
+            bounds[f"K1f/{tag}"] = bound(ffl, pbytes + act, peak)
+            bounds[f"K2f/{tag}"] = bound(ffl, pbytes + 8 * geom["D"] + act, peak)
+            bounds[f"K1b/{tag}"] = bound(bfl, bbytes, peak)
+            bounds[f"K2b/{tag}"] = bound(bfl, bbytes + 16 * geom["D"], peak)
+            print(f"  {tag}: " + "; ".join(
+                f"{n} {times[f'{n}/{tag}']:.4f} ms (plain {times[f'{n}_plain/{tag}']:.4f}, "
+                f"bound {bounds[f'{n}/{tag}'][0]:.5f} {bounds[f'{n}/{tag}'][1]})"
+                for n in ("K1f", "K2f", "K1b", "K2b")))
+    rng = np.random.RandomState(8)
+    data = {"static": rng.randn(512, 5).astype(np.float32),
+            "time": rng.randn(512, 24, 12).astype(np.float32),
+            "label": rng.randint(0, 6, (512,)).astype(np.int32)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mimic_steps_") as tmp:
+        for bf16 in (False, True):
+            for flavor in ("plain", "per_block", "stacked"):
+                tag = f"{flavor}{'_bf16' if bf16 else ''}"
+                task, cfg = mimic_task(serving, apply_overrides, load_cfg, flavor, bf16)
+                trainer = Trainer(cfg.train, name=f"mimic_steps_{tag}", work_dir=tmp)
+                trainer.setup(task)
+                ctx = task.make_ctx(0, "train")
+                fwd = serving.serve_fn(task)
+                for B in MIMIC_BATCHES:
+                    batch = {k: torch.from_numpy(v[:B]).cuda() for k, v in data.items()}
+                    times[f"mimic_train_step/{tag}/B{B}"] = cuda_ms(
+                        torch, lambda: trainer.train_step(task, batch, ctx), iters=10)
+                    feats = {k: v for k, v in batch.items() if k != "label"}
+                    times[f"mimic_served/{tag}/B{B}"] = cuda_ms(torch, lambda: fwd(feats))
+                trainer.logger.close()
+                del task, trainer
+    print("  MIMIC H train step / served forward: " + ", ".join(
+        f"{k.split('/', 1)[1]} {v:.4f} ms" for k, v in times.items()
+        if k.startswith(("mimic_train_step/", "mimic_served/"))))
+    N = 196
+    p = gmlp_params(gk, torch, N=N, seed=40, **GMLP_LARGE)
+    H = GMLP_LARGE["F"] // 2
+    for B in (32, 512):
+        gen = torch.Generator().manual_seed(9)
+        x = torch.randn(B, N, GMLP_LARGE["D"], generator=gen).cuda()
+        g = torch.randn(B, N, GMLP_LARGE["D"], generator=gen).cuda()
+        flops, pbytes = gmlp_work(B, N, **GMLP_LARGE)
+        act = B * N * GMLP_LARGE["D"] * 4
+        for dtype, cd in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            tag = f"N{N}/B{B}/{dtype}"
+            calls = {"K3f": lambda: gk.fused_gmlp_block(x, p, compute_dtype=cd),
+                     "K3f_plain": lambda: gk.gmlp_block_reference(x, p, compute_dtype=cd),
+                     "K3b": lambda: gk.fused_gmlp_block_bwd(x, g, p, compute_dtype=cd),
+                     "K3b_plain": lambda: gk.gmlp_block_bwd_reference(x, g, p,
+                                                                      compute_dtype=cd)}
+            for name, fn in calls.items():
+                times[f"{name}/{tag}"] = cuda_ms(torch, fn, iters=5)
+            peak, wbytes = ("bf16", pbytes // 2) if dtype == "bf16" else ("f32", pbytes)
+            bounds[f"K3f/{tag}"] = bound(flops, wbytes + 2 * act, peak)
+            bounds[f"K3b/{tag}"] = bound(2 * flops, wbytes + pbytes + 3 * act, peak)
+            a = torch.randn(B * H, N, device="cuda").to(cd)
+            w = torch.randn(N, N, device="cuda").to(cd)
+            lib[f"K3_sgu_token_product/{tag}"] = cuda_ms(torch, lambda: torch.matmul(a, w))
+            print(f"  K3 large-N {tag}: " + "; ".join(
+                f"{n} {times[f'{n}/{tag}']:.4f} ms (plain {times[f'{n}_plain/{tag}']:.4f}, "
+                f"bound {bounds[f'{n}/{tag}'][0]:.4f} {bounds[f'{n}/{tag}'][1]})"
+                for n in ("K3f", "K3b")) + f"; the SGU token product as one torch.matmul "
+                f"{lib[f'K3_sgu_token_product/{tag}']:.4f} ms")
+            del calls, a, w
+        torch.cuda.empty_cache()
+
+
+def phase_gmlp_p8(torch, gk, serving, apply_overrides, load_cfg, np, report):
+    """The large-N route on a main path: the gMLP config with the audio
+    encoder at patch 8 (196 tokens; the fusion stack then holds 246), depth
+    cut to 2 + 2 + 2 blocks, through PallasVisiongMLP / PallasFusiongMLP, in
+    float32 and bf16: one training step (dropout 0, stochastic depth pinned
+    off) on the card against the CPU, the losses and every gradient within
+    GRAD_REL (float32) or BF16_REL (bf16) x max(1, max|CPU|), then one served
+    forward of 32 samples; the K3f/K3b counters zeroed just before and read
+    just after, and the tallies' gmlp_vt_kernel launches: one a K3f and one
+    a K3b call (every block above 128 tokens)."""
+    print("[11/16] the gMLP config at audio patch 8 (196 + 246 tokens, the large-N route), "
+          "depth cut to 2 + 2 + 2: a training step on the card against the CPU, a served "
+          "forward")
+    over = ["model.modalities.audio.patch_size=8", "model.dropout=0.0", *GMLP_NO_DEPTH_DROP,
+            *(f"model.modalities.{k}.n_blocks=2" for k in ("image", "audio", "multimodal")),
+            *GMLP_KERNEL_BLOCKS]
+    rng = np.random.RandomState(11)
+    batch = {"image": rng.rand(32, 1, 28, 28).astype(np.float32),
+             "audio": rng.rand(32, 1, 112, 112).astype(np.float32),
+             "label": rng.randint(0, 10, (32,)).astype(np.int32)}
+    launches = report["gmlp_p8_launches"] = {}
+    for dtype in ("f32", "bf16"):
+        extra = over + (["model.precision=bf16"] if dtype == "bf16" else [])
+        tasks = {}
+        for device in ("cuda", "cpu"):
+            cfg = load_cfg(GMLP_CFG)
+            apply_overrides(cfg, extra, warn=False)
+            tasks[device] = serving._build_task(cfg, device=device)
+        tasks["cpu"].network.load_state_dict(tasks["cuda"].network.state_dict())
+        gk.fused_gmlp_block.launches = gk.fused_gmlp_block_bwd.launches = 0
+        (g_losses, g_grads), counts = tallied(torch, lambda: train_step_one(
+            torch, tasks["cuda"], {k: torch.from_numpy(v).cuda() for k, v in batch.items()}))
+        step = {"K3f": gk.fused_gmlp_block.launches, "K3b": gk.fused_gmlp_block_bwd.launches,
+                "gmlp_vt_kernel": counts["gmlp_vt_kernel"]}
+        c_losses, c_grads = train_step_one(torch, tasks["cpu"],
+                                           {k: torch.from_numpy(v) for k, v in batch.items()})
+        rel = BF16_REL if dtype == "bf16" else GRAD_REL
+        key = f"gMLP p8 step/{dtype}: loss, branch losses"
+        report["errors"][key] = rel_err(torch, torch.stack(g_losses).cpu(),
+                                        torch.stack(c_losses), key, rel)
+        names = sorted(g_grads)
+        key = f"gMLP p8 step/{dtype}: {len(names)} parameter gradients"
+        report["errors"][key] = rel_err(torch, [g_grads[n].cpu() for n in names],
+                                        [c_grads[n] for n in names], key, rel)
+        fwd = serving.serve_fn(tasks["cuda"])
+        feats = {k: torch.from_numpy(v).cuda() for k, v in batch.items() if k != "label"}
+        gk.fused_gmlp_block.launches = 0
+        _, counts = tallied(torch, lambda: fwd(feats))
+        served = {"K3f": gk.fused_gmlp_block.launches, "gmlp_vt_kernel": counts["gmlp_vt_kernel"]}
+        print(f"  {dtype}: step launches {step}, served forward {served}")
+        if not (step["K3f"] == 6 and step["K3b"] == 6 and step["gmlp_vt_kernel"] == 8
+                and served == {"K3f": 6, "gmlp_vt_kernel": 4}):
+            raise AssertionError(f"gMLP p8 {dtype}: the large-N route's launches {step} {served}")
+        launches[dtype] = {"step": step, "served": served}
+        del tasks
+
+
+def slice_kernels(report) -> list:
+    """The kernels line's rows of this slice: K1f, K2f, K1b and K2b at the MIMIC
+    H fusion shape (batch 512, float32 and bf16; launches from the 2-epoch
+    MIMIC runs), K3f and K3b on the large-N route (196 tokens, batch 512,
+    float32 and bf16; launches from the audio-patch-8 gMLP step and served
+    forward, max |err| from the batch-32 checks)."""
+    t, bd, lib = report["times_ms"], report["bounds_ms"], report["library_ms"]
+    runs = report["mimic_launches"]
+    rows = []
+    for dtype in ("f32", "bf16"):
+        tag = f"mimic/B512/{dtype}"
+        sfx = "_bf16" if dtype == "bf16" else ""
+        for k, src, what in (("K1f", "mixer_fwd.cu", "one MixerBlock"),
+                             ("K2f", "mixer_fwd.cu", "1 MixerBlock + LN"),
+                             ("K1b", "mixer_bwd.cu", "one MixerBlock backward"),
+                             ("K2b", "mixer_bwd.cu", "1 MixerBlock + LN backward")):
+            rows.append({
+                "name": f"{'mixer_fwd' if k.endswith('f') else 'mixer_bwd'} {dtype} ({k}, {what}, "
+                        "MIMIC H fusion: B=512 N=25 D=64 T=8 C=64, the token FF in registers)",
+                "route": "cuda", "source": f"m2mixer_tpu_torch/ops/csrc/{src}",
+                "replaces": {"K1f": "m2mixer_tpu/ops/mixer_kernel.py:213",
+                             "K2f": "m2mixer_tpu/ops/mixer_kernel.py:421",
+                             "K1b": "m2mixer_tpu/ops/mixer_kernel.py:267",
+                             "K2b": "m2mixer_tpu/ops/mixer_kernel.py:506"}[k],
+                "launches": runs[f"{k}{sfx}"], "max_abs_err": report["errors"][f"{k}/{tag}"],
+                "ms": t[f"{k}/{tag}"], "plain_ms": t[f"{k}_plain/{tag}"],
+                "bound_ms": bd[f"{k}/{tag}"][0], "bound_by": bd[f"{k}/{tag}"][1],
+                "library_ms": None})
+        tag = f"N196/B512/{dtype}"
+        p8 = report["gmlp_p8_launches"][dtype]
+        for k, line, what in (("K3f", 134, "one gMLP block"),
+                              ("K3b", 167, "one gMLP block backward")):
+            rows.append({
+                "name": f"gmlp_{'fwd' if k == 'K3f' else 'bwd'} {dtype} large-N route ({k}, "
+                        f"{what}, B=512 N=196 D=128 F=768: the SGU's token products over "
+                        "the B*F/2 rows)",
+                "route": "cuda", "source": "m2mixer_tpu_torch/ops/csrc/gmlp.cu",
+                "replaces": f"m2mixer_tpu/ops/gmlp_kernel.py:{line}",
+                "launches": (p8["step"]["K3f"] + p8["served"]["K3f"] if k == "K3f"
+                             else p8["step"]["K3b"]),
+                "max_abs_err": report["errors"][f"{k}/N196/F768/B32/{dtype}"],
+                "ms": t[f"{k}/{tag}"], "plain_ms": t[f"{k}_plain/{tag}"],
+                "bound_ms": bd[f"{k}/{tag}"][0], "bound_by": bd[f"{k}/{tag}"][1],
+                "library_ms": lib[f"K3_sgu_token_product/{tag}"]})
+    return rows
+
+
 # ------------------------------------------- yardsticks, registers, A/B times
 def product_yardsticks(torch, report) -> None:
     """Each product of K1b, K3f, K3b, K4f and K4b at batch 512 timed as one
@@ -3678,9 +4211,11 @@ def main() -> int:
     phase_bf16_backward(torch, mk, report)
     phase_mixer_widths(torch, mk, report)
     phase_l_kernels(torch, mk, report)
+    phase_mimic_kernels(torch, mk, report)
     phase_gmlp_kernels(torch, gk, report)
     phase_gmlp_bf16_kernels(torch, gk, report)
     phase_gmlp_widths(torch, gk, report)
+    phase_gmlp_large_n(torch, gk, report)
     phase_dyna_kernels(torch, dk, report)
     phase_dyna_bf16_kernels(torch, dk, report)
     phase_error_rows(torch, mk, gk, dk, _build.load_library(), report)
@@ -3706,6 +4241,10 @@ def main() -> int:
     phase_dyna_training(torch, dk, serving, run, apply_cli_overrides, load_cfg,
                         synthetic_avmnist_arrays, np, report)
     dyna_bf16_served = phase_dyna_bf16(torch, dk, serving, run, np, report)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mimic_") as tmp:
+        phase_mimic(torch, mk, serving, run, Trainer, apply_cli_overrides, load_cfg, np, report,
+                    tmp)
+    phase_gmlp_p8(torch, gk, serving, apply_cli_overrides, load_cfg, np, report)
     phase_times(torch, mk, serving, np, plain, models, report)
     phase_train_times(torch, mk, serving, Trainer, apply_cli_overrides, load_cfg,
                       synthetic_avmnist_arrays, report)
@@ -3722,6 +4261,7 @@ def main() -> int:
     phase_new_route_times(torch, mk, dk, serving, Trainer, apply_cli_overrides, load_cfg,
                           synthetic_avmnist_arrays, np, report, l_served, dyna_bf16_served)
     l_tmp.cleanup()
+    phase_mimic_times(torch, mk, gk, serving, Trainer, apply_cli_overrides, load_cfg, np, report)
     product_yardsticks(torch, report)
 
     card = card_line()
@@ -3891,6 +4431,7 @@ def main() -> int:
          "ms": t[gb], "plain_ms": t["K3b_bf16_plain/encoder/B512"],
          "bound_ms": bd[gb][0], "bound_by": bd[gb][1], "library_ms": None},
     ]
+    kernels += slice_kernels(report)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({**report, "kernels": kernels}, f, indent=2)

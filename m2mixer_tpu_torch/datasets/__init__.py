@@ -8,10 +8,12 @@ from __future__ import annotations
 
 from .avmnist import AVMnistDataModule, synthetic_avmnist_arrays
 from .base import ArrayDataModule
+from .mimic import MIMICDataModule
 
-__all__ = ["AVMnistDataModule", "ArrayDataModule", "get_data_module", "synthetic_avmnist_arrays"]
+__all__ = ["AVMnistDataModule", "ArrayDataModule", "MIMICDataModule", "get_data_module",
+           "synthetic_avmnist_arrays"]
 
-DATA_MODULES = {"AVMnistDataModule": AVMnistDataModule}
+DATA_MODULES = {c.__name__: c for c in (AVMnistDataModule, MIMICDataModule)}
 
 
 def get_data_module(data_type: str):

@@ -8,11 +8,12 @@ from __future__ import annotations
 
 from .avmnist import AVMnistMixerMultiLoss
 from .base import MultiLossTask, TrainTask, resolve_device, resolve_dtype
+from .mimic import MimicMixerMultiLoss, MimicRecurrent
 
-__all__ = ["AVMnistMixerMultiLoss", "MultiLossTask", "TrainTask", "get_model",
-           "resolve_device", "resolve_dtype"]
+__all__ = ["AVMnistMixerMultiLoss", "MimicMixerMultiLoss", "MimicRecurrent", "MultiLossTask",
+           "TrainTask", "get_model", "resolve_device", "resolve_dtype"]
 
-MODELS = {"AVMnistMixerMultiLoss": AVMnistMixerMultiLoss}
+MODELS = {c.__name__: c for c in (AVMnistMixerMultiLoss, MimicMixerMultiLoss, MimicRecurrent)}
 
 
 def get_model(model_type: str):

@@ -16,10 +16,12 @@ from .classification import StandardClassifier
 from .dynamixer import DynaMixer, DynaMixerBlock, DynaMixerOp, FusionDynaMixer
 from .fusion import ConcatDynaFusion, ConcatFusion, MaxFusion
 from .gmlp import FusiongMLP, GatingMlpBlock, SpatialGatingUnit, VisiongMLP, gMLP
-from .mixer import FeedForward, FusionMixer, MixerBlock, MLPMixer
+from .mixer import FeedForward, FusionMixer, MixerBlock, MLPMixer, MLPMixerNoPatching
+from .mlp import MLP
 from .pallas_blocks import (PallasFusiongMLP, PallasFusionMixer, PallasGatingMlpBlock,
                             PallasMixerBlock, PallasMLPMixer, PallasStackedFusionMixer,
                             PallasStackedMLPMixer, PallasVisiongMLP)
+from .recurrent import GRU
 
 __all__ = [
     "FeedForward", "MixerBlock", "MLPMixer", "FusionMixer", "ConcatFusion",
@@ -27,7 +29,8 @@ __all__ = [
     "PallasStackedMLPMixer", "PallasStackedFusionMixer", "SpatialGatingUnit",
     "GatingMlpBlock", "gMLP", "VisiongMLP", "FusiongMLP", "PallasGatingMlpBlock",
     "PallasVisiongMLP", "PallasFusiongMLP", "DynaMixerOp", "DynaMixerBlock", "DynaMixer",
-    "FusionDynaMixer", "ConcatDynaFusion", "MaxFusion", "build_component", "get_block_by_name",
+    "FusionDynaMixer", "ConcatDynaFusion", "MaxFusion", "MLPMixerNoPatching", "MLP", "GRU",
+    "build_component", "get_block_by_name",
     "get_fusion_by_name", "get_classifier_by_name",
 ]
 
@@ -35,7 +38,8 @@ BLOCKS = {c.__name__: c for c in (MLPMixer, FusionMixer, PallasMLPMixer, PallasF
                                   PallasStackedMLPMixer, PallasStackedFusionMixer,
                                   SpatialGatingUnit, GatingMlpBlock, gMLP, VisiongMLP,
                                   FusiongMLP, PallasGatingMlpBlock, PallasVisiongMLP,
-                                  PallasFusiongMLP, DynaMixer, FusionDynaMixer)}
+                                  PallasFusiongMLP, DynaMixer, FusionDynaMixer,
+                                  MLPMixerNoPatching, MLP, GRU)}
 FUSIONS = {c.__name__: c for c in (ConcatFusion, ConcatDynaFusion, MaxFusion)}
 CLASSIFIERS = {"StandardClassifier": StandardClassifier}
 

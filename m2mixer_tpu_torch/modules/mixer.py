@@ -1,7 +1,9 @@
 """MLP-Mixer blocks as plain PyTorch modules (the XLA path's counterpart).
 
-Counterpart of ``m2mixer_tpu/modules/mixer.py:36-260``: ``FeedForward``,
-``MixerBlock``, ``MLPMixer`` and ``FusionMixer`` with the same config keys
+Counterpart of ``m2mixer_tpu/modules/mixer.py:36-293``: ``FeedForward``,
+``MixerBlock``, ``MLPMixer``, ``FusionMixer`` and ``MLPMixerNoPatching`` (the
+MIMIC time-series encoder: a Linear projection in place of the patch
+embedding) with the same config keys
 and submodule names, so the JAX parameter tree maps onto them leaf for leaf
 (``utils/weights.py``). Every module exposes ``num_patch``: the fusion
 shape inference sizes the fusion mixer from it.
@@ -16,7 +18,7 @@ from torch import nn
 
 from .common import Dropout, LayerNorm, Linear, PatchEmbed, gelu
 
-__all__ = ["FeedForward", "MixerBlock", "MLPMixer", "FusionMixer"]
+__all__ = ["FeedForward", "MixerBlock", "MLPMixer", "FusionMixer", "MLPMixerNoPatching"]
 
 
 class FeedForward(nn.Module):
@@ -105,6 +107,29 @@ class MLPMixer(nn.Module):
 
     def forward(self, x: torch.Tensor):
         x = self.patch_embed(x)
+        for block in self.blocks:
+            x = block(x)
+        return self.norm_out(x)
+
+
+class MLPMixerNoPatching(nn.Module):
+    """Linear projection ``proj`` of ``(B, num_patch, embedding_dim)`` to
+    ``proj_dim`` -> MixerBlocks -> LN (``m2mixer_tpu/modules/mixer.py:263-293``)."""
+
+    def __init__(self, hidden_dim: int, num_patch: int, num_mixers: int, token_dim: int,
+                 channel_dim: int, embedding_dim: int, proj_dim: int, dropout: float = 0.0, *,
+                 dtype=None, approximate_gelu: bool = False, bits_dropout: bool = False,
+                 generator=None):
+        super().__init__()
+        self.num_patch = int(num_patch)
+        self.proj = Linear(embedding_dim, proj_dim, dtype=dtype, generator=generator)
+        self.blocks = _blocks(num_mixers, hidden_dim, num_patch, token_dim, channel_dim, dropout,
+                              dtype=dtype, approximate_gelu=approximate_gelu,
+                              bits_dropout=bits_dropout, generator=generator)
+        self.norm_out = LayerNorm(hidden_dim, dtype=dtype)
+
+    def forward(self, x: torch.Tensor):
+        x = self.proj(x)
         for block in self.blocks:
             x = block(x)
         return self.norm_out(x)

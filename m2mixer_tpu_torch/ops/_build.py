@@ -29,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libm2mixer_torch_kernels.so"
 # the kernels the library tallies where it enqueues them (mixer_common.cuh's
 # M2mTally order)
-TALLIED_KERNELS = ("wg_gemm_kernel", "tc_gemm_kernel", "tok_in_kernel")
+TALLIED_KERNELS = ("wg_gemm_kernel", "tc_gemm_kernel", "tok_in_kernel", "gmlp_vt_kernel")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", *ARCH_FLAGS]
 

@@ -151,6 +151,9 @@
 //     partials of the dout operand (ln_rows_bf16_kernel), all reduced by
 //     reduce_jobs_kernel in a fixed order; no column-sum launch reads dpre or
 //     dout again.
+// Above kSguSeq (128) tokens a sample's N x N projection outgrows the SGU's
+// shared memory: both dtypes then take the large-N route (its section below),
+// the token projection and its gradients as products over all rows.
 // There is no fallback: a bf16 call the engine cannot take, or a failed TMA
 // encode or launch, returns an error and the wrapper raises.
 
@@ -158,13 +161,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "mixer_common.cuh"
 #include "tile_common.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
 
-constexpr int kMaxSeq = 128;   // tokens a sample may have
+constexpr int kSguSeq = 128;   // tokens the shared-memory SGU takes; the large-N route above
+constexpr int kMaxSeq = 46340; // tokens a sample may have: sgu_w's N x N elements counted in int
 constexpr int kChunk = 64;     // v-channels per SGU chunk, 8 a warp
 constexpr int kRowTile = 32;   // rows per CTA of the LN backward and the bf16 row kernels
 constexpr int kWarps = kThreads / 32;
@@ -1287,6 +1293,260 @@ struct EpiDgWg {
   }
 };
 
+// ------------------------------------------------------------ large-N route
+// Above kSguSeq tokens a sample's N x N token projection no longer fits the
+// SGU's shared memory. There the SGU runs as the mixer's token pipeline runs
+// its token FF (token_ff.cuh): products over all rows of the token
+// projection's own layout, (B*F/2, N) rows r = b*F/2 + c, as _block_math
+// writes it (gmlp_kernel.py:70-73):
+//   vt_kernel:   vt = LN(v) in that layout (a 32 x 32 tile of tokens x
+//                v-channels a CTA, transposed through shared memory);
+//   forward:     t = vt sgu_w, its epilogue t' = (t + sgu_b) m1 (mask 1 counts
+//                in this layout: r * N + n) and gated = u t' into gated's
+//                (B*N, F/2) rows;
+//   backward:    the same product recomputes t', its epilogue the gate: gated,
+//                dpre's u half and dt (in vt's layout); dv' = dt sgu_w^T, its
+//                epilogue dv' into dpre's v half; d sgu_w = vt^T dt over row
+//                slices of the B*F/2 rows, summed in slice order; d sgu_b the
+//                column sums of dt over the same slices.
+// float32 runs the products on tc_gemm (3xTF32), bf16 on the wgmma engine with
+// the casts above (vt = bf16(LN(v)), sgu_w rounded, dt's bits times mask 1's
+// keep bit, the dropout scale on the sums), each with its own kernels and
+// epilogues: the SGU kernels of the route below kSguSeq are untouched. The
+// epilogues write gated, dpre and dv' a warp's 8 tokens x 8 v-channels at a
+// time (32-byte runs), which is where this route spends bytes the
+// shared-memory SGU does not. The products' grids bound it: B*F/2 rows in at
+// most 65535 tiles of 128.
+
+// vt[(b F/2 + c) ld + n] = LN(v)[b N + n, c] (kFromPre: v = gelu(a)), the
+// statistics from vstats_kernel; bf16: LN's scale and bias read rounded, vt
+// rounded (the token projection's operand). A 32 x 32 tile a CTA (32 x 8
+// threads), tokens n0.. and v-channels c0.. of sample blockIdx.z.
+template <bool kFromPre, bool kBf16>
+__global__ void __launch_bounds__(256)
+    vt_kernel(const float* __restrict__ a, const float* __restrict__ vstats,
+              const float* __restrict__ s, const float* __restrict__ bias, void* __restrict__ vt,
+              int ld, int N, int F, int R, int tanh_flavor) {
+  __shared__ float tile[32][33];
+  const int H = F / 2, b = blockIdx.z, n0 = blockIdx.y * 32, c0 = blockIdx.x * 32;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int i = ty; i < 32; i += 8) {
+    const int n = n0 + i, c = c0 + tx;
+    float v = 0.f;
+    if (n < N && c < H) {
+      const int r = b * N + n;
+      const float x = a[(size_t)r * F + H + c];
+      v = ((kFromPre ? gelu(x, tanh_flavor) : x) - vstats[r]) * vstats[R + r] *
+              rd<kBf16>(__ldg(s + c)) +
+          rd<kBf16>(__ldg(bias + c));
+    }
+    tile[i][tx] = v;
+  }
+  __syncthreads();
+  for (int i = ty; i < 32; i += 8) {
+    const int c = c0 + i, n = n0 + tx;
+    if (c < H && n < N) {
+      const size_t o = ((size_t)b * H + c) * ld + n;
+      if constexpr (kBf16)
+        static_cast<bf16_t*>(vt)[o] = __float2bfloat16_rn(tile[tx][i]);
+      else
+        static_cast<float*>(vt)[o] = tile[tx][i];
+    }
+  }
+}
+
+// out (rows x ld bf16) = bf16(w) (rows x cols float32), zeros in the pad columns
+__global__ void __launch_bounds__(kThreads)
+    round_rows_kernel(const float* __restrict__ w, bf16_t* __restrict__ out, int rows, int cols,
+                      int ld) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= rows * ld) return;
+  const int r = i / ld, c = i - r * ld;
+  out[i] = __float2bfloat16_rn(c < cols ? __ldg(w + (size_t)r * cols + c) : 0.f);
+}
+
+// part[y C + c] = scale x the sum over rows [y rslice, (y + 1) rslice) of a's
+// column c, each element the sum of its kPlanes bf16 planes (`plane` apart;
+// dpre's three); rows ld apart, in order
+template <int kPlanes>
+__global__ void __launch_bounds__(kThreads)
+    col_bf16_kernel(const bf16_t* __restrict__ a, size_t plane, int C, int ld,
+                    float* __restrict__ part, int R, int rslice, float scale) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= C) return;
+  const int r0 = blockIdx.y * rslice, r1 = min(R, r0 + rslice);
+  Kahan v;
+  for (int r = r0; r < r1; ++r) {
+    const bf16_t* p = a + (size_t)r * ld + c;
+    float x = __bfloat162float(p[0]);
+    if constexpr (kPlanes == 3)
+      x += __bfloat162float(p[plane]) + __bfloat162float(p[2 * plane]);
+    v.add(x);
+  }
+  part[(size_t)blockIdx.y * C + c] = scale * v.s;
+}
+
+// the rows of the large-N route: row r of the token projection's layout is
+// v-channel c of sample b; token n of that sample is row b N + n of gated's
+struct TokRow {
+  int N, H;
+  __device__ __forceinline__ void at(int r, int n, int& c, size_t& row) const {
+    const int b = r / H;
+    c = r - b * H;
+    row = (size_t)b * N + n;
+  }
+};
+
+// float32 forward: t' = (t + sgu_b) m1; gated = u t' (u from h)
+struct EpiGateTc {
+  static constexpr bool kNoStore = true;
+  TokRow tr;
+  const float* sgu_b;
+  const float* h;
+  float* gated;
+  int F;
+  Dropout dp;
+  __device__ __forceinline__ float operator()(int r, int n, float v) const {
+    int c;
+    size_t row;
+    tr.at(r, n, c, row);
+    const float tm = (v + __ldg(sgu_b + n)) *
+                     keep(dp, 0, kMaskSgu, (uint32_t)((size_t)r * tr.N + n));
+    gated[row * tr.H + c] = h[row * F + c] * tm;
+    return 0.f;
+  }
+};
+
+// float32 backward, the gate (sgu_bwd_kernel's, element by element): gated,
+// dpre's u half = dgated t' gelu'(pm) m0; stores dt = dgated u m1
+struct EpiGateBwdTc {
+  TokRow tr;
+  const float* sgu_b;
+  const float* pm;
+  const float* dg;
+  float* gated;
+  float* dpre;
+  int F, tanh_flavor;
+  Dropout dp;
+  __device__ __forceinline__ float operator()(int r, int n, float v) const {
+    int c;
+    size_t row;
+    tr.at(r, n, c, row);
+    const float m1 = keep(dp, 0, kMaskSgu, (uint32_t)((size_t)r * tr.N + n));
+    const float tm = (v + __ldg(sgu_b + n)) * m1;
+    const float pu = pm[row * F + c];
+    const float u = gelu(pu, tanh_flavor);
+    const float d = dg[row * tr.H + c];
+    gated[row * tr.H + c] = u * tm;
+    const size_t el = row * F + c;
+    dpre[el] = d * tm * gelu_grad(pu, tanh_flavor) * keep(dp, 0, kMaskIn, (uint32_t)el);
+    return d * u * m1;
+  }
+};
+
+// float32 backward: dv' (row r, token m) to dpre's v half (raw, as
+// sgu_bwd_kernel leaves it for vln_bwd_kernel)
+struct EpiDvTc {
+  static constexpr bool kNoStore = true;
+  TokRow tr;
+  float* dpre;
+  int F;
+  __device__ __forceinline__ float operator()(int r, int m, float v) const {
+    int c;
+    size_t row;
+    tr.at(r, m, c, row);
+    dpre[row * F + tr.H + c] = v;
+    return 0.f;
+  }
+};
+
+// bf16 forward: gated = bf16(bf16(u) bf16((t + sgu_b) m1)) in rows of ldg
+struct EpiGateWg {
+  static constexpr int kOuts = 0;
+  TokRow tr;
+  const float* sgu_b;
+  const float* h;
+  bf16_t* gated;
+  int F, ldg;
+  Dropout dp;
+  __device__ __forceinline__ void operator()(const WgJob&, const WgArgs&, int, int r, int c,
+                                             float v0, float v1) const {
+    const float v[2] = {v0, v1};
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int n = c + k;
+      if (n >= tr.N) break;
+      int ch;
+      size_t row;
+      tr.at(r, n, ch, row);
+      const float tm = rd<true>((v[k] + __ldg(sgu_b + n)) *
+                                keep(dp, 0, kMaskSgu, (uint32_t)((size_t)r * tr.N + n)));
+      gated[row * ldg + ch] = __float2bfloat16_rn(rd<true>(h[row * F + ch]) * tm);
+    }
+  }
+};
+
+// bf16 backward, the gate (sgu_bwd_bf16_kernel's): gated (bf16), dpre's u
+// half as three planes, dt's bits (bf16(dgated bf16(u)) or 0 where mask 1
+// drops) in vt's layout (rows of ldt)
+struct EpiGateBwdWg {
+  static constexpr int kOuts = 0;
+  TokRow tr;
+  const float* sgu_b;
+  const float* pm;
+  const bf16_t* dg;  // rows of ldg
+  bf16_t* gated;     // rows of ldg
+  bf16_t* dt;        // rows of ldt
+  DpreOut dq;
+  int F, ldg, ldt, tanh_flavor;
+  Dropout dp;
+  __device__ __forceinline__ void operator()(const WgJob&, const WgArgs&, int, int r, int c,
+                                             float v0, float v1) const {
+    const float v[2] = {v0, v1};
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int n = c + k;
+      if (n >= tr.N) break;
+      int ch;
+      size_t row;
+      tr.at(r, n, ch, row);
+      const float m1 = keep(dp, 0, kMaskSgu, (uint32_t)((size_t)r * tr.N + n));
+      const float tm = rd<true>((v[k] + __ldg(sgu_b + n)) * m1);
+      float u, gp;
+      gelu_both(pm[row * F + ch], tanh_flavor, u, gp);
+      u = rd<true>(u);
+      const float d = __bfloat162float(dg[row * ldg + ch]);
+      gated[row * ldg + ch] = __float2bfloat16_rn(u * tm);
+      const size_t el = row * F + ch;
+      put_planes(dq.p + row * dq.ld + ch, dq.plane,
+                 rd<true>(d * tm) * gp * keep(dp, 0, kMaskIn, (uint32_t)el));
+      dt[(size_t)r * ldt + n] = __float2bfloat16_rn(m1 != 0.f ? rd<true>(d * u) : 0.f);
+    }
+  }
+};
+
+// bf16 backward: dv' = bf16(scale x its sum) to dpre's hi plane, v half
+struct EpiDvWg {
+  static constexpr int kOuts = 0;
+  TokRow tr;
+  bf16_t* hi;
+  int ld;
+  float scale;
+  __device__ __forceinline__ void operator()(const WgJob&, const WgArgs&, int, int r, int c,
+                                             float v0, float v1) const {
+    const float v[2] = {v0, v1};
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int m = c + k;
+      if (m >= tr.N) break;
+      int ch;
+      size_t row;
+      tr.at(r, m, ch, row);
+      hi[row * ld + tr.H + ch] = __float2bfloat16_rn(rd<true>(scale * v[k]));
+    }
+  }
+};
+
 struct Plan {
   int sms;              // the card's SMs (the tile rule of the forward's products)
   int nsplit;           // SGU CTAs per sample
@@ -1296,6 +1556,9 @@ struct Plan {
   int rt;               // their rows: kRowTile, or as many as fit the shared memory
   int vwarps;           // warps of the bf16 LN(v) backward: kWarps, or the most of 4, 2, 1 that fit
   bool wide_sgu;        // the SGU kernels on 16 warps (8 m16 token tiles), else 8 (4)
+  bool tok;             // the large-N route (above kSguSeq tokens): the SGU as products
+  int Np;               // its vt and dt rows: N, or in bf16 N rounded up to 8
+  int tslice, tsplit;   // its d sgu_w and d sgu_b: slices of the B*F/2 rows
   size_t sgu_fwd_smem, sgu_bwd_smem, vln_smem, ln_smem;
   // bf16: the operands' padded rows (D, F/2 and F rounded up to 8); the
   // out-projection's slices of F/2 (ysplit 1: its epilogue finishes y); dW_out's
@@ -1308,11 +1571,16 @@ struct Plan {
   // slices once the SGU is done with h, or the backward's pm; p_col unused
   size_t xn, act, gated, vstats, w_in_r, w_out_r, w_out_t, dout, dg, dpre, dxnp, p_ln, p_vln,
       p_sgu, p_win, p_wout, p_col, p_bin, p_bout;
+  // the large-N route: vt, dt (B*F/2 x Np), bf16's rounded sgu_w (N x Np), d
+  // sgu_b's slices; p_sgu then holds d sgu_w's slices (tsplit x N x N)
+  size_t vt, dtt, w_sgu_r, p_sgb;
   size_t fwd_floats, bwd_floats;
 };
 
 int check_args(int B, int N, int D, int F) {
   if (B < 1 || B > 65535 || N < 1 || N > kMaxSeq || D < 1 || F < 2 || F % 2) return -1;
+  // the large-N route's products over B*F/2 rows: at most 65535 tiles of 128
+  if (N > kSguSeq && (long long)B * (F / 2) > 65535LL * 128) return -1;
   const unsigned long long big = (unsigned long long)B * N * (F > D ? F : D);
   if (big >= (1ull << 32)) return -1;  // the dropout masks count their elements in 32 bits
   return 0;
@@ -1333,6 +1601,8 @@ void plan_f32(int B, int N, int D, int F, Plan& pl) {
   pl.act = o, o += rows * F;
   pl.gated = o, o += rows * H;
   pl.vstats = o, o += 2 * rows;
+  const size_t tok_rows = (size_t)B * H * pl.Np;  // vt, dt (the large-N route)
+  if (pl.tok) o = (o + 3) / 4 * 4, pl.vt = o, o += tok_rows;
   o = (o + 3) / 4 * 4;
   pl.w_in_r = pl.w_out_r = pl.w_out_t = o;
   pl.fwd_floats = o;
@@ -1342,10 +1612,15 @@ void plan_f32(int B, int N, int D, int F, Plan& pl) {
   pl.dxnp = o, o += (size_t)pl.xsplit * rows * D;
   pl.p_ln = o, o += (size_t)pl.tiles * 2 * D;
   pl.p_vln = o, o += (size_t)pl.tiles * 2 * H;
-  pl.p_sgu = o, o += (size_t)B * pl.nsplit * ((size_t)N * N + N);
+  pl.p_sgu = o, o += pl.tok ? (size_t)pl.tsplit * N * N : (size_t)B * pl.nsplit * ((size_t)N * N + N);
   pl.p_win = o, o += (size_t)pl.wsplit * D * F;
   pl.p_wout = o, o += (size_t)pl.wsplit * H * D;
   pl.p_col = o, o += (size_t)pl.wsplit * (F + D);
+  if (pl.tok) {
+    o = (o + 3) / 4 * 4;
+    pl.dtt = o, o += tok_rows;
+    pl.p_sgb = o, o += (size_t)pl.tsplit * N;
+  }
   pl.p_bin = pl.p_bout = o;
   pl.bwd_floats = o;
 }
@@ -1374,6 +1649,8 @@ void plan_bf16(int B, int N, int D, int F, Plan& pl) {
   take(pl.vstats, 2 * rows);
   take(pl.w_in_r, op((size_t)D * pl.Fp));
   take(pl.w_out_r, op((size_t)H * pl.Dp));
+  const size_t tok_rows = op((size_t)B * H * pl.Np);  // vt, dt (the large-N route)
+  if (pl.tok) take(pl.vt, tok_rows), take(pl.w_sgu_r, op((size_t)N * pl.Np));
   pl.fwd_floats = o;
   take(pl.w_out_t, op((size_t)D * pl.Hp));
   take(pl.dout, op(rows * pl.Dp));
@@ -1382,11 +1659,12 @@ void plan_bf16(int B, int N, int D, int F, Plan& pl) {
   take(pl.dxnp, (size_t)pl.xsplit * rows * D);
   take(pl.p_ln, (size_t)pl.tiles * 2 * D);
   take(pl.p_vln, (size_t)pl.tiles * 2 * H);
-  take(pl.p_sgu, (size_t)B * pl.nsplit * ((size_t)N * N + N));
+  take(pl.p_sgu, pl.tok ? (size_t)pl.tsplit * N * N : (size_t)B * pl.nsplit * ((size_t)N * N + N));
   take(pl.p_win, (size_t)pl.wsplit * D * F);
   take(pl.p_wout, (size_t)pl.vsplit * H * D);
   take(pl.p_bin, ((size_t)B + pl.tiles) * H);
   take(pl.p_bout, (size_t)pl.tiles * D);
+  if (pl.tok) take(pl.dtt, tok_rows), take(pl.p_sgb, (size_t)pl.tsplit * N);
   pl.p_col = o;
   pl.bwd_floats = o;
 }
@@ -1402,9 +1680,21 @@ int make_plan(int B, int N, int D, int F, bool bf16, int device, Plan& pl) {
   const int chunks = ceil_div(H, kChunk);
   const int ns = ceil_div(2 * pl.sms, B);
   pl.nsplit = ns < 1 ? 1 : (ns > chunks ? chunks : ns);
-  pl.wide_sgu = sgu_layout(N, false).nm > 64;
-  pl.sgu_fwd_smem = (bf16 ? sgu_layout_bf16(N, false).floats : sgu_layout(N, false).floats) * 4;
-  pl.sgu_bwd_smem = (bf16 ? sgu_layout_bf16(N, true).floats : sgu_layout(N, true).floats) * 4;
+  pl.tok = N > kSguSeq;
+  if (pl.tok) {
+    // d sgu_w (N x N) over the B*F/2 rows: the engine's or tc_gemm's row slices
+    pl.Np = bf16 ? pad8(N) : N;
+    if (bf16)
+      wg_slices((long long)B * H, (long long)ceil_div(N, kWgBM) * ceil_div(N, kWgBN), pl.sms, 1,
+                pl.tslice, pl.tsplit);
+    else
+      row_slices((long long)B * H, ceil_div(N, kTcBM) * ceil_div(N, kTcBN), pl.sms, pl.tslice,
+                 pl.tsplit);
+  } else {
+    pl.wide_sgu = sgu_layout(N, false).nm > 64;
+    pl.sgu_fwd_smem = (bf16 ? sgu_layout_bf16(N, false).floats : sgu_layout(N, false).floats) * 4;
+    pl.sgu_bwd_smem = (bf16 ? sgu_layout_bf16(N, true).floats : sgu_layout(N, true).floats) * 4;
+  }
   const size_t most = (size_t)dev.smem_optin;
   // the row tile of the LN backwards and the bf16 row kernels: kRowTile rows,
   // or as many as fit a CTA's shared memory (LN1's backward: 3 floats a
@@ -1434,13 +1724,34 @@ SguParams sgu_params(const void* const* q) {
                    static_cast<const float*>(q[6]), static_cast<const float*>(q[7])};
 }
 
+// the large-N route's vt = LN(v) (kFromPre: of gelu(pm)) in the token
+// projection's layout, rows of ld
+template <bool kFromPre, bool kBf16>
+cudaError_t launch_vt(const float* a, const float* vstats, const void* const* ptrs, void* vt,
+                      int ld, int B, int N, int F, int tanh_flavor, cudaStream_t st) {
+  const dim3 grid(ceil_div(F / 2, 32), ceil_div(N, 32), B);
+  vt_kernel<kFromPre, kBf16><<<grid, 256, 0, st>>>(a, vstats, static_cast<const float*>(ptrs[4]),
+                                                   static_cast<const float*>(ptrs[5]), vt, ld, N,
+                                                   F, B * N, tanh_flavor);
+  m2m_count(kTallyGmlpVt);
+  return cudaGetLastError();
+}
+
+// the large-N route's bf16(sgu_w), rows of Np
+cudaError_t round_sgu_w(const Plan& pl, const void* const* ptrs, bf16_t* out, int N,
+                        cudaStream_t st) {
+  round_rows_kernel<<<ceil_div((long long)N * pl.Np, kThreads), kThreads, 0, st>>>(
+      static_cast<const float*>(ptrs[6]), out, N, N, pl.Np);
+  return cudaGetLastError();
+}
+
 // K3f in float32 compute (see m2m_gmlp_fwd)
 int gmlp_fwd_f32(const Plan& pl, const float* x, float* y, int B, int N, int D, int F,
                  int tanh_flavor, const Dropout& dp, int device, const void* const* ptrs,
                  float* ws, cudaStream_t st) {
   // m16 token tiles: 8 on 16 warps, else 4 on 8 warps
   auto sgu_fwd = pl.wide_sgu ? sgu_fwd_kernel<8, 4> : sgu_fwd_kernel<4, 2>;
-  M2M_TRY(prepare(sgu_fwd, pl.sgu_fwd_smem, device));
+  if (!pl.tok) M2M_TRY(prepare(sgu_fwd, pl.sgu_fwd_smem, device));
   const int R = B * N, H = F / 2;
   auto q = [ptrs](int i) { return static_cast<const float*>(ptrs[i]); };
   // 1. xn = LN(x)
@@ -1455,9 +1766,18 @@ int gmlp_fwd_f32(const Plan& pl, const float* x, float* y, int B, int N, int D, 
                                                                  F, 0);
   M2M_TRY(cudaGetLastError());
   // 4. gated = u (LN(v) sgu_w + sgu_b) m1 (:67-75)
-  sgu_fwd<<<dim3(pl.nsplit, B), pl.wide_sgu ? 512 : 256, pl.sgu_fwd_smem, st>>>(
-      ws + pl.act, ws + pl.vstats, ws + pl.gated, sgu_params(ptrs), N, F, dp);
-  M2M_TRY(cudaGetLastError());
+  if (pl.tok) {  // the large-N route: vt, then the token projection over all rows
+    M2M_TRY((launch_vt<false, false>(ws + pl.act, ws + pl.vstats, ptrs, ws + pl.vt, N, B, N, F,
+                                     0, st)));
+    M2M_TRY((tc_gemm_auto<0, false>(View{ws + pl.vt, N, 1}, View{q(6), N, 1}, nullptr, B * H, N,
+                                    N, pl.sms, st,
+                                    EpiGateTc{TokRow{N, H}, q(7), ws + pl.act, ws + pl.gated, F,
+                                              dp})));
+  } else {
+    sgu_fwd<<<dim3(pl.nsplit, B), pl.wide_sgu ? 512 : 256, pl.sgu_fwd_smem, st>>>(
+        ws + pl.act, ws + pl.vstats, ws + pl.gated, sgu_params(ptrs), N, F, dp);
+    M2M_TRY(cudaGetLastError());
+  }
   // 5. y = x + (gated W_out + b_out) m2 (:77-80)
   return tc_gemm_auto(View{ws + pl.gated, H, 1}, View{q(8), D, 1}, y, R, D, H, pl.sms, st,
                       EpiResidual{EpiBiasMask{q(9), kMaskOut, D, dp}, x});
@@ -1468,7 +1788,7 @@ int gmlp_fwd_bf16(const Plan& pl, const float* x, float* y, int B, int N, int D,
                   int tanh_flavor, const Dropout& dp, int device, const void* const* ptrs,
                   float* ws, cudaStream_t st) {
   auto sgu_fwd = pl.wide_sgu ? sgu_fwd_bf16_kernel<8, 4> : sgu_fwd_bf16_kernel<4, 2>;
-  M2M_TRY(prepare(sgu_fwd, pl.sgu_fwd_smem, device));
+  if (!pl.tok) M2M_TRY(prepare(sgu_fwd, pl.sgu_fwd_smem, device));
   const int R = B * N, H = F / 2;
   auto q = [ptrs](int i) { return static_cast<const float*>(ptrs[i]); };
   auto bf = [ws](size_t at) { return reinterpret_cast<bf16_t*>(ws + at); };
@@ -1489,9 +1809,19 @@ int gmlp_fwd_bf16(const Plan& pl, const float* x, float* y, int B, int N, int D,
                                                                  F, 0);
   M2M_TRY(cudaGetLastError());
   // 4. gated = bf16(u) bf16((LN(v) sgu_w + sgu_b) m1) (:67-75), in bf16
-  sgu_fwd<<<dim3(pl.nsplit, B), pl.wide_sgu ? 512 : 256, pl.sgu_fwd_smem, st>>>(
-      ws + pl.act, ws + pl.vstats, bf(pl.gated), pl.Hp, sgu_params(ptrs), N, F, dp);
-  M2M_TRY(cudaGetLastError());
+  if (pl.tok) {  // the large-N route: vt, then the token projection on the engine
+    M2M_TRY((launch_vt<false, true>(ws + pl.act, ws + pl.vstats, ptrs, bf(pl.vt), pl.Np, B, N, F,
+                                    0, st)));
+    M2M_TRY(round_sgu_w(pl, ptrs, bf(pl.w_sgu_r), N, st));
+    M2M_TRY(wg_product<64>(bf(pl.vt), pl.Np, bf(pl.w_sgu_r), pl.Np, nullptr, (long long)B * H, N,
+                           N, N, 1,
+                           EpiGateWg{TokRow{N, H}, q(7), ws + pl.act, bf(pl.gated), F, pl.Hp, dp},
+                           device, st));
+  } else {
+    sgu_fwd<<<dim3(pl.nsplit, B), pl.wide_sgu ? 512 : 256, pl.sgu_fwd_smem, st>>>(
+        ws + pl.act, ws + pl.vstats, bf(pl.gated), pl.Hp, sgu_params(ptrs), N, F, dp);
+    M2M_TRY(cudaGetLastError());
+  }
   // 5. y = bf16(x) + bf16((gated W_out + b_out) m2) (:77-80): in the epilogue, or
   // over slices of F/2 (their partials over h, which the SGU is done with)
   if (pl.ysplit == 1)
@@ -1509,7 +1839,7 @@ int gmlp_bwd_f32(const Plan& pl, const float* x, const float* g, float* dx, int 
                  int F, int tanh_flavor, const Dropout& dp, int device, const void* const* ptrs,
                  void* const* grads, float* ws, cudaStream_t st) {
   auto sgu_bwd = pl.wide_sgu ? sgu_bwd_kernel<8, 4> : sgu_bwd_kernel<4, 2>;
-  M2M_TRY(prepare(sgu_bwd, pl.sgu_bwd_smem, device));
+  if (!pl.tok) M2M_TRY(prepare(sgu_bwd, pl.sgu_bwd_smem, device));
   M2M_TRY(prepare(vln_bwd_kernel, pl.vln_smem, device));
   M2M_TRY(prepare(ln_bwd_kernel<false>, pl.ln_smem, device));
   const int R = B * N, H = F / 2;
@@ -1529,9 +1859,34 @@ int gmlp_bwd_f32(const Plan& pl, const float* x, const float* g, float* dx, int 
   vstats_kernel<true><<<ceil_div(R, kWarps), kThreads, 0, st>>>(ws + pl.act, ws + pl.vstats, R, F,
                                                                 tanh_flavor);
   M2M_TRY(cudaGetLastError());
-  sgu_bwd<<<dim3(pl.nsplit, B), pl.wide_sgu ? 512 : 256, pl.sgu_bwd_smem, st>>>(
-      ws + pl.act, ws + pl.dg, ws + pl.vstats, ws + pl.gated, ws + pl.dpre, ws + pl.p_sgu,
-      sgu_params(ptrs), N, F, tanh_flavor, dp);
+  if (pl.tok) {  // the large-N route
+    const TokRow tr{N, H};
+    const int T = B * H;  // rows of the token projection's layout
+    M2M_TRY((launch_vt<true, false>(ws + pl.act, ws + pl.vstats, ptrs, ws + pl.vt, N, B, N, F,
+                                    tanh_flavor, st)));
+    // t' recomputed; the gate: gated, dpre's u half, dt
+    const View vt{ws + pl.vt, N, 1}, dt{ws + pl.dtt, N, 1};
+    M2M_TRY((tc_gemm_layout<4, 2, 2, 4, true, false, 0>(
+        vt, View{q(6), N, 1}, ws + pl.dtt, T, N, N, N, 1, st,
+        EpiGateBwdTc{tr, q(7), ws + pl.act, ws + pl.dg, ws + pl.gated, ws + pl.dpre, F,
+                     tanh_flavor, dp},
+        vec_ok(vt, true) && vec_ok(View{q(6), N, 1}, true))));
+    // dv' = dt sgu_w^T (:71) to dpre's v half
+    M2M_TRY((tc_gemm_layout<4, 2, 2, 4, true, true, 0>(
+        dt, View{q(6), 1, N}, nullptr, T, N, N, N, 1, st, EpiDvTc{tr, ws + pl.dpre, F},
+        vec_ok(dt, true) && vec_ok(View{q(6), 1, N}, false))));
+    // d sgu_w = vt^T dt and d sgu_b = dt's column sums, slices of the rows
+    M2M_TRY(tc_gemm_wide(View{ws + pl.vt, 1, N}, dt, ws + pl.p_sgu, N, N, T, pl.tslice,
+                         pl.tsplit, st));
+    ColJobs<1> tj = {};
+    tj.job[0] = ColJob{ws + pl.dtt, N, N, ws + pl.p_sgb};
+    col_slices_kernel<1><<<dim3(ceil_div(N, kThreads), pl.tsplit, 1), kThreads, 0, st>>>(
+        tj, T, pl.tslice);
+  } else {
+    sgu_bwd<<<dim3(pl.nsplit, B), pl.wide_sgu ? 512 : 256, pl.sgu_bwd_smem, st>>>(
+        ws + pl.act, ws + pl.dg, ws + pl.vstats, ws + pl.gated, ws + pl.dpre, ws + pl.p_sgu,
+        sgu_params(ptrs), N, F, tanh_flavor, dp);
+  }
   M2M_TRY(cudaGetLastError());
   vln_bwd_kernel<<<pl.tiles, kThreads, pl.vln_smem, st>>>(ws + pl.act, ws + pl.dpre, q(4),
                                                           ws + pl.p_vln, R, F, pl.rt, tanh_flavor,
@@ -1556,19 +1911,30 @@ int gmlp_bwd_f32(const Plan& pl, const float* x, const float* g, float* dx, int 
       x, ws + pl.dxnp, pl.xsplit, g, q(0), dx, ws + pl.p_ln, R, D, pl.rt, D);
   M2M_TRY(cudaGetLastError());
   const int NN = N * N;
+  // the jobs but d sgu_w's and d sgu_b's, and the launch: the grid covers the
+  // longest job (dW_in, or d sgu_w where N^2 > D*F)
+  auto reduce = [&](auto& rj) {
+    constexpr int kJobs = std::extent<decltype(rj.job)>::value;
+    rj.job[0] = RedJob{ws + pl.p_ln, pl.tiles, 2 * D, gq[0], D, gq[1]};
+    rj.job[1] = RedJob{ws + pl.p_vln, pl.tiles, 2 * H, gq[4], H, gq[5]};
+    rj.job[3] = RedJob{ws + pl.p_win, pl.wsplit, D * F, gq[2], D * F, nullptr};
+    rj.job[4] = RedJob{ws + pl.p_wout, pl.wsplit, H * D, gq[8], H * D, nullptr};
+    rj.job[5] = RedJob{ws + pl.p_col, pl.wsplit, F, gq[3], F, nullptr};
+    rj.job[6] = RedJob{ws + pl.p_col + (size_t)pl.wsplit * F, pl.wsplit, D, gq[9], D, nullptr};
+    int longest = 0;
+    for (const RedJob& j : rj.job) longest = j.P > longest ? j.P : longest;
+    reduce_jobs_kernel<kJobs><<<dim3(ceil_div(longest, kThreads), kJobs), kThreads, 0, st>>>(rj);
+    return (int)cudaGetLastError();
+  };
+  if (pl.tok) {  // d sgu_w's and d sgu_b's slices apart
+    RedJobs<kRedJobs + 1> rj = {};
+    rj.job[2] = RedJob{ws + pl.p_sgu, pl.tsplit, NN, gq[6], NN, nullptr};
+    rj.job[kRedJobs] = RedJob{ws + pl.p_sgb, pl.tsplit, N, gq[7], N, nullptr};
+    return reduce(rj);
+  }
   RedJobs<kRedJobs> rj = {};
-  rj.job[0] = RedJob{ws + pl.p_ln, pl.tiles, 2 * D, gq[0], D, gq[1]};
-  rj.job[1] = RedJob{ws + pl.p_vln, pl.tiles, 2 * H, gq[4], H, gq[5]};
   rj.job[2] = RedJob{ws + pl.p_sgu, B * pl.nsplit, NN + N, gq[6], NN, gq[7]};
-  rj.job[3] = RedJob{ws + pl.p_win, pl.wsplit, D * F, gq[2], D * F, nullptr};
-  rj.job[4] = RedJob{ws + pl.p_wout, pl.wsplit, H * D, gq[8], H * D, nullptr};
-  rj.job[5] = RedJob{ws + pl.p_col, pl.wsplit, F, gq[3], F, nullptr};
-  rj.job[6] = RedJob{ws + pl.p_col + (size_t)pl.wsplit * F, pl.wsplit, D, gq[9], D, nullptr};
-  // the grid covers the longest job: dW_in, or d sgu_w + d sgu_b where N^2 + N > D*F
-  int longest = 0;
-  for (const RedJob& j : rj.job) longest = j.P > longest ? j.P : longest;
-  reduce_jobs_kernel<kRedJobs><<<dim3(ceil_div(longest, kThreads), kRedJobs), kThreads, 0, st>>>(rj);
-  return (int)cudaGetLastError();
+  return reduce(rj);
 }
 
 // K3b in bf16 compute: the same steps, its five products on the wgmma engine,
@@ -1578,7 +1944,7 @@ int gmlp_bwd_bf16(const Plan& pl, const float* x, const float* g, float* dx, int
                   void* const* grads, float* ws, cudaStream_t st) {
   const int R = B * N, H = F / 2;
   auto sgu_bwd = pl.wide_sgu ? sgu_bwd_bf16_kernel<8, 4> : sgu_bwd_bf16_kernel<4, 2>;
-  M2M_TRY(prepare(sgu_bwd, pl.sgu_bwd_smem, device));
+  if (!pl.tok) M2M_TRY(prepare(sgu_bwd, pl.sgu_bwd_smem, device));
   auto vln_bwd = pl.vwarps == 8   ? vln_bwd_bf16_kernel<8>
                  : pl.vwarps == 4 ? vln_bwd_bf16_kernel<4>
                  : pl.vwarps == 2 ? vln_bwd_bf16_kernel<2>
@@ -1612,10 +1978,47 @@ int gmlp_bwd_bf16(const Plan& pl, const float* x, const float* g, float* dx, int
   vstats_kernel<true><<<ceil_div(R, kWarps), kThreads, 0, st>>>(ws + pl.act, ws + pl.vstats, R, F,
                                                                 tanh_flavor);
   M2M_TRY(cudaGetLastError());
-  sgu_bwd<<<dim3(pl.nsplit, B), pl.wide_sgu ? 512 : 256, pl.sgu_bwd_smem, st>>>(
-      ws + pl.act, bf(pl.dg), pl.Hp, ws + pl.vstats, bf(pl.gated), pl.Hp,
-      DpreOut{dpre, plane, pl.Fp, ws + pl.p_bin}, ws + pl.p_sgu, sgu_params(ptrs), N, F,
-      tanh_flavor, dp);
+  if (pl.tok) {  // the large-N route
+    const TokRow tr{N, H};
+    const long long T = (long long)B * H;  // rows of the token projection's layout
+    M2M_TRY((launch_vt<true, true>(ws + pl.act, ws + pl.vstats, ptrs, bf(pl.vt), pl.Np, B, N, F,
+                                   tanh_flavor, st)));
+    M2M_TRY(round_sgu_w(pl, ptrs, bf(pl.w_sgu_r), N, st));
+    // t' recomputed; the gate: gated, dpre's u half, dt's bits
+    M2M_TRY(wg_product<64>(bf(pl.vt), pl.Np, bf(pl.w_sgu_r), pl.Np, nullptr, T, N, N, N, 1,
+                           EpiGateBwdWg{tr, q(7), ws + pl.act, bf(pl.dg), bf(pl.gated),
+                                        bf(pl.dtt), DpreOut{dpre, plane, pl.Fp, nullptr}, F,
+                                        pl.Hp, pl.Np, tanh_flavor, dp},
+                           device, st));
+    // db_in's u half: each sample's column sums of dpre's planes
+    col_bf16_kernel<3><<<dim3(ceil_div(H, kThreads), B), kThreads, 0, st>>>(
+        dpre, plane, H, pl.Fp, ws + pl.p_bin, R, N, 1.f);
+    M2M_TRY(cudaGetLastError());
+    const WgOperand dt_rows{{bf(pl.dtt)}, 1, T, N, pl.Np};
+    {  // dv' = bf16(scale x dt sgu_w^T) (:71) to the hi plane's v half
+      WgArgs a = {};
+      M2M_TRY((make_job<true, true>(a.job[0], dt_rows,
+                                    WgOperand{{bf(pl.w_sgu_r)}, 1, N, N, pl.Np}, nullptr, 1.f)));
+      a.M = (int)T, a.N = N, a.K = N, a.kslice = N, a.slices = 1;
+      M2M_TRY((wg_gemm<true, true, 1, 1, 1, kWgBN>(a, 1, EpiDvWg{tr, dpre, pl.Fp, scale}, device,
+                                                    st)));
+    }
+    {  // d sgu_w = scale x vt^T dt, slices of the rows
+      WgArgs a = {};
+      M2M_TRY((make_job<false, false>(a.job[0], WgOperand{{bf(pl.vt)}, 1, T, N, pl.Np}, dt_rows,
+                                      ws + pl.p_sgu, scale)));
+      a.M = N, a.N = N, a.K = (int)T, a.kslice = pl.tslice, a.slices = pl.tsplit;
+      M2M_TRY((wg_gemm<false, false, 1, 1, 1, kWgBN>(a, 1, EpiWgStore{}, device, st)));
+    }
+    // d sgu_b = scale x dt's column sums over the same slices
+    col_bf16_kernel<1><<<dim3(ceil_div(N, kThreads), pl.tsplit), kThreads, 0, st>>>(
+        bf(pl.dtt), 0, N, pl.Np, ws + pl.p_sgb, (int)T, pl.tslice, scale);
+  } else {
+    sgu_bwd<<<dim3(pl.nsplit, B), pl.wide_sgu ? 512 : 256, pl.sgu_bwd_smem, st>>>(
+        ws + pl.act, bf(pl.dg), pl.Hp, ws + pl.vstats, bf(pl.gated), pl.Hp,
+        DpreOut{dpre, plane, pl.Fp, ws + pl.p_bin}, ws + pl.p_sgu, sgu_params(ptrs), N, F,
+        tanh_flavor, dp);
+  }
   M2M_TRY(cudaGetLastError());
   vln_bwd<<<pl.tiles, 32 * pl.vwarps, pl.vln_smem, st>>>(
       ws + pl.act, DpreOut{dpre, plane, pl.Fp, ws + pl.p_bin + (size_t)B * H}, q(4),
@@ -1652,19 +2055,29 @@ int gmlp_bwd_bf16(const Plan& pl, const float* x, const float* g, float* dx, int
   // every gradient but the biases' is rounded once its sum is complete
   constexpr int kBoth = kRnd0 | kRnd1;
   const int NN = N * N;
+  // the jobs but d sgu_w's and d sgu_b's, and the launch; the row tiles'
+  // partials are many (1584 at the fusion shape, batch 512): in runs
+  auto reduce = [&](auto& rj) {
+    constexpr int kJobs = std::extent<decltype(rj.job)>::value, kSplit = 8;
+    rj.job[0] = RedJob{ws + pl.p_ln, pl.tiles, 2 * D, gq[0], D, gq[1], kBoth};
+    rj.job[1] = RedJob{ws + pl.p_vln, pl.tiles, 2 * H, gq[4], H, gq[5], kBoth};
+    rj.job[3] = RedJob{ws + pl.p_win, pl.wsplit, D * F, gq[2], D * F, nullptr, kRnd0};
+    rj.job[4] = RedJob{ws + pl.p_wout, pl.vsplit, H * D, gq[8], H * D, nullptr, kRnd0};
+    rj.job[5] = RedJob{ws + pl.p_bin, B, H, gq[3], H, nullptr};  // db_in, u half
+    rj.job[6] = RedJob{ws + pl.p_bin + (size_t)B * H, pl.tiles, H, gq[3] + H, H, nullptr};  // v half
+    rj.job[7] = RedJob{ws + pl.p_bout, pl.tiles, D, gq[9], D, nullptr};
+    reduce_jobs_kernel<kJobs, kSplit><<<flat_grid(rj, kSplit), kThreads, 0, st>>>(rj);
+    return (int)cudaGetLastError();
+  };
+  if (pl.tok) {  // d sgu_w's and d sgu_b's slices apart
+    RedJobs<kRedJobsBf16 + 1> rj = {};
+    rj.job[2] = RedJob{ws + pl.p_sgu, pl.tsplit, NN, gq[6], NN, nullptr, kRnd0};
+    rj.job[kRedJobsBf16] = RedJob{ws + pl.p_sgb, pl.tsplit, N, gq[7], N, nullptr};
+    return reduce(rj);
+  }
   RedJobs<kRedJobsBf16> rj = {};
-  rj.job[0] = RedJob{ws + pl.p_ln, pl.tiles, 2 * D, gq[0], D, gq[1], kBoth};
-  rj.job[1] = RedJob{ws + pl.p_vln, pl.tiles, 2 * H, gq[4], H, gq[5], kBoth};
   rj.job[2] = RedJob{ws + pl.p_sgu, B * pl.nsplit, NN + N, gq[6], NN, gq[7], kRnd0};
-  rj.job[3] = RedJob{ws + pl.p_win, pl.wsplit, D * F, gq[2], D * F, nullptr, kRnd0};
-  rj.job[4] = RedJob{ws + pl.p_wout, pl.vsplit, H * D, gq[8], H * D, nullptr, kRnd0};
-  rj.job[5] = RedJob{ws + pl.p_bin, B, H, gq[3], H, nullptr};  // db_in, u half
-  rj.job[6] = RedJob{ws + pl.p_bin + (size_t)B * H, pl.tiles, H, gq[3] + H, H, nullptr};  // v half
-  rj.job[7] = RedJob{ws + pl.p_bout, pl.tiles, D, gq[9], D, nullptr};
-  // the row tiles' partials are many (1584 at the fusion shape, batch 512): in runs
-  constexpr int kSplit = 8;
-  reduce_jobs_kernel<kRedJobsBf16, kSplit><<<flat_grid(rj, kSplit), kThreads, 0, st>>>(rj);
-  return (int)cudaGetLastError();
+  return reduce(rj);
 }
 
 }  // namespace

@@ -26,10 +26,11 @@
 #include <vector>
 
 // Host-side launch tallies, read through m2m_launch_tally (mixer_fwd.cu): the
-// wgmma engine's kernel, tc_gemm's and the token pipeline's first kernel,
-// counted where they are enqueued, so that a check of the route a call took
-// does not rest on a profiler trace, which may drop events.
-enum M2mTally { kTallyWgGemm, kTallyTcGemm, kTallyTokIn, kTallies };
+// wgmma engine's kernel, tc_gemm's, the token pipeline's first kernel and
+// the gMLP's large-N route's first (gmlp.cu: vt_kernel), counted where they
+// are enqueued, so that a check of the route a call took does not rest on a
+// profiler trace, which may drop events.
+enum M2mTally { kTallyWgGemm, kTallyTcGemm, kTallyTokIn, kTallyGmlpVt, kTallies };
 extern std::atomic<unsigned long long> m2m_tally[kTallies];
 inline void m2m_count(M2mTally t) { m2m_tally[t].fetch_add(1, std::memory_order_relaxed); }
 

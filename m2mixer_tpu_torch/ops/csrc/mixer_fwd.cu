@@ -564,7 +564,8 @@ const char* m2m_error_string(int code) {
 }
 
 // out[kTallies]: the launches of each tallied kernel (M2mTally order: the
-// wgmma engine, tc_gemm, the token pipeline's tok_in_kernel) since the
+// wgmma engine, tc_gemm, the token pipeline's tok_in_kernel, the gMLP's
+// large-N vt_kernel) since the
 // library was loaded.
 void m2m_launch_tally(unsigned long long* out) {
   for (int i = 0; i < kTallies; ++i) out[i] = m2m_tally[i].load(std::memory_order_relaxed);

@@ -271,7 +271,17 @@ struct TcTile {
   }
 };
 
-// epilogues: the stored value of output (r, c) with sum v
+// epilogues: the stored value of output (r, c) with sum v. An epilogue with
+// a member kNoStore writes its own outputs (the gMLP's large-N route scatters
+// them to another layout) and tc_gemm stores nothing.
+template <class Epi, class = void>
+struct EpiStores {
+  static constexpr bool value = true;
+};
+template <class Epi>
+struct EpiStores<Epi, decltype((void)Epi::kNoStore)> {
+  static constexpr bool value = false;
+};
 struct EpiNone {
   __device__ __forceinline__ float operator()(int, int, float v) const { return v; }
 };
@@ -397,7 +407,12 @@ __global__ void __launch_bounds__(T::kThreadsT, 512 / T::kThreadsT)  // <= 128 r
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = m0 + wm + i * 16 + g + 8 * (e >> 1), c = n0 + wn + j * 8 + 2 * t + (e & 1);
-        if (r < M && c < N) o[(size_t)r * N + c] = epi(r, c, acc[i][j][e]);
+        if (r < M && c < N) {
+          if constexpr (EpiStores<Epi>::value)
+            o[(size_t)r * N + c] = epi(r, c, acc[i][j][e]);
+          else
+            epi(r, c, acc[i][j][e]);
+        }
       }
 }
 

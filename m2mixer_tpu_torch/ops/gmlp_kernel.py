@@ -33,6 +33,12 @@ layout: ``x (B, N, D)`` float32 in and out, ``w_in (D, F)``, ``sgu_w (N, N)``
   (``csrc/wgmma_bf16.cuh``), their operands bf16 in the workspace. Each
   wrapper counts its bf16 launches alone too, in ``bf16_launches``.
 
+Any token count up to ``_MAX_TOKENS`` runs: up to 128 the SGU keeps a
+sample's token projection in shared memory; above it the large-N route runs
+the token projection and its gradients as products over the ``(B*F/2, N)``
+rows of ``_block_math``'s own layout (``csrc/gmlp.cu``), which the library
+tallies as ``gmlp_vt_kernel``.
+
 Dropout masks are the hash masks of ``ops/mixer_kernel.py`` for block 0 of a
 launch seeded with ``seed``, mask ids 0-2, counted in the JAX layouts:
 mask 0 ``(B*N, F)``, mask 1 ``(B*F/2, N)``, mask 2 ``(B*N, D)``. Stochastic
@@ -52,7 +58,7 @@ from .mixer_kernel import (_autograd_of, _check_compute_dtype, _check_rate, _dev
 __all__ = ["GmlpBlockParams", "fused_gmlp_block", "fused_gmlp_block_bwd",
            "gmlp_block_bwd_reference", "gmlp_block_reference", "gmlp_masks"]
 
-_MAX_TOKENS = 128  # kMaxSeq in csrc/gmlp.cu
+_MAX_TOKENS = 46340  # kMaxSeq in csrc/gmlp.cu: sgu_w's N x N elements counted in int
 
 
 class GmlpBlockParams(NamedTuple):

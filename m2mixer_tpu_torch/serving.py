@@ -5,9 +5,11 @@
   ``PallasStackedFusionMixer`` (the counterpart of ``to_pallas_serving``),
   or with ``per_block`` onto ``PallasMLPMixer`` / ``PallasFusionMixer``; and
   ``VisiongMLP`` / ``FusiongMLP`` onto ``PallasVisiongMLP`` /
-  ``PallasFusiongMLP`` (one gMLP block kernel per block) either way. A
-  ``PairedMLPMixer`` is un-paired into the two per-modality stacks first
-  (``unpair_mlp_mixer_params``), as ``to_pallas_serving`` does.
+  ``PallasFusiongMLP`` (one gMLP block kernel per block) either way. Other
+  blocks stay plain, as in JAX (MIMIC's ``MLPMixerNoPatching`` time mixer,
+  its ``MLP`` and ``GRU``). A ``PairedMLPMixer`` is un-paired into the two
+  per-modality stacks first (``unpair_mlp_mixer_params``), as
+  ``to_pallas_serving`` does.
 - ``export_serving``: write an artifact directory: ``serving.json`` (features,
   dtypes, buckets, the resolved config, the block flavor) and the weights
   (``weights.npz``, the port's ``state_dict``). The JAX artifact ships a
@@ -151,6 +153,15 @@ def _build_task(cfg, device=None, seed: Optional[int] = None):
                                      device=device, seed=seed)
 
 
+def _submodule(network, key: str):
+    """The network's module under a top-level JAX key (``encoders_1`` ->
+    ``network.encoders[1]``; None where there is none)."""
+    name, _, index = key.rpartition("_")
+    if index.isdigit() and isinstance(getattr(network, name, None), torch.nn.ModuleList):
+        return getattr(network, name)[int(index)]
+    return getattr(network, key, None)
+
+
 def to_torch_kernel_serving(cfg, state_dict, device=None, per_block: bool = False):
     """Swap ``MLPMixer`` -> ``PallasStackedMLPMixer`` and ``FusionMixer`` ->
     ``PallasStackedFusionMixer`` (one stack kernel per mixer) in a copy of
@@ -180,7 +191,12 @@ def to_torch_kernel_serving(cfg, state_dict, device=None, per_block: bool = Fals
     if "paired_encoder" in tree:
         tree.update(zip(("encoders_0", "encoders_1"),
                         unpair_mlp_mixer_params(tree.pop("paired_encoder"))))
+    task = _build_task(new_cfg, device=device)
     for k, sub in list(tree.items()):
+        # only the swapped modules change layout: MIMIC's time mixer
+        # (MLPMixerNoPatching) keeps its plain MixerBlocks, as in JAX
+        if not type(_submodule(task.network, k)).__name__.startswith("Pallas"):
+            continue
         if isinstance(sub, dict) and "norm_token" in sub.get("block_0", {}):
             if per_block:
                 tree[k] = {kk: _block_flat(vv) if kk.startswith("block_") else vv
@@ -194,7 +210,6 @@ def to_torch_kernel_serving(cfg, state_dict, device=None, per_block: bool = Fals
             newsub = {kk: vv for kk, vv in sub.items() if kk != "gmlp"}
             newsub.update({bk: _gmlp_block_flat(bv) for bk, bv in sub["gmlp"].items()})
             tree[k] = newsub
-    task = _build_task(new_cfg, device=device)
     converted = from_jax_params({"params": tree}, task.network)
     task.network.load_state_dict(converted)
     return task, converted

@@ -1,7 +1,9 @@
 """Classification metrics with torchmetrics semantics (the port's copy of
 ``m2mixer_tpu/training/metrics.py``: Accuracy, F1Score, Precision, Recall,
-macro / micro / weighted averaging, 0/0 -> 0). Host numpy accumulators: the
-trainer feeds them one epoch of predictions and labels.
+macro / micro / weighted averaging, 0/0 -> 0; AveragePrecision, exact and
+one-vs-rest for multiclass). Host numpy accumulators: the trainer feeds them
+one epoch of predictions and labels, and the rank metrics (``wants_scores``)
+the task's probabilities where it gives them.
 """
 
 from __future__ import annotations
@@ -10,7 +12,8 @@ from typing import List, Optional
 
 import numpy as np
 
-__all__ = ["Accuracy", "F1Score", "Precision", "Recall", "confusion_matrix"]
+__all__ = ["Accuracy", "AveragePrecision", "F1Score", "Precision", "Recall",
+           "confusion_matrix"]
 
 
 def _to_numpy(x):
@@ -154,3 +157,53 @@ class F1Score(_BaseMetric):
         per_class = _safe_div(2 * tp, 2 * tp + fp + fn)
         return self._average(per_class, tp, fp, fn, support,
                              lambda TP, FP, FN: _safe_div(2 * TP, 2 * TP + FP + FN))
+
+
+def _binary_average_precision(scores: np.ndarray, labels: np.ndarray) -> float:
+    """Exact AP = sum_n (R_n - R_{n-1}) P_n over the ranked list (0 without
+    a positive)."""
+    n_pos = int((labels == 1).sum())
+    if n_pos == 0:
+        return 0.0
+    order = np.argsort(-scores, kind="mergesort")
+    sorted_labels = labels[order]
+    tp_cum = np.cumsum(sorted_labels == 1)
+    precision = tp_cum / np.arange(1, len(labels) + 1)
+    return float((precision * (sorted_labels == 1)).sum() / n_pos)
+
+
+def _ovr_average(vals: np.ndarray, labels: np.ndarray, num_classes: int,
+                 average: str) -> float:
+    """One-vs-rest averaging of a rank metric: 'macro' (plain mean) or
+    'weighted' (per-class support); torchmetrics defines no 'micro' here."""
+    if average == "macro":
+        return float(vals.mean())
+    if average == "weighted":
+        support = np.bincount(labels, minlength=num_classes).astype(np.float64)
+        total = support.sum()
+        return float((vals * support).sum() / total) if total > 0 else 0.0
+    raise ValueError(f"average={average!r} is not supported for multiclass "
+                     "rank metrics (torchmetrics allows macro/weighted)")
+
+
+class AveragePrecision(_BaseMetric):
+    """Exact AP; multiclass one-vs-rest over the class scores, averaged per
+    ``average``."""
+
+    wants_scores = True
+
+    def __init__(self, *args, average: str = "macro", **kwargs):
+        super().__init__(*args, average=average, **kwargs)
+
+    def compute(self) -> float:
+        scores, labels = self._gather()
+        if scores.size == 0:
+            return 0.0
+        if self.task == "binary":
+            return _binary_average_precision(scores.reshape(-1).astype(np.float64),
+                                             labels.reshape(-1).astype(np.int64))
+        scores = scores.reshape(-1, self.num_classes)
+        labels = labels.reshape(-1).astype(np.int64)
+        vals = np.array([_binary_average_precision(scores[:, k], (labels == k).astype(np.int64))
+                         for k in range(self.num_classes)])
+        return _ovr_average(vals, labels, self.num_classes, self.average)

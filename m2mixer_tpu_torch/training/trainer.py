@@ -14,6 +14,13 @@
   gradients are zero before the step and their values are restored after
   it, which is the JAX step's masking of both gradients and updates (their
   Adam moments still see the zero gradients, as in JAX).
+- ``train.grad_accum_steps`` K (the JAX trainer's ``:473-475``, ``:746-790``,
+  ``:1316-1347``): each micro-batch's gradients are summed into ``.grad``
+  (``micro_step``), and every K micro-batches their mean makes one masked
+  optimizer update (``apply_update``); a partial group at the epoch's end is
+  flushed, averaged over the micro-batches it holds. ``global_step`` counts
+  updates; ``train_loss_step`` is logged at update boundaries, and the epoch
+  metrics stay per micro-batch.
 - ``Trainer.fit``: the epoch loop: train epoch, validation epoch, the plateau
   LR on ``val_loss``, best-epoch summary, ``checkpoints/last.npz`` every
   epoch and ``checkpoints/best.npz`` when the monitored metric improves (the
@@ -100,8 +107,7 @@ class Trainer:
         for key in _UNPORTED_TRAIN:
             if train_cfg.get(key):
                 raise NotImplementedError(f"not yet ported: train.{key}")
-        if int(train_cfg.get("grad_accum_steps", 1) or 1) > 1:
-            raise NotImplementedError("not yet ported: train.grad_accum_steps > 1")
+        self.grad_accum = max(1, int(train_cfg.get("grad_accum_steps", 1) or 1))
         self.cfg = train_cfg
         self.name = name
         self.max_epochs = int(train_cfg.get("epochs", 1))
@@ -140,14 +146,30 @@ class Trainer:
     def train_step(self, task, batch, ctx):
         """One optimizer step on ``batch`` (tensors on the task's device);
         returns the detached loss and the task's aux dict."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, aux = self.micro_step(task, batch, ctx)
+        self.apply_update(task, ctx)
+        return loss, aux
+
+    def micro_step(self, task, batch, ctx):
+        """Forward and backward of one (micro-)batch, its gradients added to
+        each parameter's ``.grad`` (zero where the loss does not reach a
+        parameter: JAX differentiates every leaf)."""
         net = task.network
         net.train()
-        self.optimizer.zero_grad(set_to_none=True)
         loss, aux = task.step(batch, ctx, train=True)
         loss.backward()
         for p in net.parameters():
-            if p.grad is None:  # JAX differentiates every leaf: zero, not absent
+            if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        return loss.detach(), aux
+
+    def apply_update(self, task, ctx, count: int = 1) -> None:
+        """One optimizer update from the gradients summed over ``count``
+        micro-batches (their mean), the frozen parameters masked."""
+        if count > 1:
+            for p in task.network.parameters():
+                p.grad.div_(count)
         frozen = self._frozen if ctx["frozen"] > 0 else []
         kept = [p.detach().clone() for p in frozen]
         for p in frozen:
@@ -156,45 +178,60 @@ class Trainer:
         with torch.no_grad():
             for p, v in zip(frozen, kept):
                 p.copy_(v)
-        return loss.detach(), aux
 
     def _to_device(self, task, batch):
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(task.device, non_blocking=True)
                 for k, v in batch.items()}
 
     # ----------------------------------------------------------------- epochs
-    def _epoch_logs(self, prefix, losses, extra, preds, labels, scores):
+    def _epoch_logs(self, prefix, losses, extra, preds, labels, scores, probs=()):
         logs = {f"{prefix}_loss": float(torch.stack(losses).mean())}
         for k, vals in extra.items():
             logs[f"{prefix}_{k}"] = float(torch.stack(vals).mean())
-        preds = torch.cat(preds).cpu().numpy() if preds else np.zeros((0,))
+        preds = _host(torch.cat(preds)) if preds else np.zeros((0,))
         labels = torch.cat(labels).cpu().numpy() if labels else np.zeros((0,))
+        # the rank metrics read the probabilities where the task gives them
+        probs = _host(torch.cat(probs)) if probs else None
         if scores is not None:
             for mname, metric in scores.items():
-                metric.update(preds, labels)
+                metric.update(probs if metric.wants_scores and probs is not None else preds,
+                              labels)
                 logs[f"{prefix}_{mname}"] = metric.compute()
                 metric.reset()
         return logs, preds, labels
 
     def _run_train_epoch(self, task, datamodule, epoch, train_scores) -> None:
         ctx = task.make_ctx(epoch, "train")
-        losses, preds, labels = [], [], []
+        losses, preds, labels, probs = [], [], [], []
         extra = {k: [] for k in task.epoch_log_keys()}
         t0, nsteps = time.time(), 0
+        pending = 0  # micro-batches whose gradients wait for an update
         for batch in datamodule.train_batches():
-            loss, aux = self.train_step(task, self._to_device(task, batch), ctx)
-            self.global_step += 1
+            if pending == 0:
+                self.optimizer.zero_grad(set_to_none=True)
+            loss, aux = self.micro_step(task, self._to_device(task, batch), ctx)
+            pending += 1
+            if pending == self.grad_accum:
+                self.apply_update(task, ctx, pending)
+                self.global_step += 1
+                pending = 0
             nsteps += 1
             losses.append(loss)
             for k in extra:
                 extra[k].append(aux["losses"][k.removeprefix("loss_")].detach())
             if self.compute_train_metrics and train_scores is not None:
-                preds.append(aux["preds"])
+                preds.append(aux["preds"].detach())
                 labels.append(aux["labels"])
-            if self.log_interval and self.global_step % self.log_interval == 0:
+                if "probs" in aux:
+                    probs.append(aux["probs"].detach())
+            # one line per update: at K > 1 only at a group's end
+            if self.log_interval and pending == 0 and self.global_step % self.log_interval == 0:
                 self.logger.log({"train_loss_step": float(loss)}, self.global_step)
+        if pending:  # the epoch's partial group
+            self.apply_update(task, ctx, pending)
+            self.global_step += 1
         logs, _, _ = self._epoch_logs("train", losses, extra, preds, labels,
-                                      train_scores if self.compute_train_metrics else None)
+                                      train_scores if self.compute_train_metrics else None, probs)
         logs["epoch"] = epoch
         logs["train_samples_per_sec"] = nsteps * datamodule.batch_size / (time.time() - t0)
         self.callback_metrics.update(logs)
@@ -203,7 +240,7 @@ class Trainer:
     def _run_eval_epoch(self, task, batches, epoch, scores, prefix, collect_artifacts=False):
         ctx = task.make_ctx(epoch, prefix)
         task.network.eval()
-        losses, preds, labels = [], [], []
+        losses, preds, labels, probs = [], [], [], []
         extra = {k: [] for k in task.epoch_log_keys()}
         keys = task.test_artifact_keys() if collect_artifacts else ()
         artifacts = {k: [] for k in keys}
@@ -215,9 +252,11 @@ class Trainer:
                     extra[k].append(aux["losses"][k.removeprefix("loss_")])
                 preds.append(aux["preds"])
                 labels.append(aux["labels"])
+                if "probs" in aux:
+                    probs.append(aux["probs"])
                 for k in keys:
                     artifacts[k].append(aux[k])
-        logs, p, lab = self._epoch_logs(prefix, losses, extra, preds, labels, scores)
+        logs, p, lab = self._epoch_logs(prefix, losses, extra, preds, labels, scores, probs)
         if getattr(task, "log_confusion_matrix", False) and p.size and p.ndim == 1:
             p_int, l_int = p.astype(np.int64), lab.astype(np.int64).reshape(-1)
             k = int(max(p_int.max(), l_int.max())) + 1

@@ -19,7 +19,12 @@ maps by rule:
 - the kernel blocks' leaves (``stack/b0_w1``, ``block_0/w3``, ...) keep the
   JAX kernels' layout and pass through unchanged; the kernel gMLP blocks'
   (``block_0/w_in``, ...) sit one level deeper in the port, under the
-  ``gmlp`` stack the plain modules have (``gmlp.blocks.0.w_in``).
+  ``gmlp`` stack the plain modules have (``gmlp.blocks.0.w_in``);
+- the GRU's cell (``.../GRUCell_0/{ir,iz,in,hr,hz,hn}/{kernel,bias}``, bare
+  flax ``nn.Dense`` layers with a bias on both sides) -> ``torch.nn.GRU``'s
+  stacked ``....gru.{weight,bias}_{ih,hh}_l0``, the gates' rows in the order
+  (r, z, n), each kernel transposed: three JAX leaves a stacked tensor's
+  thirds, each shape-checked.
 
 Both directions raise on a leaf left over, a leaf missing, or a shape
 mismatch, leaf by leaf.
@@ -43,6 +48,42 @@ _BARE_DENSE = ("proj_1", "proj_2", "patch_embedding")  # the gMLP family's nn.De
 # the kernel gMLP block's leaves (ops/gmlp_kernel.py GmlpBlockParams)
 _GMLP_FLAT = ("ln_scale", "ln_bias", "w_in", "b_in", "sgu_ln_scale", "sgu_ln_bias", "sgu_w",
               "sgu_b", "w_out", "b_out")
+
+
+_GRU_CELL = "GRUCell_0"
+_GRU_SIDES = (("ih", ("ir", "iz", "in")), ("hh", ("hr", "hz", "hn")))
+_GRU_PORT = re.compile(r"(.*)\.gru\.(weight|bias)_(ih|hh)_l0")
+
+
+def _take_gru(flat):
+    """Split the GRU cells' leaves off a flat JAX tree: (the rest, {port
+    name: stacked array}, what a cell lacks or has left over)."""
+    rest, cells = {}, {}
+    for path, leaf in flat.items():
+        if _GRU_CELL in path and len(path) - path.index(_GRU_CELL) == 3:
+            i = path.index(_GRU_CELL)
+            cells.setdefault(path[:i], {})[path[i + 1:]] = np.asarray(leaf, np.float32)
+        else:
+            rest[path] = leaf
+    stacked, faults = {}, []
+    for prefix, cell in cells.items():
+        port = _port_name(prefix + ("gru",))[0]  # the module's torch.nn.GRU
+        for side, gates in _GRU_SIDES:
+            for leaf, name in (("kernel", "weight"), ("bias", "bias")):
+                keys = [(g, leaf) for g in gates]
+                lost = [k for k in keys if k not in cell]
+                faults += ["/".join(prefix + (_GRU_CELL,) + k) + " (missing)" for k in lost]
+                if lost:
+                    continue
+                parts = [cell.pop(k) for k in keys]
+                if any(p.shape != parts[0].shape for p in parts):
+                    faults.append(f"{'/'.join(prefix)}/{_GRU_CELL}/*/{leaf}: gate shapes "
+                                  f"{[p.shape for p in parts]}")
+                    continue
+                stacked[f"{port}.{name}_{side}_l0"] = np.concatenate(
+                    [p.T if leaf == "kernel" else p for p in parts], axis=0)
+        faults += ["/".join(prefix + (_GRU_CELL,) + k) for k in cell]
+    return rest, stacked, faults
 
 
 def _is_bare_dense(mods) -> bool:
@@ -98,7 +139,16 @@ def from_jax_params(variables, network: torch.nn.Module) -> "OrderedDict[str, to
     tree = variables["params"] if "params" in variables else variables
     target = network.state_dict()
     out, leftover, mismatched = OrderedDict(), [], []
-    for path, leaf in flatten_tree(tree).items():
+    flat, gru, faults = _take_gru(flatten_tree(tree))
+    leftover += faults
+    for name, a in gru.items():
+        if name not in target:
+            leftover.append(name)
+            continue
+        if tuple(a.shape) != tuple(target[name].shape):
+            mismatched.append(f"{name}: {tuple(a.shape)} vs {tuple(target[name].shape)}")
+        out[name] = torch.from_numpy(np.ascontiguousarray(a))
+    for path, leaf in flat.items():
         try:
             name, transpose = _port_name(path)
         except KeyError:
@@ -125,17 +175,20 @@ def to_jax_params(state_dict) -> dict:
     in the JAX package's layout (the inverse of ``from_jax_params``)."""
     flat = {}
     for name, t in state_dict.items():
+        gru = _GRU_PORT.fullmatch(name)
+        if gru:  # the stacked GRU tensor -> its three gates' JAX leaves
+            prefix = tuple(_jax_path(gru[1].split(".")) + [_GRU_CELL])
+            leaf = "kernel" if gru[2] == "weight" else "bias"
+            a = t.detach().cpu().float().numpy()
+            if a.shape[0] % 3:
+                raise ValueError(f"{name}: {a.shape[0]} rows, not three gates' worth")
+            for g, part in zip(dict(_GRU_SIDES)[gru[3]], np.split(a, 3, axis=0)):
+                flat[prefix + (g, leaf)] = np.ascontiguousarray(part.T if leaf == "kernel"
+                                                                else part)
+            continue
         parts = name.split(".")
         *mods, leaf = parts
-        path = []
-        i = 0
-        while i < len(mods):
-            if mods[i] in _JAX_SEQ and i + 1 < len(mods) and mods[i + 1].isdigit():
-                path.append(f"{_JAX_SEQ[mods[i]]}_{mods[i + 1]}")
-                i += 2
-            else:
-                path.append(mods[i])
-                i += 1
+        path = _jax_path(mods)
         a = t.detach().cpu().float().numpy()
         weight = state_dict.get(".".join(mods + ["weight"]))
         if leaf in ("weight", "bias") and weight is not None and weight.dim() == 2:
@@ -153,6 +206,19 @@ def to_jax_params(state_dict) -> dict:
             raise ValueError(f"two port leaves map to the JAX leaf {'/'.join(key)}")
         flat[key] = np.ascontiguousarray(a)
     return {"params": unflatten_tree(flat)}
+
+
+def _jax_path(mods) -> list:
+    """Port module names -> the JAX path (``blocks.0`` -> ``block_0``)."""
+    path, i = [], 0
+    while i < len(mods):
+        if mods[i] in _JAX_SEQ and i + 1 < len(mods) and mods[i + 1].isdigit():
+            path.append(f"{_JAX_SEQ[mods[i]]}_{mods[i + 1]}")
+            i += 2
+        else:
+            path.append(mods[i])
+            i += 1
+    return path
 
 
 def load_npz(path: str, network: torch.nn.Module) -> "OrderedDict[str, torch.Tensor]":

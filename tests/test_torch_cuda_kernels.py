@@ -658,11 +658,15 @@ def test_gmlp_kernels_match_plain(cuda, B, shape, approx, rate):
 # K3b's tensor-core shapes: rows that are no multiple of the 128-row tile
 # (37 x 49), widths that are no multiple of 8 or 16 (D = 20, F/2 = 22; F/2 =
 # 20), and token counts padded to whole m16 tiles: 13 -> 16, 65 -> 80 (the
-# 8-tile SGU kernel with 5 in use), 128 (no padding, the largest N)
+# 8-tile SGU kernel with 5 in use), 128 (no padding, the largest N of the
+# shared-memory SGU); above it the large-N route: 129 tokens (ragged against
+# every tile, rows of vt no whole 16 bytes) and 196 (the audio gMLP at patch 8)
 GMLP_TC_SHAPES = {"encoder_ragged": dict(B=37, N=49, D=128, F=768),
                   "odd_widths": dict(B=5, N=13, D=20, F=44),
                   "n65": dict(B=3, N=65, D=24, F=40),
-                  "n128": dict(B=2, N=128, D=16, F=48)}
+                  "n128": dict(B=2, N=128, D=16, F=48),
+                  "n129": dict(B=3, N=129, D=24, F=40),
+                  "n196": dict(B=2, N=196, D=32, F=64)}
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.5])
@@ -758,7 +762,8 @@ def test_gmlp_block_module_trains_on_cuda(cuda):
 
 def test_gmlp_kernels_raise_on_cuda(cuda):
     """What the kernels do not take raises: a compute dtype other than float32
-    and bf16 (bf16 launches, counted apart), more than 128 tokens."""
+    and bf16 (bf16 launches, counted apart), more tokens than sgu_w's N x N
+    elements count in int (46340)."""
     p = gmlp_params_on(cuda, **GMLP_SHAPES["small"])
     x = torch.randn(2, 6, 16, device=cuda)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -766,9 +771,8 @@ def test_gmlp_kernels_raise_on_cuda(cuda):
     before = gk.fused_gmlp_block.bf16_launches
     gk.fused_gmlp_block(x, p, compute_dtype=torch.bfloat16)
     assert gk.fused_gmlp_block.bf16_launches == before + 1
-    big = gmlp_params_on(cuda, N=129, D=16, F=32)
-    with pytest.raises(ValueError, match="at most 128 tokens"):
-        gk.fused_gmlp_block(torch.randn(2, 129, 16, device=cuda), big)
+    with pytest.raises(ValueError, match="at most 46340 tokens"):
+        gk.fused_gmlp_block(torch.randn(1, 46341, 16, device=cuda), p)
 
 
 # the gMLP block in bf16 compute: which of dx and the 10 gradients a bf16 cast
@@ -865,6 +869,40 @@ def test_gmlp_bf16_on_the_wgmma_engine(cuda, shape, B):
     assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
 
 
+@pytest.mark.parametrize("N", [128, 129, 196])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_gmlp_large_n_route_by_the_tallies(cuda, dtype, N):
+    """Above 128 tokens K3f and K3b take the large-N route (one
+    gmlp_vt_kernel a call) with the token products as launches of the
+    dtype's product (float32: three tc_gemm a K3f, eight a K3b; bf16: the
+    same on the wgmma engine, no tc_gemm); at 128 the shared-memory SGU (no
+    gmlp_vt_kernel, two and five products). Both match the plain version."""
+    p = gmlp_params_on(cuda, seed=3, N=N, D=32, F=64)
+    x = torch.randn(4, N, 32, device=cuda)
+    g = torch.randn_like(x)
+    cd = torch.bfloat16 if dtype == "bf16" else torch.float32
+    engine = "wg_gemm_kernel" if dtype == "bf16" else "tc_gemm_kernel"
+    other = "tc_gemm_kernel" if dtype == "bf16" else "wg_gemm_kernel"
+    large = N > 128
+    out, launched = tally_delta(lambda: gk.fused_gmlp_block(x, p, seed=2, dropout_rate=0.1,
+                                                            compute_dtype=cd))
+    assert (launched["gmlp_vt_kernel"], launched[engine], launched[other]) == \
+        ((1, 3, 0) if large else (0, 2, 0)), launched
+    (dx, grads), launched = tally_delta(lambda: gk.fused_gmlp_block_bwd(
+        x, g, p, seed=2, dropout_rate=0.1, compute_dtype=cd))
+    assert (launched["gmlp_vt_kernel"], launched[engine], launched[other]) == \
+        ((1, 8, 0) if large else (0, 5, 0)), launched
+    want = gk.gmlp_block_reference(x, p, 0.1, seed=2, compute_dtype=cd)
+    want_dx, want_g = gk.gmlp_block_bwd_reference(x, g, p, 0.1, seed=2, compute_dtype=cd)
+    if dtype == "bf16":
+        assert_close(out, want, True)
+        bf16_grads_close((dx, *grads), (want_dx, *want_g), GMLP_ROUNDED, 0.10)
+    else:
+        rel_close(out, want)
+        for a, w in zip((dx, *grads), (want_dx, *want_g)):
+            rel_close(a, w)
+
+
 def test_gmlp_workspace_matches_the_mirror(cuda):
     """m2m_gmlp_workspace_bytes against tests/test_torch_gmlp_plan.py's
     Python mirror of its plan, forward and backward, float32 and bf16, on
@@ -881,14 +919,16 @@ def test_gmlp_workspace_matches_the_mirror(cuda):
                     4 * workspace_floats(*dims, backward, bf16, sms=sms), (dims, backward, bf16)
 
 
-def test_gmlp_bf16_raises_where_the_kernels_do_not_take_it(cuda):
+@pytest.mark.parametrize("N", [6, 196])
+def test_gmlp_bf16_raises_where_the_kernels_do_not_take_it(cuda, N):
     """F/2 = 2048 v-channels, whose LN(v) rows overflowed the fixed row tile,
     run on a tile sized from the shared memory (fewer rows, or in bf16 fewer
-    warps) and match the plain version in both dtypes; no fallback where the
-    kernels still cannot take a shape: 129 tokens (the SGU keeps a sample's
-    token projection in shared memory) raise with the shape in the message."""
-    p = gmlp_params_on(cuda, N=6, D=16, F=4096)
-    x = torch.randn(2, 6, 16, device=cuda)
+    warps) and match the plain version in both dtypes, on the shared-memory
+    SGU (6 tokens) and on the large-N route (196); no fallback where the
+    kernels still cannot take a shape: B*F/2 rows past the large-N route's
+    product grid (65535 tiles of 128) raise with the shape in the message."""
+    p = gmlp_params_on(cuda, N=N, D=16, F=4096)
+    x = torch.randn(2, N, 16, device=cuda)
     g = torch.randn_like(x)
     for dtype in (torch.bfloat16, torch.float32):
         out = gk.fused_gmlp_block(x, p, compute_dtype=dtype)
@@ -902,10 +942,10 @@ def test_gmlp_bf16_raises_where_the_kernels_do_not_take_it(cuda):
             rel_close(out, want)
             for a, w in zip((dx, *grads), (want_dx, *want_g)):
                 rel_close(a, w)
-    p = gmlp_params_on(cuda, N=129, D=16, F=32)
-    x = torch.randn(2, 129, 16, device=cuda)
+    p = gmlp_params_on(cuda, N=129, D=1, F=258)  # B*F/2 = 65535 x 129 rows: past 65535 x 128
+    x = torch.randn(65535, 129, 1, device=cuda)
     for dtype in (torch.bfloat16, torch.float32):
-        with pytest.raises(ValueError, match="129"):
+        with pytest.raises(ValueError, match="B=65535 N=129 D=1 F=258"):
             gk.fused_gmlp_block_bwd(x, torch.randn_like(x), p, compute_dtype=dtype)
 
 
@@ -1009,11 +1049,13 @@ def test_dynamixer_kernels_match_plain(cuda, shape, scale):
     g = torch.randn_like(x)
     before = (dk.fused_dynamixer_op.launches, dk.fused_dynamixer_op_bwd.launches)
     out, tally = tally_delta(lambda: dk.fused_dynamixer_op(x, p, H, R))
-    assert tally == {"wg_gemm_kernel": 0, "tc_gemm_kernel": DYNA_WG_FWD, "tok_in_kernel": 0}
+    assert tally == {"wg_gemm_kernel": 0, "tc_gemm_kernel": DYNA_WG_FWD, "tok_in_kernel": 0,
+                     "gmlp_vt_kernel": 0}
     rel_close(out, dk.dynamixer_op_reference(x, p, H, R))
     assert torch.equal(out, dk.fused_dynamixer_op(x, p, H, R))
     (dx, grads), tally = tally_delta(lambda: dk.fused_dynamixer_op_bwd(x, g, p, H, R))
-    assert tally == {"wg_gemm_kernel": 0, "tc_gemm_kernel": DYNA_WG_BWD, "tok_in_kernel": 0}
+    assert tally == {"wg_gemm_kernel": 0, "tc_gemm_kernel": DYNA_WG_BWD, "tok_in_kernel": 0,
+                     "gmlp_vt_kernel": 0}
     assert (dk.fused_dynamixer_op.launches, dk.fused_dynamixer_op_bwd.launches) == \
         (before[0] + 2, before[1] + 1)
     want_dx, want = dk.dynamixer_op_bwd_reference(x, g, p, H, R)

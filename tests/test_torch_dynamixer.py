@@ -36,6 +36,7 @@ from m2mixer_tpu_torch.modules import dynamixer as tdm
 from m2mixer_tpu_torch.modules import fusion as tfusion
 from m2mixer_tpu_torch.serving import _build_task, load_serving, main, serve_fn
 from m2mixer_tpu_torch.utils.weights import flatten_tree, from_jax_params, to_jax_params
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 DYNA_CFG = str(REPO / "cfg" / "avmnist" / "avmnist_3loss_dyna.yml")

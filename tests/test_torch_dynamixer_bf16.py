@@ -46,6 +46,7 @@ from m2mixer_tpu_torch.training.trainer import Trainer
 from m2mixer_tpu_torch.utils.weights import from_jax_params
 from test_torch_dynamixer_kernel import case, transposed
 from test_torch_dynamixer_training import CFG, batches
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
 BF16 = torch.bfloat16
 FWD_TOL = 1e-5

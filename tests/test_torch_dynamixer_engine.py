@@ -37,6 +37,7 @@ import torch
 from m2mixer_tpu_torch.ops import dynamixer_kernel as dk
 from test_torch_mixer_bf16_grad import MISMATCH, REL
 from test_torch_mixer_bf16_split import engine_mm, rd, split
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
 # dx, then DynaMixerOpParams: which a bf16 cast rounds
 ROUNDED = (False, True, False, True, False, True, False)

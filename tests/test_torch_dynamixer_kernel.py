@@ -27,6 +27,7 @@ import torch
 
 from m2mixer_tpu.ops import dynamixer_kernel as jd
 from m2mixer_tpu_torch.ops import dynamixer_kernel as td
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
 FWD_TOL = 1e-5
 GRAD_TOL = 5e-5

@@ -24,6 +24,7 @@ import pytest
 from m2mixer_tpu_torch.ops import dynamixer_kernel as dk
 from test_torch_mixer_bwd_plan import row_slices
 from test_torch_mixer_fwd_plan import SMS, TC_BM, TC_BN, cdiv, wg_slices
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
 THREADS, TILE_K = 256, 16
 COL_SPLIT = 1024  # kColSplit

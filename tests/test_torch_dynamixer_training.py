@@ -32,6 +32,7 @@ from m2mixer_tpu_torch.datasets import synthetic_avmnist_arrays
 from m2mixer_tpu_torch.models import get_model
 from m2mixer_tpu_torch.training.trainer import Trainer
 from m2mixer_tpu_torch.utils.weights import from_jax_params, to_jax_params
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 DYNA_CFG = str(REPO / "cfg" / "avmnist" / "avmnist_3loss_dyna.yml")

@@ -44,6 +44,7 @@ from m2mixer_tpu_torch.serving import _build_task, load_serving, main, serve_fn,
     to_torch_kernel_serving
 from m2mixer_tpu_torch.utils.weights import (flatten_tree, from_jax_params, to_jax_params,
                                              unflatten_tree)
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 GMLP_CFG = str(REPO / "cfg" / "avmnist" / "avmnist_gmlp.yml")

@@ -24,7 +24,10 @@ kernels to it on the card). The JAX side:
 All of that runs in one subprocess with XLA's ``--xla_allow_excess_precision``
 off: with it on (the default) XLA on the CPU skips rounding points inside its
 fusions, and the bf16 kernel's output differs from ``gmlp_block_reference``
-by 7.8e-3 at B=4 N=9 D=16 F=24.
+by 7.8e-3 at B=4 N=9 D=16 F=24. The subprocess starts with the module's first
+test and runs beside the in-process ones below, which come first. The cases
+include two above 128 tokens (129 and 196), where the CUDA kernels take their
+large-N route.
 
 Then the narrowed ``avmnist_gmlp.yml`` (depth 1/1/1, the config's widths) at
 ``model.precision=bf16`` through ``PallasVisiongMLP``/``PallasFusiongMLP``:
@@ -56,6 +59,7 @@ from test_torch_gmlp import (GMLP_CFG, batch, cut_depth, gelu_flavor, jget_model
 from test_torch_gmlp_kernel import case
 from test_torch_gmlp_training import CFG as LOCKSTEP_CFG
 from test_torch_gmlp_training import batches
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
 BF16 = torch.bfloat16
 REL = 2e-2
@@ -70,6 +74,10 @@ ROUNDED = (True, True, True, True, False, True, True, True, False, True, False)
 SHAPES = {"narrow": dict(B=4, N=12, D=32, F=48), "odd": dict(B=3, N=13, D=20, F=44)}
 CASES = {f"{shape}-{gelu}-{kind}": (shape, gelu == "tanh", kind) for shape in sorted(SHAPES)
          for gelu in ("erf", "tanh") for kind in ("kernel", "masked")}
+# above 128 tokens (the CUDA kernels' large-N route): one case of each kind
+SHAPES.update({"n129": dict(B=2, N=129, D=16, F=32), "n196": dict(B=2, N=196, D=16, F=32)})
+CASES.update({"n129-tanh-masked": ("n129", True, "masked"),
+              "n196-erf-kernel": ("n196", False, "kernel")})
 KERNEL_BLOCKS = {"image": "PallasVisiongMLP", "audio": "PallasVisiongMLP",
                  "multimodal": "PallasFusiongMLP"}
 
@@ -117,10 +125,12 @@ def case_inputs(name):
     return x, g, params, approx, masks
 
 
-@pytest.fixture(scope="module")
-def jax_refs(tmp_path_factory):
-    """Every case's JAX forward and gradients, from one subprocess with XLA's
-    excess precision off."""
+@pytest.fixture(scope="module", autouse=True)
+def jax_job(tmp_path_factory):
+    """Start the JAX subprocess (XLA's excess precision off) for every case
+    as the module's first test begins, so that it runs beside the module's
+    in-process tests (the served network and the train steps, which come
+    first); ``jax_refs`` waits for it."""
     tmp = tmp_path_factory.mktemp("gmlp_bf16")
     arrays = {}
     for name in CASES:
@@ -132,8 +142,19 @@ def jax_refs(tmp_path_factory):
     np.savez(tmp / "in.npz", **arrays)
     env = dict(os.environ, XLA_FLAGS="--xla_allow_excess_precision=false", JAX_PLATFORMS="cpu")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    subprocess.run([sys.executable, "-c", _JAX_NO_EXCESS_PRECISION, str(tmp / "in.npz"),
-                    str(tmp / "out.npz")], check=True, env=env, cwd=repo, timeout=600)
+    proc = subprocess.Popen([sys.executable, "-c", _JAX_NO_EXCESS_PRECISION, str(tmp / "in.npz"),
+                             str(tmp / "out.npz")], env=env, cwd=repo)
+    yield proc, tmp
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+@pytest.fixture(scope="module")
+def jax_refs(jax_job):
+    """Every case's JAX forward and gradients, from the subprocess."""
+    proc, tmp = jax_job
+    assert proc.wait(timeout=600) == 0
     with np.load(tmp / "out.npz") as z:
         return {k: z[k] for k in z.files}
 
@@ -172,58 +193,6 @@ def jax_kernel_gelu(x, approximate: bool):
     poly = t * (0.254829592 + t * (-0.284496736 + t * (1.421413741
                 + t * (-1.453152027 + t * 1.061405429))))
     return 0.5 * x * (1.0 + torch.sign(z) * (1.0 - poly * torch.exp(-az * az)))
-
-
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_bf16_forward_matches_jax_bit_for_bit(jax_refs, name, monkeypatch):
-    """The plain bf16 forward against JAX's (the reference at rate 0, which is
-    also the Pallas kernel's output; ``_block_math`` with the same masks at
-    rate 0.1), on the bf16 grid: with JAX's erf swapped in, bit for bit; as
-    shipped (exact erf), at most MISMATCH of the elements differ, by one bf16
-    ulp (measured: 1 of 780 in one case, none in the others); the float32
-    forward rounded to bf16 differs in more."""
-    x, g, params, approx, masks = case_inputs(name)
-    want = jax_refs[name + "/fwd"]
-    assert np.array_equal(jax_refs[name + "/kernel_fwd"], want)
-    got, _ = port_fwd_grads(x, g, params, approx, masks)
-    assert got.dtype == np.float32 and got.shape == want.shape
-    assert np.array_equal(got, torch.from_numpy(got).to(BF16).float().numpy())
-    assert float(np.mean(got != want)) <= MISMATCH
-    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
-    assert np.all(np.abs(got - want) <= ulp)
-    monkeypatch.setattr(tg, "_gelu", jax_kernel_gelu)
-    got, _ = port_fwd_grads(x, g, params, approx, masks)
-    assert np.array_equal(got, want)
-    f32, _ = port_fwd_grads(x, g, params, approx, masks, torch.float32)
-    control = torch.from_numpy(f32).to(BF16).float().numpy()
-    assert float(np.mean(control != want)) > MISMATCH
-
-
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_bf16_grads_match_jax(jax_refs, name, monkeypatch):
-    """dx and the 10 gradients, float32: each within 2e-2 x max(1, max|JAX|),
-    the rounded ones on the bf16 grid. With JAX's erf swapped in, at most
-    MISMATCH of the rounded elements differ from JAX's (measured: at most
-    0.05%; as shipped, up to 0.8%); the float32 backward, rounded where the
-    bf16 one rounds, differs in more."""
-    x, g, params, approx, masks = case_inputs(name)
-    want = [jax_refs[f"{name}/g{i}"] for i in range(11)]
-    _, got = port_fwd_grads(x, g, params, approx, masks)
-    assert len(got) == len(want) == len(ROUNDED)
-    for i, (a, b, r) in enumerate(zip(got, want, ROUNDED)):
-        assert a.dtype == np.float32 and a.shape == b.shape, i
-        err = float(np.max(np.abs(a - b)))
-        assert err <= REL * max(1.0, float(np.max(np.abs(b)))), (i, err)
-        if r:
-            assert np.array_equal(a, torch.from_numpy(a).to(BF16).float().numpy()), i
-    monkeypatch.setattr(tg, "_gelu", jax_kernel_gelu)
-    _, got = port_fwd_grads(x, g, params, approx, masks)
-    share = differing_share(got, want)
-    assert share <= MISMATCH, share
-    _, f32 = port_fwd_grads(x, g, params, approx, masks, torch.float32)
-    control = [torch.from_numpy(a).to(BF16).float().numpy() if r else a
-               for a, r in zip(f32, ROUNDED)]
-    assert differing_share(control, want) > MISMATCH
 
 
 def with_kernel_blocks(cfg):
@@ -307,3 +276,55 @@ def test_bf16_train_steps_match_jax(tmp_path):
         for k, v in j_losses.items():
             assert close(aux["losses"][k].item(), v), (k, aux["losses"][k].item(), v)
     assert all(prm.dtype == torch.float32 for prm in task.network.parameters())
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_bf16_forward_matches_jax_bit_for_bit(jax_refs, name, monkeypatch):
+    """The plain bf16 forward against JAX's (the reference at rate 0, which is
+    also the Pallas kernel's output; ``_block_math`` with the same masks at
+    rate 0.1), on the bf16 grid: with JAX's erf swapped in, bit for bit; as
+    shipped (exact erf), at most MISMATCH of the elements differ, by one bf16
+    ulp (measured: 1 of 780 in one case, none in the others); the float32
+    forward rounded to bf16 differs in more."""
+    x, g, params, approx, masks = case_inputs(name)
+    want = jax_refs[name + "/fwd"]
+    assert np.array_equal(jax_refs[name + "/kernel_fwd"], want)
+    got, _ = port_fwd_grads(x, g, params, approx, masks)
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert np.array_equal(got, torch.from_numpy(got).to(BF16).float().numpy())
+    assert float(np.mean(got != want)) <= MISMATCH
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+    assert np.all(np.abs(got - want) <= ulp)
+    monkeypatch.setattr(tg, "_gelu", jax_kernel_gelu)
+    got, _ = port_fwd_grads(x, g, params, approx, masks)
+    assert np.array_equal(got, want)
+    f32, _ = port_fwd_grads(x, g, params, approx, masks, torch.float32)
+    control = torch.from_numpy(f32).to(BF16).float().numpy()
+    assert float(np.mean(control != want)) > MISMATCH
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_bf16_grads_match_jax(jax_refs, name, monkeypatch):
+    """dx and the 10 gradients, float32: each within 2e-2 x max(1, max|JAX|),
+    the rounded ones on the bf16 grid. With JAX's erf swapped in, at most
+    MISMATCH of the rounded elements differ from JAX's (measured: at most
+    0.05%; as shipped, up to 0.8%); the float32 backward, rounded where the
+    bf16 one rounds, differs in more."""
+    x, g, params, approx, masks = case_inputs(name)
+    want = [jax_refs[f"{name}/g{i}"] for i in range(11)]
+    _, got = port_fwd_grads(x, g, params, approx, masks)
+    assert len(got) == len(want) == len(ROUNDED)
+    for i, (a, b, r) in enumerate(zip(got, want, ROUNDED)):
+        assert a.dtype == np.float32 and a.shape == b.shape, i
+        err = float(np.max(np.abs(a - b)))
+        assert err <= REL * max(1.0, float(np.max(np.abs(b)))), (i, err)
+        if r:
+            assert np.array_equal(a, torch.from_numpy(a).to(BF16).float().numpy()), i
+    monkeypatch.setattr(tg, "_gelu", jax_kernel_gelu)
+    _, got = port_fwd_grads(x, g, params, approx, masks)
+    share = differing_share(got, want)
+    assert share <= MISMATCH, share
+    _, f32 = port_fwd_grads(x, g, params, approx, masks, torch.float32)
+    control = [torch.from_numpy(a).to(BF16).float().numpy() if r else a
+               for a, r in zip(f32, ROUNDED)]
+    assert differing_share(control, want) > MISMATCH

@@ -41,6 +41,7 @@ import torch
 from m2mixer_tpu_torch.ops import gmlp_kernel as tg
 from test_torch_mixer_bf16_split import engine_mm, rd, split
 from test_torch_mixer_bf16_grad import MISMATCH, REL
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
 BF = torch.bfloat16
 # dx and the 10 gradients in GmlpBlockParams order: which a bf16 cast rounds

@@ -27,6 +27,7 @@ import torch
 from m2mixer_tpu.modules.common import set_gelu_approximate
 from m2mixer_tpu.ops import gmlp_kernel as jg
 from m2mixer_tpu_torch.ops import gmlp_kernel as tg
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 2e-5
 # "odd_widths" is the card tests' odd shape (tests/test_torch_cuda_kernels.py:
@@ -34,6 +35,10 @@ TOL = 2e-5
 # to JAX here: widths that are no multiple of 8 or 16 (D = 20, F/2 = 22), N = 13
 SHAPES = {"narrow": dict(B=4, N=6, D=16, F=32), "config": dict(B=2, N=49, D=128, F=768),
           "odd_widths": dict(B=5, N=13, D=20, F=44)}
+# above 128 tokens the CUDA kernels take the large-N route: the plain version
+# they are held to there is held here to the Pallas kernel (interpret mode)
+LARGE_N = {"n129-erf": (dict(B=2, N=129, D=16, F=32), False),
+           "n196-tanh": (dict(B=2, N=196, D=16, F=32), True)}
 
 
 def case(seed, B, N, D, F):
@@ -94,6 +99,17 @@ def test_plain_version_matches_jax_forward_and_grad(shape, gelu, jax_fn):
     got_out, got_grads = port_fwd_grads(x, g, params, approx)
     assert_rel_close(got_out, want_out)
     assert len(got_grads) == len(want_grads) == 11
+    for a, b in zip(got_grads, want_grads):
+        assert_rel_close(a, b)
+
+
+@pytest.mark.parametrize("name", sorted(LARGE_N))
+def test_plain_version_matches_jax_above_128_tokens(name):
+    geom, approx = LARGE_N[name]
+    x, g, params = case(2, **geom)
+    want_out, want_grads = jax_fwd_grads(jg.fused_gmlp_block, x, g, params, approx)
+    got_out, got_grads = port_fwd_grads(x, g, params, approx)
+    assert_rel_close(got_out, want_out)
     for a, b in zip(got_grads, want_grads):
         assert_rel_close(a, b)
 

@@ -19,6 +19,14 @@ planes; h / pm stays float32 (and holds the out-projection's slices where
 the forward slices F/2); the slices follow the engine's tiles and 64-deep
 stages; db_in and db_out take the producers' partials (per sample and per
 32-row tile) in place of column slices.
+
+Above 128 tokens (the large-N route) the SGU's shared memory is not planned:
+vt and dt, the token projection's operands in its (B*F/2, N) layout (float32
+rows of N; bf16 rows of N rounded up to 8), join the workspace with the
+rounded sgu_w (bf16), and d sgu_w and d sgu_b take slices of the B*F/2 rows
+(tc_gemm's row slices; the engine's). The token cap is sgu_w's N x N
+elements counted in int (46340), and the large-N route's products take at
+most 65535 tiles of 128 of the B*F/2 rows.
 """
 
 import pytest
@@ -26,8 +34,10 @@ import pytest
 from m2mixer_tpu_torch.ops import gmlp_kernel as gk
 from test_torch_mixer_bwd_plan import row_slices
 from test_torch_mixer_fwd_plan import SMEM_OPTIN, SMS, TC_BM, TC_BN, cdiv, fill_slices, wg_slices
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
-MAX_SEQ, CHUNK, ROW_TILE, WARPS = 128, 64, 32, 8  # kMaxSeq, kChunk, kRowTile, kWarps
+SGU_SEQ, MAX_SEQ = 128, 46340  # kSguSeq, kMaxSeq
+CHUNK, ROW_TILE, WARPS = 64, 32, 8  # kChunk, kRowTile, kWarps
 WG_BM, WG_BN = 128, 128  # the engine's tile: rows, and the 128-wide tile's columns
 
 
@@ -57,10 +67,19 @@ def gmlp_plan(B, N, D, F, bf16, sms=SMS):
     shapes the kernels do not take (check_args, make_plan's refusals)."""
     if not (1 <= B <= 65535 and 1 <= N <= MAX_SEQ and D >= 1 and F >= 2 and F % 2 == 0):
         return None
+    tok = N > SGU_SEQ  # the large-N route
+    if tok and B * (F // 2) > 65535 * 128:
+        return None
     if B * N * max(F, D) >= 2**32:
         return None
     H, R = F // 2, B * N
     nsplit = max(1, min(cdiv(2 * sms, B), cdiv(H, CHUNK)))
+    Np = (cdiv(N, 8) * 8 if bf16 else N) if tok else 0
+    if tok and bf16:
+        tslice, tsplit = wg_slices(B * H, cdiv(N, WG_BM) * cdiv(N, WG_BN), sms, 1)
+    elif tok:
+        tslice, tsplit = row_slices(B * H, cdiv(N, TC_BM) * cdiv(N, TC_BN), sms)
+    p_sgu = tsplit * N * N if tok else B * nsplit * (N * N + N)
     # the row tile of the LN backwards and the bf16 row kernels: ROW_TILE
     # rows, or as many as fit; the bf16 LN(v) backward's warps: WARPS, or the
     # most of 4, 2, 1 that fit
@@ -71,12 +90,15 @@ def gmlp_plan(B, N, D, F, bf16, sms=SMS):
     vw = WARPS
     while vw > 1 and vw * 6 * H * 4 > SMEM_OPTIN:
         vw //= 2
-    smem = ((sgu_floats_bf16 if bf16 else sgu_floats)(N, True) * 4,
-            (vw * 6 * H if bf16 else 2 * rt * H) * 4, ln_smem(rt), WARPS * D * 4 if bf16 else 0)
+    sgu = 0 if tok else (sgu_floats_bf16 if bf16 else sgu_floats)(N, True) * 4
+    smem = (sgu, (vw * 6 * H if bf16 else 2 * rt * H) * 4, ln_smem(rt),
+            WARPS * D * 4 if bf16 else 0)
     if max(smem) > SMEM_OPTIN:
         return None
     tiles = cdiv(R, rt)
-    p = dict(nsplit=nsplit, tiles=tiles, rt=rt, vwarps=vw)
+    p = dict(nsplit=nsplit, tiles=tiles, rt=rt, vwarps=vw, tok=tok)
+    if tok:
+        p.update(Np=Np, tslice=tslice, tsplit=tsplit)
     sizes = {}
     if bf16:
         Dp, Hp, Fp = (cdiv(n, 8) * 8 for n in (D, H, F))
@@ -89,8 +111,11 @@ def gmlp_plan(B, N, D, F, bf16, sms=SMS):
                    gated=op(R * Hp), vstats=2 * R, w_in_r=op(D * Fp), w_out_r=op(H * Dp))
         bwd = dict(w_out_t=op(D * Hp), dout=op(R * Dp), dg=op(R * Hp), dpre=3 * op(R * Fp),
                    dxnp=xsplit * R * D, p_ln=tiles * 2 * D, p_vln=tiles * 2 * H,
-                   p_sgu=B * nsplit * (N * N + N), p_win=wsplit * D * F, p_wout=vsplit * H * D,
+                   p_sgu=p_sgu, p_win=wsplit * D * F, p_wout=vsplit * H * D,
                    p_bin=(B + tiles) * H, p_bout=tiles * D)
+        if tok:
+            fwd.update(vt=op(B * H * Np), w_sgu_r=op(N * Np))
+            bwd.update(dtt=op(B * H * Np), p_sgb=tsplit * N)
         p.update(Dp=Dp, Hp=Hp, Fp=Fp, ysplit=ysplit, xsplit=xsplit, wsplit=wsplit, vsplit=vsplit)
         whole = lambda n: cdiv(n, 4) * 4  # noqa: E731  (each buffer whole 16-byte groups)
         p["fwd_floats"] = sum(whole(v) for v in fwd.values())
@@ -101,11 +126,19 @@ def gmlp_plan(B, N, D, F, bf16, sms=SMS):
         _, wsplit = row_slices(R, cdiv(D, TC_BM) * cdiv(F, TC_BN), sms)
         fwd = dict(xn=R * D, act=R * F, gated=R * H, vstats=2 * R)
         bwd = dict(dout=R * D, dg=R * H, dpre=R * F, dxnp=xsplit * R * D, p_ln=tiles * 2 * D,
-                   p_vln=tiles * 2 * H, p_sgu=B * nsplit * (N * N + N), p_win=wsplit * D * F,
+                   p_vln=tiles * 2 * H, p_sgu=p_sgu, p_win=wsplit * D * F,
                    p_wout=wsplit * H * D, p_col=wsplit * (F + D))
         p.update(xsplit=xsplit, wsplit=wsplit)
-        p["fwd_floats"] = cdiv(sum(fwd.values()), 4) * 4
-        p["bwd_floats"] = p["fwd_floats"] + sum(bwd.values())
+        o = sum(fwd.values())
+        if tok:  # vt from a 16-byte boundary
+            fwd["vt"] = B * H * Np
+            o = cdiv(o, 4) * 4 + fwd["vt"]
+        p["fwd_floats"] = cdiv(o, 4) * 4
+        o = p["fwd_floats"] + sum(bwd.values())
+        if tok:  # dt from a 16-byte boundary, then d sgu_b's slices
+            bwd.update(dtt=B * H * Np, p_sgb=tsplit * N)
+            o = cdiv(o, 4) * 4 + bwd["dtt"] + bwd["p_sgb"]
+        p["bwd_floats"] = o
         sizes = {**fwd, **bwd}
     p["sizes"] = sizes
     return p
@@ -142,6 +175,16 @@ PLANS = {
     (2, 128, 16, 48): (92_160, 369_152, 73_984, 339_904),
     (37, 49, 128, 768): (9_297_072, 39_689_504, 7_735_472, 37_796_640),
     (2, 6, 16, 4096): (295_776, 1_052_960, 442_848, 1_347_104),
+    # the large-N route: the card's edge shapes, the route's tally test, F =
+    # 4096 at 196 tokens, and the audio gMLP at patch 8 (196 tokens)
+    (3, 129, 24, 40): (164_096, 513_172, 156_464, 455_648),
+    (2, 196, 32, 64): (254_016, 855_056, 263_808, 793_040),
+    (4, 128, 32, 64): (266_240, 1_033_216, 206_848, 911_872),
+    (4, 129, 32, 64): (334_368, 1_053_624, 278_320, 903_760),
+    (4, 196, 32, 64): (508_032, 1_696_928, 443_072, 1_486_432),
+    (2, 196, 16, 4096): (12_873_280, 33_999_232, 9_957_248, 30_962_752),
+    (32, 196, 128, 768): (41_796_608, 108_765_696, 31_028_800, 101_548_096),
+    (512, 196, 128, 768): (668_745_728, 1_441_850_880, 490_861_120, 1_228_617_616),
 }
 CASES = sorted(PLANS)
 
@@ -218,11 +261,35 @@ def test_bf16_slices_are_whole_stages(bn):
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
-@pytest.mark.parametrize("dims", [(2, 129, 16, 32), (2, 6, 16, 33)],
-                         ids=["too_many_tokens", "odd_d_ffn"])
+@pytest.mark.parametrize("dims", [(1, 46341, 16, 32), (2, 6, 16, 33), (65535, 129, 1, 258)],
+                         ids=["too_many_tokens", "odd_d_ffn", "past_the_grid"])
 def test_shapes_the_kernels_do_not_take_raise(dims, bf16):
+    """Past the real limits: sgu_w's N x N elements in int (46340 tokens),
+    an odd d_ffn, and B*F/2 rows past the large-N route's 65535 tiles of 128
+    (one row-tile's worth under it still plans)."""
     with pytest.raises(ValueError, match="does not take"):
         gk._workspace_bytes(MirrorLib, *dims, True, bf16, 0)
+    assert gmlp_plan(1, 46340, 16, 32, bf16) is not None
+    assert gmlp_plan(65535, 129, 1, 256, bf16) is not None
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("N", [129, 196])
+def test_past_128_tokens_the_large_n_route_plans(N, bf16):
+    """Above 128 tokens the plan takes the large-N route: no SGU shared
+    memory, vt and dt in the token projection's layout (bf16 rows of N
+    rounded up to 8), d sgu_w's slices of the B*F/2 rows each whole stages
+    of the product that sums them and covering the rows once."""
+    B, D, F = 32, 128, 768
+    p = gmlp_plan(B, N, D, F, bf16)
+    assert p["tok"] and not gmlp_plan(B, 128, D, F, bf16)["tok"]
+    assert p["Np"] == (cdiv(N, 8) * 8 if bf16 else N)
+    rows = B * (F // 2)
+    size, split = p["tslice"], p["tsplit"]
+    assert size % (64 if bf16 else 32) == 0 and (split - 1) * size < rows <= split * size
+    vt = rows * p["Np"]
+    assert p["sizes"]["vt"] == p["sizes"]["dtt"] == (cdiv(vt, 2) if bf16 else vt)
+    assert p["sizes"]["p_sgu"] == split * N * N and p["sizes"]["p_sgb"] == split * N
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])

@@ -31,6 +31,7 @@ from m2mixer_tpu_torch.models import get_model
 from m2mixer_tpu_torch.serving import to_torch_kernel_serving
 from m2mixer_tpu_torch.training.trainer import Trainer
 from m2mixer_tpu_torch.utils.weights import from_jax_params
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = """
 dataset:

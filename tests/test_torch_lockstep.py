@@ -31,6 +31,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.slow
 

@@ -33,6 +33,7 @@ from m2mixer_tpu_torch.ops import mixer_kernel as mk
 from test_torch_mixer_bf16_grad import MISMATCH
 from test_torch_mixer_bf16_split import engine_mm, rd
 from test_torch_mixer_fwd_plan import down_slices
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
 BF = torch.bfloat16
 B = 6

@@ -41,6 +41,7 @@ import pytest
 import torch
 
 from m2mixer_tpu_torch.ops import mixer_kernel as tk
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
 GEOM = dict(D=16, T=8, C=64)
 REL = 2e-2

@@ -31,6 +31,7 @@ import torch
 
 from m2mixer_tpu_torch.ops import mixer_kernel as mk
 from test_torch_mixer_bf16_grad import MISMATCH, REL, ROUNDED
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
 BF = torch.bfloat16
 RATE = 0.5

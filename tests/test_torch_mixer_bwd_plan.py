@@ -22,6 +22,7 @@ from m2mixer_tpu_torch.ops import mixer_kernel as mk
 from test_torch_mixer_fwd_plan import (MAX_BLOCKS, MAX_ROW_SPLIT, MAX_SPLIT, REG_TOKENS,
                                        SMEM_OPTIN, SMS, TC_BM, TC_BN, TC_K, WG_BK, WG_BM, WG_BN,
                                        cdiv, fill_slices, wg_slices)
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
 MAX_SLICE_ROWS = 2304  # kMaxSliceRows
 THREADS, LN_ROWS = 256, 16  # kThreads, kLnRows

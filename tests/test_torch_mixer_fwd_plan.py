@@ -21,6 +21,7 @@ reads whole 16-byte rows).
 import pytest
 
 from m2mixer_tpu_torch.ops import mixer_kernel as mk
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
 SMS = 132  # an H100 SXM
 TC_BM, TC_BN, TC_K, MAX_SPLIT = 128, 64, 32, 32  # kTcBM, kTcBN, kTcK, kMaxSplit

@@ -24,6 +24,7 @@ from m2mixer_tpu.ops import mixer_kernel as jk
 from m2mixer_tpu_torch.modules import pallas_blocks as pb
 from m2mixer_tpu_torch.modules.common import Dropout, DropoutRNG, set_dropout_rng
 from m2mixer_tpu_torch.ops import mixer_kernel as tk
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
 SMALL = dict(N=4, D=32, T=16, C=64)
 # widths that are no multiple of 4 (C: the CUDA kernel pads its rows of C to

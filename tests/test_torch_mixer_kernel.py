@@ -28,6 +28,7 @@ import torch
 from m2mixer_tpu.modules.common import set_gelu_approximate
 from m2mixer_tpu.ops import mixer_kernel as jk
 from m2mixer_tpu_torch.ops import mixer_kernel as tk
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
 SMALL = dict(N=4, D=32, T=16, C=64)
 B_ENC = dict(N=4, D=128, T=32, C=3072)

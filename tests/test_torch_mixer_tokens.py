@@ -39,6 +39,7 @@ from m2mixer_tpu.ops import mixer_kernel as jk
 from m2mixer_tpu_torch.ops import mixer_kernel as tk
 from test_torch_mixer_grad import assert_grads_close, jax_grads, torch_grads
 from test_torch_mixer_kernel import assert_close, make_case, run_both, torch_blocks
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
 GEOMS = {"n33": dict(N=33, D=8, T=12, C=16), "n40": dict(N=40, D=16, T=12, C=16)}
 

@@ -27,6 +27,7 @@ from m2mixer_tpu_torch.modules import classification as tcls
 from m2mixer_tpu_torch.modules import fusion as tfusion
 from m2mixer_tpu_torch.modules import mixer as tmixer
 from m2mixer_tpu_torch.utils.weights import from_jax_params
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
 F32_ATOL = 2e-5
 BF16_REL = 3e-2
@@ -143,7 +144,7 @@ def test_registries_accept_extras_and_reject_unported():
     assert blk.num_patch == 4
     assert isinstance(tmodules.get_fusion_by_name(fusion_function="ConcatFusion", dim=1),
                       tfusion.ConcatFusion)
-    for getter, key, name in [(tmodules.get_block_by_name, "block_type", "MLPMixerNoPatching"),
+    for getter, key, name in [(tmodules.get_block_by_name, "block_type", "PNLPMixer"),
                               (tmodules.get_fusion_by_name, "fusion_function", "SumFusion"),
                               (tmodules.get_classifier_by_name, "classifier", "MLPClassifier")]:
         with pytest.raises(NotImplementedError, match=f"not yet ported: {name}"):

@@ -19,6 +19,7 @@ from m2mixer_tpu.training.trainer import _make_optimizer as j_make_optimizer
 from m2mixer_tpu_torch import config as pcfg
 from m2mixer_tpu_torch.training.optim import BF16MomentAdam
 from m2mixer_tpu_torch.training.trainer import make_optimizer
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
 STEPS = 5
 REL = 1e-6

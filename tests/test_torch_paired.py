@@ -30,6 +30,7 @@ from m2mixer_tpu_torch.modules.paired import (PairedMLPMixer, can_pair, pair_mlp
 from m2mixer_tpu_torch.serving import load_serving, main
 from m2mixer_tpu_torch.utils.weights import (_port_name, flatten_tree, from_jax_params,
                                              to_jax_params)
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
 GEOM = dict(hidden_dim=16, num_mixers=2, token_dim=8, channel_dim=32)
 CFG = """

@@ -34,6 +34,7 @@ from m2mixer_tpu_torch.serving import (_build_task, export_serving, load_serving
                                        pick_bucket, serve_fn, to_torch_kernel_serving,
                                        validate_features)
 from m2mixer_tpu_torch.utils.weights import flatten_tree, from_jax_params, to_jax_params
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 B_CFG = str(REPO / "cfg" / "avmnist" / "avmnist_m2-mixer_B.yml")

@@ -46,6 +46,7 @@ from m2mixer_tpu_torch.training import callbacks as pc
 from m2mixer_tpu_torch.training import metrics as pm
 from m2mixer_tpu_torch.training.trainer import Trainer, make_optimizer
 from m2mixer_tpu_torch.utils.weights import flatten_tree, from_jax_params, to_jax_params
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = """
 dataset:
@@ -80,7 +81,10 @@ def batches(n):
     return [{k: v[i * 8:(i + 1) * 8] for k, v in data.items()} for i in range(n)]
 
 
-def jax_run(jtask, params, epoch, n):
+def jax_step(jtask, params):
+    """(the optimizer, the jitted JAX train step): value_and_grad of the task's
+    step, the trainer's gradient and update masking; the context is an
+    argument, so both phases share one compile."""
     opt, _ = j_make_optimizer(jtask.optimizer_cfg)
     masker = make_grad_masker(jtask.frozen_mask(params))
 
@@ -93,6 +97,10 @@ def jax_run(jtask, params, epoch, n):
         updates = masker(updates, ctx["frozen"])
         return optax.apply_updates(params, updates), opt_state, loss, aux["losses"]
 
+    return opt, step
+
+
+def jax_run(jtask, opt, step, params, epoch, n):
     ctx = {k: jnp.asarray(v) for k, v in jtask.make_ctx(epoch, "train").items()}
     opt_state, history = opt.init(params), []
     for b in batches(n):
@@ -108,7 +116,9 @@ def lockstep():
     jtask = j_get_model(jc.model.type)(jc.model, jc.train.optimizer)
     params = jtask.init_params(jax.random.PRNGKey(0), batches(1)[0])
     params = jax.tree.map(np.asarray, params)
-    runs = {phase: jax_run(jtask, params, epoch, n) for phase, (epoch, n) in STEPS.items()}
+    opt, step = jax_step(jtask, params)
+    runs = {phase: jax_run(jtask, opt, step, params, epoch, n)
+            for phase, (epoch, n) in STEPS.items()}
     return params, runs
 
 
@@ -266,7 +276,7 @@ def test_synthetic_data_matches_jax():
 @pytest.mark.parametrize("key,value", [("train.optimizer.type", "sgd"),
                                        ("model.use_softadapt", True),
                                        ("model.mixup_alpha", 0.2),
-                                       ("train.grad_accum_steps", 2)])
+                                       ("train.auto_resume", True)])
 def test_unported_options_raise(tmp_path, key, value):
     cfg = pcfg.loads(CFG)
     section, *path = key.split(".")

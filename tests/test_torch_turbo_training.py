@@ -54,6 +54,7 @@ from m2mixer_tpu_torch.models import get_model
 from m2mixer_tpu_torch.training.optim import BF16MomentAdam
 from m2mixer_tpu_torch.training.trainer import Trainer
 from m2mixer_tpu_torch.utils.weights import from_jax_params, to_jax_params
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TURBO = os.path.join(REPO, "cfg", "avmnist", "avmnist_m2-mixer_B_turbo.yml")

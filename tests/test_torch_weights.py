@@ -13,6 +13,7 @@ from m2mixer_tpu.serving import to_pallas_serving
 from m2mixer_tpu_torch.config import loads
 from m2mixer_tpu_torch.serving import _build_task, to_torch_kernel_serving
 from m2mixer_tpu_torch.utils.weights import flatten_tree, from_jax_params, to_jax_params
+from test_torch_hygiene import one_torch_thread  # noqa: F401  (autouse)
 
 NARROW = """
 train: {seed: 0, optimizer: {lr: 1.0e-3}}
