@@ -80,7 +80,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    dropout 0.5, float32 and bf16, by the checks above; and at the MIMIC H
    fusion mixer's shape, N 25, D 64, T 8, C 64, batch 128 and 512, dropout
    0.3: float32 with erf, bf16 with tanh, each bf16 call's products on the
-   wgmma engine by the tallies). Then K3f / K3b above 128 tokens, the large-N
+   wgmma engine by the tallies; and at the loss-weight estimator configs'
+   widths, D 32, T 16, C 256, a 2-block stack of 4 tokens and a 1-block stack
+   of 8, batch 32, float32, dropout 0 and 0.1). Then K3f / K3b above 128 tokens, the large-N
    route (N = 129 and 196 at D 128, F 768, and 196 at F 4096; batch 32,
    dropout 0.1; float32 and bf16 by the checks above), the launch tallies
    showing one ``gmlp_vt_kernel`` and three (K3f) or eight (K3b) products of
@@ -114,7 +116,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    dgated, dxn and dW_in with dpre as three bf16 planes, dW_out), and at the
    DynaMixer config's op, batch 512, bf16 K4f's three and K4b's six (g and
    d_logit as three bf16 planes), each against the float64 product of the
-   same values, relative to its largest magnitude;
+   same values, relative to its largest magnitude. Also bf16 K4f's error
+   over 64 seeds of x at the shapes and scales of the ``gpu`` test
+   ``test_dynamixer_bf16_kernels_match_plain``, its spread printed beside
+   the test's limit (a measurement, not a gate);
 7. serving: export the B config (``cfg/avmnist/avmnist_m2-mixer_B.yml``, full
    width and depth, seeded weights) through ``serving export --pallas`` (one
    stack kernel per mixer), and through ``to_torch_kernel_serving(...,
@@ -204,7 +209,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     ``model.precision=bf16`` (bf16 K4f/K4b in every DynaMixerOp, counted in
     ``bf16_launches``), its weights exported and served on the card (bf16
     K4f, 40 a device forward) against the same artifact on the CPU within
-    2e-2 x max(1, max|CPU|). Then the bf16
+    2e-2 x max(1, max|CPU|). Then the loss-weight estimators
+    (``phase_estimators``, on the learnable synthetic AV-MNIST and a
+    ``gen_mimic`` surrogate): SoftAdapt (``avmnist_softadapt.yml``, refit
+    every 2 epochs, 5 epochs through ``PallasStacked*`` and ``Pallas*``: the
+    applied weights change at epochs 2 and 4 only); GradBlend
+    (``avmnist_gradblend.yml`` through ``PallasStacked*``, an estimate at
+    each of 2 epochs of 2 sub-training sweeps: finite, positive, summing to
+    1, each estimate's K2f/K2b launches exactly its sub-trainings'; at
+    dropout 0 the card's estimate within rtol 1e-3 / atol 1e-6 of the CPU's;
+    an estimate leaves the live network's weights, gradients, modes and
+    random streams as they were); GradNorm (the B config with
+    ``model.gradnorm=true``, dropout 0: the probe batch's three per-branch
+    gradients, one ``autograd.grad`` each on one retained graph, through
+    K2b against the plain blocks and their sum against one ordinary
+    backward, then 2 epochs); ``mimic_gru.yml`` with GradBlend, 2 epochs (no
+    mixer kernel on its path); each run's counters zeroed just before and
+    read just after. Then the bf16
    recipe B_turbo (``cfg/avmnist/avmnist_m2-mixer_B_turbo.yml``, full width
    and depth: bf16, tanh GELU, bits dropout, paired encoders, Adam with a
    bf16 first moment) on path (a), as shipped (a ``PairedMLPMixer`` and the
@@ -2822,6 +2843,45 @@ def phase_dyna_bf16_kernels(torch, dk, report):
                 raise AssertionError(f"K4b_bf16/{tag}: two backward runs differ")
 
 
+# the shapes of tests/test_torch_cuda_kernels.py::test_dynamixer_bf16_kernels_match_plain
+DYNA_TEST_SHAPES = {"small": dict(S=5, L=4, C=16, H=4, R=3),
+                    "config": dict(S=224, L=7, C=256, H=8, R=2),
+                    "ragged": dict(S=37, L=7, C=256, H=8, R=2),
+                    "odd": dict(S=9, L=5, C=36, H=6, R=3),
+                    "l33": dict(S=6, L=33, C=1280, H=8, R=2),
+                    "l64": dict(S=5, L=64, C=512, H=4, R=3)}
+DYNA_SPREAD_SEEDS = range(64)
+
+
+def dyna_bf16_seed_spread(torch, dk, report):
+    """bf16 K4f's error against its plain bf16 version over the seeds of x
+    (DYNA_SPREAD_SEEDS) at the ``gpu`` test's shapes and scales, its
+    parameters and draws as the test makes them (parameters from seed 0, x
+    then g from a generator of the seed): max |err| / max(1, max|plain|),
+    beside the test's limit DYNA_BF16_FWD. A measurement, not a gate."""
+    print(f"[6/16] bf16 K4f's forward error over the seeds {DYNA_SPREAD_SEEDS.start}-"
+          f"{DYNA_SPREAD_SEEDS.stop - 1} of x at the gpu test's shapes (limit {DYNA_BF16_FWD} x "
+          "max(1, max|plain|))")
+    bf16 = torch.bfloat16
+    out = report["dyna_bf16_seed_spread"] = {}
+    for shape, geom in DYNA_TEST_SHAPES.items():
+        S, L, C, H, R = (geom[k] for k in "SLCHR")
+        p = dyna_params(dk, torch, L=L, C=C, H=H, R=R, seed=0)
+        for scale in (1.0, 30.0):
+            rel = []
+            for seed in DYNA_SPREAD_SEEDS:
+                gen = torch.Generator().manual_seed(seed)
+                x = (scale * torch.randn(S, L, C, generator=gen)).cuda()
+                got = dk.fused_dynamixer_op(x, p, H, R, compute_dtype=bf16)
+                want = dk.dynamixer_op_reference(x, p, H, R, bf16)
+                rel.append((got - want).abs().max().item() / max(1.0, want.abs().max().item()))
+            tag = f"{shape}-x{scale:g}"
+            out[tag] = rel
+            print(f"  {tag}: min {min(rel):.3e}, median {sorted(rel)[len(rel) // 2]:.3e}, "
+                  f"max {max(rel):.3e} (seed 0, the test's: {rel[0]:.3e}); "
+                  f"{sum(r > DYNA_BF16_FWD for r in rel)} of {len(rel)} above the limit")
+
+
 def phase_l_kernels(torch, mk, report):
     """K1f, K2f and K2b (the main path's depth + LN), K1b at the three L
     mixers' shapes, batch 32 (dropout 0.5) and 512 (dropout 0), float32
@@ -3748,6 +3808,423 @@ def slice_kernels(report) -> list:
     return rows
 
 
+# ------------------------------------------------- the loss-weight estimators
+SA_CFG = os.path.join(REPO, "cfg", "avmnist", "avmnist_softadapt.yml")
+GB_CFG = os.path.join(REPO, "cfg", "avmnist", "avmnist_gradblend.yml")
+GRU_CFG = os.path.join(REPO, "cfg", "mimic", "mimic_gru.yml")
+# the estimator configs' mixers: 2 + 2 encoder blocks of 4 tokens, 1 fusion
+# block of 8; D 32, T 16, C 256; dropout 0.1, batch 32
+EST_STACKS = (("encoder", dict(N=4, D=32, T=16, C=256), 2),
+              ("fusion", dict(N=8, D=32, T=16, C=256), 1))
+EST_BATCH = 32
+EST_RATE = 0.1
+GB_RTOL, GB_ATOL = 1e-3, 1e-6  # the card's estimate against the CPU's (JAX's own parity gate)
+
+
+@contextlib.contextmanager
+def hooked(cls, hook: str, after, before=None):
+    """``cls.<hook>`` calls ``before(task, *args)`` before the hook runs and
+    ``after(task, *args)`` once it has run."""
+    orig = getattr(cls, hook)
+
+    def wrapped(self, *args, **kwargs):
+        if before is not None:
+            before(self, *args)
+        out = orig(self, *args, **kwargs)
+        after(self, *args)
+        return out
+
+    setattr(cls, hook, wrapped)
+    try:
+        yield
+    finally:
+        setattr(cls, hook, orig)
+
+
+def est_args(tmp, cfg, name, epochs, flavor, extra=()):
+    return ["-c", cfg, "-n", name, f"train.tensorboard_path={tmp}", f"train.epochs={epochs}",
+            "dataset.params.synthetic=true", "dataset.params.synthetic_learnable=true",
+            f"dataset.params.synthetic_sizes={TRAIN_SIZES}", *KERNEL_BLOCKS.get(flavor, []),
+            *extra]
+
+
+def est_task(serving, apply_overrides, load_cfg, cfg_path, flavor, extra=(), device="cuda"):
+    cfg = load_cfg(cfg_path)
+    apply_overrides(cfg, [*KERNEL_BLOCKS.get(flavor, []), *extra], warn=False)
+    return serving._build_task(cfg, device=device), cfg
+
+
+def est_datamodule(load_cfg, apply_overrides, get_data_module, cfg_path):
+    cfg = load_cfg(cfg_path)
+    apply_overrides(cfg, ["dataset.params.synthetic=true",
+                          "dataset.params.synthetic_learnable=true",
+                          f"dataset.params.synthetic_sizes={TRAIN_SIZES}"], warn=False)
+    dm = get_data_module(cfg.dataset.type)(**cfg.dataset.params)
+    dm.setup("fit")
+    return dm
+
+
+def gb_steps(dm) -> tuple:
+    """(train batches, val batches) of GradBlend's 90/10 cut of ``dm``'s
+    train split (full batches; one short batch where the cut holds less)."""
+    n = len(dm.splits["train"]["label"])
+    cut, bs = int(n * 0.1), dm.batch_size
+    return max(1, (n - cut) // bs), max(1, cut // bs)
+
+
+def live_state(torch, task) -> dict:
+    net, rng = task.network, task.dropout_rng
+    return {"state": {k: v.detach().clone() for k, v in net.state_dict().items()},
+            "grads": {n: p.grad.clone() for n, p in net.named_parameters() if p.grad is not None},
+            "modes": [m.training for m in net.modules()],
+            "streams": [rng.host.get_state(), rng.device.get_state(),
+                        task.depth_rng.host.get_state()]}
+
+
+def same_live_state(torch, a, b) -> bool:
+    return (a["state"].keys() == b["state"].keys()
+            and all(torch.equal(v, b["state"][k]) for k, v in a["state"].items())
+            and a["grads"].keys() == b["grads"].keys()
+            and all(torch.equal(v, b["grads"][k]) for k, v in a["grads"].items())
+            and a["modes"] == b["modes"]
+            and all(torch.equal(x, y) for x, y in zip(a["streams"], b["streams"])))
+
+
+def phase_estimator_kernels(torch, mk, report):
+    """K1f, K2f, K1b and K2b at the estimator configs' widths (EST_STACKS,
+    batch 32, float32, erf) against their plain versions, at dropout 0 and
+    the configs' 0.1: forwards within F32_ATOL, backwards by grad_err; then
+    their times (CUDA events, median of 5 runs) with their plain versions and
+    bounds."""
+    print("[4/16] K1f / K2f / K1b / K2b at the estimator configs' widths (D 32, T 16, C 256; "
+          "N 4 x 2 blocks, N 8 x 1 block; batch 32, float32)")
+    times, bounds = report["times_ms"], report["bounds_ms"]
+    for name, geom, K in EST_STACKS:
+        blocks, s, b = rand_blocks(mk, torch, K, seed=91 + K, **geom)
+        flat = mk.stack_flat_params(blocks, s, b)
+        gen = torch.Generator().manual_seed(93 + K)
+        x = torch.randn(EST_BATCH, geom["N"], geom["D"], generator=gen).cuda()
+        g = torch.randn(EST_BATCH, geom["N"], geom["D"], generator=gen).cuda()
+        for rate in (0.0, EST_RATE):
+            tag = f"est_{name}/B{EST_BATCH}/rate{rate}"
+            key = f"K1f/{tag}"
+            report["errors"][key] = max_err(
+                torch, mk.fused_mixer_block(x, blocks[0], 5, rate),
+                mk.mixer_block_reference(x, blocks[0], rate, torch.float32, False, seed=5), key)
+            key = f"K2f/{tag}"
+            report["errors"][key] = max_err(
+                torch, mk.fused_mixer_stack(x, flat, 6, rate),
+                mk.mixer_stack_reference(x, flat, torch.float32, dropout_rate=rate, seed=6), key)
+            key = f"K1b/{tag}"
+            dx, grads = mk.fused_mixer_block_bwd(x, g, blocks[0], 5, rate)
+            want = mk.mixer_block_bwd_reference(x, g, blocks[0], rate, torch.float32, False,
+                                                 seed=5)
+            report["errors"][key] = grad_err(torch, (dx, *grads), (want[0], *want[1]), key)
+            key = f"K2b/{tag}"
+            dx, grads = mk.fused_mixer_stack_bwd(x, g, flat, 6, rate)
+            want = mk.mixer_stack_bwd_reference(x, g, flat, rate, torch.float32, seed=6)
+            report["errors"][key] = grad_err(torch, (dx, *grads), (want[0], *want[1]), key)
+        tag = f"est_{name}/B{EST_BATCH}"
+        calls = {
+            "K1f": lambda: mk.fused_mixer_block(x, blocks[0]),
+            "K1f_plain": lambda: mk.mixer_block_reference(x, blocks[0]),
+            "K2f": lambda: mk.fused_mixer_stack(x, flat),
+            "K2f_plain": lambda: mk.mixer_stack_reference(x, flat, torch.float32),
+            "K1b": lambda: mk.fused_mixer_block_bwd(x, g, blocks[0], 1, EST_RATE),
+            "K1b_plain": lambda: mk.mixer_block_bwd_reference(x, g, blocks[0], EST_RATE,
+                                                              seed=1),
+            "K2b": lambda: mk.fused_mixer_stack_bwd(x, g, flat, 1, EST_RATE),
+            "K2b_plain": lambda: mk.mixer_stack_bwd_reference(x, g, flat, EST_RATE, seed=1)}
+        for kname, fn in calls.items():
+            times[f"{kname}/{tag}"] = cuda_ms(torch, fn)
+        ffl, pbytes = block_work(EST_BATCH, **geom, wbytes=4)
+        act = 2 * EST_BATCH * geom["N"] * geom["D"] * 4
+        bfl, bbytes = bwd_work(EST_BATCH, **geom)
+        bounds[f"K1f/{tag}"] = bound(ffl, pbytes + act, "f32")
+        bounds[f"K2f/{tag}"] = bound(K * ffl, K * pbytes + 8 * geom["D"] + act, "f32")
+        bounds[f"K1b/{tag}"] = bound(bfl, bbytes, "f32")
+        bounds[f"K2b/{tag}"] = bound(K * bfl, K * (bbytes - 3 * act // 2) + 3 * act // 2
+                                     + 16 * geom["D"], "f32")
+        print(f"  {tag} ({K} blocks in K2f/K2b): " + "; ".join(
+            f"{n} {times[f'{n}/{tag}']:.4f} ms (plain {times[f'{n}_plain/{tag}']:.4f}, "
+            f"bound {bounds[f'{n}/{tag}'][0]:.5f} {bounds[f'{n}/{tag}'][1]})"
+            for n in ("K1f", "K2f", "K1b", "K2b")))
+
+
+def phase_estimators(torch, mk, serving, run, Trainer, apply_overrides, load_cfg, np, report,
+                     tmp):
+    """The loss-weight estimators on the card (``models/base.py``'s options,
+    ``modules/{softadapt,gradblend,gradnorm}.py``), on the learnable
+    synthetic AV-MNIST (TRAIN_SIZES) and a ``gen_mimic`` surrogate:
+
+    - SoftAdapt: ``avmnist_softadapt.yml`` through ``PallasStacked*`` and
+      ``Pallas*`` with ``model.update_loss_weights_per_epoch=2``, 5 epochs of
+      ``run.main``: the applied weights change at the refits of epochs 2 and 4
+      only, K2f/K2b (K1f/K1b) launched, ``train_run``'s gates.
+    - GradBlend: ``avmnist_gradblend.yml`` through ``PallasStacked*``,
+      ``model.gb_update_freq=1 model.gb_epochs=2``, 2 epochs: each estimate
+      finite, positive, summing to 1; the K2f/K2b launches during each
+      estimate exactly those of its sub-trainings and loss sums; then, at
+      dropout 0, epoch 0's estimate on the card against the same on the CPU
+      (the kernels' plain versions, the same seed) within GB_RTOL / GB_ATOL;
+      an estimate leaves the live network (weights, gradients, modes, random
+      streams) as it was; one estimate timed at ``gb_epochs`` 2 and 20.
+    - GradNorm: the B config with ``model.gradnorm=true`` at dropout 0: the
+      probe batch's three per-branch gradients (``branch_gradients``: one
+      ``autograd.grad`` a branch on one retained graph) through
+      ``PallasStacked*`` against the plain blocks on the card (grad_err), and
+      their sum against one ordinary backward; K2b launched once for each
+      stack a branch reaches (5); the measurement timed; then 2 epochs of
+      ``run.main``.
+    - ``mimic_gru.yml`` as shipped with ``model.gb_epochs=2``, 2 epochs on the
+      surrogate: finite estimates, no mixer kernel (none on its path).
+    The estimator configs' train step (batch 32: plain, stacked, per-block)
+    is timed too."""
+    from types import SimpleNamespace
+
+    from m2mixer_tpu_torch.datasets import get_data_module
+    from m2mixer_tpu_torch.datasets.surrogate import gen_mimic
+    from m2mixer_tpu_torch.models.base import MultiLossTask
+    from m2mixer_tpu_torch.modules.gradblend import estimate_gradblend_weights
+    from m2mixer_tpu_torch.modules.gradnorm import branch_gradients, measure_gradnorm_weights
+
+    card = card_line()
+    print(f"[12/16] the loss-weight estimators (SoftAdapt, GradBlend, GradNorm) through the mixer "
+          f"kernels; {card}")
+    out = report["estimators"] = {}
+    times = report["times_ms"]
+
+    # SoftAdapt: the weights each validation end leaves for the next epoch
+    for flavor in ("stacked", "per_block"):
+        applied = []
+        with hooked(MultiLossTask, "on_validation_epoch_end",
+                    lambda t, *a: applied.append(t.current_loss_weights().tolist())):
+            res = train_run(run, np, est_args(tmp, SA_CFG, f"sa_{flavor}", 5, flavor,
+                                              ["model.update_loss_weights_per_epoch=2"]),
+                            lambda: zero_counters(mk), lambda: counters(mk),
+                            f"SoftAdapt {flavor} (5 epochs)", MIN_ACC)
+        changed = [e for e in range(1, 5) if applied[e] != applied[e - 1]]
+        print(f"  SoftAdapt {flavor}: weights after each validation {applied}; changed at "
+              f"epochs {changed}")
+        if len(applied) != 5 or changed != [2, 4] or not np.allclose(applied[0], 1 / 3):
+            raise AssertionError(f"SoftAdapt {flavor}: refits at {changed}, not [2, 4]")
+        if not all(np.isfinite(w).all() and abs(sum(w) - 1) < 1e-4 for w in applied):
+            raise AssertionError(f"SoftAdapt {flavor}: weights {applied}")
+        need = ("K2f", "K2b") if flavor == "stacked" else ("K1f", "K1b")
+        if any(res["launches"][k] <= 0 for k in need):
+            raise AssertionError(f"SoftAdapt {flavor}: {need} not launched: {res['launches']}")
+        out[f"softadapt_{flavor}"] = {**res, "weights": applied}
+
+    # GradBlend in run.main: the launches of each estimate, read around the hook
+    dm = est_datamodule(load_cfg, apply_overrides, get_data_module, GB_CFG)
+    nb, nv = gb_steps(dm)
+    estimates = []
+
+    def before(task, trainer, epoch):
+        estimates.append({"epoch": epoch, "before": counters(mk)})
+
+    def after(task, trainer, epoch):
+        got = counters(mk)
+        estimates[-1].update(weights=np.asarray(task.gb_weights).tolist(),
+                             launches={k: got[k] - estimates[-1]["before"][k] for k in got})
+
+    with hooked(MultiLossTask, "on_train_epoch_start", after, before):
+        res = train_run(run, np, est_args(tmp, GB_CFG, "gb_stacked", 2, "stacked",
+                                          ["model.gb_update_freq=1", "model.gb_epochs=2"]),
+                        lambda: zero_counters(mk), lambda: counters(mk),
+                        "GradBlend stacked (2 epochs)", MIN_ACC)
+    # per estimate: 3 branches x 2 sweeps x nb steps train one stack each (K2b);
+    # the forwards: the modality branches run 1 stack, the fused branch 3, in
+    # each of the 2 x nb steps and the 4 loss sums over nb + nv batches
+    want = {"K2b": 3 * 2 * nb, "K2f": 5 * (2 * nb + 2 * (nb + nv)), "K1f": 0, "K1b": 0}
+    for est in estimates:
+        est.pop("before")
+        w = np.asarray(est["weights"])
+        print(f"  GradBlend estimate at epoch {est['epoch']}: weights {w.tolist()}, launches "
+              f"{est['launches']} (expected {want})")
+        if not (w.shape == (3,) and np.isfinite(w).all() and (w > 0).all()
+                and abs(w.sum() - 1) < 1e-5):
+            raise AssertionError(f"GradBlend estimate {est}")
+        if est["launches"] != want:
+            raise AssertionError(f"GradBlend estimate launches {est['launches']} != {want}")
+    if [e["epoch"] for e in estimates] != [0, 1]:
+        raise AssertionError(f"GradBlend estimated at {estimates}")
+    out["gradblend_stacked"] = {**res, "estimates": estimates}
+
+    # GradBlend at dropout 0: the card against the CPU, from the same seed
+    fake = SimpleNamespace(datamodule=dm, seed=42)
+    got = {}
+    for device in ("cuda", "cpu"):
+        task, _ = est_task(serving, apply_overrides, load_cfg, GB_CFG, "stacked",
+                           ["model.dropout=0.0", "model.gb_epochs=2"], device=device)
+        got[device] = estimate_gradblend_weights(task, fake)
+    err = np.abs(got["cuda"] - got["cpu"])
+    print(f"  GradBlend at dropout 0, card {got['cuda'].tolist()} vs CPU {got['cpu'].tolist()}: "
+          f"max |d| {err.max():.3e}, max rel {(err / got['cpu']).max():.3e}")
+    if not np.allclose(got["cuda"], got["cpu"], rtol=GB_RTOL, atol=GB_ATOL):
+        raise AssertionError("GradBlend: the card's estimate is off the CPU's")
+    report["errors"]["gradblend_card_vs_cpu"] = float(err.max())
+
+    # an estimate leaves the live network as it was (dropout 0.1: the copies draw)
+    task, _ = est_task(serving, apply_overrides, load_cfg, GB_CFG, "stacked")
+    batch = {k: torch.from_numpy(v[:EST_BATCH]).cuda() for k, v in dm.splits["train"].items()}
+    task.network.train()
+    task.step(batch, task.make_ctx(0, "train"), train=True)[0].backward()
+    for mode in (True, False):
+        task.network.train(mode)
+        pre = live_state(torch, task)
+        with contextlib.redirect_stdout(io.StringIO()):
+            estimate_gradblend_weights(task, fake)
+        if not same_live_state(torch, pre, live_state(torch, task)):
+            raise AssertionError(f"GradBlend changed the live network (train={mode})")
+    print("  GradBlend leaves the live network's weights, gradients, modes and random streams "
+          "as they were (train and eval mode)")
+    for epochs in (2, 20):
+        task.gb_epochs = epochs
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            estimate_gradblend_weights(task, fake)
+        torch.cuda.synchronize()
+        times[f"gradblend_estimate/gb_epochs{epochs}"] = (time.time() - t0) * 1e3
+        print(f"  one GradBlend estimate at gb_epochs={epochs} ({nb} train and {nv} val batches "
+              f"of {EST_BATCH}, PallasStacked*): "
+              f"{times[f'gradblend_estimate/gb_epochs{epochs}']:.1f} ms (host clock); {card}")
+    del task
+
+    # GradNorm on the B config at full width, dropout 0
+    plain, cfg = est_task(serving, apply_overrides, load_cfg, B_CFG, "plain",
+                          ["model.dropout=0.0", "model.gradnorm=true"])
+    kernel, _ = serving.to_torch_kernel_serving(cfg, plain.network.state_dict(), device="cuda")
+    bdm = est_datamodule(load_cfg, apply_overrides, get_data_module, B_CFG)
+    batch = {k: torch.from_numpy(v[:bdm.batch_size]).cuda()
+             for k, v in bdm.splits["train"].items()}
+    ctx = kernel.make_ctx(0, "train")
+    per = {}
+    for name, task in (("plain", plain), ("kernel", kernel)):
+        task.network.train()
+        zero_counters(mk)
+        grads, losses, total = branch_gradients(task, batch, ctx)
+        per[name] = {"launches": counters(mk), "losses": losses, "grads": grads}
+        names = [n for n, p in task.network.named_parameters() if p.requires_grad]
+        per[name]["named"] = [dict(zip(names, g)) for g in grads]
+    lk = per["kernel"]["launches"]
+    if lk["K2f"] != 3 or lk["K2b"] != 5 or any(per["plain"]["launches"].values()):
+        raise AssertionError(f"GradNorm's per-branch backwards: launches {lk}")
+    worst = []
+    for i, branch in enumerate(kernel.loss_names):
+        want = serving.to_torch_kernel_serving(cfg, per["plain"]["named"][i], device="cuda")[1]
+        got_b = per["kernel"]["named"][i]
+        keys = sorted(got_b)
+        key = f"GradNorm branch {branch}: {len(keys)} gradients through K2b vs the plain blocks"
+        worst.append(grad_err(torch, [got_b[k] for k in keys], [want[k].cuda() for k in keys],
+                              key))
+    kernel.network.zero_grad(set_to_none=True)
+    zero_counters(mk)
+    kernel.step(batch, ctx, train=True)[0].backward()
+    if counters(mk)["K2b"] != 3:
+        raise AssertionError(f"one ordinary backward: {counters(mk)}")
+    keys = sorted(per["kernel"]["named"][0])
+    whole = dict(kernel.network.named_parameters())
+    key = "GradNorm: the three per-branch gradients summed vs one ordinary backward"
+    report["errors"][key] = grad_err(
+        torch, [sum(per["kernel"]["named"][i][k] for i in range(3)) for k in keys],
+        [whole[k].grad if whole[k].grad is not None else torch.zeros_like(whole[k])
+         for k in keys], key)
+    report["errors"]["gradnorm_branch_grads"] = max(worst)
+    fake_b = SimpleNamespace(datamodule=bdm, seed=42)
+    with contextlib.redirect_stdout(io.StringIO()):
+        measure_gradnorm_weights(kernel, fake_b, 0)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        measure_gradnorm_weights(kernel, fake_b, 1)
+        torch.cuda.synchronize()
+    times["gradnorm_measure/B/stacked"] = (time.time() - t0) * 1e3
+    print(f"  one GradNorm measurement (B config, PallasStacked*, probe batch {bdm.batch_size}): "
+          f"{times['gradnorm_measure/B/stacked']:.1f} ms (host clock); {card}")
+    del plain, kernel, per
+    gn_weights = []
+    with hooked(MultiLossTask, "on_train_epoch_start",
+                lambda t, *a: gn_weights.append(np.asarray(t.gn_weights).tolist())):
+        res = train_run(run, np, ["-c", B_CFG, "-n", "gn_stacked", f"train.tensorboard_path={tmp}",
+                                  "train.epochs=2", "dataset.params.synthetic=true",
+                                  "dataset.params.synthetic_learnable=true",
+                                  f"dataset.params.synthetic_sizes={TRAIN_SIZES}",
+                                  "model.gradnorm=true", "model.dropout=0.0",
+                                  *KERNEL_BLOCKS["stacked"]],
+                        lambda: zero_counters(mk), lambda: counters(mk),
+                        "GradNorm B stacked (2 epochs)", MIN_ACC)
+    if not all(np.isfinite(w).all() and abs(sum(w) - 3) < 1e-4 for w in gn_weights) \
+            or len(gn_weights) != 2:
+        raise AssertionError(f"GradNorm weights {gn_weights}")
+    print(f"  GradNorm weights at epochs 0, 1: {gn_weights}")
+    out["gradnorm_stacked"] = {**res, "weights": gn_weights}
+
+    # mimic_gru.yml with GradBlend, as shipped but gb_epochs
+    data = os.path.join(tmp, "mimic")
+    with contextlib.redirect_stdout(io.StringIO()):
+        gen_mimic(data, n=2000, seed=0)
+    gru = []
+    with hooked(MultiLossTask, "on_train_epoch_start",
+                lambda t, *a: gru.append(np.asarray(t.gb_weights).tolist())):
+        res = train_run(run, np, ["-c", GRU_CFG, "-n", "gru", f"train.tensorboard_path={tmp}",
+                                  "train.epochs=2", f"dataset.params.data_dir={data}",
+                                  "dataset.params.num_workers=0", "model.gb_epochs=2"],
+                        lambda: zero_counters(mk), lambda: counters(mk),
+                        "mimic_gru GradBlend (2 epochs)", MIMIC_MIN_ACC)
+    if len(gru) != 2 or not all(np.isfinite(w).all() and abs(sum(w) - 1) < 1e-5 for w in gru):
+        raise AssertionError(f"mimic_gru GradBlend estimates {gru}")
+    if any(res["launches"].values()):
+        raise AssertionError(f"mimic_gru launched mixer kernels: {res['launches']}")
+    out["mimic_gru"] = {**res, "estimates": gru}
+
+    # the estimator configs' train step at batch 32
+    sdm = est_datamodule(load_cfg, apply_overrides, get_data_module, SA_CFG)
+    batch = {k: torch.from_numpy(v[:EST_BATCH]).cuda() for k, v in sdm.splits["train"].items()}
+    for flavor in ("plain", "stacked", "per_block"):
+        task, cfg = est_task(serving, apply_overrides, load_cfg, SA_CFG, flavor)
+        trainer = Trainer(cfg.train, name=f"est_step_{flavor}", work_dir=tmp)
+        trainer.setup(task)
+        ctx = task.make_ctx(0, "train")
+        times[f"est_train_step/{flavor}/B{EST_BATCH}"] = cuda_ms(
+            torch, lambda: trainer.train_step(task, batch, ctx), iters=10)
+        trainer.logger.close()
+    print("  estimator configs' train step (avmnist_softadapt.yml, batch 32), plain / "
+          "PallasStacked* / Pallas*: " + " / ".join(
+              f"{times[f'est_train_step/{f}/B{EST_BATCH}']:.3f}"
+              for f in ("plain", "stacked", "per_block")) + f" ms; {card}")
+    report["estimator_launches"] = {
+        "K2f": out["softadapt_stacked"]["launches"]["K2f"] + out["gradblend_stacked"]["launches"]["K2f"],
+        "K2b": out["softadapt_stacked"]["launches"]["K2b"] + out["gradblend_stacked"]["launches"]["K2b"],
+        "K1f": out["softadapt_per_block"]["launches"]["K1f"],
+        "K1b": out["softadapt_per_block"]["launches"]["K1b"]}
+
+
+def estimator_kernels(report) -> list:
+    """The kernels line's rows for K1f, K2f, K1b and K2b at the estimator
+    configs' encoder widths (batch 32, float32; launches from the SoftAdapt
+    and GradBlend runs of phase_estimators, max |err| at the configs'
+    dropout)."""
+    t, bd = report["times_ms"], report["bounds_ms"]
+    tag = f"est_encoder/B{EST_BATCH}"
+    rows = []
+    for k, src, line, what in (("K1f", "mixer_fwd.cu", 213, "one MixerBlock"),
+                               ("K2f", "mixer_fwd.cu", 421, "2 MixerBlocks + LN"),
+                               ("K1b", "mixer_bwd.cu", 267, "one MixerBlock backward"),
+                               ("K2b", "mixer_bwd.cu", 506, "2 MixerBlocks + LN backward")):
+        rows.append({
+            "name": f"{'mixer_fwd' if k.endswith('f') else 'mixer_bwd'} f32 ({k}, {what}, the "
+                    "loss-weight estimator configs' encoder: B=32 N=4 D=32 T=16 C=256)",
+            "route": "cuda", "source": f"m2mixer_tpu_torch/ops/csrc/{src}",
+            "replaces": f"m2mixer_tpu/ops/mixer_kernel.py:{line}",
+            "launches": report["estimator_launches"][k],
+            "max_abs_err": report["errors"][f"{k}/{tag}/rate{EST_RATE}"],
+            "ms": t[f"{k}/{tag}"], "plain_ms": t[f"{k}_plain/{tag}"],
+            "bound_ms": bd[f"{k}/{tag}"][0], "bound_by": bd[f"{k}/{tag}"][1],
+            "library_ms": None})
+    return rows
+
+
 # ------------------------------------------- yardsticks, registers, A/B times
 def product_yardsticks(torch, report) -> None:
     """Each product of K1b, K3f, K3b, K4f and K4b at batch 512 timed as one
@@ -4212,12 +4689,14 @@ def main() -> int:
     phase_mixer_widths(torch, mk, report)
     phase_l_kernels(torch, mk, report)
     phase_mimic_kernels(torch, mk, report)
+    phase_estimator_kernels(torch, mk, report)
     phase_gmlp_kernels(torch, gk, report)
     phase_gmlp_bf16_kernels(torch, gk, report)
     phase_gmlp_widths(torch, gk, report)
     phase_gmlp_large_n(torch, gk, report)
     phase_dyna_kernels(torch, dk, report)
     phase_dyna_bf16_kernels(torch, dk, report)
+    dyna_bf16_seed_spread(torch, dk, report)
     phase_error_rows(torch, mk, gk, dk, _build.load_library(), report)
     plain, models = phase_serving(torch, mk, serving, get_model, load_cfg, np, report)
     gmlp_served = dict(zip(("plain", "kernel"), phase_gmlp_serving(torch, gk, serving, np, report)))
@@ -4244,6 +4723,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mimic_") as tmp:
         phase_mimic(torch, mk, serving, run, Trainer, apply_cli_overrides, load_cfg, np, report,
                     tmp)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_estimators_") as tmp:
+        phase_estimators(torch, mk, serving, run, Trainer, apply_cli_overrides, load_cfg, np,
+                         report, tmp)
     phase_gmlp_p8(torch, gk, serving, apply_cli_overrides, load_cfg, np, report)
     phase_times(torch, mk, serving, np, plain, models, report)
     phase_train_times(torch, mk, serving, Trainer, apply_cli_overrides, load_cfg,
@@ -4432,6 +4914,7 @@ def main() -> int:
          "bound_ms": bd[gb][0], "bound_by": bd[gb][1], "library_ms": None},
     ]
     kernels += slice_kernels(report)
+    kernels += estimator_kernels(report)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({**report, "kernels": kernels}, f, indent=2)

@@ -7,16 +7,22 @@
   and the contract the trainer drives: ``make_ctx``, ``step``,
   ``setup_scores`` and the epoch hooks. Serving uses the network alone.
 - ``MultiLossTask``: the multimodal multi-head recipe: loss weights with the
-  x3 ``fixed_scaled`` rule (``current_loss_weights``, ``:533-549``), the
-  per-step context (``make_ctx``, ``:556-585``), muting
+  x3 ``fixed_scaled`` rule or those of an estimator (``current_loss_weights``,
+  ``:533-549``), the per-step context (``make_ctx``, ``:556-585``), muting
   (``resolve_mute_code``, ``:588-598``), the weighted sum of the branch
-  losses (``_step_parts``, ``:687-750``) with frozen -> fusion-only loss,
-  the freeze prefixes (``:753-782``) and the fusion-weight annealing hooks.
+  losses and its per-branch terms (``_step_parts``, ``step_components``,
+  ``:676-750``) with frozen -> fusion-only loss, the freeze prefixes
+  (``:753-782``), the fusion-weight annealing hooks, and the loss-weight
+  estimators' options and epoch hooks (``:462-513``, ``:801-836``):
+  SoftAdapt (``modules/softadapt.py``, refit from the branches' validation
+  losses), GradBlend (``modules/gradblend.py``, re-estimated by
+  sub-training copies of the branches) and GradNorm
+  (``modules/gradnorm.py``, from the branches' gradient norms).
 
 The JAX step is a pure function of (params, batch, ctx, rngs); here the
 network holds its parameters and ``step(batch, ctx, train)`` runs it. The
 trainer masks frozen parameters' gradients and updates (``frozen_param_names``).
-SoftAdapt, GradBlend, GradNorm, mixup and CutMix raise "not yet ported".
+Mixup, CutMix and the calibration log raise "not yet ported".
 
 A task owns its device. It defaults to ``cuda``; without a visible GPU the
 caller has to ask for ``device="cpu"`` (the plain PyTorch versions of the
@@ -32,7 +38,10 @@ import numpy as np
 import torch
 
 from ..config import DictConfig
+from ..modules import gradblend, gradnorm
 from ..modules.common import DepthRNG, DropoutRNG, set_depth_rng, set_dropout_rng
+from ..modules.losses import cross_entropy_loss
+from ..modules.softadapt import LossWeightedSoftAdapt
 
 __all__ = ["resolve_dtype", "resolve_device", "TrainTask", "MultiLossTask", "MUTE_NONE"]
 
@@ -40,8 +49,7 @@ MUTE_NONE = -1
 
 #: model-config keys that change the forward or the step and are not ported yet
 _UNPORTED_OPTIONS = ("qat", "prune", "lora")
-_UNPORTED_MULTILOSS = ("use_softadapt", "gradblend", "gradnorm", "mixup_alpha", "cutmix_alpha",
-                       "log_calibration")
+_UNPORTED_MULTILOSS = ("mixup_alpha", "cutmix_alpha", "log_calibration")
 
 
 def resolve_dtype(precision) -> Optional[torch.dtype]:
@@ -187,6 +195,43 @@ class MultiLossTask(TrainTask):
         #: eval-time modality ablation: every eval forward mutes this modality
         self.eval_mute_code: Optional[int] = None
 
+        self.use_softadapt = bool(m.get("use_softadapt", False))
+        if self.use_softadapt:
+            self.loss_histories = [[] for _ in range(n)]
+            self.loss_weights = np.full((n,), 1.0 / n, dtype=np.float32)
+            self.update_loss_weights_per_epoch = int(m.get("update_loss_weights_per_epoch", 6))
+            self.softadapt = LossWeightedSoftAdapt(
+                beta=-0.1, accuracy_order=self.update_loss_weights_per_epoch - 1)
+
+        # model.gradnorm: true, or a mapping with alpha and update_every
+        gn_cfg = m.get("gradnorm", None)
+        if gn_cfg and not hasattr(gn_cfg, "get"):
+            gn_cfg = {}
+        self.use_gradnorm = gn_cfg is not None and hasattr(gn_cfg, "get")
+        if self.use_gradnorm:
+            self.gn_alpha = float(gn_cfg.get("alpha", 1.5))
+            self.gn_update_every = int(gn_cfg.get("update_every", 1))
+            if self.gn_update_every < 1:
+                raise ValueError("model.gradnorm.update_every must be >= 1 "
+                                 f"(got {self.gn_update_every})")
+            self.gn_weights: Optional[np.ndarray] = None
+            self.gn_initial_losses: Optional[np.ndarray] = None
+            if self.use_softadapt:
+                raise ValueError(
+                    "model.gradnorm and model.use_softadapt cannot combine: "
+                    "both adapt the same loss-weight vector. Pick one.")
+
+        self.use_gradblend = bool(m.get("gradblend", False))
+        if self.use_gradblend and self.use_gradnorm:
+            raise ValueError(
+                "model.gradnorm and model.gradblend cannot combine: both "
+                "adapt the same loss-weight vector. Pick one.")
+        if self.use_gradblend:
+            self.gb_update_freq = int(m.get("gb_update_freq", 20))
+            #: sub-training sweeps a GradBlend estimate takes
+            self.gb_epochs = int(m.get("gb_epochs", 20))
+            self.gb_weights: Optional[np.ndarray] = None
+
     @property
     def num_branches(self) -> int:
         return len(self.modalities) + 1
@@ -204,8 +249,16 @@ class MultiLossTask(TrainTask):
         """At least {'preds', 'labels'}."""
 
     def current_loss_weights(self) -> np.ndarray:
-        """The weight vector (branch order = loss_names) for this epoch."""
+        """The weight vector (branch order = loss_names) for this epoch:
+        SoftAdapt's, else GradBlend's once estimated, else GradNorm's once
+        measured, else the weighting rule's."""
         n = self.num_branches
+        if self.use_softadapt:
+            return np.asarray(self.loss_weights, np.float32)
+        if self.use_gradblend and self.gb_weights is not None:
+            return np.asarray(self.gb_weights, np.float32)
+        if self.use_gradnorm and self.gn_weights is not None:
+            return np.asarray(self.gn_weights, np.float32)
         if self.weighting == "sum":
             return np.ones((n,), np.float32)
         ow = (1.0 - self.fusion_loss_weight) / (n - 1)
@@ -255,17 +308,33 @@ class MultiLossTask(TrainTask):
         return MUTE_NONE if drawn >= len(self.modalities) else drawn
 
     def step(self, batch, ctx, train: bool):
+        total, _, aux = self._step_parts(batch, ctx, train)
+        return total, aux
+
+    def step_components(self, batch, ctx, train: bool):
+        """``(components, (total, aux))``: the per-branch weighted terms
+        ``w_i * l_i`` (a tuple of scalars, order ``loss_names``) whose sum is
+        ``step()``'s total; after the freeze epoch in training, zeros but the
+        fusion loss. Each term is computed from its own branch loss, so its
+        backward reaches only the modules that loss depends on: GradNorm
+        takes one backward per term."""
+        total, comps, aux = self._step_parts(batch, ctx, train)
+        return comps, (total, aux)
+
+    def _step_parts(self, batch, ctx, train: bool):
         mute_code = self.resolve_mute_code(ctx) if train else int(ctx["mute_code"])
         outputs = self.network(**self.network_inputs(batch), mute_code=mute_code)
         losses = self.branch_losses(outputs, batch, ctx)
         vec = torch.stack([losses[n] for n in self.loss_names])
         w = torch.as_tensor(ctx["loss_weights"], dtype=vec.dtype, device=vec.device)
         total = torch.dot(w, vec)
+        comps = tuple(w[i] * losses[n] for i, n in enumerate(self.loss_names))
         if train and ctx["frozen"] > 0:
             # after freezing only the fusion head trains and only its loss
             # backpropagates (JAX base.py:719-724)
             total = losses["fusion"]
-        return total, {"losses": losses, **self.predictions(outputs, batch)}
+            comps = (*(torch.zeros_like(total) for _ in comps[:-1]), total)
+        return total, comps, {"losses": losses, **self.predictions(outputs, batch)}
 
     def frozen_param_prefixes(self) -> Tuple[str, ...]:
         """Modules frozen at the freeze epoch: the modality encoders and their
@@ -292,3 +361,27 @@ class MultiLossTask(TrainTask):
     def on_validation_epoch_end(self, trainer, epoch: int, logs: Dict[str, float]) -> None:
         if self.anneal_on == "val" and epoch >= self.loss_change_epoch:
             self.fusion_loss_weight = min(1.0, self.fusion_loss_weight + self.fusion_loss_change)
+        if self.use_softadapt:
+            for i, name in enumerate(self.loss_names):
+                self.loss_histories[i].append(logs.get(f"val_loss_{name}", 0.0))
+            if epoch != 0 and epoch % self.update_loss_weights_per_epoch == 0:
+                self.loss_weights = self.softadapt.get_component_weights(
+                    *[np.asarray(h, np.float64) for h in self.loss_histories]
+                ).astype(np.float32)
+                self.loss_histories = [[] for _ in self.loss_names]
+
+    def on_train_epoch_start(self, trainer, epoch: int) -> None:
+        if self.use_gradblend and epoch % self.gb_update_freq == 0:
+            self.gb_weights = gradblend.estimate_gradblend_weights(self, trainer)
+        if self.use_gradnorm and epoch % self.gn_update_every == 0:
+            w = gradnorm.measure_gradnorm_weights(self, trainer, epoch)
+            if w is not None:
+                self.gn_weights = w
+
+    def gradblend_modality_keys(self) -> Tuple[str, ...]:
+        """Batch keys feeding each modality encoder (order = modalities)."""
+        return tuple(self.modalities)
+
+    def gradblend_loss(self, logits, batch):
+        """GradBlend's sub-training criterion: plain cross-entropy, as JAX's."""
+        return cross_entropy_loss(logits, batch["label"])

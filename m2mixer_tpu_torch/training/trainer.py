@@ -123,6 +123,9 @@ class Trainer:
         os.makedirs(self.ckpt_dir, exist_ok=True)
         self.early_stopping = EarlyStopping(monitor="val_loss", patience=early_stopping_patience,
                                             mode="min")
+        #: the data module of the running ``fit`` (the estimators read its
+        #: train split)
+        self.datamodule = None
         self.optimizer = None
         self.plateau = None
         self.global_step = 0
@@ -268,6 +271,7 @@ class Trainer:
     # -------------------------------------------------------------------- fit
     def fit(self, task, datamodule) -> None:
         datamodule.setup("fit")
+        self.datamodule = datamodule
         seed_everything(self.seed)
         self.setup(task)
         n = sum(p.numel() for p in task.network.parameters())

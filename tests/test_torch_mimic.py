@@ -27,7 +27,7 @@
   label equal to JAX's, for ``task`` -1 and 1.
 - ``AveragePrecision`` within 1e-6 of JAX's; the CLI trains and tests the H
   config on a surrogate pickle; ``export --pallas`` serves it;
-  ``mimic_gru.yml`` raises for GradBlend.
+  ``mimic_gru.yml`` builds with GradBlend on.
 """
 
 import os
@@ -374,8 +374,11 @@ def test_cli_trains_and_serves_mimic_h(tmp_path):
 
 
 def test_mimic_gru_resolves_then_raises_for_gradblend():
+    """``mimic_gru.yml`` resolves ``MimicRecurrent`` and builds with GradBlend
+    on, as shipped (its estimates against JAX: ``test_torch_gradblend.py``)."""
     c = load(CFGS["mimic_gru"])
     cls = get_model(c.model.type)
     assert cls.__name__ == "MimicRecurrent"
-    with pytest.raises(NotImplementedError, match="not yet ported: model.gradblend"):
-        cls(c.model, c.train.optimizer, device="cpu")
+    task = cls(c.model, c.train.optimizer, device="cpu")
+    assert task.use_gradblend and (task.gb_update_freq, task.gb_epochs) == (20, 20)
+    assert task.gb_weights is None and hasattr(task.network, "fusion_encoder")

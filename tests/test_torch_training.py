@@ -274,7 +274,7 @@ def test_synthetic_data_matches_jax():
 
 
 @pytest.mark.parametrize("key,value", [("train.optimizer.type", "sgd"),
-                                       ("model.use_softadapt", True),
+                                       ("model.cutmix_alpha", 0.2),
                                        ("model.mixup_alpha", 0.2),
                                        ("train.auto_resume", True)])
 def test_unported_options_raise(tmp_path, key, value):
